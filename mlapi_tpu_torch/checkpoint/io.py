@@ -1,0 +1,196 @@
+"""Checkpoint I/O: ``params.npz`` + the JAX package's ``MANIFEST.json``.
+
+The JAX package stores params with orbax (``mlapi_tpu/checkpoint/io.py``);
+orbax and safetensors are not on the machines the port serves from,
+so the port writes one ``np.savez`` archive keyed by the JAX key paths
+(``layer_0/qkv/kernel``, kernels ``[d_in, d_out]``) beside a manifest
+of the same schema: format version, step, config + its hash, and the
+structural tree signature (computed exactly as the JAX package does,
+so the two packages agree on a parameter tree's signature). The
+archive is written first and the manifest last, each through a
+temporary name and a rename, so a manifest's presence means a complete
+checkpoint.
+
+Layout::
+
+    <dir>/MANIFEST.json
+    <dir>/params.npz
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import time
+from dataclasses import dataclass
+from pathlib import Path
+from typing import Any
+
+import numpy as np
+import torch
+
+from mlapi_tpu_torch import __version__ as _framework_version
+
+FORMAT_VERSION = 1
+_MANIFEST = "MANIFEST.json"
+_PARAMS = "params.npz"
+
+
+def _stable_hash(obj: Any) -> str:
+    return hashlib.sha256(
+        json.dumps(obj, sort_keys=True, default=str).encode()
+    ).hexdigest()[:16]
+
+
+def _flat_np(params) -> dict[str, np.ndarray]:
+    """Any of: a module, a dotted state dict, a ``/``-keyed flat dict or
+    a nested dict (a JAX pytree) → ``{"a/b/c": float ndarray}``."""
+    if isinstance(params, torch.nn.Module):
+        params = params.state_dict()
+    flat: dict[str, np.ndarray] = {}
+
+    def walk(tree, prefix):
+        for key, val in tree.items():
+            path = f"{prefix}{str(key).replace('.', '/')}"
+            if isinstance(val, dict):
+                walk(val, path + "/")
+            elif isinstance(val, torch.Tensor):
+                t = val.detach().cpu()
+                if t.dtype == torch.bfloat16:
+                    t = t.to(torch.float32)  # numpy has no bfloat16
+                flat[path] = t.numpy()
+            else:
+                flat[path] = np.asarray(val)
+
+    walk(params, "")
+    return flat
+
+
+def tree_signature(params) -> str:
+    """Structural signature: key paths + shapes + dtypes, hashed as
+    ``mlapi_tpu.checkpoint.io.tree_signature`` hashes a pytree (same
+    key-string format, same leaf order)."""
+    flat = _flat_np(params)
+    leaves = [
+        ("".join(f"['{p}']" for p in path.split("/")),
+         tuple(flat[path].shape), str(flat[path].dtype))
+        for path in sorted(flat, key=lambda s: tuple(s.split("/")))
+    ]
+    return _stable_hash(leaves)
+
+
+def params_from_jax(np_tree) -> dict[str, torch.Tensor]:
+    """Carry the JAX package's parameters (a nested dict of numpy
+    arrays, or a ``/``-keyed flat dict) into the port's state dict:
+    ``layer_0/qkv/kernel`` becomes ``layer_0.qkv.kernel``; kernels keep
+    their ``[d_in, d_out]`` orientation."""
+    return {
+        path.replace("/", "."): torch.as_tensor(np.array(arr))
+        for path, arr in _flat_np(np_tree).items()
+    }
+
+
+@dataclass(frozen=True)
+class CheckpointMeta:
+    """Everything about a checkpoint except the weights."""
+
+    format_version: int
+    framework_version: str
+    step: int
+    created_unix: float
+    config: dict
+    config_hash: str
+    tree_signature: str
+    vocab: dict | None = None
+
+    def to_json(self) -> dict:
+        return {
+            "format_version": self.format_version,
+            "framework_version": self.framework_version,
+            "step": self.step,
+            "created_unix": self.created_unix,
+            "config": self.config,
+            "config_hash": self.config_hash,
+            "tree_signature": self.tree_signature,
+            "vocab": self.vocab,
+        }
+
+    @classmethod
+    def from_json(cls, obj: dict) -> "CheckpointMeta":
+        return cls(
+            format_version=obj["format_version"],
+            framework_version=obj["framework_version"],
+            step=obj["step"],
+            created_unix=obj["created_unix"],
+            config=obj["config"],
+            config_hash=obj["config_hash"],
+            tree_signature=obj["tree_signature"],
+            vocab=obj.get("vocab"),
+        )
+
+
+def save_checkpoint(path: str | os.PathLike, params, *, step: int = 0,
+                    config: dict | None = None) -> Path:
+    """Write a complete checkpoint at ``path``: ``params`` (a module or
+    state dict; bf16 leaves are stored as float32) and ``config``
+    (``{"model": ..., "model_kwargs": ..., "tokenizer": ...}``)."""
+    path = Path(path).resolve()
+    path.mkdir(parents=True, exist_ok=True)
+    config = dict(config or {})
+    flat = _flat_np(params)
+    tmp = path / f".{_PARAMS}.tmp.npz"
+    np.savez(tmp, **flat)
+    tmp.rename(path / _PARAMS)
+    meta = CheckpointMeta(
+        format_version=FORMAT_VERSION,
+        framework_version=_framework_version,
+        step=int(step),
+        created_unix=time.time(),
+        config=config,
+        config_hash=_stable_hash(config),
+        tree_signature=tree_signature(flat),
+    )
+    tmp = path / f".{_MANIFEST}.tmp"
+    tmp.write_text(json.dumps(meta.to_json(), indent=2, sort_keys=True))
+    tmp.rename(path / _MANIFEST)
+    return path
+
+
+def read_manifest(path: str | os.PathLike) -> CheckpointMeta:
+    """A checkpoint's metadata, without reading the tensors."""
+    manifest = Path(path) / _MANIFEST
+    if not manifest.exists():
+        raise FileNotFoundError(
+            f"{path} is not a committed checkpoint (no {_MANIFEST})"
+        )
+    meta = CheckpointMeta.from_json(json.loads(manifest.read_text()))
+    if meta.format_version > FORMAT_VERSION:
+        raise ValueError(
+            f"checkpoint format v{meta.format_version} is newer than this "
+            f"framework understands (v{FORMAT_VERSION})"
+        )
+    return meta
+
+
+def load_checkpoint(path: str | os.PathLike, model=None):
+    """``(state_dict, meta)`` from a checkpoint dir. With ``model``, the
+    archive's tree signature must match the model's (as float32
+    storage) — loading the wrong model's weights raises instead of
+    serving garbage."""
+    meta = read_manifest(path)
+    with np.load(Path(path) / _PARAMS) as z:
+        flat = {k: z[k] for k in z.files}
+    if tree_signature(flat) != meta.tree_signature:
+        raise ValueError(f"{path}: params.npz does not match its manifest")
+    if model is not None:
+        expect = {
+            k: v.detach().to(torch.float32)
+            for k, v in model.state_dict().items()
+        }
+        if tree_signature(expect) != meta.tree_signature:
+            raise ValueError(
+                "checkpoint/model mismatch: the model's parameter tree "
+                f"differs from the checkpoint's (config {meta.config})"
+            )
+    return params_from_jax(flat), meta

@@ -1,0 +1,279 @@
+"""Flash-decode (B1) and flash-extend (B2): split-K attention that reads
+the stored KV cache, int8 payload included, inside a CUDA kernel.
+
+Counterpart of ``mlapi_tpu/ops/pallas/decode_attention.py``
+(``decode_attention`` / ``extend_attention``). The kernel is
+``csrc/decode_attention.cu``; its source note says what bounds it on
+an H100 and what the design does about that. Here are the public
+functions, with the JAX layouts kept:
+
+- ``q``: ``[B, 1, H, D]`` (decode) or ``[B, U, H, D]`` (extend);
+- ``k``/``v``: ``[B, L, KVH, D]`` tensors, or int8 ``{"q", "scale"}``
+  pairs with ``scale f32[B, L, KVH, 1]``;
+- ``mask``: binary ``[B, L]`` (decode) or ``[B, U, L]`` (extend, with
+  the causal intra-span structure encoded in it);
+- result in ``q.dtype``, same shape as ``q``.
+
+For a CUDA tensor a wrapper launches its kernel or raises; it runs the
+plain version (``*_plain`` below, the same algorithm in PyTorch ops)
+only for tensors on the CPU. Each wrapper counts its kernel launches
+in ``<wrapper>.launches``. The split-K merge, which the JAX package
+computes in jnp outside its Pallas kernel, is a second small CUDA
+kernel launched by the same C call.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from mlapi_tpu_torch.ops.attention import NEG
+from mlapi_tpu_torch.ops.quant import _is_quant_leaf
+
+_TILE_KEYS = 32   # keys per tile in the kernel
+_ROW_CHUNK = 32   # query rows per block in the kernel
+_KERNEL_HEAD_DIMS = (64,)
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _unpack(x):
+    """``(payload, scale_or_None)`` of a K/V operand."""
+    if isinstance(x, dict):
+        if _is_quant_leaf(x):
+            return x["q"], x["scale"]
+        raise TypeError(
+            "decode_attention takes tensors or {'q', 'scale'} quantized "
+            f"pairs, got dict with keys {sorted(x)}"
+        )
+    return x, None
+
+
+def _operands(q, k, v, mask, decode: bool):
+    kq, ks = _unpack(k)
+    vq, vs = _unpack(v)
+    if (ks is None) != (vs is None):
+        raise ValueError("k and v must share one cache format")
+    b, uq, h, d = q.shape
+    if kq.shape != vq.shape or kq.ndim != 4 or kq.shape[3] != d:
+        raise ValueError(
+            f"cache shapes disagree with q: k {tuple(kq.shape)}, "
+            f"v {tuple(vq.shape)}, q {tuple(q.shape)}"
+        )
+    lk, kvh = kq.shape[1], kq.shape[2]
+    if h % kvh:
+        raise ValueError(
+            f"query heads ({h}) must be a multiple of kv heads ({kvh})"
+        )
+    want = (b, lk) if decode else (b, uq, lk)
+    if tuple(mask.shape) != want:
+        raise ValueError(
+            f"mask {tuple(mask.shape)} must be {list(want)} "
+            + ("[B, L]" if decode else "[B, U, L] (per span position)")
+        )
+    return kq, ks, vq, vs
+
+
+def _fit_block(requested: int, length: int) -> int:
+    """Largest halving of ``requested`` dividing ``length`` (the JAX
+    package's tiling rule, so the plain version rounds like the Pallas
+    kernel it is compared with)."""
+    blk = min(requested, length)
+    while length % blk:
+        blk //= 2
+    if blk < 8 and blk < length:
+        return length
+    return blk
+
+
+def _splitk_plain(q, kd, vd, mask3, scale, block_k):
+    """The Pallas kernels' algorithm in PyTorch ops: per ``block_k``
+    tile, ``(acc, m, l)`` for every query row (dead tiles give the
+    identity triple), then the log-sum-exp merge. ``q [B, U, H, D]``,
+    ``kd``/``vd`` ``[B, L, KVH, D]`` (already in the compute dtype),
+    ``mask3 [B, U, L]`` → ``[B, U, H, D]`` in ``q.dtype``."""
+    b, u, h, d = q.shape
+    lk, kvh = kd.shape[1], kd.shape[2]
+    group = h // kvh
+    bk = _fit_block(block_k, lk)
+    nk = lk // bk
+    kt = kd.repeat_interleave(group, dim=2).reshape(b, nk, bk, h, d)
+    vt = vd.repeat_interleave(group, dim=2).reshape(b, nk, bk, h, d)
+    keep = mask3.to(torch.float32).reshape(b, u, nk, bk).permute(0, 2, 1, 3)
+    keep = keep[:, :, :, None, :]                     # [B, nk, U, 1, bk]
+    s = torch.einsum("buhd,bkthd->bkuht", q.float(), kt.float()) * scale
+    s = s + (1.0 - keep) * NEG
+    m = s.amax(dim=-1, keepdim=True)                  # [B, nk, U, H, 1]
+    p = torch.exp(s - m) * keep
+    l = p.sum(dim=-1, keepdim=True)
+    acc = torch.einsum(
+        "bkuht,bkthd->bkuhd", p.to(vd.dtype).float(), vt.float()
+    )
+    live = (keep > 0).flatten(2).any(dim=-1)[:, :, None, None, None]
+    acc = torch.where(live, acc, torch.zeros_like(acc))
+    m = torch.where(live, m, torch.full_like(m, NEG))
+    l = torch.where(live, l, torch.zeros_like(l))
+    return _merge(acc, m, l).to(q.dtype)
+
+
+def _merge(acc, m, l):
+    """Split-K reduction over dim 1 (the JAX package's
+    ``_splitk_merge_rows``): rows with no valid key come out zero."""
+    m_max = m.amax(dim=1, keepdim=True)
+    alpha = torch.exp(m - m_max)
+    l_tot = (alpha * l).sum(dim=1)
+    acc_tot = (alpha * acc).sum(dim=1)
+    return acc_tot / torch.clamp(l_tot, min=1e-30)
+
+
+def _dequant(payload, scale, dtype):
+    return payload if scale is None else (
+        payload.to(dtype) * scale.to(dtype)
+    )
+
+
+def decode_attention_plain(q, k, v, mask, *, scale=None,
+                           block_k: int = 512):
+    """B1's plain version: the same function as the kernel, in PyTorch
+    ops (any device)."""
+    kq, ks, vq, vs = _operands(q, k, v, mask, True)
+    scale = (1.0 / q.shape[-1] ** 0.5) if scale is None else scale
+    return _splitk_plain(
+        q, _dequant(kq, ks, q.dtype), _dequant(vq, vs, q.dtype),
+        mask[:, None, :], scale, block_k,
+    )
+
+
+def extend_attention_plain(q, k, v, mask, *, scale=None,
+                           block_k: int = 512):
+    """B2's plain version: the same function as the kernel, in PyTorch
+    ops (any device)."""
+    kq, ks, vq, vs = _operands(q, k, v, mask, False)
+    scale = (1.0 / q.shape[-1] ** 0.5) if scale is None else scale
+    return _splitk_plain(
+        q, _dequant(kq, ks, q.dtype), _dequant(vq, vs, q.dtype),
+        mask, scale, block_k,
+    )
+
+
+@functools.cache
+def _entries():
+    """The two entry points of the kernel library, argtypes set once:
+    pointers and the stream as ``c_void_p`` (so none is cut to 32
+    bits), q's three strides as ``c_longlong``, the rest ``c_int`` and
+    the scale ``c_float``."""
+    from mlapi_tpu_torch.ops.cuda import build
+
+    lib = build.load("decode_attention")
+    argtypes = (
+        [ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 3
+        + [ctypes.c_int] * 11 + [ctypes.c_float, ctypes.c_void_p]
+    )
+    out = {}
+    for name in ("mlapi_decode_attention", "mlapi_extend_attention"):
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        out[name] = fn
+    return out
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _launch(entry: str, q, kq, ks, vq, vs, mask3, scale):
+    """Validate, then one C call: the split kernel and its merge →
+    ``[B, U, H, D]`` in ``q.dtype``."""
+    b, u, h, d = q.shape
+    lk, kvh = kq.shape[1], kq.shape[2]
+    quant = ks is not None
+    if d not in _KERNEL_HEAD_DIMS:
+        raise ValueError(
+            f"{entry}: head_dim {d} not compiled (one of "
+            f"{_KERNEL_HEAD_DIMS})"
+        )
+    if q.dtype not in _DTYPE_CODES:
+        raise ValueError(f"{entry}: unsupported dtype {q.dtype}")
+    if not quant and kq.dtype != q.dtype:
+        raise ValueError(
+            f"{entry}: cache dtype {kq.dtype} differs from q {q.dtype}"
+        )
+    if quant and (kq.dtype != torch.int8 or ks.dtype != torch.float32):
+        raise ValueError(f"{entry}: int8 cache needs int8 + f32 scales")
+    if q.stride(-1) != 1:
+        q = q.contiguous()
+    if mask3.dtype != torch.bool:
+        mask3 = mask3 != 0
+    mask3 = mask3.contiguous()
+    for t in (q, kq, ks, vq, vs, mask3):
+        if t is not None and t.device.type != "cuda":
+            raise ValueError(f"{entry}: every operand must be on the card")
+    for t in (kq, ks, vq, vs):
+        if t is not None and not t.is_contiguous():
+            raise ValueError(f"{entry}: cache operands must be contiguous")
+    if kq.data_ptr() % 16 or vq.data_ptr() % 16:
+        raise ValueError(f"{entry}: K/V payloads must be 16-byte aligned")
+    rows = u * (h // kvh)
+    row_chunks = -(-rows // _ROW_CHUNK)
+    n_tiles = -(-lk // _TILE_KEYS)
+    # Enough blocks for ~4 per SM, never more splits than tiles.
+    blocks = b * kvh * row_chunks
+    splits = min(n_tiles, max(1, -(-4 * _sm_count(q.device.index) // blocks)))
+    per_split = -(-n_tiles // splits)
+    splits = -(-n_tiles // per_split)
+    partials = torch.empty(
+        (b * splits * kvh * rows * (d + 2),), dtype=torch.float32,
+        device=q.device,
+    )
+    out = torch.empty((b, u, h, d), dtype=q.dtype, device=q.device)
+    rc = _entries()[entry](
+        q.data_ptr(), kq.data_ptr(), vq.data_ptr(),
+        ks.data_ptr() if quant else None, vs.data_ptr() if quant else None,
+        mask3.data_ptr(), partials.data_ptr(), out.data_ptr(),
+        q.stride(0), q.stride(1), q.stride(2),
+        _DTYPE_CODES[q.dtype], int(quant), b, u, h, kvh, lk, d, splits,
+        per_split, row_chunks, float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"{entry} launch failed: cudaError {rc}")
+    return out
+
+
+def decode_attention(q, k, v, mask, *, scale=None):
+    """Single-query flash-decode over a stored KV cache (B1): ``q [B, 1,
+    H, D]``, ``mask [B, L]`` → ``[B, 1, H, D]``. CUDA tensors launch
+    the kernel; CPU tensors run :func:`decode_attention_plain`."""
+    if q.shape[1] != 1:
+        raise ValueError(
+            f"decode_attention takes one query per row (got q "
+            f"{tuple(q.shape)}); multi-token spans go to extend_attention"
+        )
+    kq, ks, vq, vs = _operands(q, k, v, mask, True)
+    scale = (1.0 / q.shape[-1] ** 0.5) if scale is None else scale
+    if q.device.type == "cpu":
+        return decode_attention_plain(q, k, v, mask, scale=scale)
+    out = _launch("mlapi_decode_attention", q, kq, ks, vq, vs,
+                  mask[:, None, :], scale)
+    decode_attention.launches += 1
+    return out
+
+
+def extend_attention(q, k, v, mask, *, scale=None):
+    """U-token flash-extend over a stored KV cache (B2): ``q [B, U, H,
+    D]``, ``mask [B, U, L]`` → ``[B, U, H, D]``. CUDA tensors launch
+    the kernel; CPU tensors run :func:`extend_attention_plain`."""
+    kq, ks, vq, vs = _operands(q, k, v, mask, False)
+    scale = (1.0 / q.shape[-1] ** 0.5) if scale is None else scale
+    if q.device.type == "cpu":
+        return extend_attention_plain(q, k, v, mask, scale=scale)
+    out = _launch("mlapi_extend_attention", q, kq, ks, vq, vs, mask, scale)
+    extend_attention.launches += 1
+    return out
+
+
+decode_attention.launches = 0
+extend_attention.launches = 0

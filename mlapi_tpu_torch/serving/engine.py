@@ -1,0 +1,441 @@
+"""Generative serving engine: one resident model, batched decoding.
+
+Counterpart of ``mlapi_tpu/serving/engine.py::TextGenerationEngine``.
+Prompts are left-padded to a bucket (pads masked, positions shifted,
+so the answer does not depend on the bucket), concurrent requests
+coalesce into one batch, and each batch prefills once and decodes in
+``chunk``-token steps against a KV cache it updates in place, pushing
+each chunk to its requests as it lands.
+
+Scope of the port: batches run one at a time through
+``BatchRun.run()`` — the ordering of the JAX engine's
+``--sched-max-batches 1`` without in-lane admission. The unit
+scheduler, prefix cache, paged pool, speculation, adapters and tenants
+are not ported. ``chunk`` is a fixed 8 (the JAX engine probes the
+device round trip to choose 8 or 16; a local card is the 8 case).
+"""
+
+from __future__ import annotations
+
+import asyncio
+import bisect
+import concurrent.futures
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from mlapi_tpu_torch.ops.quant import init_kv_cache, kv_tree_bytes
+from mlapi_tpu_torch.serving import faults
+from mlapi_tpu_torch.serving.requests import (
+    DrainCancelled,
+    GenRequest,
+    LatencyStats,
+    _SyncSink,
+)
+from mlapi_tpu_torch.utils.logging import get_logger
+
+_log = get_logger("serving.engine")
+
+
+class OverloadedError(RuntimeError):
+    """The submit queue is full: shed at the door (503 + retry-after)
+    rather than queue without bound."""
+
+    def __init__(self, what: str, retry_after_s: float = 2.0):
+        super().__init__(f"{what} overloaded: queue full")
+        self.retry_after_s = retry_after_s
+
+
+class TextGenerationEngine:
+    """Serving engine for generative LMs (``gpt_lm``)."""
+
+    def __init__(
+        self,
+        model,
+        *,
+        tokenizer,
+        meta: dict | None = None,
+        default_max_new_tokens: int = 32,
+        prompt_buckets: Sequence[int] = (16, 64, 128),
+        max_batch: int = 8,
+        chunk: int = 8,
+        max_wait_ms: float = 2.0,
+        max_queue: int = 256,
+    ):
+        if tokenizer.vocab_size > model.vocab_size:
+            raise ValueError(
+                f"tokenizer emits ids up to {tokenizer.vocab_size - 1} but "
+                f"the model's embedding table has {model.vocab_size} rows"
+            )
+        # Dense weights stored in the compute dtype once, instead of a
+        # cast per use (outputs are unchanged; see GptLM.cast_dense_).
+        self.model = model.cast_dense_()
+        self.device = model.device
+        self.tokenizer = tokenizer
+        self.meta = dict(meta or {})
+        self.default_max_new_tokens = default_max_new_tokens
+        self.prompt_buckets = tuple(
+            b for b in sorted(prompt_buckets) if b < model.max_positions
+        ) or (model.max_positions // 2,)
+        self.max_batch = int(max_batch)
+        self.chunk = max(1, int(chunk))
+        self.max_wait_s = max_wait_ms / 1e3
+        self.max_queue = int(max_queue)
+        self.kv_quant = model.kv_quant
+        self.decode_attn_impl = model.decode_attn_impl
+        # Collector state (started by the app's startup hook).
+        self._queue: asyncio.Queue | None = None
+        self._task: asyncio.Task | None = None
+        self._executor: concurrent.futures.ThreadPoolExecutor | None = None
+        self._carry: list = []
+        # Stats (read by /metrics and the tests).
+        self.requests = 0
+        self.batch_calls = 0
+        self.chunk_calls = 0
+        self.rejected = 0
+        self.cancelled_batches = 0
+        self.prefill_chunks = 0
+        self.latency = LatencyStats()
+
+    @classmethod
+    def from_checkpoint(cls, path, *, device=None, kv_quant=None,
+                        decode_attn_impl=None, **kwargs):
+        """Build an engine from a checkpoint dir (``checkpoint/io``): the
+        model from the manifest's config, its weights loaded onto
+        ``device`` (default CUDA; see ``utils/platform``), the cache
+        format and cache-read attention set when given."""
+        from mlapi_tpu_torch.checkpoint import load_checkpoint, read_manifest
+        from mlapi_tpu_torch.models import get_model
+        from mlapi_tpu_torch.text import tokenizer_from_fingerprint
+        from mlapi_tpu_torch.utils.platform import resolve_device
+
+        dev = resolve_device(device)
+        meta = read_manifest(path)
+        cfg = meta.config
+        if cfg.get("model") != "gpt_lm":
+            raise ValueError(
+                f"{path}: model {cfg.get('model')!r} is not served by the "
+                "port (gpt_lm only)"
+            )
+        # Staged on the host, where the archive is read, then moved.
+        model = get_model("gpt_lm", seed=None, device="cpu",
+                          **cfg.get("model_kwargs", {}))
+        state, meta = load_checkpoint(path, model)
+        model.load_state_dict(state)
+        model.to(dev)
+        model.configure(kv_quant=kv_quant, decode_attn_impl=decode_attn_impl)
+        tokenizer = tokenizer_from_fingerprint(
+            cfg.get("tokenizer", {"kind": "bytes"})
+        )
+        return cls(model, tokenizer=tokenizer, meta=meta.to_json(), **kwargs)
+
+    @property
+    def queue_depth(self) -> int:
+        base = self._queue.qsize() if self._queue is not None else 0
+        return base + len(self._carry)
+
+    # -- shapes ------------------------------------------------------------
+    def _bucket(self, n: int) -> int:
+        i = bisect.bisect_left(self.prompt_buckets, n)
+        return self.prompt_buckets[min(i, len(self.prompt_buckets) - 1)]
+
+    def _cache_len(self, bucket: int, n_new: int) -> int:
+        """KV-cache length for a batch: new-token room of at least the
+        default budget, rounded up to power-of-two multiples of
+        ``chunk``, clamped to the model's window."""
+        want = max(n_new, self.default_max_new_tokens)
+        tier = self.chunk
+        while tier < want:
+            tier *= 2
+        return min(self.model.max_positions, bucket + tier)
+
+    def _slot_cache(self) -> dict:
+        """Shapes of one batch-1 cache at the default tier (on the meta
+        device: no memory)."""
+        m = self.model
+        total = self._cache_len(
+            self.prompt_buckets[-1], self.default_max_new_tokens
+        )
+        return {
+            f"layer_{n}": init_kv_cache(
+                1, total, m.num_heads, m.head_dim, m.cdt, m.kv_quant,
+                device="meta",
+            )
+            for n in range(m.num_layers)
+        }
+
+    def kv_cache_slot_bytes(self) -> int:
+        """Per-slot KV-cache storage bytes at the default bucket/tier,
+        from shapes alone."""
+        return kv_tree_bytes(self._slot_cache())
+
+    def decode_bytes_per_step(self) -> int:
+        """Modeled device bytes one decode step's attention read moves
+        per slot at the default bucket/tier. ``flash`` streams the
+        stored cache (int8 payload + scales, or the compute-dtype
+        tensors): the storage bytes. ``einsum`` reads the stored cache
+        AND the full-precision query-head-width operand it dequantizes
+        into, unless the two coincide (MHA, no int8)."""
+        cache = self._slot_cache()
+        stored = kv_tree_bytes(cache)
+        if self.model.decode_attn_impl == "flash":
+            return stored
+        itemsize = torch.empty((), dtype=self.model.cdt).element_size()
+        full = 0
+        for layer in cache.values():
+            for name in ("k", "v", "k_q", "v_q"):
+                if name in layer:
+                    leaf = layer[name]
+                    group = max(1, self.model.num_heads // leaf.shape[2])
+                    full += leaf.numel() * group * itemsize
+        return full if full == stored else stored + full
+
+    def extend_bytes_per_chunk(self) -> int:
+        """The read of one multi-token extend chunk: the decode read's
+        model (a chunk streams the same cache once for its whole
+        span)."""
+        return self.decode_bytes_per_step()
+
+    # -- encoding and packing -----------------------------------------------
+    def _encode(self, text: str, n_new: int, temperature: float, seed: int,
+                loop, top_k: int = 0, top_p: float = 1.0,
+                stream: bool = False) -> GenRequest:
+        limit = self.model.max_positions - n_new
+        if limit <= 0:
+            raise ValueError(
+                f"max_new_tokens={n_new} leaves no room for a prompt "
+                f"(max_positions={self.model.max_positions})"
+            )
+        raw = self.tokenizer.token_ids(text)
+        raw = raw[-limit:] if raw else [self.tokenizer.pad_id]
+        # Left-pad to a bucket; a prompt past the largest bucket rounds
+        # up to a multiple of it and prefills in fixed-width chunks (or
+        # takes its exact length when that multiple would not fit).
+        if len(raw) > self.prompt_buckets[-1]:
+            cp = self.prompt_buckets[-1]
+            bucket = -(-len(raw) // cp) * cp
+            if bucket > limit:
+                bucket = len(raw)
+        else:
+            bucket = self._bucket(len(raw))
+        bucket = min(bucket, limit)
+        row = np.full((bucket,), self.tokenizer.pad_id, np.int32)
+        used = min(len(raw), bucket)
+        row[-used:] = raw[-used:]
+        return GenRequest(
+            row, used, n_new, temperature, seed, loop, top_k, top_p,
+            stream=stream, stats=self.latency,
+        )
+
+    def _pack_rows(self, reqs, bucket: int, b_pad: int):
+        """Host mirrors for a batch: left-padded prompt rows plus the
+        pad/sampling vectors; dummy rows (up to ``b_pad``) fully
+        masked. Returns ``(prompt, n_pad, temps, topk, topp, seeds)``."""
+        prompt = np.full((b_pad, bucket), self.tokenizer.pad_id, np.int32)
+        n_pad = np.full((b_pad,), max(bucket - 1, 0), np.int64)
+        temps = np.zeros((b_pad,), np.float32)
+        topk = np.zeros((b_pad,), np.int64)
+        topp = np.ones((b_pad,), np.float32)
+        seeds = np.zeros((b_pad,), np.int64)
+        for i, r in enumerate(reqs):
+            prompt[i, bucket - len(r.row):] = r.row
+            n_pad[i] = bucket - r.used
+            temps[i] = r.temperature
+            topk[i] = r.top_k
+            topp[i] = r.top_p
+            seeds[i] = r.seed
+        return prompt, n_pad, temps, topk, topp, seeds
+
+    # -- the batched decode (runs on the device thread) ---------------------
+    def _form_batch(self, reqs: list):
+        from mlapi_tpu_torch.serving.batch_run import BatchRun
+
+        self.batch_calls += 1
+        return BatchRun(self, reqs)
+
+    def _run_batch(self, reqs: list) -> None:
+        """Serve one coalesced batch; a failure is delivered to every
+        waiter as its terminal frame."""
+        try:
+            with torch.inference_mode():
+                self._form_batch(reqs).run()
+        except Exception as e:  # noqa: BLE001 — delivered to every waiter
+            _log.error("generation batch of %d failed: %s", len(reqs), e)
+            for r in reqs:
+                try:
+                    r.push(e)
+                except Exception:  # a dead loop must not mask the others
+                    pass
+
+    def _compatible(self, group: list, r) -> bool:
+        """Can ``r`` join ``group`` without clamping anyone: the widest
+        bucket plus the largest budget must fit the window."""
+        bucket = max(len(r.row), *(len(g.row) for g in group))
+        n_new = max(r.n_new, *(g.n_new for g in group))
+        return bucket + n_new <= self.model.max_positions
+
+    # -- asyncio collector ---------------------------------------------------
+    async def start(self) -> None:
+        if self._task is None:
+            self._queue = asyncio.Queue(maxsize=self.max_queue)
+            # ONE device thread: batches run serially, in order.
+            self._executor = concurrent.futures.ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="mlapi-device"
+            )
+            self._task = asyncio.create_task(
+                self._collect_loop(), name="genbatcher"
+            )
+
+    async def stop(self) -> None:
+        if self._task is not None:
+            self._task.cancel()
+            try:
+                await self._task
+            except asyncio.CancelledError:
+                pass
+            except Exception as e:  # noqa: BLE001
+                _log.warning("collector had died: %r", e)
+            self._task = None
+        if self._executor is not None:
+            executor, self._executor = self._executor, None
+            # Off the loop: waits out a batch mid-flight on the card.
+            await asyncio.get_running_loop().run_in_executor(
+                None, executor.shutdown
+            )
+
+    async def _collect_loop(self) -> None:
+        """Form window-compatible groups of up to ``max_batch`` queued
+        requests (waiting up to ``max_wait_ms`` for stragglers) and run
+        each on the device thread. Incompatible arrivals are carried to
+        the next group."""
+        loop = asyncio.get_running_loop()
+        reqs: list = []
+        get = None  # an in-flight queue pop (the finally must see it)
+        try:
+            while True:
+                if self._carry:
+                    reqs = [self._carry.pop(0)]
+                    rest: list = []
+                    for r in self._carry:
+                        if (len(reqs) < self.max_batch
+                                and self._compatible(reqs, r)):
+                            reqs.append(r)
+                        else:
+                            rest.append(r)
+                    self._carry = rest
+                else:
+                    reqs = [await self._queue.get()]
+                    faults.fire("collector_pop")
+                deadline = loop.time() + self.max_wait_s
+                while len(reqs) < self.max_batch:
+                    timeout = deadline - loop.time()
+                    if timeout <= 0 and self._queue.empty():
+                        break
+                    if self._queue.empty():
+                        # Not wait_for: a pop that completes as the
+                        # window closes must not lose its item.
+                        get = asyncio.ensure_future(self._queue.get())
+                        done, _ = await asyncio.wait({get}, timeout=timeout)
+                        if not done:
+                            get.cancel()
+                            await asyncio.wait({get})
+                            if get.cancelled():
+                                get = None
+                                break
+                        nxt, get = get.result(), None
+                    else:
+                        nxt = self._queue.get_nowait()
+                    if self._compatible(reqs, nxt):
+                        reqs.append(nxt)
+                    else:
+                        self._carry.append(nxt)
+                        break
+                # From here the batch owns its requests' terminal
+                # frames, even if this task is cancelled mid-run.
+                group, reqs = reqs, []
+                await loop.run_in_executor(
+                    self._executor, self._run_batch, group
+                )
+        finally:
+            # Cancellation or a crash must not strand any waiter.
+            queued = []
+            if get is not None:
+                if get.done() and not get.cancelled():
+                    queued.append(get.result())
+                else:
+                    get.cancel()
+            if self._queue is not None:
+                while not self._queue.empty():
+                    queued.append(self._queue.get_nowait())
+            for r in (*reqs, *self._carry, *queued):
+                try:
+                    r.push(DrainCancelled())
+                except Exception:  # noqa: BLE001 — a dead loop
+                    pass
+            self._carry = []
+
+    async def submit(self, text: str, *, max_new_tokens: int | None = None,
+                     temperature: float = 0.0, seed: int = 0,
+                     top_k: int = 0, top_p: float = 1.0,
+                     stream: bool = False) -> GenRequest:
+        """Queue one prompt for batched decode; consume ``req.queue``
+        for ``{"token_ids": [...]}`` chunks until the ``None`` sentinel
+        (exceptions are delivered in-band)."""
+        if self._task is None:
+            raise RuntimeError("generation engine not started")
+        if self._task.done():
+            exc = None if self._task.cancelled() else self._task.exception()
+            raise RuntimeError(f"generation collector died: {exc!r}") from exc
+        n_new = int(max_new_tokens or self.default_max_new_tokens)
+        req = self._encode(
+            text, n_new, float(temperature), int(seed),
+            asyncio.get_running_loop(), int(top_k), float(top_p),
+            stream=bool(stream),
+        )
+        try:
+            self._queue.put_nowait(req)
+        except asyncio.QueueFull:
+            self.rejected += 1
+            raise OverloadedError("generate") from None
+        self.requests += 1
+        return req
+
+    # -- synchronous single-shot (tests, CLI) ------------------------------
+    def generate_text(self, text: str, *, max_new_tokens: int | None = None,
+                      temperature: float = 0.0, seed: int = 0,
+                      top_k: int = 0, top_p: float = 1.0) -> dict:
+        """One prompt → generated continuation (text + ids), through the
+        same ``_run_batch`` the collector uses, on the caller's
+        thread."""
+        n_new = int(max_new_tokens or self.default_max_new_tokens)
+        req = self._encode(
+            text, n_new, float(temperature), int(seed), None,
+            int(top_k), float(top_p),
+        )
+        out_ids: list[int] = []
+        sink = _SyncSink(req, out_ids)
+        self._run_batch([sink])
+        if sink.error is not None:
+            raise sink.error
+        return {
+            "text": self.tokenizer.decode(out_ids),
+            "token_ids": out_ids,
+            "prompt_tokens": req.prompt_tokens,
+        }
+
+    def warmup(self) -> None:
+        """Run one short batch before serving, so the first request does
+        not pay the one-time costs: building and loading the CUDA
+        kernels (flash impl), the BLAS handles, the allocator's first
+        blocks."""
+        row = np.full((self.prompt_buckets[0],), self.tokenizer.pad_id,
+                      np.int32)
+        sink = _SyncSink(GenRequest(row, 1, 2, 0.0, 0, None), [])
+        self._run_batch([sink])
+        if sink.error is not None:
+            raise sink.error
+        _log.info(
+            "warmed generate on %s (kv_quant=%s, decode_attn_impl=%s)",
+            self.device, self.kv_quant, self.decode_attn_impl,
+        )

@@ -1,0 +1,149 @@
+"""Request-side data types for generative serving.
+
+Counterpart of ``mlapi_tpu/serving/requests.py``: one
+:class:`GenRequest` per in-flight generation (the handoff between the
+asyncio front and the device thread), :class:`_SyncSink` adapting the
+synchronous ``generate_text`` path onto the same batch machinery, the
+engine's :class:`LatencyStats` reservoirs, and :class:`DrainCancelled`,
+the terminal frame of a stream the server stopped under.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import collections
+import threading
+import time
+
+from mlapi_tpu_torch.serving import faults
+
+
+class DrainCancelled(Exception):
+    """The server stopped with this stream still in flight: a terminal
+    frame (503-mapped), not a dropped connection."""
+
+    code = "draining"
+
+    def __init__(self):
+        super().__init__("server draining: generation cancelled")
+
+
+class LatencyStats:
+    """Bounded reservoirs of per-request latency samples recorded at
+    token delivery: TTFT (submit → first chunk) and the per-token share
+    of each later chunk gap. Thread-safe (pushes come from the device
+    thread, scrapes from the event loop)."""
+
+    def __init__(self, cap: int = 2048):
+        self._ttft_ms: collections.deque = collections.deque(maxlen=cap)
+        self._itl_ms: collections.deque = collections.deque(maxlen=cap)
+        self._lock = threading.Lock()
+
+    def record_first(self, ms: float) -> None:
+        with self._lock:
+            self._ttft_ms.append(ms)
+
+    def record_gap(self, ms_per_token: float) -> None:
+        with self._lock:
+            self._itl_ms.append(ms_per_token)
+
+    @staticmethod
+    def _q(xs: list, q: float) -> float | None:
+        if not xs:
+            return None
+        return xs[min(len(xs) - 1, int(q * len(xs)))]
+
+    def summary(self) -> dict:
+        """p50/p95 of both series in ms (``None`` until samples)."""
+        with self._lock:
+            t, i = list(self._ttft_ms), list(self._itl_ms)
+        t.sort()
+        i.sort()
+        r = lambda v: None if v is None else round(v, 2)  # noqa: E731
+        return {
+            "ttft_p50_ms": r(self._q(t, 0.50)),
+            "ttft_p95_ms": r(self._q(t, 0.95)),
+            "intertoken_p50_ms": r(self._q(i, 0.50)),
+            "intertoken_p95_ms": r(self._q(i, 0.95)),
+        }
+
+
+def _record_push(sink, item) -> None:
+    """Fold one delivered chunk into the engine's latency reservoirs."""
+    if sink.stats is None or not isinstance(item, dict):
+        return
+    now = time.perf_counter()
+    n = len(item.get("token_ids", ())) or 1
+    if sink.t_last is None:
+        sink.stats.record_first((now - sink.t0) * 1e3)
+    else:
+        sink.stats.record_gap((now - sink.t_last) * 1e3 / n)
+    sink.t_last = now
+
+
+class GenRequest:
+    """One in-flight generation: its encoded prompt plus an asyncio
+    queue the device thread feeds with ``{"token_ids": [...]}`` chunks,
+    an exception, or the ``None`` end sentinel."""
+
+    __slots__ = (
+        "row", "used", "n_new", "temperature", "seed", "queue", "loop",
+        "cancelled", "top_k", "top_p", "stream", "prompt_tokens", "stats",
+        "t0", "t_last",
+    )
+
+    def __init__(self, row, used, n_new, temperature, seed, loop,
+                 top_k=0, top_p=1.0, stream=False,
+                 stats: LatencyStats | None = None):
+        self.row = row            # [bucket] int32 ids, left-padded
+        self.used = used          # real prompt tokens in the row
+        self.n_new = n_new
+        self.temperature = temperature
+        self.seed = seed
+        self.loop = loop
+        self.top_k = top_k        # 0 disables
+        self.top_p = top_p        # 1.0 disables
+        # Incremental consumer (NDJSON stream or stop-sequence watcher):
+        # the decode loop keeps at most one chunk in flight for it.
+        self.stream = stream
+        self.prompt_tokens = used
+        self.queue: asyncio.Queue = asyncio.Queue()
+        self.cancelled = False    # set when the consumer disconnects
+        self.stats = stats
+        self.t0 = time.perf_counter()
+        self.t_last: float | None = None
+
+    def push(self, item) -> None:
+        """Thread-safe enqueue from the device thread."""
+        faults.fire("stream_push")
+        _record_push(self, item)
+        self.loop.call_soon_threadsafe(self.queue.put_nowait, item)
+
+    def cancel(self) -> None:
+        """Consumer is gone: the decode loop stops spending device time
+        on this row (a plain bool read cross-thread; worst case one
+        extra chunk decodes)."""
+        self.cancelled = True
+
+
+class _SyncSink:
+    """Adapter so the synchronous ``generate_text`` path reuses
+    ``_run_batch`` verbatim: collects token chunks into a list."""
+
+    def __init__(self, req: GenRequest, out_ids: list):
+        self.row, self.used, self.n_new = req.row, req.used, req.n_new
+        self.temperature, self.seed = req.temperature, req.seed
+        self.top_k, self.top_p = req.top_k, req.top_p
+        self.stream = req.stream
+        self.stats, self.t0, self.t_last = req.stats, req.t0, None
+        self._out = out_ids
+        self.error: Exception | None = None
+        self.cancelled = False
+
+    def push(self, item) -> None:
+        faults.fire("stream_push")
+        _record_push(self, item)
+        if isinstance(item, Exception):
+            self.error = item
+        elif item is not None:
+            self._out.extend(item["token_ids"])

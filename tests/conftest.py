@@ -46,6 +46,11 @@ def pytest_configure(config):
     )
     config.addinivalue_line(
         "markers",
+        "requires_cuda: needs an NVIDIA card (the PyTorch port's CUDA "
+        "kernels have no CPU mode); the test skips itself without one",
+    )
+    config.addinivalue_line(
+        "markers",
         "heavy: in-suite model training or soak-style test (tens of "
         "seconds each on this box). The fast dev profile deselects "
         "them: pytest -m 'not heavy' (~8 min serial vs ~10.5 full — "
