@@ -10,28 +10,41 @@ the JAX package. Phases, each fatal on failure:
 1. device — the card's name, count, and ``nvidia-smi`` name + power
    limit;
 2. build — ``nvcc`` for ``sm_90a``, printing ``ptxas -v`` and seconds;
-3. kernels — flash-decode (B1) and flash-extend (B2), bf16 and int8
-   caches, at the shapes the serving phase gives them and at the full
-   1024-token window: each wrapper against its plain PyTorch version
-   (max abs error on live rows <= 2e-2), timed beside the plain
-   version, ``scaled_dot_product_attention`` (a yardstick the port
-   never calls) and the card's bound for the same work. ``ms`` is
-   device time (each call captured in a CUDA graph, graphs replayed in
-   turn over enough input copies to defeat the L2, CUDA events);
-   ``eager_ms`` is the wrapper called eagerly, host launch costs
-   included;
-4. serving — for each cache format (none, int8): a seeded GPT-2-small
-   checkpoint served with ``--decode-attn-impl flash`` through the
-   CLI's engine factory and the HTTP server, sent 8 concurrent short
-   prompts (one batch), one NDJSON stream and one prompt longer than the
-   largest bucket (chunked prefill); launch counters are zeroed just
-   before the requests and read just after. Then an 8-step decode
-   chunk at B = 8: wall time per step over five runs without the
+3. kernels — flash-decode (B1), flash-extend (B2) and their paged
+   twins (B3, B4: 16-token pages behind a shuffled page table, tiles no
+   query attends on the null page), bf16 and int8 caches, at the shapes
+   the serving phase gives them and at the full 1024-token window: each
+   wrapper against its plain PyTorch version (max abs error on live rows
+   <= 2e-2), each paged kernel against its contiguous twin over the same
+   bytes (bit for bit), timed beside the plain version,
+   ``scaled_dot_product_attention`` (a yardstick the port never calls;
+   on the gathered contiguous copy for B3/B4) and the card's bound for
+   the same work. ``ms`` is device time (each call captured in a CUDA
+   graph, graphs replayed in turn over enough input copies to defeat the
+   L2, CUDA events); ``eager_ms`` is the wrapper called eagerly, host
+   launch costs included;
+4. serving — for each cache format (none, int8) and each layout
+   (contiguous, then paged with ``--kv-page-size 16``): a seeded
+   GPT-2-small checkpoint served with ``--decode-attn-impl flash``
+   through the CLI's engine factory and the HTTP server, sent 8
+   concurrent short prompts (one batch), one NDJSON stream, one prompt
+   longer than the largest bucket (chunked prefill), and an admission
+   leg: a 96-token stream, then 4 short prompts sent once its first
+   chunk arrived, which must join the running batch. Launch counters
+   are zeroed just before the requests and read just after; a paged run
+   must launch B3 and B4 and never B1 or B2, and end with every page
+   back in the pool. Then an 8-step decode chunk at B = 8 through the
+   engine's layout: wall time per step over five runs without the
    profiler, and one run under ``torch.profiler`` for device time per
    step, kernels per step, the flash-decode kernel's share and the
-   device's busy share;
+   device's busy share. The profile row also gives the host's side:
+   one layer's cache append and the page coordinates (issue time), the
+   host syncs per step, the ops with the most host time, and for a
+   paged engine the contiguous layout's step timed in alternation;
 5. correctness — a small float32 model's greedy streams are identical
-   through the flash kernels and the einsum oracle, and the
+   through paged flash, contiguous flash and the einsum oracle; a
+   joiner admitted into the row of a request that just finished streams
+   what its prompt streams alone, on both layouts; and the
    teacher-forced top-1 agreement of flash with einsum at GPT-2 small
    is reported (floor 0.9).
 
@@ -65,7 +78,11 @@ GPT2_SMALL = dict(                # openai-community/gpt2
 REPLACES = {
     "decode_attention": "mlapi_tpu/ops/pallas/decode_attention.py:104",
     "extend_attention": "mlapi_tpu/ops/pallas/decode_attention.py:178",
+    "paged_decode_attention": "mlapi_tpu/ops/pallas/decode_attention.py:514",
+    "paged_extend_attention": "mlapi_tpu/ops/pallas/decode_attention.py:643",
 }
+KERNELS = tuple(REPLACES)
+PAGE = 16                       # the serving page size
 SOURCE = "mlapi_tpu_torch/csrc/decode_attention.cu"
 
 
@@ -125,7 +142,9 @@ def kernel_case(kernel, fmt, b, u, length, pos, seed):
     """Inputs at one serving shape: GPT-2-small heads, a cache holding
     ragged left pads (per-row ``n_pad``), the decode token (or the
     extend span's first token) at slot ``pos``, masks built by the
-    model's own mask helpers."""
+    model's own mask helpers. A paged kernel gets the same cache in
+    pool pages (:func:`to_pages`) and, for the comparisons, the
+    contiguous cache beside it."""
     import torch
 
     from mlapi_tpu_torch.models.gpt import (
@@ -141,7 +160,7 @@ def kernel_case(kernel, fmt, b, u, length, pos, seed):
     k = torch.randn(b, length, kvh, d, generator=g).to(dev, torch.bfloat16)
     v = torch.randn(b, length, kvh, d, generator=g).to(dev, torch.bfloat16)
     n_pad = torch.randint(0, max(1, length // 8), (b,), generator=g).to(dev)
-    if kernel == "decode_attention":
+    if kernel.endswith("decode_attention"):
         valid, _ = decode_valid_and_shift(length, pos, n_pad)
         mask = valid[:, 0, 0, :]
     else:
@@ -151,7 +170,37 @@ def kernel_case(kernel, fmt, b, u, length, pos, seed):
         kq, ks = kv_quantize(k)
         vq, vs = kv_quantize(v)
         k, v = {"q": kq, "scale": ks}, {"q": vq, "scale": vs}
-    return q, k, v, mask
+    if not kernel.startswith("paged_"):
+        return q, k, v, mask
+    pk, table = to_pages(k, mask, seed)
+    pv, _ = to_pages(v, mask, seed)
+    return q, pk, pv, table, mask, k, v
+
+
+def to_pages(cache, mask, seed):
+    """A contiguous ``[B, L, KVH, D]`` cache (or int8 pair) copied into
+    ``PAGE``-token pool pages behind a shuffled page table; tiles no
+    query attends map to the null page 0, which holds finite garbage."""
+    import torch
+
+    leaves = cache if isinstance(cache, dict) else {"t": cache}
+    some = next(iter(leaves.values()))
+    b, length = some.shape[:2]
+    n_tiles = length // PAGE
+    n_pages = b * n_tiles + 1
+    g = torch.Generator().manual_seed(seed)
+    ids = (torch.randperm(n_pages - 1, generator=g) + 1).reshape(b, n_tiles)
+    live = mask.reshape(b, -1, n_tiles, PAGE).any(dim=(1, 3)).cpu()
+    table = torch.where(live, ids, 0).to("cuda", torch.int32)
+    pools = {}
+    for name, leaf in leaves.items():
+        pool = torch.randn((n_pages, PAGE) + tuple(leaf.shape[2:]),
+                           generator=g).abs().to("cuda", leaf.dtype)
+        tiles = leaf.reshape((b, n_tiles, PAGE) + tuple(leaf.shape[2:]))
+        on = table != 0
+        pool[table[on].long()] = tiles[on]
+        pools[name] = pool
+    return (pools if isinstance(cache, dict) else pools["t"]), table
 
 
 def case_bytes_flops(q, k, v, mask):
@@ -194,17 +243,18 @@ def check_kernels(power):
 
     from mlapi_tpu_torch.ops import cuda as kern
 
-    plain = {
-        "decode_attention": kern.decode_attention_plain,
-        "extend_attention": kern.extend_attention_plain,
-    }
+    plain = {name: getattr(kern, name + "_plain") for name in KERNELS}
+    twin = {"paged_decode_attention": kern.decode_attention,
+            "paged_extend_attention": kern.extend_attention}
     # (kernel, B, U, L, slot of the first query token): every shape the
     # serving phase gives a kernel, and the full window at B = 8. Short
     # prompts decode at B = 8 in tier 48 (bucket 16 + 32 tokens); the
     # stream decodes alone (B = 1) in tier 48; the long prompt (bucket
     # 384, tier 416) prefills in three 128-token chunks at slots 0, 128,
     # 256 and decodes 16 tokens at slots 384-399, alone. B = 1 gets its
-    # own split layout (one 32-key tile per split at L = 416).
+    # own split layout (one 32-key tile per split at L = 416). The paged
+    # twins read 16-token pages: NP = 3 (L = 48), 26 (L = 416), 64
+    # (L = 1024), 9 (L = 144: the admission leg's batch at B = 8).
     shapes = [
         ("decode_attention", 8, 1, 48, 47),
         ("decode_attention", 1, 1, 48, 47),
@@ -213,42 +263,64 @@ def check_kernels(power):
         ("extend_attention", 1, 128, 416, 0),
         ("extend_attention", 1, 128, 416, 256),
         ("extend_attention", 8, 128, 1024, 768),
+        ("paged_decode_attention", 8, 1, 48, 47),
+        ("paged_decode_attention", 8, 1, 144, 143),
+        ("paged_decode_attention", 1, 1, 416, 399),
+        ("paged_decode_attention", 8, 1, 1024, 1023),
+        ("paged_extend_attention", 1, 128, 416, 256),
+        ("paged_extend_attention", 8, 128, 1024, 768),
     ]
     results = []
     for i, (name, b, u, length, pos) in enumerate(shapes):
         for fmt in ("bf16", "int8"):
-            q, k, v, mask = kernel_case(name, fmt, b, u, length, pos, seed=i)
+            args = kernel_case(name, fmt, b, u, length, pos, seed=i)
             fn = getattr(kern, name)
-            out = fn(q, k, v, mask)
+            paged = name.startswith("paged_")
+            q, mask = args[0], args[-3 if paged else -1]
+            contiguous = (q, *args[-2:], mask) if paged else args
+            out = fn(*args[:5] if paged else args)
             torch.cuda.synchronize()
-            ref = plain[name](q, k, v, mask)
+            ref = plain[name](*args[:5] if paged else args)
+            same = None
+            if paged:
+                # The same bytes in a contiguous cache: bit for bit.
+                same = bool(torch.equal(out, twin[name](*contiguous)))
             live = mask.reshape(b, -1, length).any(dim=-1)   # [B, U]
             err = float(
                 (out.float() - ref.float()).abs()[live].max()
             )
             finite = bool(torch.isfinite(out).all())
-            nbytes, flops = case_bytes_flops(q, k, v, mask)
+            nbytes, flops = case_bytes_flops(*contiguous)
+            if paged:
+                nbytes += args[3].numel() * args[3].element_size()
             # Rotate through copies of the inputs so that a launch does
             # not find the previous one's cache in the 50 MB L2 (in
             # serving each layer reads its own cache); at most 8 sets,
             # so the smallest tier's cases stay partly L2-resident.
-            sets = [(q, k, v, mask)]
+            sets = [args]
             for s in range(1, min(8, max(2, math.ceil(160e6 / nbytes)))):
                 sets.append(kernel_case(name, fmt, b, u, length, pos,
                                         seed=1000 + 10 * i + s))
-            calls = [(lambda a=a: fn(*a)) for a in sets]
+            ops = [a[:5] if paged else a for a in sets]
+            calls = [(lambda a=a: fn(*a)) for a in ops]
             kernel_ms = graph_ms(calls)
             eager_ms = cuda_ms(calls)
-            plain_ms = graph_ms([(lambda a=a: plain[name](*a)) for a in sets])
+            plain_ms = graph_ms([(lambda a=a: plain[name](*a)) for a in ops])
             library_ms = None
             if fmt == "bf16":
-                library_ms = graph_ms([sdpa_fn(*a) for a in sets])
+                # SDPA on the (gathered) contiguous cache: a yardstick.
+                library_ms = graph_ms([
+                    sdpa_fn(a[0], *a[-2:], a[-3]) if paged else sdpa_fn(*a)
+                    for a in sets
+                ])
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             t_ops = flops / BF16_FLOPS_PER_S * 1e3
             row = {
                 "case": "kernel", "kernel": name, "format": fmt,
                 "B": b, "U": u, "L": length, "pos": pos,
                 "H": 12, "KVH": 12, "D": 64,
+                "page": PAGE if paged else None,
+                "equals_contiguous": same,
                 "max_abs_err": err, "finite": finite,
                 "ms": kernel_ms, "eager_ms": eager_ms, "plain_ms": plain_ms,
                 "library_ms": library_ms,
@@ -262,6 +334,11 @@ def check_kernels(power):
                     f"{name} {fmt} B={b} U={u} L={length}: kernel disagrees "
                     f"with its plain version (max abs err {err}, finite "
                     f"{finite}, tolerance {TOLERANCE})"
+                )
+            if same is False:
+                raise SystemExit(
+                    f"{name} {fmt} B={b} U={u} L={length}: the paged kernel "
+                    "differs from its contiguous twin on the same bytes"
                 )
             results.append(row)
             del sets
@@ -311,24 +388,66 @@ SHORT_PROMPTS = [
 ]
 LONG_PROMPT = ("a prompt longer than the largest bucket prefills in "
                "chunks; ") * 6   # 336 bytes -> bucket 384, 3 chunks
+ADMIT_STREAM, ADMIT_JOIN = 96, 16
+JOINERS = ["join the batch", "admitted mid-run", "a row of its own",
+           "pages on demand"]
 
 
-def serve_run(ckpt: Path, kv_quant):
-    """One serving run: returns its summary row and the engine."""
+def admission_leg(port: int):
+    """A 96-token NDJSON stream; once its first chunk arrived (its batch
+    is then running), 4 short prompts sent at once, which the running
+    batch must admit. Returns (stream ids, done line, joiner outputs)."""
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/generate", data=json.dumps({
+            "text": "a long stream admits joiners", "stream": True,
+            "max_new_tokens": ADMIT_STREAM,
+        }).encode(), headers={"content-type": "application/json"},
+    )
+    outs: list = [None] * len(JOINERS)
+    errors: list = []
+
+    def one(i):
+        try:
+            outs[i] = json.loads(post(port, {
+                "text": JOINERS[i], "max_new_tokens": ADMIT_JOIN,
+            }))
+        except BaseException as e:  # reported below
+            errors.append(repr(e))
+
+    with urllib.request.urlopen(req, timeout=300) as r:
+        lines = [json.loads(r.readline())]
+        threads = [threading.Thread(target=one, args=(i,))
+                   for i in range(len(JOINERS))]
+        for t in threads:
+            t.start()
+        lines += [json.loads(x) for x in r.read().decode().splitlines()
+                  if x.strip()]
+    for t in threads:
+        t.join(600)
+    if errors or any(o is None for o in outs):
+        raise SystemExit(f"admission leg: joiners failed: {errors}")
+    streamed = [t for x in lines[:-1] for t in x["token_ids"]]
+    return streamed, lines[-1], outs
+
+
+def serve_run(ckpt: Path, kv_quant, page):
+    """One serving run (``page``: the KV page size, None for the
+    contiguous cache): returns its summary row and the engine."""
     from mlapi_tpu_torch.ops import cuda as kern
     from mlapi_tpu_torch.serving.__main__ import build_engine
     from mlapi_tpu_torch.serving.app import build_app
     from mlapi_tpu_torch.serving.server import BackgroundServer
 
     # The CLI's own engine factory (python -m mlapi_tpu_torch.serving
-    # --checkpoint ... [--kv-quant int8] --decode-attn-impl flash); a
-    # wider batch window so 8 concurrent arrivals form one batch.
+    # --checkpoint ... [--kv-quant int8] --decode-attn-impl flash
+    # [--kv-page-size 16]); a wider batch window so 8 concurrent arrivals
+    # form one batch.
     engine = build_engine(ckpt, kv_quant=kv_quant, decode_attn_impl="flash",
-                          max_wait_ms=50.0)
+                          kv_page_size=page, max_wait_ms=50.0)
     n_new = 32
     with BackgroundServer(build_app(engine)) as srv:
-        kern.decode_attention.launches = 0
-        kern.extend_attention.launches = 0
+        for name in KERNELS:
+            getattr(kern, name).launches = 0
         batches0 = engine.batch_calls
         t0 = time.perf_counter()
         outs: list = [None] * len(SHORT_PROMPTS)
@@ -360,15 +479,21 @@ def serve_run(ckpt: Path, kv_quant):
         long_out = json.loads(post(srv.port, {"text": LONG_PROMPT,
                                               "max_new_tokens": 16}))
         long_chunks = engine.prefill_chunks - chunks0
-        launches = {
-            "decode_attention": kern.decode_attention.launches,
-            "extend_attention": kern.extend_attention.launches,
-        }
+        admitted0 = engine.admitted
+        t0 = time.perf_counter()
+        admit_ids, admit_done, joined = admission_leg(srv.port)
+        admit_s = time.perf_counter() - t0
+        admitted = engine.admitted - admitted0
+        launches = {name: getattr(kern, name).launches for name in KERNELS}
+        # Pages go back on the device thread after the terminal frames.
+        deadline = time.monotonic() + 60.0
+        while engine.kv_pages_in_use and time.monotonic() < deadline:
+            time.sleep(0.01)
         metrics = get(srv.port, "/metrics")
         health = get(srv.port, "/healthz")
 
     vocab = GPT2_SMALL["vocab_size"]
-    for o in outs + [long_out]:
+    for o in outs + [long_out] + joined:
         ids = o["token_ids"]
         if not all(0 <= t < vocab for t in ids):
             raise SystemExit(f"token id out of range in {ids}")
@@ -387,27 +512,77 @@ def serve_run(ckpt: Path, kv_quant):
             f"long prompt: {len(long_out['token_ids'])} tokens, "
             f"{long_chunks} prefill chunks (want 16, 3)"
         )
-    if min(launches.values()) <= 0:
-        raise SystemExit(f"a kernel of the path never launched: {launches}")
+    if (not admit_done.get("done") or admit_ids != admit_done["token_ids"]
+            or len(admit_ids) != ADMIT_STREAM
+            or [len(o["token_ids"]) for o in joined]
+            != [ADMIT_JOIN] * len(JOINERS)):
+        raise SystemExit("admission leg: a token was not delivered")
+    if admitted < 1:
+        raise SystemExit("admission leg: no joiner joined the running batch")
+    mine = (("paged_decode_attention", "paged_extend_attention") if page
+            else ("decode_attention", "extend_attention"))
+    if min(launches[k] for k in mine) <= 0 or any(
+        launches[k] for k in KERNELS if k not in mine
+    ):
+        raise SystemExit(
+            f"kernels of the path: want {mine} launched and no other, "
+            f"got {launches}"
+        )
     if metrics["counters"]["generate.prefill_chunks"] < 3:
         raise SystemExit("/metrics lost the prefill chunks")
+    g = metrics["gauges"]
+    if g["generate.kv_pages_in_use"] != 0:
+        raise SystemExit(f"{g['generate.kv_pages_in_use']} pages leaked")
     row = {
         "case": "serving", "kv_quant": kv_quant or "none",
+        "kv_page_size": health["kv_page_size"], "kv_pages": health["kv_pages"],
         "decode_attn_impl": "flash", "device": health["device"],
         "short_batch_s": batch_s, "short_batches": short_batches,
         "stream_lines": len(lines), "long_prefill_chunks": long_chunks,
+        "admission_s": admit_s, "admitted": admitted,
+        "growths": metrics["counters"]["generate.growths"],
+        "compactions": metrics["counters"]["generate.compactions"],
+        "kv_pages_in_use_at_end": g["generate.kv_pages_in_use"],
+        "kv_page_bytes": g["generate.kv_page_bytes"],
         "launches": launches,
-        "decode_bytes_per_step": metrics["gauges"][
-            "generate.decode_bytes_per_step"],
+        "decode_bytes_per_step": g["generate.decode_bytes_per_step"],
     }
     return row, engine
 
 
 # -- phase 5: correctness -----------------------------------------------
 
+def paged_generate(model, ids, pads, n_new):
+    """Greedy generation through a paged cache: every row's pages are
+    drawn from a fresh pool in shuffled order, then the page-native
+    prefill and the decode chunk write and read them through the
+    table."""
+    import numpy as np
+    import torch
+
+    from mlapi_tpu_torch.models.gpt import decode_chunk_fn, paged_prefill_fn
+    from mlapi_tpu_torch.ops.quant import paged_cache_tree
+    from mlapi_tpu_torch.serving.paged_pool import PagePool
+
+    b, p = ids.shape
+    npv = -(-(p + n_new) // PAGE)
+    pool = PagePool(model, page_size=PAGE, num_pages=b * npv + 1)
+    pages = np.random.default_rng(3).permutation(pool.alloc(b * npv))
+    cache = paged_cache_tree(pool.layers, pages.reshape(b, npv))
+    n_pad = torch.as_tensor(pads, device=ids.device)
+    temps, seeds = np.zeros(b, np.float32), np.zeros(b, np.int64)
+    top_k, top_p = np.zeros(b, np.int64), np.ones(b, np.float32)
+    first, cache = paged_prefill_fn(model, cache, ids, 0, seeds, temps,
+                                    n_pad, top_k, top_p)
+    rest, _, _ = decode_chunk_fn(model, cache, first, p, n_pad, temps, seeds,
+                                 1, top_k, top_p, chunk=n_new - 1)
+    return torch.cat([first[:, None], rest], dim=1)
+
+
 def check_small_f32():
-    """A small float32 model: greedy streams through the flash kernels
-    equal the einsum oracle's, for both cache formats."""
+    """A small float32 model: greedy streams through the flash kernels,
+    contiguous and paged, equal the einsum oracle's, for both cache
+    formats."""
     import torch
 
     from mlapi_tpu_torch.models.gpt import GptLM
@@ -429,13 +604,64 @@ def check_small_f32():
             with torch.inference_mode():
                 out = model.generate(ids, max_new_tokens=48, pad_lens=pads)
             streams[(kvq, impl)] = out.cpu().tolist()
+        model.configure(decode_attn_impl="flash")
+        with torch.inference_mode():
+            streams[(kvq, "paged flash")] = paged_generate(
+                model, ids, pads, 48
+            ).cpu().tolist()
     same = {
-        kvq: streams[(kvq, "einsum")] == streams[(kvq, "flash")]
-        for kvq in ("none", "int8")
+        f"{kvq}, {impl}": streams[(kvq, "einsum")] == streams[(kvq, impl)]
+        for kvq in ("none", "int8") for impl in ("flash", "paged flash")
     }
-    emit({"case": "f32_greedy_identity", "flash_equals_einsum": same})
+    emit({"case": "f32_greedy_identity", "equals_einsum": same})
     if not all(same.values()):
-        raise SystemExit(f"flash and einsum greedy streams differ: {same}")
+        raise SystemExit(f"greedy streams differ from einsum: {same}")
+    check_admission_f32(model)
+
+
+ADMIT_F32 = (("the first long request", 48), ("joiner", 3),
+             ("another joiner arrives", 6))
+
+
+def check_admission_f32(model):
+    """Continuous admission, deterministic, on both layouts: a batch of
+    a 48-token and a 3-token request, and a joiner staged from the
+    start, which ``max_batch`` 2 holds back until the short request has
+    finished and then admits into that row (``tests/test_torch_paged_
+    serving.py``'s scenario, on the card). Each stream must equal the
+    einsum oracle's stream of its prompt alone, and a paged engine must
+    end with every page back in its pool."""
+    import torch
+
+    from mlapi_tpu_torch.serving.engine import TextGenerationEngine
+    from mlapi_tpu_torch.serving.requests import _SyncSink
+    from mlapi_tpu_torch.text import ByteTokenizer
+
+    tok = ByteTokenizer()
+    model.configure(kv_quant="none", decode_attn_impl="einsum")
+    with torch.inference_mode():
+        want = [model.generate(
+            torch.as_tensor([tok.token_ids(t)], device=model.device),
+            max_new_tokens=n,
+        )[0].tolist() for t, n in ADMIT_F32]
+    model.configure(decode_attn_impl="flash")
+    for page in (None, PAGE):
+        eng = TextGenerationEngine(model, tokenizer=tok, max_batch=2,
+                                   chunk=2, prompt_buckets=(16, 32, 64),
+                                   kv_page_size=page)
+        outs: list = [[] for _ in ADMIT_F32]
+        sinks = [_SyncSink(eng._encode(t, n, 0.0, 0, None), o)
+                 for (t, n), o in zip(ADMIT_F32, outs)]
+        eng._admit.append(sinks[2])
+        eng._run_batch(sinks[:2], admit=True)
+        row = {"case": "f32_admission", "kv_page_size": page,
+               "admitted": eng.admitted, "equals_alone": outs == want,
+               "errors": [repr(s.error) for s in sinks if s.error],
+               "kv_pages_in_use_at_end": eng.kv_pages_in_use}
+        emit(row)
+        if (row["errors"] or row["admitted"] != 1 or not row["equals_alone"]
+                or row["kv_pages_in_use_at_end"]):
+            raise SystemExit(f"admission into a finished row failed: {row}")
 
 
 def agreement(engine, kv_quant):
@@ -469,18 +695,27 @@ def agreement(engine, kv_quant):
 
 def profile_decode(engine, runs: int = 5) -> None:
     """Where one serving decode step's time goes: an 8-step decode chunk
-    at B = 8 (bucket 16, default tier) through the engine's model. Wall
+    at B = 8 (bucket 16, default tier) through the engine's model and
+    cache layout (a paged engine's rows map pages of its pool). Wall
     time per step without the profiler (``runs`` chunks, each timed
     alone with ``perf_counter`` and a device sync: min, median, max);
     then one chunk under ``torch.profiler`` for the device time of its
     CUDA kernels, their count and the flash-decode kernel's share. The
     device's busy share is profiled device time over unprofiled wall
-    time, given for the median and for the extremes of the runs."""
+    time, given for the median and for the extremes of the runs. A paged
+    engine's runs alternate with the same chunk on a contiguous cache of
+    the same model (one order, then the other), so the two layouts'
+    host times compare within one window."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from mlapi_tpu_torch.models.gpt import decode_chunk_fn, prefill_fn
+    from mlapi_tpu_torch.models.gpt import (
+        decode_chunk_fn, paged_prefill_fn, prefill_fn,
+    )
+    from mlapi_tpu_torch.ops.quant import (
+        kv_cache_append, kv_cache_coords, paged_cache_tree,
+    )
 
     model, b, steps = engine.model, 8, 8
     total = engine._cache_len(16, engine.default_max_new_tokens)
@@ -489,6 +724,7 @@ def profile_decode(engine, runs: int = 5) -> None:
     n_pad = torch.zeros(b, dtype=torch.long, device=engine.device)
     host = dict(temps=np.zeros(b, np.float32), seeds=np.zeros(b, np.int64),
                 top_k=np.zeros(b, np.int64), top_p=np.ones(b, np.float32))
+    pool, pages = engine.pool, None
 
     def chunk(cache, tok, pos):
         return decode_chunk_fn(
@@ -496,36 +732,87 @@ def profile_decode(engine, runs: int = 5) -> None:
             np.ones(b, np.int64), host["top_k"], host["top_p"], chunk=steps,
         )
 
+    def timed(cache, tok) -> float:
+        t0 = time.perf_counter()
+        chunk(cache, tok, 16 + steps)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / steps
+
     with torch.inference_mode():
+        contiguous = None
         tok, cache = prefill_fn(model, prompt, host["seeds"], host["temps"],
                                 n_pad, host["top_k"], host["top_p"],
                                 total_len=total)
+        if pool is not None:
+            contiguous = (cache, chunk(cache, tok, 16)[2])   # warm
+            pages = pool.alloc(b * -(-total // pool.page))
+            cache = paged_cache_tree(pool.layers, pages.reshape(b, -1))
+            tok, cache = paged_prefill_fn(
+                model, cache, prompt, 0, host["seeds"], host["temps"],
+                n_pad, host["top_k"], host["top_p"],
+            )
         _, cache, tok = chunk(cache, tok, 16)        # warm
         torch.cuda.synchronize()
-        walls = []
-        for _ in range(runs):
-            t0 = time.perf_counter()
-            chunk(cache, tok, 16 + steps)
-            torch.cuda.synchronize()
-            walls.append((time.perf_counter() - t0) * 1e3 / steps)
+        walls, beside = [], []
+        for i in range(runs):
+            if contiguous is not None and i % 2:
+                beside.append(timed(*contiguous))
+            walls.append(timed(cache, tok))
+            if contiguous is not None and not i % 2:
+                beside.append(timed(*contiguous))
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             chunk(cache, tok, 16 + steps)
             torch.cuda.synchronize()
             prof_wall = (time.perf_counter() - t0) * 1e3 / steps
+        # The host's side of one layer's cache append at this step's
+        # shape (slot 40, inside the tier): the time to issue the call,
+        # no device sync inside the loop, mean of 48 calls; and the page
+        # coordinates, which a step computes once for all layers.
+        kv = torch.zeros(b, 1, model.num_heads, model.head_dim,
+                         dtype=model.cdt, device=engine.device)
+        layer, slot, reps = cache["layer_0"], 16 + 3 * steps, 48
+        coords = kv_cache_coords(cache, slot, 1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            kv_cache_append(layer, kv, kv, slot, model.cdt, coords)
+        append_ms = (time.perf_counter() - t0) * 1e3 / reps
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            kv_cache_coords(cache, slot, 1)
+        coords_ms = (time.perf_counter() - t0) * 1e3 / reps
+        torch.cuda.synchronize()
+    if pages is not None:
+        pool.release(pages)
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     dev_us = sum(e.device_time_total for e in kernels)
     attn_us = sum(e.device_time_total for e in kernels
                   if "splitk" in e.name)
+    # Where the host's time goes: the ops with the most self CPU time
+    # under the profiler (which inflates each), per step.
+    host = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)
+    host_top = [{"op": a.key, "self_cpu_ms_per_step":
+                 a.self_cpu_time_total / 1e3 / steps,
+                 "calls_per_step": a.count / steps} for a in host[:10]]
+    syncs = sum(a.count for a in host if a.key in (
+        "aten::_local_scalar_dense", "cudaStreamSynchronize",
+        "cudaDeviceSynchronize")) / steps
     walls.sort()
+    beside.sort()
     dev_ms = dev_us / 1e3 / steps
     emit({
         "case": "profile", "B": b, "L": total, "steps": steps,
         "kv_quant": engine.kv_quant, "decode_attn_impl": "flash",
+        "kv_page_size": pool.page if pool is not None else None,
         "wall_ms_per_step": {"min": walls[0], "median": walls[runs // 2],
                              "max": walls[-1], "runs": runs},
+        "contiguous_interleaved_wall_ms_per_step": {
+            "min": beside[0], "median": beside[runs // 2],
+            "max": beside[-1], "runs": runs,
+        } if beside else None,
         "profiled_wall_ms_per_step": prof_wall,
         "device_ms_per_step": dev_ms if dev_us else "not measured",
         "device_busy_share": {
@@ -535,6 +822,10 @@ def profile_decode(engine, runs: int = 5) -> None:
         "kernels_per_step": len(kernels) / steps,
         "flash_decode_share_of_device": (attn_us / dev_us) if dev_us
         else "not measured",
+        "append_host_ms_per_layer": append_ms,
+        "page_coords_host_ms": coords_ms if coords is not None else None,
+        "host_syncs_per_step": syncs,
+        "host_top_ops": host_top,
     })
 
 
@@ -586,34 +877,39 @@ def main() -> int:
 
     # 4. serving, 5. correctness
     # Launches per serving path, each path's counts zeroed just before
-    # its requests: {kernel: {"none": N, "int8": N}}.
-    launches = {"decode_attention": {}, "extend_attention": {}}
+    # its requests: {kernel: {"none": N, "int8": N, "none, page 16": N,
+    # "int8, page 16": N}}.
+    launches = {name: {} for name in KERNELS}
     scratch = ROOT / "build"
     scratch.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=scratch) as tmp:
         ckpt = make_checkpoint(Path(tmp) / "gpt2_small_seed0")
-        for kv_quant in (None, "int8"):
-            row, engine = serve_run(ckpt, kv_quant)
-            emit(row)
-            for k in launches:
-                launches[k][row["kv_quant"]] = row["launches"][k]
-            profile_decode(engine)
-            agreement(engine, kv_quant)
-            del engine
-            torch.cuda.empty_cache()
+        for page in (None, PAGE):
+            for kv_quant in (None, "int8"):
+                row, engine = serve_run(ckpt, kv_quant, page)
+                emit(row)
+                path = row["kv_quant"] + (f", page {page}" if page else "")
+                for k in launches:
+                    launches[k][path] = row["launches"][k]
+                profile_decode(engine)
+                if page is None:
+                    agreement(engine, kv_quant)
+                del engine
+                torch.cuda.empty_cache()
     check_small_f32()
 
     summary = []
-    for name in ("decode_attention", "extend_attention"):
+    for name in KERNELS:
         mine = [r for r in rows if r["kernel"] == name]
         main_row = next(r for r in mine
                         if r["format"] == "bf16" and r["L"] == 1024)
+        # The main path of a kernel: the bf16-cache serving run of its
+        # layout; the other runs' counts stand beside it.
+        main_path = "none, page 16" if name.startswith("paged_") else "none"
         summary.append({
-            # launches: the bf16-cache serving run (the main path); the
-            # int8 run's count stands beside it.
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[name],
-            "launches": launches[name]["none"],
+            "launches": launches[name][main_path],
             "launches_per_path": launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],

@@ -2,10 +2,18 @@
 // for NVIDIA Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernels of mlapi_tpu/ops/pallas/decode_attention.py:
-//   mlapi_decode_attention  <- _decode_kernel (decode_attention, B1)
-//   mlapi_extend_attention  <- _extend_kernel (extend_attention, B2)
-// Both entry points share one templated body; they differ in the query
-// height U (1 for a decode step, the span width for an extend).
+//   mlapi_decode_attention        <- _decode_kernel (decode_attention, B1)
+//   mlapi_extend_attention        <- _extend_kernel (extend_attention, B2)
+//   mlapi_paged_decode_attention  <- _paged_kernel (paged_decode_attention,
+//                                    B3, decode_attention.py:514)
+//   mlapi_paged_extend_attention  <- _paged_extend_kernel
+//                                    (paged_extend_attention, B4, :643)
+// All four entry points share one templated body. They differ in the
+// query height U (1 for a decode step, the span width for an extend) and
+// in where key `key` of batch row b lives: row b of a contiguous
+// [B, L, KVH, D] cache, or -- PAGED -- slot key % page of pool page
+// table[b, key / page] of a [P, page, KVH, D] pool (the Pallas kernels'
+// scalar-prefetched BlockSpec index map, done per key here).
 //
 // What it computes: for batch row b, KV head j and a range of cache keys
 // (one split), the partial triple (acc, m, l) of softmax attention for
@@ -24,6 +32,16 @@
 // U = 128 rows does 128x the FLOPs per byte; at tensor-core rates it
 // would still be memory-bound, but this first version computes with
 // CUDA-core f32 FMAs, which makes the extend case compute-bound.
+//
+// A paged call is bound by the same bytes: the K/V of the live pages
+// (plus an int32 [B, NP] table, noise beside them). The page id is
+// looked up per key, not per tile, so a 32-key tile may straddle pages
+// of any size (8, 16, 64 tokens); the dead-tile test runs on virtual
+// slots before any table or pool load, exactly as in the contiguous
+// body. With the same virtual length, a paged call and a contiguous call
+// over the same bytes do the same arithmetic in the same order, so their
+// outputs are bit-identical. Page ids are trusted (as in Pallas): the
+// plain PyTorch version is where an out-of-range id raises.
 //
 // What the design does about it:
 //   * the grid is (splits, KVH * row-chunks, B), and the wrapper picks
@@ -70,14 +88,29 @@ struct Params {
   const float* ks;      // [B, L, KVH] scales (int8 format only)
   const float* vs;
   const uint8_t* mask;  // [B, U, L] bool, nonzero = attend
+  const int* table;     // [B, NP] pool page ids (paged entry points only)
   float* acc;           // [B, S, KVH * U * group, D]
   float* m;             // [B, S, KVH * U * group]
   float* l;
   void* out;            // [B, U, H, D] in T, contiguous
   long long q_sb, q_su, q_sh;
   int B, U, H, KVH, L, S, tiles_per_split, row_chunks;
+  int page, NP;         // paged: L == NP * page
   float scale;
 };
+
+// Row (in units of D elements) of key `key`, head j, batch row b: the
+// contiguous layout, or the pool row that the page table maps it to.
+template <bool PAGED>
+__device__ __forceinline__ size_t kv_row(const Params& p, int b, int key,
+                                         int j) {
+  if constexpr (PAGED) {
+    const int pid = p.table[static_cast<size_t>(b) * p.NP + key / p.page];
+    return (static_cast<size_t>(pid) * p.page + key % p.page) * p.KVH + j;
+  } else {
+    return (static_cast<size_t>(b) * p.L + key) * p.KVH + j;
+  }
+}
 
 template <typename T> struct Ops;
 
@@ -123,7 +156,7 @@ template <> struct Ops<__nv_bfloat16> {
 
 // Load one [kTileKeys, D] tile of K or V for head j into shared memory
 // as f32 (dequantised for the int8 format). Keys at or past L load 0.
-template <typename T, bool QUANT, int D, int STRIDE>
+template <typename T, bool QUANT, bool PAGED, int D, int STRIDE>
 __device__ void load_tile(const Params& p, const void* src,
                           const float* scales, int b, int j, int key0,
                           float (*dst)[STRIDE]) {
@@ -134,7 +167,7 @@ __device__ void load_tile(const Params& p, const void* src,
       int t = idx / kVecs, c = idx % kVecs, key = key0 + t;
       float vals[kPer];
       if (key < p.L) {
-        size_t off = ((static_cast<size_t>(b) * p.L + key) * p.KVH + j);
+        const size_t off = kv_row<PAGED>(p, b, key, j);
         uint4 raw = *reinterpret_cast<const uint4*>(
             static_cast<const int8_t*>(src) + off * D + c * kPer);
         float s = scales[off];
@@ -155,7 +188,7 @@ __device__ void load_tile(const Params& p, const void* src,
       int t = idx / kVecs, c = idx % kVecs, key = key0 + t;
       float vals[kPer];
       if (key < p.L) {
-        size_t off = ((static_cast<size_t>(b) * p.L + key) * p.KVH + j);
+        const size_t off = kv_row<PAGED>(p, b, key, j);
         uint4 raw = *reinterpret_cast<const uint4*>(
             static_cast<const T*>(src) + off * D + c * kPer);
         Ops<T>::unpack(raw, vals);
@@ -182,7 +215,7 @@ __device__ float warp_sum(float x) {
   return x;
 }
 
-template <typename T, bool QUANT, int D>
+template <typename T, bool QUANT, bool PAGED, int D>
 __global__ void __launch_bounds__(kThreads)
     splitk_attention_kernel(Params p) {
   constexpr int kPerLane = D / 32;  // output columns each lane owns
@@ -231,8 +264,8 @@ __global__ void __launch_bounds__(kThreads)
     // Also the barrier that keeps the previous tile's readers ahead of
     // this tile's writers.
     if (!__syncthreads_or(live)) continue;  // dead tile: no load, no math
-    load_tile<T, QUANT, D, D + 1>(p, p.k, p.ks, b, j, key0, k_s);
-    load_tile<T, QUANT, D, D>(p, p.v, p.vs, b, j, key0, v_s);
+    load_tile<T, QUANT, PAGED, D, D + 1>(p, p.k, p.ks, b, j, key0, k_s);
+    load_tile<T, QUANT, PAGED, D, D>(p, p.v, p.vs, b, j, key0, v_s);
     __syncthreads();
 
     const int key = key0 + lane;
@@ -314,13 +347,14 @@ __global__ void splitk_merge_kernel(Params p, int D) {
                          d] = Ops<T>::store(o);
 }
 
-template <typename T, bool QUANT>
+template <typename T, bool QUANT, bool PAGED>
 int launch_d(const Params& p, int D, cudaStream_t stream) {
   dim3 grid(p.S, p.KVH * p.row_chunks, p.B);
   // The one head dim a served model has (GPT-2 small: 64). D = 128 would
   // need a dynamic-shared-memory variant, left for a later version.
   if (D != 64) return static_cast<int>(cudaErrorInvalidValue);
-  splitk_attention_kernel<T, QUANT, 64><<<grid, kThreads, 0, stream>>>(p);
+  splitk_attention_kernel<T, QUANT, PAGED, 64>
+      <<<grid, kThreads, 0, stream>>>(p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 mgrid(p.KVH * p.U * (p.H / p.KVH), p.B);
@@ -328,10 +362,19 @@ int launch_d(const Params& p, int D, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, bool PAGED>
+int launch_t(const Params& p, int quant, int D, cudaStream_t s) {
+  return quant ? launch_d<T, true, PAGED>(p, D, s)
+               : launch_d<T, false, PAGED>(p, D, s);
+}
+
+// table == NULL: the contiguous layout, L keys per row. Otherwise the
+// paged layout: L == NP * page virtual slots per row.
 int launch(const void* q, const void* k, const void* v, const void* ks,
-           const void* vs, const void* mask, void* partials, void* out,
-           long long q_sb, long long q_su, long long q_sh, int dtype,
-           int quant, int B, int U, int H, int KVH, int L, int D, int S,
+           const void* vs, const void* table, const void* mask,
+           void* partials, void* out, long long q_sb, long long q_su,
+           long long q_sh, int dtype, int quant, int B, int U, int H,
+           int KVH, int L, int NP, int page, int D, int S,
            int tiles_per_split, int row_chunks, float scale, void* stream) {
   Params p;
   const size_t n_rows = static_cast<size_t>(B) * S * KVH * U * (H / KVH);
@@ -341,6 +384,7 @@ int launch(const void* q, const void* k, const void* v, const void* ks,
   p.ks = static_cast<const float*>(ks);
   p.vs = static_cast<const float*>(vs);
   p.mask = static_cast<const uint8_t*>(mask);
+  p.table = static_cast<const int*>(table);
   // One scratch buffer: acc [n_rows, D], then m [n_rows], then l.
   p.acc = static_cast<float*>(partials);
   p.m = p.acc + n_rows * D;
@@ -357,25 +401,32 @@ int launch(const void* q, const void* k, const void* v, const void* ks,
   p.S = S;
   p.tiles_per_split = tiles_per_split;
   p.row_chunks = row_chunks;
+  p.page = page;
+  p.NP = NP;
   p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool paged = table != nullptr;
+  if (paged && (page < 1 || NP < 1 || L != NP * page))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0) {
-    return quant ? launch_d<float, true>(p, D, s)
-                 : launch_d<float, false>(p, D, s);
+    return paged ? launch_t<float, true>(p, quant, D, s)
+                 : launch_t<float, false>(p, quant, D, s);
   }
   if (dtype == 1) {
-    return quant ? launch_d<__nv_bfloat16, true>(p, D, s)
-                 : launch_d<__nv_bfloat16, false>(p, D, s);
+    return paged ? launch_t<__nv_bfloat16, true>(p, quant, D, s)
+                 : launch_t<__nv_bfloat16, false>(p, quant, D, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// Both entry points: q (strides q_sb, q_su, q_sh in elements, last dim
+// Every entry point: q (strides q_sb, q_su, q_sh in elements, last dim
 // contiguous), k, v (payloads), ks, vs (int8 scales or NULL), mask (bool
 // [B, U, L]), partials (f32 scratch of B*S*H*U*(D+2) floats), out (the
-// [B, U, H, D] result in q's dtype). dtype: 0 f32, 1 bf16.
+// [B, U, H, D] result in q's dtype). dtype: 0 f32, 1 bf16. The paged
+// entry points take k, v, ks, vs as pools [P, page, KVH, D | 1], the
+// int32 page table [B, NP] and L = NP * page virtual slots.
 extern "C" {
 
 // B1: one query row per batch row (U = 1).
@@ -387,9 +438,9 @@ int mlapi_decode_attention(const void* q, const void* k, const void* v,
                            int D, int S, int tiles_per_split, int row_chunks,
                            float scale, void* stream) {
   if (U != 1) return static_cast<int>(cudaErrorInvalidValue);
-  return launch(q, k, v, ks, vs, mask, partials, out, q_sb, q_su, q_sh, dtype,
-                quant, B, 1, H, KVH, L, D, S, tiles_per_split, row_chunks,
-                scale, stream);
+  return launch(q, k, v, ks, vs, nullptr, mask, partials, out, q_sb, q_su,
+                q_sh, dtype, quant, B, 1, H, KVH, L, 0, 0, D, S,
+                tiles_per_split, row_chunks, scale, stream);
 }
 
 // B2: U query rows per batch row, the causal span structure in the mask.
@@ -400,9 +451,37 @@ int mlapi_extend_attention(const void* q, const void* k, const void* v,
                            int quant, int B, int U, int H, int KVH, int L,
                            int D, int S, int tiles_per_split, int row_chunks,
                            float scale, void* stream) {
-  return launch(q, k, v, ks, vs, mask, partials, out, q_sb, q_su, q_sh, dtype,
-                quant, B, U, H, KVH, L, D, S, tiles_per_split, row_chunks,
-                scale, stream);
+  return launch(q, k, v, ks, vs, nullptr, mask, partials, out, q_sb, q_su,
+                q_sh, dtype, quant, B, U, H, KVH, L, 0, 0, D, S,
+                tiles_per_split, row_chunks, scale, stream);
+}
+
+// B3: B1 over pool pages, through the page table.
+int mlapi_paged_decode_attention(
+    const void* q, const void* k, const void* v, const void* ks,
+    const void* vs, const void* table, const void* mask, void* partials,
+    void* out, long long q_sb, long long q_su, long long q_sh, int dtype,
+    int quant, int B, int U, int H, int KVH, int NP, int page, int D, int S,
+    int tiles_per_split, int row_chunks, float scale, void* stream) {
+  if (U != 1 || table == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch(q, k, v, ks, vs, table, mask, partials, out, q_sb, q_su,
+                q_sh, dtype, quant, B, 1, H, KVH, NP * page, NP, page, D, S,
+                tiles_per_split, row_chunks, scale, stream);
+}
+
+// B4: B2 over pool pages; a span may start mid-page and cross pages (the
+// [B, U, NP * page] mask carries that).
+int mlapi_paged_extend_attention(
+    const void* q, const void* k, const void* v, const void* ks,
+    const void* vs, const void* table, const void* mask, void* partials,
+    void* out, long long q_sb, long long q_su, long long q_sh, int dtype,
+    int quant, int B, int U, int H, int KVH, int NP, int page, int D, int S,
+    int tiles_per_split, int row_chunks, float scale, void* stream) {
+  if (table == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch(q, k, v, ks, vs, table, mask, partials, out, q_sb, q_su,
+                q_sh, dtype, quant, B, U, H, KVH, NP * page, NP, page, D, S,
+                tiles_per_split, row_chunks, scale, stream);
 }
 
 }  // extern "C"

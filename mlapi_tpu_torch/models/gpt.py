@@ -19,7 +19,11 @@ the cache; here the decode and extend functions (``decode_step``,
 write into the cache tensors IN PLACE and hand the same dict back. With
 ``decode_attn_impl="flash"`` every cache read goes through the CUDA
 split-K kernels (``ops/cuda/decode_attention``): single-token steps
-through flash-decode, multi-token spans through flash-extend.
+through flash-decode, multi-token spans through flash-extend, each in
+its contiguous or paged form after the cache's layout. The paged
+serving lifecycle uses :func:`paged_prefill_fn` and
+:func:`paged_extend_fn`, which write through the page table into the
+pool tensors in place.
 """
 
 from __future__ import annotations
@@ -37,8 +41,10 @@ from mlapi_tpu_torch.ops.quant import (
     KV_FORMATS,
     init_kv_cache,
     kv_cache_append,
+    kv_cache_coords,
     kv_cache_kv,
     kv_cache_seq_len,
+    kv_is_paged_layer,
     kv_is_quantized_layer,
 )
 from mlapi_tpu_torch.utils.platform import resolve_device
@@ -271,6 +277,7 @@ class GptLM(nn.Module):
         pos_idx = torch.clamp(ar - n_pad[:, None], min=0)
         x = self.wte[prompt_ids] + self.wpe[pos_idx]
         mask = (ar >= n_pad[:, None]).to(torch.float32)
+        coords = kv_cache_coords(cache, pos0, p)
         for n in range(self.num_layers):
             seen = {}
 
@@ -282,7 +289,7 @@ class GptLM(nn.Module):
             # The prompt attends full-precision in-register; only the
             # stored cache is quantized, at this append.
             kv_cache_append(cache[f"layer_{n}"], seen["k"], seen["v"],
-                            pos0, self.cdt)
+                            pos0, self.cdt, coords)
         return cache, self._logits(x[:, -1])
 
     def decode_step(self, cache, token_ids, pos, n_pad=None,
@@ -301,11 +308,13 @@ class GptLM(nn.Module):
         )
         posq = torch.clamp(pos - shift, min=0)
         x = self.wte[token_ids] + self.wpe[posq][:, None, :]
+        coords = kv_cache_coords(cache, pos, 1)
         for n in range(self.num_layers):
             def attend(q, k_new, v_new, _n=n):
                 ctx, _ = cached_attend(
                     cache[f"layer_{_n}"], q, k_new, v_new, pos, valid,
                     self.cdt, self.head_dim, impl=self.decode_attn_impl,
+                    coords=coords,
                 )
                 return ctx
 
@@ -325,11 +334,13 @@ class GptLM(nn.Module):
             max_len, u, pos0, n_pad, prefix_len, prefix_lo
         )
         x = self.wte[token_ids] + self.wpe[posq]
+        coords = kv_cache_coords(cache, pos0, u)
         for n in range(self.num_layers):
             def attend(q, k_new, v_new, _n=n):
                 ctx, _ = cached_attend(
                     cache[f"layer_{_n}"], q, k_new, v_new, pos0, mask,
                     self.cdt, self.head_dim, impl=self.decode_attn_impl,
+                    coords=coords,
                 )
                 return ctx
 
@@ -399,21 +410,28 @@ def _is_vector(x) -> bool:
 
 
 def cached_attend(cache_layer, q, k_new, v_new, pos, valid, cdt, head_dim,
-                  impl: str = "einsum"):
+                  impl: str = "einsum", coords=None):
     """Attention against a fixed-shape KV cache, shared by decode steps
     and extend spans: append the new K/V at ``pos`` (in place, BEFORE
-    the read), then attend ``q [B, U, H, D]`` to the whole cache under
-    ``valid`` (``[B, 1, U, L]``). Returns ``(ctx, cache_layer)``.
+    the read; a paged layer's pool ``coords`` come from the caller,
+    computed once for all layers), then attend ``q [B, U, H, D]`` to the
+    whole cache under ``valid`` (``[B, 1, U, L]``). Returns ``(ctx,
+    cache_layer)``.
 
     ``impl="einsum"`` is the reference oracle: the cache dequantizes at
-    the read seam and two einsums attend. ``impl="flash"`` hands the
-    STORED cache (int8 payload + scales, or the compute-dtype tensors)
-    to the CUDA kernels: flash-decode for ``U == 1``, flash-extend for
-    multi-token spans. (The JAX function's ``expand`` for GQA families
-    arrives with Llama.)"""
-    from mlapi_tpu_torch.ops.cuda import decode_attention, extend_attention
+    the read seam (a paged layer gathers its pages first) and two
+    einsums attend. ``impl="flash"`` hands the STORED cache (int8
+    payload + scales, or the compute-dtype tensors) to the CUDA
+    kernels: flash-decode for ``U == 1``, flash-extend for multi-token
+    spans; a paged layer's pools and table go to their paged twins,
+    which read the pages in place. (The JAX function's ``expand`` for
+    GQA families arrives with Llama.)"""
+    from mlapi_tpu_torch.ops.cuda import (
+        decode_attention, extend_attention, paged_decode_attention,
+        paged_extend_attention,
+    )
 
-    layer = kv_cache_append(cache_layer, k_new, v_new, pos, cdt)
+    layer = kv_cache_append(cache_layer, k_new, v_new, pos, cdt, coords)
     if impl == "flash":
         if kv_is_quantized_layer(layer):
             k = {"q": layer["k_q"], "scale": layer["k_scale"]}
@@ -421,10 +439,14 @@ def cached_attend(cache_layer, q, k_new, v_new, pos, valid, cdt, head_dim,
         else:
             k, v = layer["k"], layer["v"]
         scale = 1.0 / head_dim**0.5
-        if q.shape[1] == 1:
-            ctx = decode_attention(q, k, v, valid[:, 0, 0, :], scale=scale)
+        u = q.shape[1]
+        mask = valid[:, 0, 0, :] if u == 1 else valid[:, 0]
+        if kv_is_paged_layer(layer):
+            fn = paged_decode_attention if u == 1 else paged_extend_attention
+            ctx = fn(q, k, v, layer["table"], mask, scale=scale)
         else:
-            ctx = extend_attention(q, k, v, valid[:, 0], scale=scale)
+            fn = decode_attention if u == 1 else extend_attention
+            ctx = fn(q, k, v, mask, scale=scale)
         return ctx, layer
     ck, cv = kv_cache_kv(layer, cdt)
     scores = torch.einsum(
@@ -585,6 +607,32 @@ def extend_chunk_fn(model, cache, chunk_ids, pos0: int, n_pad):
     cache updated IN PLACE. Returns ``(cache, last_logits)``; callers
     sample the final chunk's logits with :func:`sample_fn`."""
     return model.extend_core(cache, chunk_ids, pos0, n_pad, 0, 0)
+
+
+@torch.no_grad()
+def paged_prefill_fn(model, cache, prompt_ids, off: int, seeds, temps,
+                     n_pad, top_k, top_p):
+    """Page-native prefill + first token: the same full causal forward
+    as :func:`prefill_fn` (the prompt attends in full precision, no
+    kernel), with the K/V append written through ``cache``'s page table
+    at VIRTUAL slot ``off`` (the row's bucket start) into the pool
+    tensors, in place. ``n_pad`` is the row's LOCAL pad count (``bucket
+    - used``): positions are ``local_slot - n_pad``, whatever ``off``.
+    Returns ``(first_tok [R], cache)``."""
+    cache, logits = model.prefill_core(prompt_ids, n_pad, 0, cache=cache,
+                                       pos0=off)
+    return _pick_token(temps, logits, seeds, 0, top_k, top_p), cache
+
+
+@torch.no_grad()
+def paged_extend_fn(model, cache, chunk_ids, pos0: int, n_pad,
+                    prefix_len=0, lo=0):
+    """One ``[B, width]`` block forward against a PAGED cache at slot
+    ``pos0`` (``extend_core``), pools written in place: the chunked
+    long-prompt prefill of a paged engine (``prefix_len = lo = 0``).
+    Returns ``(cache, last_logits)``; callers sample the final block's
+    logits with :func:`sample_fn`."""
+    return model.extend_core(cache, chunk_ids, pos0, n_pad, prefix_len, lo)
 
 
 def sample_fn(logits, seeds, temps, top_k, top_p):

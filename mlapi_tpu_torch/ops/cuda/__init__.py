@@ -11,6 +11,10 @@ from mlapi_tpu_torch.ops.cuda.decode_attention import (
     decode_attention_plain,
     extend_attention,
     extend_attention_plain,
+    paged_decode_attention,
+    paged_decode_attention_plain,
+    paged_extend_attention,
+    paged_extend_attention_plain,
 )
 
 __all__ = [
@@ -18,4 +22,8 @@ __all__ = [
     "decode_attention_plain",
     "extend_attention",
     "extend_attention_plain",
+    "paged_decode_attention",
+    "paged_decode_attention_plain",
+    "paged_extend_attention",
+    "paged_extend_attention_plain",
 ]

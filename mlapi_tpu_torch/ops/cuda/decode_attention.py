@@ -1,17 +1,22 @@
-"""Flash-decode (B1) and flash-extend (B2): split-K attention that reads
-the stored KV cache, int8 payload included, inside a CUDA kernel.
+"""Flash-decode (B1), flash-extend (B2) and their paged twins (B3, B4):
+split-K attention that reads the stored KV cache, int8 payload
+included, inside a CUDA kernel.
 
 Counterpart of ``mlapi_tpu/ops/pallas/decode_attention.py``
-(``decode_attention`` / ``extend_attention``). The kernel is
-``csrc/decode_attention.cu``; its source note says what bounds it on
-an H100 and what the design does about that. Here are the public
-functions, with the JAX layouts kept:
+(``decode_attention`` / ``extend_attention`` / ``paged_decode_attention``
+/ ``paged_extend_attention``). The kernel is ``csrc/decode_attention.cu``;
+its source note says what bounds it on an H100 and what the design does
+about that. Here are the public functions, with the JAX layouts kept:
 
 - ``q``: ``[B, 1, H, D]`` (decode) or ``[B, U, H, D]`` (extend);
 - ``k``/``v``: ``[B, L, KVH, D]`` tensors, or int8 ``{"q", "scale"}``
-  pairs with ``scale f32[B, L, KVH, 1]``;
+  pairs with ``scale f32[B, L, KVH, 1]``; for the paged functions,
+  pools ``[P, page, KVH, D]`` (int8 pairs with ``scale f32[P, page,
+  KVH, 1]``) plus an int32 page ``table [B, NP]``: virtual slot ``s``
+  of row ``b`` is ``pool[table[b, s // page], s % page]``;
 - ``mask``: binary ``[B, L]`` (decode) or ``[B, U, L]`` (extend, with
-  the causal intra-span structure encoded in it);
+  the causal intra-span structure encoded in it), over virtual slots
+  (``L = NP * page``) for the paged functions;
 - result in ``q.dtype``, same shape as ``q``.
 
 For a CUDA tensor a wrapper launches its kernel or raises; it runs the
@@ -30,7 +35,7 @@ import functools
 import torch
 
 from mlapi_tpu_torch.ops.attention import NEG
-from mlapi_tpu_torch.ops.quant import _is_quant_leaf
+from mlapi_tpu_torch.ops.quant import _is_quant_leaf, kv_gather_pages
 
 _TILE_KEYS = 32   # keys per tile in the kernel
 _ROW_CHUNK = 32   # query rows per block in the kernel
@@ -50,7 +55,7 @@ def _unpack(x):
     return x, None
 
 
-def _operands(q, k, v, mask, decode: bool):
+def _operands(q, k, v, mask, decode: bool, table=None):
     kq, ks = _unpack(k)
     vq, vs = _unpack(v)
     if (ks is None) != (vs is None):
@@ -61,7 +66,17 @@ def _operands(q, k, v, mask, decode: bool):
             f"cache shapes disagree with q: k {tuple(kq.shape)}, "
             f"v {tuple(vq.shape)}, q {tuple(q.shape)}"
         )
-    lk, kvh = kq.shape[1], kq.shape[2]
+    kvh = kq.shape[2]
+    if table is None:
+        lk = kq.shape[1]
+    else:
+        if table.ndim != 2 or table.shape[0] != b:
+            raise ValueError(
+                f"page table {tuple(table.shape)} must be [B={b}, NP]"
+            )
+        if table.dtype != torch.int32:
+            raise ValueError(f"page table must be int32, got {table.dtype}")
+        lk = table.shape[1] * kq.shape[1]   # virtual slots: NP * page
     if h % kvh:
         raise ValueError(
             f"query heads ({h}) must be a multiple of kv heads ({kvh})"
@@ -71,6 +86,8 @@ def _operands(q, k, v, mask, decode: bool):
         raise ValueError(
             f"mask {tuple(mask.shape)} must be {list(want)} "
             + ("[B, L]" if decode else "[B, U, L] (per span position)")
+            + (" over the virtual layout NP * page" if table is not None
+               else "")
         )
     return kq, ks, vq, vs
 
@@ -157,23 +174,72 @@ def extend_attention_plain(q, k, v, mask, *, scale=None,
     )
 
 
+def paged_decode_attention_plain(q, k, v, table, mask, *, scale=None):
+    """B3's plain version: gather ``pool[table]`` and run the split-K
+    algorithm with one tile per page (the Pallas paged tiling)."""
+    kq, ks, vq, vs = _operands(q, k, v, mask, True, table)
+    scale = (1.0 / q.shape[-1] ** 0.5) if scale is None else scale
+    return _paged_plain(q, kq, ks, vq, vs, table, mask[:, None, :], scale)
+
+
+def paged_extend_attention_plain(q, k, v, table, mask, *, scale=None):
+    """B4's plain version: gather ``pool[table]`` and run the split-K
+    algorithm with one tile per page (the Pallas paged tiling)."""
+    kq, ks, vq, vs = _operands(q, k, v, mask, False, table)
+    scale = (1.0 / q.shape[-1] ** 0.5) if scale is None else scale
+    return _paged_plain(q, kq, ks, vq, vs, table, mask, scale)
+
+
+def _paged_plain(q, kq, ks, vq, vs, table, mask3, scale):
+    page = kq.shape[1]
+
+    def gathered(payload, sc):
+        return _dequant(
+            kv_gather_pages(payload, table),
+            None if sc is None else kv_gather_pages(sc, table), q.dtype,
+        )
+
+    return _splitk_plain(
+        q, gathered(kq, ks), gathered(vq, vs), mask3, scale, page,
+    )
+
+
+_ARGTYPES = {
+    # q, k, v, ks, vs, mask, partials, out | 3 strides | dtype, quant,
+    # B, U, H, KVH, L, D, S, tiles_per_split, row_chunks | scale, stream
+    "contiguous": (
+        [ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 3
+        + [ctypes.c_int] * 11 + [ctypes.c_float, ctypes.c_void_p]
+    ),
+    # q, k, v, ks, vs, table, mask, partials, out | 3 strides | dtype,
+    # quant, B, U, H, KVH, NP, page, D, S, tiles_per_split, row_chunks
+    # | scale, stream
+    "paged": (
+        [ctypes.c_void_p] * 9 + [ctypes.c_longlong] * 3
+        + [ctypes.c_int] * 12 + [ctypes.c_float, ctypes.c_void_p]
+    ),
+}
+_ENTRY_LAYOUT = {
+    "mlapi_decode_attention": "contiguous",
+    "mlapi_extend_attention": "contiguous",
+    "mlapi_paged_decode_attention": "paged",
+    "mlapi_paged_extend_attention": "paged",
+}
+
+
 @functools.cache
 def _entries():
-    """The two entry points of the kernel library, argtypes set once:
+    """The four entry points of the kernel library, argtypes set once:
     pointers and the stream as ``c_void_p`` (so none is cut to 32
     bits), q's three strides as ``c_longlong``, the rest ``c_int`` and
     the scale ``c_float``."""
     from mlapi_tpu_torch.ops.cuda import build
 
     lib = build.load("decode_attention")
-    argtypes = (
-        [ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 3
-        + [ctypes.c_int] * 11 + [ctypes.c_float, ctypes.c_void_p]
-    )
     out = {}
-    for name in ("mlapi_decode_attention", "mlapi_extend_attention"):
+    for name, layout in _ENTRY_LAYOUT.items():
         fn = getattr(lib, name)
-        fn.argtypes = argtypes
+        fn.argtypes = _ARGTYPES[layout]
         fn.restype = ctypes.c_int
         out[name] = fn
     return out
@@ -184,11 +250,13 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _launch(entry: str, q, kq, ks, vq, vs, mask3, scale):
+def _launch(entry: str, q, kq, ks, vq, vs, mask3, scale, table=None):
     """Validate, then one C call: the split kernel and its merge →
-    ``[B, U, H, D]`` in ``q.dtype``."""
+    ``[B, U, H, D]`` in ``q.dtype``. ``table`` selects the paged
+    layout (``kq`` etc. are then pools)."""
     b, u, h, d = q.shape
-    lk, kvh = kq.shape[1], kq.shape[2]
+    kvh = kq.shape[2]
+    lk = kq.shape[1] if table is None else table.shape[1] * kq.shape[1]
     quant = ks is not None
     if d not in _KERNEL_HEAD_DIMS:
         raise ValueError(
@@ -208,10 +276,10 @@ def _launch(entry: str, q, kq, ks, vq, vs, mask3, scale):
     if mask3.dtype != torch.bool:
         mask3 = mask3 != 0
     mask3 = mask3.contiguous()
-    for t in (q, kq, ks, vq, vs, mask3):
+    for t in (q, kq, ks, vq, vs, mask3, table):
         if t is not None and t.device.type != "cuda":
             raise ValueError(f"{entry}: every operand must be on the card")
-    for t in (kq, ks, vq, vs):
+    for t in (kq, ks, vq, vs, table):
         if t is not None and not t.is_contiguous():
             raise ValueError(f"{entry}: cache operands must be contiguous")
     if kq.data_ptr() % 16 or vq.data_ptr() % 16:
@@ -229,12 +297,18 @@ def _launch(entry: str, q, kq, ks, vq, vs, mask3, scale):
         device=q.device,
     )
     out = torch.empty((b, u, h, d), dtype=q.dtype, device=q.device)
+    if table is None:
+        layout = [mask3.data_ptr()]
+        dims = [lk]
+    else:
+        layout = [table.data_ptr(), mask3.data_ptr()]
+        dims = [table.shape[1], kq.shape[1]]          # NP, page
     rc = _entries()[entry](
         q.data_ptr(), kq.data_ptr(), vq.data_ptr(),
         ks.data_ptr() if quant else None, vs.data_ptr() if quant else None,
-        mask3.data_ptr(), partials.data_ptr(), out.data_ptr(),
+        *layout, partials.data_ptr(), out.data_ptr(),
         q.stride(0), q.stride(1), q.stride(2),
-        _DTYPE_CODES[q.dtype], int(quant), b, u, h, kvh, lk, d, splits,
+        _DTYPE_CODES[q.dtype], int(quant), b, u, h, kvh, *dims, d, splits,
         per_split, row_chunks, float(scale),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
@@ -275,5 +349,47 @@ def extend_attention(q, k, v, mask, *, scale=None):
     return out
 
 
+def paged_decode_attention(q, k, v, table, mask, *, scale=None):
+    """Page-table flash-decode (B3): ``q [B, 1, H, D]`` against pools
+    ``[P, page, KVH, D]`` (or int8 pool pairs) through ``table int32[B,
+    NP]``, ``mask [B, NP * page]`` over virtual slots → ``[B, 1, H,
+    D]``. CUDA tensors launch the kernel; CPU tensors run
+    :func:`paged_decode_attention_plain`."""
+    if q.shape[1] != 1:
+        raise ValueError(
+            f"paged_decode_attention takes one query per row (got q "
+            f"{tuple(q.shape)}); multi-token spans go to "
+            "paged_extend_attention"
+        )
+    kq, ks, vq, vs = _operands(q, k, v, mask, True, table)
+    scale = (1.0 / q.shape[-1] ** 0.5) if scale is None else scale
+    if q.device.type == "cpu":
+        return paged_decode_attention_plain(q, k, v, table, mask,
+                                            scale=scale)
+    out = _launch("mlapi_paged_decode_attention", q, kq, ks, vq, vs,
+                  mask[:, None, :], scale, table)
+    paged_decode_attention.launches += 1
+    return out
+
+
+def paged_extend_attention(q, k, v, table, mask, *, scale=None):
+    """Page-table flash-extend (B4): ``q [B, U, H, D]`` against pools
+    through ``table int32[B, NP]``, ``mask [B, U, NP * page]`` → ``[B,
+    U, H, D]``. A span may start mid-page and cross pages; the mask
+    carries that. CUDA tensors launch the kernel; CPU tensors run
+    :func:`paged_extend_attention_plain`."""
+    kq, ks, vq, vs = _operands(q, k, v, mask, False, table)
+    scale = (1.0 / q.shape[-1] ** 0.5) if scale is None else scale
+    if q.device.type == "cpu":
+        return paged_extend_attention_plain(q, k, v, table, mask,
+                                            scale=scale)
+    out = _launch("mlapi_paged_extend_attention", q, kq, ks, vq, vs, mask,
+                  scale, table)
+    paged_extend_attention.launches += 1
+    return out
+
+
 decode_attention.launches = 0
 extend_attention.launches = 0
+paged_decode_attention.launches = 0
+paged_extend_attention.launches = 0

@@ -1,9 +1,19 @@
-"""The KV-cache formats: full precision and int8 payload + f32 scales.
+"""The KV-cache formats and layouts: full precision or int8 payload +
+f32 scales, contiguous or paged.
 
 Counterpart of the KV subset of ``mlapi_tpu/ops/quant.py``. A cache
 layer is a dict of tensors: ``{"k", "v"}`` in the compute dtype, or
 ``{"k_q", "k_scale", "v_q", "v_scale"}`` for ``kv_quant="int8"``
 (symmetric per-token-per-head int8, ``scale f32[B, L, H, 1]``).
+
+The paged layout keeps the same key names with POOL-shaped leaves
+``[P, page, H, D]`` and adds the layer's page table, ``{"k": ...,
+"v": ..., "table": int32[B, NP]}``: virtual slot ``s`` of row ``b``
+lives at ``pool[table[b, s // page], s % page]``. Page id 0 is the
+null page: unallocated table entries point at it, dummy and finished
+rows write their dead tokens into it, and no row reads it unmasked.
+The presence of ``"table"`` is the one paged predicate. Allocation and
+refcounts are host bookkeeping (``serving/paged_pool.py``).
 
 Unlike the JAX package, whose jitted programs donate the cache and get
 a new one back, :func:`kv_cache_append` writes into the layer's
@@ -18,6 +28,7 @@ even, clip to ±127.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 KV_FORMATS = ("none", "int8")
@@ -29,6 +40,107 @@ def _is_quant_leaf(x) -> bool:
 
 def kv_is_quantized_layer(layer: dict) -> bool:
     return "k_q" in layer
+
+
+KV_PAGED_NULL = 0  # reserved pool page id: unallocated / dead writes
+
+
+def kv_is_paged_layer(layer: dict) -> bool:
+    """Is this per-layer cache dict in the paged (pool + table)
+    layout?"""
+    return isinstance(layer, dict) and "table" in layer
+
+
+def kv_layer_page_size(layer: dict) -> int:
+    """Tokens per page of a paged layer (pool dim 1)."""
+    leaf = layer["k_q"] if kv_is_quantized_layer(layer) else layer["k"]
+    return leaf.shape[1]
+
+
+def _paged_coords(layer: dict, pos, u: int):
+    """``(pids, offs)``, both ``[B, u]`` long, for virtual slots ``[pos,
+    pos + u)`` (``pos`` an int or a per-row ``[B]`` tensor) of every
+    row."""
+    table = layer["table"]
+    page = kv_layer_page_size(layer)
+    b = table.shape[0]
+    ar = torch.arange(u, device=table.device)
+    if isinstance(pos, torch.Tensor) and pos.ndim == 1:
+        vpos = pos.to(table.device, torch.long)[:, None] + ar[None, :]
+    else:
+        vpos = (int(pos) + ar)[None, :].expand(b, u)
+    pids = torch.gather(table, 1, vpos // page).long()
+    return pids, vpos % page
+
+
+def kv_cache_coords(cache: dict, pos, u: int):
+    """The pool coordinates of a ``u``-token append at slot ``pos`` for
+    a whole paged cache (every layer shares one page table), or ``None``
+    for a contiguous cache: a forward computes them once and hands them
+    to each layer's :func:`kv_cache_append`."""
+    layer = cache["layer_0"]
+    return _paged_coords(layer, pos, u) if kv_is_paged_layer(layer) else None
+
+
+def kv_gather_pages(pool, table):
+    """``pool [P, page, ...]`` through ``table [B, NP]`` → the
+    contiguous ``[B, NP * page, ...]`` layout (``pool[table]``). Page
+    ids are checked on the CPU, so an id outside ``[0, P)`` raises
+    ``IndexError``. (On the card the check would be a host sync, which
+    CUDA graph capture refuses; the gather's own device-side bounds
+    check stands.)"""
+    n = pool.shape[0]
+    if table.device.type == "cpu" and table.numel() and (
+        int(table.min()) < 0 or int(table.max()) >= n
+    ):
+        bad = table[(table < 0) | (table >= n)]
+        raise IndexError(
+            f"page id {int(bad[0])} out of range for a pool of {n} pages"
+        )
+    g = pool[table.long()]                            # [B, NP, page, ...]
+    return g.reshape((g.shape[0], -1) + tuple(g.shape[3:]))
+
+
+def make_paged_pools(model, num_pages: int, page_size: int) -> dict:
+    """Zeroed device page pools for every layer of ``model``'s cache
+    format: each ``[1, page, H, D]``-shaped cache leaf becomes a
+    ``[num_pages, page, H, D]`` pool (int8 scales ride along). Page 0
+    is the null page; callers never allocate it."""
+    return model.init_cache(num_pages, page_size)
+
+
+def paged_cache_tree(pools: dict, table) -> dict:
+    """The paged cache a decode/extend/prefill call takes: every
+    layer's pool tensors (the SAME tensors, written in place) plus the
+    page table, freshly uploaded from the host ``[B, NP]`` array (the
+    source of truth). A new upload each time the host table changes:
+    work already enqueued keeps reading the table it was given.
+    ``pools`` may be bare pool layers or an earlier cache (its stale
+    table is replaced)."""
+    pools = paged_pools_of(pools)
+    dev = next(iter(pools["layer_0"].values())).device
+    tab = torch.as_tensor(np.asarray(table, np.int32), device=dev)
+    return {ln: {**layer, "table": tab} for ln, layer in pools.items()}
+
+
+def paged_pools_of(cache: dict) -> dict:
+    """Inverse of :func:`paged_cache_tree`: the pool tensors alone."""
+    return {
+        ln: {n: t for n, t in layer.items() if n != "table"}
+        for ln, layer in cache.items()
+    }
+
+
+def kv_page_bytes(model, page_size: int) -> int:
+    """Exact device bytes of one page across every layer, from dtype
+    and shape arithmetic alone (no memory is allocated)."""
+    return kv_tree_bytes({
+        f"layer_{n}": init_kv_cache(
+            1, page_size, model.num_heads, model.head_dim, model.cdt,
+            model.kv_quant, device="meta",
+        )
+        for n in range(model.num_layers)
+    })
 
 
 def kv_tree_bytes(tree) -> int:
@@ -71,16 +183,31 @@ def _write(buf, upd, pos) -> None:
     buf[:, start:start + u] = upd.to(buf.dtype)
 
 
-def kv_cache_append(layer: dict, k_new, v_new, pos, cdt) -> dict:
+def kv_cache_append(layer: dict, k_new, v_new, pos, cdt,
+                    coords=None) -> dict:
     """Write a ``[B, U, H, D]`` K/V block into ``layer`` at slot ``pos``
     (scalar, or per-row ``[B]``), IN PLACE; returns ``layer``. An int8
-    layer quantizes the block first and writes payload and scales."""
+    layer quantizes the block first and writes payload and scales.
+
+    A paged layer takes one ``index_put_`` per leaf at the table-mapped
+    pool coordinates ``(table[b, v // page], v % page)`` (``coords``,
+    from :func:`kv_cache_coords`, or computed here): a block may span
+    pages, and rows whose table entry is the null page write their dead
+    tokens there (several rows may hit the same null slot in one call;
+    nothing reads it unmasked)."""
     if kv_is_quantized_layer(layer):
         kq, ks = kv_quantize(k_new)
         vq, vs = kv_quantize(v_new)
         updates = {"k_q": kq, "k_scale": ks, "v_q": vq, "v_scale": vs}
     else:
         updates = {"k": k_new.to(cdt), "v": v_new.to(cdt)}
+    if kv_is_paged_layer(layer):
+        if coords is None:
+            coords = _paged_coords(layer, pos, k_new.shape[1])
+        pids, offs = coords
+        for name, upd in updates.items():
+            layer[name].index_put_((pids, offs), upd.to(layer[name].dtype))
+        return layer
     for name, upd in updates.items():
         _write(layer[name], upd, pos)
     return layer
@@ -88,7 +215,13 @@ def kv_cache_append(layer: dict, k_new, v_new, pos, cdt) -> dict:
 
 def kv_cache_kv(layer: dict, cdt):
     """The einsum read seam: a cache layer → ``(k, v)`` in the compute
-    dtype (an int8 layer dequantizes here)."""
+    dtype (an int8 layer dequantizes here). A paged layer gathers its
+    pages into the contiguous ``[B, NP * page, H, D]`` layout first
+    (``pool[table]``): the einsum path over a paged cache is the
+    contiguous oracle with one gather."""
+    if kv_is_paged_layer(layer):
+        layer = {n: kv_gather_pages(t, layer["table"])
+                 for n, t in layer.items() if n != "table"}
     if kv_is_quantized_layer(layer):
         return (
             kv_dequantize(layer["k_q"], layer["k_scale"], cdt),
@@ -98,9 +231,13 @@ def kv_cache_kv(layer: dict, cdt):
 
 
 def kv_cache_seq_len(cache: dict) -> int:
-    """Sequence capacity of a cache (the contiguous buffer length)."""
+    """Sequence capacity of a cache: the contiguous buffer length, or
+    pages per row x page size for the paged layout (the virtual length
+    every mask and position helper sees)."""
     layer = cache["layer_0"]
     leaf = layer["k_q"] if kv_is_quantized_layer(layer) else layer["k"]
+    if kv_is_paged_layer(layer):
+        return layer["table"].shape[1] * leaf.shape[1]
     return leaf.shape[1]
 
 

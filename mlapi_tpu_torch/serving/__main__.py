@@ -4,6 +4,7 @@ The generative subset of ``mlapi_tpu/serving/__main__.py``::
 
     python -m mlapi_tpu_torch.serving --checkpoint DIR \\
         [--kv-quant int8] [--decode-attn-impl flash] \\
+        [--kv-page-size 16 [--kv-pages N]] \\
         [--max-batch N] [--host H] [--port P] [--device cpu]
 
 It runs on the CUDA device unless ``--device cpu`` (or
@@ -23,11 +24,16 @@ from mlapi_tpu_torch.serving.server import Server
 
 
 def build_engine(checkpoint, *, device=None, kv_quant=None,
-                 decode_attn_impl=None, max_batch=None, **kwargs):
+                 decode_attn_impl=None, max_batch=None, kv_page_size=None,
+                 kv_pages=None, **kwargs):
     """The engine the CLI serves, from a checkpoint dir and the CLI's
     options (``None`` keeps the checkpoint's / engine's default)."""
     if max_batch is not None:
         kwargs["max_batch"] = max_batch
+    if kv_page_size is not None:
+        kwargs["kv_page_size"] = kv_page_size
+    if kv_pages is not None:
+        kwargs["kv_pages"] = kv_pages
     return TextGenerationEngine.from_checkpoint(
         checkpoint, device=device, kv_quant=kv_quant,
         decode_attn_impl=decode_attn_impl, **kwargs,
@@ -53,11 +59,26 @@ def parse_args(argv=None):
              "kernels, which read the stored cache in-kernel)",
     )
     parser.add_argument(
+        "--kv-page-size", type=int, default=None,
+        help="paged KV cache: a device pool of pages of this many tokens "
+             "plus per-row page tables, instead of one contiguous cache "
+             "per batch (flash reads pages in place)",
+    )
+    parser.add_argument(
+        "--kv-pages", type=int, default=None,
+        help="with --kv-page-size: pool pages, the null page included "
+             "(default: max_batch slots at the default cache tier). A "
+             "full pool answers 503 with retry-after",
+    )
+    parser.add_argument(
         "--device", choices=["cuda", "cpu"], default=None,
         help="where to run (default: cuda; MLAPI_TPU_PLATFORM=cpu also "
              "selects the CPU)",
     )
-    return parser.parse_args(argv)
+    args = parser.parse_args(argv)
+    if args.kv_pages is not None and args.kv_page_size is None:
+        parser.error("--kv-pages requires --kv-page-size")
+    return args
 
 
 def main(argv=None) -> int:
@@ -65,6 +86,7 @@ def main(argv=None) -> int:
     engine = build_engine(
         args.checkpoint, device=args.device, kv_quant=args.kv_quant,
         decode_attn_impl=args.decode_attn_impl, max_batch=args.max_batch,
+        kv_page_size=args.kv_page_size, kv_pages=args.kv_pages,
     )
     server = Server(build_app(engine), host=args.host, port=args.port)
 

@@ -10,10 +10,14 @@ Counterpart of ``mlapi_tpu/serving/app.py`` for a generative engine:
   ``token_ids`` is the FULL list. The JAX package's ``prefix``,
   ``adapter``, ``tenant`` and ``deadline_ms`` fields are refused with a
   422, since the port does not serve them yet.
-- ``GET /healthz``: liveness, queue depth, model, checkpoint, device.
+- ``GET /healthz``: liveness, queue depth, model, checkpoint, device,
+  and the KV page size and pool size (0 for a contiguous cache).
 - ``GET /metrics``: the request counters and latency histograms, plus
   the JAX package's ``generate.*`` names for what the port has, and the
   CUDA kernels' launch counts under ``kernels``.
+
+An exhausted KV page pool answers 503 with ``retry-after: 1`` (a unary
+request; a stream ends in an error frame), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ from mlapi_tpu_torch.serving.asgi import (
     StreamingResponse,
 )
 from mlapi_tpu_torch.serving.engine import OverloadedError
+from mlapi_tpu_torch.serving.paged_pool import PagePoolExhausted
 from mlapi_tpu_torch.serving.requests import DrainCancelled
 from mlapi_tpu_torch.utils.logging import get_logger
 from mlapi_tpu_torch.utils.metrics import MetricsRegistry
@@ -207,6 +212,9 @@ def _install_generate(app: App, engine) -> None:
                 if isinstance(item, DrainCancelled):
                     raise HTTPError(503, str(item),
                                     headers={"retry-after": "5"})
+                if isinstance(item, PagePoolExhausted):
+                    raise HTTPError(503, str(item),
+                                    headers={"retry-after": "1"})
                 if isinstance(item, Exception):
                     raise item
                 if item is None:
@@ -311,12 +319,14 @@ def _install_common(app: App, engine, registry: MetricsRegistry) -> None:
             ),
             "kv_quant": engine.kv_quant,
             "decode_attn_impl": engine.decode_attn_impl,
+            "kv_page_size": engine.kv_page_size,
+            "kv_pages": engine.kv_pages_total,
             "pid": os.getpid(),
         }
 
     @app.get("/metrics")
     async def metrics():
-        from mlapi_tpu_torch.ops.cuda import decode_attention, extend_attention
+        from mlapi_tpu_torch.ops import cuda as kern
 
         snap = registry.snapshot()
         c = snap["counters"]
@@ -326,6 +336,9 @@ def _install_common(app: App, engine, registry: MetricsRegistry) -> None:
         c["generate.rejected"] = engine.rejected
         c["generate.cancelled_batches"] = engine.cancelled_batches
         c["generate.prefill_chunks"] = engine.prefill_chunks
+        c["generate.admitted"] = engine.admitted
+        c["generate.growths"] = engine.growths
+        c["generate.compactions"] = engine.compactions
         c["generate.faults_injected"] = faults.injected_count()
         g = snap.setdefault("gauges", {})
         g["generate.queue_depth"] = engine.queue_depth
@@ -336,8 +349,13 @@ def _install_common(app: App, engine, registry: MetricsRegistry) -> None:
         g["generate.extend_bytes_per_chunk"] = (
             engine.extend_bytes_per_chunk()
         )
+        g["generate.kv_pages_total"] = engine.kv_pages_total
+        g["generate.kv_pages_in_use"] = engine.kv_pages_in_use
+        g["generate.kv_page_utilization"] = engine.kv_page_utilization
+        g["generate.kv_page_bytes"] = engine.kv_page_bytes()
         snap["kernels"] = {
-            "decode_attention": decode_attention.launches,
-            "extend_attention": extend_attention.launches,
+            name: getattr(kern, name).launches
+            for name in ("decode_attention", "extend_attention",
+                         "paged_decode_attention", "paged_extend_attention")
         }
         return snap

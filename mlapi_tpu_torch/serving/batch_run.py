@@ -1,4 +1,5 @@
-"""One batch's lifecycle: formation, prefill, chained decode chunks.
+"""One batch's lifecycle: formation, prefill, continuous admission,
+chained decode chunks, compaction.
 
 Counterpart of ``mlapi_tpu/serving/batch_run.py::BatchRun``, cut to
 what this port serves:
@@ -7,18 +8,31 @@ what this port serves:
 ``__init__``            formation: bucket/cache tier, host mirrors
                         (``_pack_rows``), batch padding to a power of 2
 ``_prefill``            plain prefill, or chunked prefill of a prompt
-                        past the largest bucket (flash-extend reads)
-``_first_token``        the first token rides the dispatch chain
+                        past the largest bucket (flash-extend reads);
+                        ``_prefill_paged`` for a paged engine
+``_alloc_rows`` et al.  the page lifecycle of a paged engine: rows map
+                        only the pages of slots they reached, released
+                        eagerly when a row finishes
+``_admit_waiting``      mid-batch admission of staged joiners into free
+                        (or grown) rows at a chunk boundary
+``_maybe_shrink``       compaction along the power-of-two chain
 ``_decode_chunk``       one chained decode chunk + the drain policy
-``units``               the loop as a generator of ``"decode"`` units
+``units``               the loop as a generator of typed units
 ``run``                 drain ``units()`` to exhaustion
 ======================  ================================================
 
-Continuous admission, compaction, speculation, prefix caching and the
-paged cache are not ported: a batch decodes at its formed width until
-every row is done or cancelled. Host mirrors (``n_pad``, ``temps``,
-``topk``, ``topp``, ``seeds``, ``tok``, ``step``) are the source of
-truth; the device holds the KV cache and the chained feedback token.
+Host mirrors (``n_pad``, ``temps``, ``topk``, ``topp``, ``seeds``,
+``tok``, ``step``, and a paged engine's page table ``tab``) are the
+source of truth, rebound together on every resize; the device holds
+the KV cache and the chained feedback token. Anything that mutates
+batch state first ``chain.invalidate()``s. Caches are written in place:
+a contiguous batch owns its ``[B, total]`` cache, a paged batch writes
+the engine pool's tensors through its own table (re-uploaded whenever
+the host table changes).
+
+Not ported: the prefix cache, speculation, adapters, disaggregation,
+deadlines, and the interleaved chunked prefill of long-prompt joiners
+(a joiner past the largest bucket is handed to the next batch).
 """
 
 from __future__ import annotations
@@ -33,36 +47,58 @@ from mlapi_tpu_torch.utils.logging import get_logger
 _log = get_logger("serving.batch_run")
 
 
+def _pow2(n: int) -> int:
+    p = 1
+    while p < n:
+        p *= 2
+    return p
+
+
 class BatchRun:
     """Decode one coalesced batch, streaming chunks to each request; a
     ``None`` sentinel marks a request's completion (error delivery
-    lives in the engine's ``_run_batch``)."""
+    lives in the engine's ``_run_batch``). With ``admit=True`` (the
+    collector's batches) waiting requests staged by the collector join
+    the running batch at chunk boundaries."""
 
-    def __init__(self, eng, reqs: list) -> None:
+    def __init__(self, eng, reqs: list, admit: bool = False) -> None:
         self.eng = eng
-        self.reqs = reqs
+        self.reqs = reqs  # the engine's list object: admission appends
+        self.admit = admit
         self.bucket = max(len(r.row) for r in reqs)
         n_new_max = max(r.n_new for r in reqs)
         self.total = eng._cache_len(self.bucket, n_new_max)
         self.n_new_max = min(n_new_max, self.total - self.bucket)
         b = len(reqs)
         # Pad the batch to a power of two, as the JAX engine does to
-        # bound its compiled shapes; dummy rows are fully masked.
-        b_pad = 1
-        while b_pad < b:
-            b_pad *= 2
-        self.b, self.b_pad = b, b_pad
+        # bound its compiled shapes; dummy rows are fully masked. It
+        # grows (admission) and shrinks (compaction) along that chain.
+        self.b, self.b_pad, self.b_max = b, _pow2(b), _pow2(eng.max_batch)
         (self.prompt, self.n_pad, self.temps, self.topk, self.topp,
-         self.seeds) = eng._pack_rows(reqs, self.bucket, b_pad)
+         self.seeds) = eng._pack_rows(reqs, self.bucket, self.b_pad)
         self.device = eng.device
-        self.n_pad_dev = torch.as_tensor(
-            self.n_pad, dtype=torch.long, device=self.device
-        )
+        # Paged: tab[row, i] maps virtual tile i of device row ``row``
+        # to a pool page (0 = the null page).
+        self.pool = eng.pool
+        self.page = self.pool.page if self.pool is not None else 0
+        self.npv = -(-self.total // self.page) if self.pool is not None else 0
+        self.tab = (np.zeros((self.b_pad, self.npv), np.int32)
+                    if self.pool is not None else None)
+        self._tab_dirty = False
+        # rows[i]: request i's row in the (possibly resized) batch.
         self.rows: list = list(range(b))
-        first = self._prefill()
-        self.pos = self.bucket
-        self._first_token(first)
-        self.chain = DispatchChain(self._deliver)
+        self.b_cur = self.b_pad
+        self.cache = None
+        try:
+            first = self._prefill()
+            self.pos = self.bucket
+            self._first_token(first)
+            self.chain = DispatchChain(self._deliver)
+        except BaseException:
+            # Formation failed (a PagePoolExhausted included): give
+            # every held page back; the engine delivers the error.
+            self._paged_cleanup()
+            raise
 
     # -- formation ----------------------------------------------------
 
@@ -73,11 +109,11 @@ class BatchRun:
             extend_chunk_fn, prefill_fn, sample_fn,
         )
 
+        if self.pool is not None:
+            return self._prefill_paged()
         eng = self.eng
         bucket, total = self.bucket, self.total
-        prompt = torch.as_tensor(
-            self.prompt, dtype=torch.long, device=self.device
-        )
+        prompt = self._prompt_dev()
         cp = eng.prompt_buckets[-1]
         if bucket > cp and bucket % cp == 0:
             # Chunked prefill: the long prompt runs as cp-wide
@@ -90,21 +126,69 @@ class BatchRun:
                 eng.prefill_chunks += 1
                 self.cache, logits = extend_chunk_fn(
                     eng.model, self.cache, prompt[:, c0:c0 + cp], c0,
-                    self.n_pad_dev,
+                    self._n_pad_dev(),
                 )
             return sample_fn(
                 logits, self.seeds, self.temps, self.topk, self.topp
             )
         first, self.cache = prefill_fn(
-            eng.model, prompt, self.seeds, self.temps, self.n_pad_dev,
+            eng.model, prompt, self.seeds, self.temps, self._n_pad_dev(),
             self.topk, self.topp, total_len=total,
         )
         return first
 
+    def _prefill_paged(self):
+        """Paged formation, page-native: each row maps the pages of its
+        REAL tokens (pad-slot writes land in the null page), then the
+        bucket prefill (``paged_prefill_fn``), or the chunked prefill of
+        a long prompt (``paged_extend_fn`` blocks), writes K/V through
+        the table straight into the pool."""
+        from mlapi_tpu_torch.models.gpt import (
+            paged_extend_fn, paged_prefill_fn, sample_fn,
+        )
+        from mlapi_tpu_torch.ops.quant import paged_cache_tree
+
+        eng, bucket = self.eng, self.bucket
+        # Host phase first: an exhausted pool raises before device work.
+        for i in range(self.b):
+            self._alloc_rows([i], int(self.n_pad[i]), bucket)
+        self.cache = paged_cache_tree(self.pool.layers, self.tab)
+        self._tab_dirty = False
+        prompt = self._prompt_dev()
+        n_pad = self._n_pad_dev()
+        cp = eng.prompt_buckets[-1]
+        if bucket > cp and bucket % cp == 0:
+            logits = None
+            for c0 in range(0, bucket, cp):
+                faults.fire("prefill_chunk")
+                eng.prefill_chunks += 1
+                self.cache, logits = paged_extend_fn(
+                    eng.model, self.cache, prompt[:, c0:c0 + cp], c0, n_pad,
+                )
+            return sample_fn(
+                logits, self.seeds, self.temps, self.topk, self.topp
+            )
+        first, self.cache = paged_prefill_fn(
+            eng.model, self.cache, prompt, 0, self.seeds, self.temps, n_pad,
+            self.topk, self.topp,
+        )
+        return first
+
+    def _prompt_dev(self):
+        return torch.as_tensor(self.prompt, dtype=torch.long,
+                               device=self.device)
+
+    def _n_pad_dev(self):
+        """A fresh upload of the ``n_pad`` mirror (it changes on every
+        admission and resize)."""
+        return torch.as_tensor(self.n_pad, dtype=torch.long,
+                               device=self.device)
+
     def _first_token(self, first) -> None:
         """The prefill's sampled token stays on the device as the first
         chunk's feedback and is delivered by the first drain."""
-        # step[row]: the row's NEXT sampling-stream index.
+        # step[row]: the row's NEXT sampling-stream index, its own
+        # produced-token count, so a joiner reproduces its solo stream.
         self.step = np.ones((self.b_pad,), np.int64)
         self.done = [False] * self.b
         self.tok = np.zeros((self.b_pad,), np.int64)
@@ -115,7 +199,88 @@ class BatchRun:
         self.first_chunk = first[:, None]
         self._first = first
 
+    # -- the page lifecycle (paged engines) ---------------------------
+
+    def _alloc_rows(self, rows, lo_slot: int, hi_slot: int) -> None:
+        """Map pool pages for virtual slots ``[lo_slot, hi_slot)`` of
+        the given rows, skipping tiles already mapped. Raises
+        :class:`PagePoolExhausted` before any table change."""
+        if hi_slot <= lo_slot:
+            return
+        want = [
+            (row, i)
+            for row in rows
+            for i in range(lo_slot // self.page, -(-hi_slot // self.page))
+            if self.tab[row, i] == 0
+        ]
+        if not want:
+            return
+        pages = self.pool.alloc(len(want))
+        for (row, i), pid in zip(want, pages):
+            self.tab[row, i] = pid
+        self._tab_dirty = True
+
+    def _release_row(self, row: int) -> None:
+        """Null a row's table and drop its page holds. Chunks already
+        enqueued may still write the released pages through the table
+        they were given; the stream runs them before any later owner's
+        writes, and a row reads only slots it wrote itself."""
+        if self.tab[row].any():
+            self.pool.release(self.tab[row])
+            self.tab[row] = 0
+            self._tab_dirty = True
+
+    def _release_finished(self) -> None:
+        """Free finished and cancelled rows' pages eagerly (a long batch
+        must not sit on dead sequences' pages), and detach each such
+        request from its row, which may pass to a joiner."""
+        for i, r in enumerate(self.reqs):
+            row = self.rows[i]
+            if row is not None and (self.done[i] or r.cancelled):
+                self._release_row(row)
+                self.rows[i] = None
+
+    def _paged_cleanup(self) -> None:
+        """Release every page of every row (idempotent; also the error
+        path). The pool tensors were written in place and stay with
+        the pool."""
+        if self.pool is None or self.tab is None:
+            return
+        for row in range(len(self.tab)):
+            self._release_row(row)
+
+    def _with_tables(self) -> None:
+        """Pair the pool tensors with a fresh upload of the host
+        table."""
+        from mlapi_tpu_torch.ops.quant import paged_cache_tree
+
+        self.cache = paged_cache_tree(self.cache, self.tab[:self.b_cur])
+        self._tab_dirty = False
+
+    def _ensure_pages(self, size: int, live: list) -> None:
+        """Chunk-boundary allocation: the next ``size`` steps write
+        slots ``[pos, pos + size)``; map them for every live row (dummy
+        and finished rows write into the null page), then upload any
+        table change before the dispatch reads it."""
+        self._alloc_rows(
+            sorted({self.rows[i] for i in live}),
+            self.pos, min(self.pos + size, self.total),
+        )
+        if self._tab_dirty:
+            self._with_tables()
+
     # -- shared bookkeeping -------------------------------------------
+
+    def _mirrors_take(self, sel: np.ndarray) -> None:
+        """Rebind every host mirror through a row gather, all together,
+        so no stage sees a half-resized batch."""
+        self.n_pad, self.temps, self.topk, self.topp = (
+            self.n_pad[sel], self.temps[sel], self.topk[sel],
+            self.topp[sel],
+        )
+        self.seeds, self.tok, self.step = (
+            self.seeds[sel], self.tok[sel], self.step[sel],
+        )
 
     def _deliver(self, toks_host, got, plive):
         self.tok = toks_host[:, -1].copy()
@@ -136,6 +301,236 @@ class BatchRun:
         """done[] as of the dispatch frontier."""
         return self.done[i] or self.sched[i] >= self.reqs[i].n_new
 
+    # -- continuous admission -----------------------------------------
+
+    def _grow(self) -> list:
+        """Double the batch; the new rows are dummies (fully masked)
+        until admitted into. Paged growth moves no cache bytes: new
+        rows get null tables. Contiguous growth appends zero rows to
+        every cache leaf. Returns the new rows."""
+        self.chain.invalidate()
+        n = self.b_cur
+        sel = np.concatenate([np.arange(n), np.zeros(n)]).astype(np.int64)
+        if self.pool is not None:
+            self.tab = np.vstack([self.tab, np.zeros_like(self.tab)])
+            self._tab_dirty = True
+        else:
+            self.cache = {
+                ln: {name: torch.cat([leaf, torch.zeros_like(leaf)])
+                     for name, leaf in layer.items()}
+                for ln, layer in self.cache.items()
+            }
+        self._mirrors_take(sel)
+        self.n_pad[n:] = self.pos  # mask dummies fully
+        self.temps[n:] = 0.0
+        self.b_cur = 2 * n
+        self.eng.growths += 1
+        return list(range(n, 2 * n))
+
+    def _never_admissible(self, r) -> bool:
+        """Its budget overruns the running cache's remaining room; pos
+        only grows, so this batch can never take it."""
+        return self.pos + (r.n_new - 1) > self.total
+
+    def _admissible(self, r) -> bool:
+        """Can ``r`` join now: its prompt bucket fits below ``pos``
+        (which grows) and its budget inside the cache."""
+        return len(r.row) <= self.pos and not self._never_admissible(r)
+
+    def _unstage(self, cand) -> bool:
+        """Take ``cand`` off the staging list; False if it was no longer
+        there (the collector reclaimed it first)."""
+        eng = self.eng
+        with eng._alock:
+            try:
+                eng._admit.remove(cand)
+            except ValueError:
+                return False
+            return True
+
+    def _admit_waiting(self) -> int:
+        """Admit staged joiners into free (or grown) rows at a chunk
+        boundary; returns the number still staged (the compaction
+        policy reads it)."""
+        eng, reqs = self.eng, self.reqs
+        with eng._alock:
+            candidates = list(eng._admit)
+        n_live = sum(
+            1 for i, r in enumerate(reqs)
+            if not self.done[i] and not r.cancelled
+        )
+        cp = eng.prompt_buckets[-1]
+        for cand in candidates:
+            if cand.cancelled:
+                self._unstage(cand)
+                continue
+            if len(cand.row) > cp or self._never_admissible(cand):
+                # A long prompt (its interleaved chunked prefill is not
+                # ported) or a budget past this cache: the next batch.
+                if self._unstage(cand):
+                    eng._defer(cand)
+                continue
+            if n_live + 1 > eng.max_batch:
+                break
+            if not self._admissible(cand):
+                continue
+            used_rows = {
+                self.rows[i] for i, r in enumerate(reqs)
+                if not self.done[i] and not r.cancelled
+            }
+            free = [j for j in range(self.b_cur) if j not in used_rows]
+            grow = not free and self.b_cur < self.b_max
+            if not free and not grow:
+                break
+            # Committed: mirrors (and maybe the layout) change, so the
+            # dispatch chain ends here.
+            self.chain.invalidate()
+            if not self._unstage(cand):
+                continue
+            if grow:
+                free = self._grow()
+            row = free[0]
+            # The row may still belong to a request that finished or was
+            # cancelled (in the drain just above, say): detach it, so
+            # that request never again names the joiner's row.
+            for k, held in enumerate(self.rows):
+                if held == row:
+                    self.rows[k] = None
+            if self.pool is not None:
+                from mlapi_tpu_torch.serving.paged_pool import (
+                    PagePoolExhausted,
+                )
+
+                # Drop the old holder's pages; the joiner maps only its
+                # REAL-token span.
+                self._release_row(row)
+                try:
+                    self._alloc_rows([row], self.pos - cand.used, self.pos)
+                except PagePoolExhausted:
+                    # The pool is momentarily full of live sequences:
+                    # the next batch, not an error.
+                    eng._defer(cand)
+                    continue
+            try:
+                # Between the joiner's page alloc and its install.
+                faults.fire("table_install")
+                ftok = self._install(cand, row)
+            except Exception as e:  # noqa: BLE001 — the joiner's alone
+                # The joiner's pages go back and it gets its error; the
+                # running batch's mirrors and cache were not touched
+                # for it, so it streams on unchanged.
+                _log.warning(
+                    "admission of joiner failed (%s); running batch "
+                    "continues", e,
+                )
+                if self.pool is not None:
+                    self._release_row(row)
+                try:
+                    cand.push(e)
+                except Exception:  # noqa: BLE001 — a dead loop
+                    pass
+                cand.cancel()
+                continue
+            self.n_pad[row] = self.pos - cand.used
+            self.temps[row] = cand.temperature
+            self.topk[row] = cand.top_k
+            self.topp[row] = cand.top_p
+            self.seeds[row] = cand.seed
+            self.tok[row] = ftok
+            self.step[row] = 1
+            reqs.append(cand)
+            self.rows.append(row)
+            self.produced.append(1)
+            self.sched.append(1)
+            cand.push({"token_ids": [ftok]})
+            fin = cand.n_new <= 1
+            if fin:
+                cand.push(None)
+            self.done.append(fin)
+            if not fin:
+                n_live += 1
+            eng.admitted += 1
+        with eng._alock:
+            return len(eng._admit)
+
+    def _install(self, cand, row: int) -> int:
+        """The joiner's prefill into ``row``, its prompt ending at slot
+        ``pos``; returns its first token. Paged: one page-native
+        prefill through a one-row table at virtual offset ``pos -
+        bucket``. Contiguous: a ``[1, bucket]`` prefill copied into the
+        row (the JAX package's ``admit_scatter_fn``)."""
+        from mlapi_tpu_torch.models.gpt import paged_prefill_fn, prefill_fn
+        from mlapi_tpu_torch.ops.quant import paged_cache_tree
+
+        eng = self.eng
+        bkt = len(cand.row)
+        ids = torch.as_tensor(cand.row[None], dtype=torch.long,
+                              device=self.device)
+        n_pad = torch.as_tensor([bkt - cand.used], dtype=torch.long,
+                                device=self.device)
+        host = (
+            np.asarray([cand.seed], np.int64),
+            np.asarray([cand.temperature], np.float32),
+        )
+        topk = np.asarray([cand.top_k], np.int64)
+        topp = np.asarray([cand.top_p], np.float32)
+        off = self.pos - bkt
+        if self.pool is not None:
+            cache1 = paged_cache_tree(self.cache, self.tab[row:row + 1])
+            first, _ = paged_prefill_fn(
+                eng.model, cache1, ids, off, *host, n_pad, topk, topp,
+            )
+            self._tab_dirty = True
+        else:
+            first, mini = prefill_fn(
+                eng.model, ids, *host, n_pad, topk, topp, total_len=bkt,
+            )
+            for ln, layer in self.cache.items():
+                for name, leaf in layer.items():
+                    leaf[row, off:off + bkt] = mini[ln][name][0]
+        return int(first[0])
+
+    # -- resize -------------------------------------------------------
+
+    def _maybe_shrink(self, live: list, pending_n: int) -> None:
+        """Halve the batch when enough rows finished (one halving per
+        chunk); never while joiners wait. Paged compaction releases the
+        dropped rows' pages and gathers the table, moving no cache
+        bytes; contiguous compaction gathers the cache rows."""
+        want_b = max(_pow2(len(live)), self.b_cur // 2)
+        if want_b >= self.b_cur or pending_n:
+            return
+        self.chain.invalidate()
+        sel = [self.rows[i] for i in live]
+        sel += [sel[0]] * (want_b - len(sel))
+        sel = np.asarray(sel, np.int64)
+        if self.pool is not None:
+            keep = {self.rows[i] for i in live}
+            for row in range(self.b_cur):
+                if row not in keep:
+                    self._release_row(row)
+            # Pad rows get null tables: a duplicated row would alias
+            # live pages.
+            self.tab = self.tab[sel]
+            self.tab[len(live):] = 0
+            self._tab_dirty = True
+            self._mirrors_take(sel)
+            self.n_pad[len(live):] = self.pos
+            self.temps[len(live):] = 0.0
+        else:
+            idx = torch.as_tensor(sel, device=self.device)
+            self.cache = {
+                ln: {name: leaf.index_select(0, idx)
+                     for name, leaf in layer.items()}
+                for ln, layer in self.cache.items()
+            }
+            self._mirrors_take(sel)
+        self.rows = [None] * len(self.reqs)
+        for row, i in enumerate(live):
+            self.rows[i] = row
+        self.b_cur = want_b
+        self.eng.compactions += 1
+
     # -- chained chunk dispatch ---------------------------------------
 
     def _decode_chunk(self, size: int, live: list) -> None:
@@ -152,7 +547,7 @@ class BatchRun:
         if tok is None:
             tok = torch.as_tensor(self.tok, device=self.device)
         toks, self.cache, last_tok = decode_chunk_fn(
-            eng.model, self.cache, tok, self.pos, self.n_pad_dev,
+            eng.model, self.cache, tok, self.pos, self._n_pad_dev(),
             self.temps, self.seeds, self.step, self.topk, self.topp,
             chunk=size,
         )
@@ -175,8 +570,15 @@ class BatchRun:
             pass
 
     def units(self):
-        """The lifecycle as a stream of schedulable units: yields
-        ``"decode"`` after each decode-chunk dispatch."""
+        """The lifecycle as a stream of typed units: yields ``"admit"``,
+        ``"compact"`` or ``"decode"`` after each. Every page goes back
+        to the pool when the generator ends, raises or is closed."""
+        try:
+            yield from self._units()
+        finally:
+            self._paged_cleanup()
+
+    def _units(self):
         reqs, chain = self.reqs, self.chain
         # The deferred first token rides the chain as a width-1 chunk.
         all_rows = list(range(self.b))
@@ -185,6 +587,13 @@ class BatchRun:
             self.sched[i] += 1
         chain.tok_dev = self._first
         while True:
+            if self.pool is not None:
+                # Before admission, so joiners can take these pages.
+                self._release_finished()
+            pending_n = 0
+            if self.admit and self.eng._admit:
+                pending_n = self._admit_waiting()
+                yield "admit"
             live = [
                 i for i, r in enumerate(reqs)
                 if not self._sdone(i) and not r.cancelled
@@ -200,6 +609,14 @@ class BatchRun:
             if size <= 0:
                 chain.drain()
                 break
+            b_before = self.b_cur
+            self._maybe_shrink(live, pending_n)
+            if self.b_cur != b_before:
+                yield "compact"
+            if self.pool is not None:
+                # Map the chunk's write range before the dispatch: an
+                # exhausted pool fails here, its metadata consistent.
+                self._ensure_pages(size, live)
             self._decode_chunk(size, live)
             yield "decode"
         chain.drain()

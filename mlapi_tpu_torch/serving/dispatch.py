@@ -32,6 +32,13 @@ class DispatchChain:
         for _, _, plive in self._inflight:
             yield from plive
 
+    def invalidate(self) -> None:
+        """Batch state is about to change under the chain: deliver
+        everything in flight and drop the device-resident feedback
+        token, so the next dispatch uploads the host mirror."""
+        self.drain()
+        self.tok_dev = None
+
     def drain(self, count: int | None = None) -> None:
         """Read back the oldest ``count`` chunks (all by default) and
         deliver them in dispatch order."""

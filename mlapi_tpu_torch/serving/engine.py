@@ -5,14 +5,19 @@ Prompts are left-padded to a bucket (pads masked, positions shifted,
 so the answer does not depend on the bucket), concurrent requests
 coalesce into one batch, and each batch prefills once and decodes in
 ``chunk``-token steps against a KV cache it updates in place, pushing
-each chunk to its requests as it lands.
+each chunk to its requests as it lands. With ``kv_page_size`` the
+cache is a device pool of pages plus per-row page tables
+(``serving/paged_pool.py``) instead of one contiguous cache per batch.
 
 Scope of the port: batches run one at a time through
 ``BatchRun.run()`` — the ordering of the JAX engine's
-``--sched-max-batches 1`` without in-lane admission. The unit
-scheduler, prefix cache, paged pool, speculation, adapters and tenants
-are not ported. ``chunk`` is a fixed 8 (the JAX engine probes the
-device round trip to choose 8 or 16; a local card is the 8 case).
+``--sched-max-batches 1``, in-lane admission included: while a batch
+runs, the collector keeps pulling and stages every arrival the batch
+can take (``_admit``), which joins at the next chunk boundary; the
+rest wait for the next batch (``_carry``). The unit scheduler, prefix
+cache, speculation, adapters and tenants are not ported. ``chunk`` is
+a fixed 8 (the JAX engine probes the device round trip to choose 8 or
+16; a local card is the 8 case).
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ from __future__ import annotations
 import asyncio
 import bisect
 import concurrent.futures
+import threading
 from typing import Sequence
 
 import numpy as np
@@ -62,6 +68,8 @@ class TextGenerationEngine:
         chunk: int = 8,
         max_wait_ms: float = 2.0,
         max_queue: int = 256,
+        kv_page_size: int | None = None,
+        kv_pages: int | None = None,
     ):
         if tokenizer.vocab_size > model.vocab_size:
             raise ValueError(
@@ -84,11 +92,34 @@ class TextGenerationEngine:
         self.max_queue = int(max_queue)
         self.kv_quant = model.kv_quant
         self.decode_attn_impl = model.decode_attn_impl
+        # Paged KV cache: kv_pages defaults to the contiguous-equivalent
+        # budget (every slot at the default tier, plus the null page),
+        # so paging never costs more device memory than contiguous.
+        if kv_pages is not None and kv_page_size is None:
+            raise ValueError("kv_pages requires kv_page_size")
+        self.pool = None
+        if kv_page_size is not None:
+            from mlapi_tpu_torch.serving.paged_pool import PagePool
+
+            max_total = self._cache_len(
+                self.prompt_buckets[-1], self.default_max_new_tokens
+            )
+            if kv_pages is None:
+                per_slot = -(-max_total // int(kv_page_size))
+                kv_pages = self.max_batch * per_slot + 1
+            self.pool = PagePool(
+                model, page_size=int(kv_page_size), num_pages=int(kv_pages),
+            )
         # Collector state (started by the app's startup hook).
         self._queue: asyncio.Queue | None = None
         self._task: asyncio.Task | None = None
         self._executor: concurrent.futures.ThreadPoolExecutor | None = None
         self._carry: list = []
+        # Staged joiners of the running batch (``_admit``) and those it
+        # handed back (``_deferred``), shared with the device thread.
+        self._admit: list = []
+        self._deferred: list = []
+        self._alock = threading.Lock()
         # Stats (read by /metrics and the tests).
         self.requests = 0
         self.batch_calls = 0
@@ -96,6 +127,9 @@ class TextGenerationEngine:
         self.rejected = 0
         self.cancelled_batches = 0
         self.prefill_chunks = 0
+        self.admitted = 0
+        self.growths = 0
+        self.compactions = 0
         self.latency = LatencyStats()
 
     @classmethod
@@ -133,7 +167,32 @@ class TextGenerationEngine:
     @property
     def queue_depth(self) -> int:
         base = self._queue.qsize() if self._queue is not None else 0
-        return base + len(self._carry)
+        with self._alock:
+            staged = len(self._admit) + len(self._deferred)
+        return base + len(self._carry) + staged
+
+    # -- paged-pool accounting (state lives in serving/paged_pool.py) -----
+    @property
+    def kv_page_size(self) -> int:
+        return self.pool.page if self.pool is not None else 0
+
+    @property
+    def kv_pages_total(self) -> int:
+        return self.pool.pages_total if self.pool is not None else 0
+
+    @property
+    def kv_pages_in_use(self) -> int:
+        return self.pool.pages_in_use if self.pool is not None else 0
+
+    @property
+    def kv_page_utilization(self) -> float:
+        return self.pool.utilization if self.pool is not None else 0.0
+
+    def kv_page_bytes(self) -> int:
+        """Exact device bytes of ONE page across every layer (dtype and
+        shape arithmetic): a sequence of ``t`` cached tokens holds
+        ``ceil(t / page)`` pages."""
+        return self.pool.page_bytes if self.pool is not None else 0
 
     # -- shapes ------------------------------------------------------------
     def _bucket(self, n: int) -> int:
@@ -248,18 +307,20 @@ class TextGenerationEngine:
         return prompt, n_pad, temps, topk, topp, seeds
 
     # -- the batched decode (runs on the device thread) ---------------------
-    def _form_batch(self, reqs: list):
+    def _form_batch(self, reqs: list, admit: bool = False):
         from mlapi_tpu_torch.serving.batch_run import BatchRun
 
         self.batch_calls += 1
-        return BatchRun(self, reqs)
+        return BatchRun(self, reqs, admit)
 
-    def _run_batch(self, reqs: list) -> None:
-        """Serve one coalesced batch; a failure is delivered to every
-        waiter as its terminal frame."""
+    def _run_batch(self, reqs: list, admit: bool = False) -> None:
+        """Serve one coalesced batch (``admit``: joiners staged while it
+        runs join it); a failure is delivered to every waiter as its
+        terminal frame, joiners included (they are appended to
+        ``reqs``)."""
         try:
             with torch.inference_mode():
-                self._form_batch(reqs).run()
+                self._form_batch(reqs, admit).run()
         except Exception as e:  # noqa: BLE001 — delivered to every waiter
             _log.error("generation batch of %d failed: %s", len(reqs), e)
             for r in reqs:
@@ -274,6 +335,28 @@ class TextGenerationEngine:
         bucket = max(len(r.row), *(len(g.row) for g in group))
         n_new = max(r.n_new, *(g.n_new for g in group))
         return bucket + n_new <= self.model.max_positions
+
+    def _defer(self, cand) -> None:
+        """Hand a staged joiner the running batch cannot take back to
+        the collector, for the next batch."""
+        with self._alock:
+            self._deferred.append(cand)
+
+    def _place(self, r, running) -> None:
+        """An arrival while ``running`` (the live batch's request list,
+        or ``None``): staged for admission when the batch could take
+        it, else carried to the next batch. Only arrivals are staged:
+        a joiner the batch hands back waits in the carry for the next
+        batch, so nothing goes back and forth."""
+        if (
+            running is not None
+            and len(r.row) <= self.prompt_buckets[-1]
+            and self._compatible(list(running), r)
+        ):
+            with self._alock:
+                self._admit.append(r)
+            return
+        self._carry.append(r)
 
     # -- asyncio collector ---------------------------------------------------
     async def start(self) -> None:
@@ -303,17 +386,68 @@ class TextGenerationEngine:
             await asyncio.get_running_loop().run_in_executor(
                 None, executor.shutdown
             )
+        # A batch that ran on past the collector may have handed
+        # joiners back after the collector's last sweep.
+        with self._alock:
+            left = self._admit + self._deferred
+            self._admit.clear()
+            self._deferred.clear()
+        for r in left:
+            try:
+                r.push(DrainCancelled())
+            except Exception:  # noqa: BLE001 — a dead loop
+                pass
 
     async def _collect_loop(self) -> None:
         """Form window-compatible groups of up to ``max_batch`` queued
         requests (waiting up to ``max_wait_ms`` for stragglers) and run
-        each on the device thread. Incompatible arrivals are carried to
-        the next group."""
+        each on the device thread. While a batch runs, keep pulling:
+        an arrival it could take is staged for admission at its next
+        chunk boundary, any other is carried to the next group. Pulling
+        pauses while the staging list or the carry is full, so a
+        backlog fills the bounded queue and sheds at the door."""
         loop = asyncio.get_running_loop()
         reqs: list = []
-        get = None  # an in-flight queue pop (the finally must see it)
+        get = None      # an in-flight queue pop (the finally must see it)
+        batch = None    # the running batch's future
+        running = None  # ... and its request list (admission appends)
         try:
             while True:
+                with self._alock:
+                    self._carry = self._deferred + self._carry
+                    self._deferred.clear()
+                    if batch is None:
+                        # No batch to join: staged requests form the next.
+                        self._carry = self._admit + self._carry
+                        self._admit.clear()
+                if batch is not None:
+                    with self._alock:
+                        room = (len(self._admit) + len(self._deferred)
+                                < self.max_batch)
+                    if not (room and len(self._carry) < self.max_batch):
+                        await asyncio.wait({batch}, timeout=0.05)
+                    else:
+                        get = asyncio.ensure_future(self._queue.get())
+                        await asyncio.wait(
+                            {batch, get}, return_when=asyncio.FIRST_COMPLETED
+                        )
+                        if not get.done():
+                            # The batch ended first: retract the pop
+                            # without losing an item it claims meanwhile.
+                            get.cancel()
+                            await asyncio.wait({get})
+                        if not get.cancelled():
+                            # Claimed: the finally must see it if the
+                            # fault point kills the collector here.
+                            reqs, get = [get.result()], None
+                            faults.fire("collector_pop")
+                            self._place(reqs.pop(), None if batch.done()
+                                        else running)
+                        get = None
+                    if batch.done():
+                        batch.result()  # _run_batch delivers its errors
+                        batch = running = None
+                    continue
                 if self._carry:
                     reqs = [self._carry.pop(0)]
                     rest: list = []
@@ -353,9 +487,9 @@ class TextGenerationEngine:
                         break
                 # From here the batch owns its requests' terminal
                 # frames, even if this task is cancelled mid-run.
-                group, reqs = reqs, []
-                await loop.run_in_executor(
-                    self._executor, self._run_batch, group
+                running, reqs = reqs, []
+                batch = loop.run_in_executor(
+                    self._executor, self._run_batch, running, True
                 )
         finally:
             # Cancellation or a crash must not strand any waiter.
@@ -368,6 +502,10 @@ class TextGenerationEngine:
             if self._queue is not None:
                 while not self._queue.empty():
                     queued.append(self._queue.get_nowait())
+            with self._alock:
+                queued += self._admit + self._deferred
+                self._admit.clear()
+                self._deferred.clear()
             for r in (*reqs, *self._carry, *queued):
                 try:
                     r.push(DrainCancelled())

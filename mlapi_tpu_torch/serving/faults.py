@@ -1,8 +1,9 @@
 """Deterministic fault injection for the serving engine.
 
 A copy of ``mlapi_tpu/serving/faults.py`` restricted to the seams the
-port has: prefill-chunk dispatch, decode-chunk dispatch, the
-collector's queue pop and the per-request stream push. Tests and chaos
+port has: the page pool's allocation, an admission's table install,
+prefill-chunk dispatch, decode-chunk dispatch, the collector's queue
+pop and the per-request stream push. Tests and chaos
 drills force failures there and check that every stream still ends in
 a well-formed terminal frame and that the engine serves fresh work.
 
@@ -29,6 +30,8 @@ import threading
 import time
 
 POINTS = (
+    "pool_alloc",      # PagePool.alloc, before the free list changes
+    "table_install",   # a joiner's admission, after its page alloc
     "prefill_chunk",   # each chunked-prefill chunk dispatch
     "decode",          # each decode-chunk dispatch
     "collector_pop",   # the collector claiming a queued request

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels on a card: each against its plain version.
+"""The port's CUDA kernels on a card: each against its plain version,
+and each paged kernel against its contiguous twin on the same bytes.
 
 Every test here needs an NVIDIA card with ``nvcc`` (the kernels build
 from ``mlapi_tpu_torch/csrc`` at first use) and skips without one. The
@@ -85,6 +86,88 @@ def test_kernel_matches_plain(card, b, u, h, kvh, length, d, dtype, fmt):
     else:
         _check(kern.extend_attention, kern.extend_attention_plain, *args,
                dtype)
+
+
+def _paged(card, k, page, mask, seed):
+    """The cache ``k`` ([B, L, KVH, D] tensor or int8 pair) scattered
+    into a pool behind a shuffled page table. Tiles no query of the row
+    attends map to the null page 0, which holds finite garbage."""
+    rng = np.random.default_rng(seed)
+    leaves = k if isinstance(k, dict) else {"t": k}
+    some = next(iter(leaves.values()))
+    b, length = some.shape[:2]
+    n_tiles = length // page
+    n_pages = b * n_tiles + 2
+    ids = rng.permutation(n_pages - 1) + 1
+    keep = mask.reshape(b, -1, length).any(1).reshape(b, n_tiles, page)
+    table = torch.zeros((b, n_tiles), dtype=torch.int32)
+    for bi in range(b):
+        for t in range(n_tiles):
+            if keep[bi, t].any():
+                table[bi, t] = int(ids[bi * n_tiles + t])
+    table = table.to(card)
+    pools = {}
+    for name, leaf in leaves.items():
+        pool = torch.as_tensor(
+            rng.standard_normal((n_pages, page) + tuple(leaf.shape[2:]))
+        ).to(card, leaf.dtype)
+        if leaf.dtype == torch.float32 and name == "scale":
+            pool = pool.abs()
+        tiles = leaf.reshape((b, n_tiles, page) + tuple(leaf.shape[2:]))
+        live = table != 0
+        pool[table[live].long()] = tiles[live]
+        pools[name] = pool
+    return (pools if isinstance(k, dict) else pools["t"]), table
+
+
+@pytest.mark.parametrize("page", [8, 16, 64])
+@pytest.mark.parametrize("fmt", ["none", "int8"])
+@pytest.mark.parametrize(
+    "b,u,h,kvh,length",
+    [(4, 1, 12, 12, 256),           # decode, GPT-2 small heads
+     (1, 1, 8, 2, 192),             # GQA decode, B = 1
+     (2, 7, 12, 12, 192),           # a span that starts mid-page
+     (1, 128, 12, 12, 256)],        # a chunked-prefill chunk
+)
+def test_paged_kernel_matches_plain_and_contiguous(card, b, u, h, kvh,
+                                                   length, fmt, page):
+    """B3/B4 against their plain versions (tolerance) and against B1/B2
+    over the same bytes in a contiguous cache (bit for bit)."""
+    dtype = torch.bfloat16
+    q, k, v, mask = _case(card, b, u, h, kvh, length, 64, dtype, fmt,
+                          seed=length + page)
+    pk, table = _paged(card, k, page, mask, seed=1)
+    pv, _ = _paged(card, v, page, mask, seed=1)
+    if u == 1:
+        paged, contiguous = kern.paged_decode_attention, kern.decode_attention
+        plain = kern.paged_decode_attention_plain
+    else:
+        paged, contiguous = kern.paged_extend_attention, kern.extend_attention
+        plain = kern.paged_extend_attention_plain
+    n0, c0 = paged.launches, contiguous.launches
+    got = paged(q, pk, pv, table, mask)
+    torch.cuda.synchronize()
+    assert paged.launches == n0 + 1 and contiguous.launches == c0
+    want = plain(q, pk, pv, table, mask)
+    live = mask.reshape(b, -1, length).any(-1)
+    err = (got.float() - want.float()).abs()[live].max().item()
+    assert torch.isfinite(got).all() and err <= TOL[dtype], err
+    assert not got[~live].any()
+    same = contiguous(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(got, same)
+
+
+def test_paged_kernel_checks_its_table(card):
+    q, k, v, mask = _case(card, 2, 1, 12, 12, 64, 64, torch.bfloat16,
+                          "none", seed=3)
+    pk, table = _paged(card, k, 16, mask, seed=2)
+    n0 = kern.paged_decode_attention.launches
+    with pytest.raises(ValueError, match="int32"):
+        kern.paged_decode_attention(q, pk, pk, table.long(), mask)
+    with pytest.raises(ValueError, match="virtual"):
+        kern.paged_decode_attention(q, pk, pk, table, mask[:, :48])
+    assert kern.paged_decode_attention.launches == n0
 
 
 def test_strided_query_from_the_fused_projection(card):

@@ -134,6 +134,7 @@ def test_http_generate_stream_healthz_metrics(ckpt):
         assert metrics["counters"]["generate.prefill_chunks"] == 0
         assert metrics["kernels"] == {
             "decode_attention": 0, "extend_attention": 0,
+            "paged_decode_attention": 0, "paged_extend_attention": 0,
         }   # the CPU ran the plain versions
         for bad, field in (({"max_new_tokens": 5}, "text"),
                            ({"text": "x", "top_k": "many"}, "top_k"),
