@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path once on an NVIDIA card.
+"""Drive the PyTorch/CUDA port's serving and training paths once on an
+NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -9,21 +10,39 @@ the JAX package. Phases, each fatal on failure:
 
 1. device — the card's name, count, and ``nvidia-smi`` name + power
    limit;
-2. build — ``nvcc`` for ``sm_90a``, printing ``ptxas -v`` and seconds;
+2. build — ``nvcc`` for ``sm_90a``, one process per source, printing
+   ``ptxas -v`` and seconds;
 3. kernels — flash-decode (B1), flash-extend (B2) and their paged
    twins (B3, B4: 16-token pages behind a shuffled page table, tiles no
    query attends on the null page), bf16 and int8 caches, at the shapes
    the serving phase gives them and at the full 1024-token window: each
    wrapper against its plain PyTorch version (max abs error on live rows
    <= 2e-2), each paged kernel against its contiguous twin over the same
-   bytes (bit for bit), timed beside the plain version,
+   bytes (bit for bit). Then flash attention for training — forward
+   (B5), dq (B6), dk/dv (B7) — at (a) the sst2-bert batch (B = 32,
+   L = 128, 12 heads, bf16, its own key mask with the last row fully
+   masked), (b) GPT-2 small causal (B = 8, L = 1024, bf16) and (c) a
+   GQA sliding window in float32: each against its plain version
+   (<= 2e-2 bf16, <= 1e-4 f32 on live rows, exact zeros where nothing
+   is attended). Every kernel is timed beside its plain version,
    ``scaled_dot_product_attention`` (a yardstick the port never calls;
-   on the gathered contiguous copy for B3/B4) and the card's bound for
-   the same work. ``ms`` is device time (each call captured in a CUDA
-   graph, graphs replayed in turn over enough input copies to defeat the
-   L2, CUDA events); ``eager_ms`` is the wrapper called eagerly, host
-   launch costs included;
-4. serving — for each cache format (none, int8) and each layout
+   on the gathered contiguous copy for B3/B4; forward + backward minus
+   forward for B6/B7) and the card's bound for the same work. ``ms`` is
+   device time (each call captured in a CUDA graph, graphs replayed in
+   turn over enough input copies to defeat the L2, CUDA events);
+   ``eager_ms`` is the wrapper called eagerly, host launch costs
+   included;
+4. training — ``python -m mlapi_tpu_torch.train --preset sst2-bert``'s
+   ``run`` at full width (BERT-base, batch 32, 128 tokens, AdamW 2e-5,
+   random weights from the preset's seed) for 30 steps and its test-set
+   evaluation, with the launch counters zeroed just before and read
+   just after: B5 exactly 12 per step and per eval batch, B6 and B7 12
+   per step, B1-B4 none; the checkpoint it writes must read back (tree
+   signature and label vocab). Then one step's loss and gradients with
+   flash against full attention from the same weights on the same
+   batch, and one profiled step (device time, kernels per step, the
+   B5-B7 share, the device's busy share against unprofiled wall time);
+5. serving — for each cache format (none, int8) and each layout
    (contiguous, then paged with ``--kv-page-size 16``): a seeded
    GPT-2-small checkpoint served with ``--decode-attn-impl flash``
    through the CLI's engine factory and the HTTP server, sent 8
@@ -32,26 +51,27 @@ the JAX package. Phases, each fatal on failure:
    leg: a 96-token stream, then 4 short prompts sent once its first
    chunk arrived, which must join the running batch. Launch counters
    are zeroed just before the requests and read just after; a paged run
-   must launch B3 and B4 and never B1 or B2, and end with every page
-   back in the pool. Then an 8-step decode chunk at B = 8 through the
-   engine's layout: wall time per step over five runs without the
-   profiler, and one run under ``torch.profiler`` for device time per
-   step, kernels per step, the flash-decode kernel's share and the
-   device's busy share. The profile row also gives the host's side:
-   one layer's cache append and the page coordinates (issue time), the
-   host syncs per step, the ops with the most host time, and for a
-   paged engine the contiguous layout's step timed in alternation;
-5. correctness — a small float32 model's greedy streams are identical
+   must launch B3 and B4 and never B1 or B2 (and never B5-B7), and end
+   with every page back in the pool. Then an 8-step decode chunk at
+   B = 8 through the engine's layout: wall time per step over five runs
+   without the profiler, and one run under ``torch.profiler`` for
+   device time per step, kernels per step, the flash-decode kernel's
+   share and the device's busy share. The profile row also gives the
+   host's side: one layer's cache append and the page coordinates
+   (time to enqueue), the host syncs per step, the ops with the most host
+   time, and for a paged engine the contiguous layout's step timed in
+   alternation;
+6. correctness — a small float32 model's greedy streams are identical
    through paged flash, contiguous flash and the einsum oracle; a
    joiner admitted into the row of a request that just finished streams
    what its prompt streams alone, on both layouts; and the
    teacher-forced top-1 agreement of flash with einsum at GPT-2 small
    is reported (floor 0.9).
 
-Stdout: one JSON line per kernel case and per serving run, then the
-``{"kernels": [...]}`` summary, the ``nvidia-smi`` line, and last
-``{"ok": true, "device": {...}}``. Without a card, or outside the repo,
-it exits non-zero and prints no result.
+Stdout: one JSON line per kernel case, per training and serving run,
+then the ``{"kernels": [...]}`` summary (B1-B7), the ``nvidia-smi``
+line, and last ``{"ok": true, "device": {...}}``. Without a card, or
+outside the repo, it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -75,15 +95,28 @@ GPT2_SMALL = dict(                # openai-community/gpt2
     vocab_size=50257, hidden_size=768, num_layers=12, num_heads=12,
     max_positions=1024, compute_dtype="bfloat16",
 )
+F32_FLOPS_PER_S = 67e12         # float32 outside the tensor cores
+# B5-B7 on live rows: absolute, and relative to the largest reference
+# value, so that small gradients cannot pass by being small.
+FLASH_TOLERANCE = {"bfloat16": 2e-2, "float32": 1e-4}
 REPLACES = {
     "decode_attention": "mlapi_tpu/ops/pallas/decode_attention.py:104",
     "extend_attention": "mlapi_tpu/ops/pallas/decode_attention.py:178",
     "paged_decode_attention": "mlapi_tpu/ops/pallas/decode_attention.py:514",
     "paged_extend_attention": "mlapi_tpu/ops/pallas/decode_attention.py:643",
+    "flash_forward": "mlapi_tpu/ops/pallas/flash_attention.py:130",
+    "flash_backward_dq": "mlapi_tpu/ops/pallas/flash_attention.py:357",
+    "flash_backward_dkv": "mlapi_tpu/ops/pallas/flash_attention.py:423",
 }
 KERNELS = tuple(REPLACES)
+FLASH = ("flash_forward", "flash_backward_dq", "flash_backward_dkv")
+SERVING = tuple(k for k in KERNELS if k not in FLASH)
 PAGE = 16                       # the serving page size
-SOURCE = "mlapi_tpu_torch/csrc/decode_attention.cu"
+SOURCES = {
+    **{k: "mlapi_tpu_torch/csrc/decode_attention.cu" for k in SERVING},
+    **{k: "mlapi_tpu_torch/csrc/flash_attention.cu" for k in FLASH},
+}
+SST2_STEPS = 30                 # training steps of the sst2-bert run
 
 
 def emit(obj) -> None:
@@ -243,7 +276,7 @@ def check_kernels(power):
 
     from mlapi_tpu_torch.ops import cuda as kern
 
-    plain = {name: getattr(kern, name + "_plain") for name in KERNELS}
+    plain = {name: getattr(kern, name + "_plain") for name in SERVING}
     twin = {"paged_decode_attention": kern.decode_attention,
             "paged_extend_attention": kern.extend_attention}
     # (kernel, B, U, L, slot of the first query token): every shape the
@@ -693,6 +726,17 @@ def agreement(engine, kv_quant):
         raise SystemExit(f"flash top-1 agreement {agr} below 0.9")
 
 
+def device_kernels(prof):
+    """The device-side events of a ``torch.profiler`` run that are
+    kernels or copies: GPU ranges of user annotations (such as
+    ``Optimizer.step#AdamW.step``) span kernels already counted."""
+    import torch
+
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
 def profile_decode(engine, runs: int = 5) -> None:
     """Where one serving decode step's time goes: an 8-step decode chunk
     at B = 8 (bucket 16, default tier) through the engine's model and
@@ -786,8 +830,7 @@ def profile_decode(engine, runs: int = 5) -> None:
         torch.cuda.synchronize()
     if pages is not None:
         pool.release(pages)
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = device_kernels(prof)
     dev_us = sum(e.device_time_total for e in kernels)
     attn_us = sum(e.device_time_total for e in kernels
                   if "splitk" in e.name)
@@ -827,6 +870,431 @@ def profile_decode(engine, runs: int = 5) -> None:
         "host_syncs_per_step": syncs,
         "host_top_ops": host_top,
     })
+
+
+# -- phase 6: flash attention kernels (B5, B6, B7) -----------------------
+
+def sst2_first_batch():
+    """The sst2-bert run's first batch (``fit``'s ``batch_at(0)``) and
+    the dataset it is drawn from."""
+    import numpy as np
+
+    from mlapi_tpu_torch.config import get_preset
+    from mlapi_tpu_torch.datasets import get_dataset
+
+    cfg = get_preset("sst2-bert")
+    splits = get_dataset(cfg.dataset, **cfg.dataset_kwargs)
+    idx = np.random.default_rng((cfg.seed, 0)).choice(
+        len(splits.x_train), size=cfg.batch_size, replace=False)
+    return cfg, splits, splits.x_train[idx], splits.y_train[idx]
+
+
+def flash_shapes(sst2_x):
+    """(name, B, L, H, KVH, dtype, causal, window, key lengths): (a) the
+    sst2-bert training batch's key mask (its own lengths; the last row
+    fully masked), (b) GPT-2 small causal at its full window, (c) a GQA
+    sliding window in float32 with ragged key lengths."""
+    import numpy as np
+
+    lengths = (sst2_x != 0).sum(axis=1)
+    lengths[-1] = 0
+    ragged = np.random.default_rng(7).integers(128, 257, 4)
+    return [
+        ("sst2-bert", 32, 128, 12, 12, "bfloat16", False, None, lengths),
+        ("gpt2-causal", 8, 1024, 12, 12, "bfloat16", True, None, None),
+        ("gqa-window-f32", 4, 256, 8, 2, "float32", True, 64, ragged),
+    ]
+
+
+def flash_inputs(shape, seed):
+    """q/k/v drawn N(0, 1) and dO 0.1 * N(0, 1) on the card, with the
+    shape's key mask."""
+    import torch
+
+    _, b, length, h, kvh, dtype, _, _, lengths = shape
+    dt = getattr(torch, dtype)
+    g = torch.Generator().manual_seed(seed)
+
+    def t(heads, s=1.0):
+        return (s * torch.randn(b, length, heads, 64, generator=g)).to(
+            "cuda", dt)
+
+    mask = torch.ones(b, length)
+    if lengths is not None:
+        mask = (torch.arange(length)[None]
+                < torch.as_tensor(lengths)[:, None]).float()
+    return t(h), t(kvh), t(kvh), mask.to("cuda"), t(h, 0.1)
+
+
+def flash_bytes_flops(which, q, k, mask, causal, window):
+    """The least each kernel must move and compute on THESE inputs: q,
+    dO, the K/V rows of keys some query attends, the mask, lse/delta and
+    the outputs, each once; 2*D FLOPs per (query head, attended key)
+    pair and matrix product (B5 two products, B6 three, B7 four). Also
+    the dense byte count (every K/V row)."""
+    from mlapi_tpu_torch.ops.cuda.flash_attention import _keep
+
+    b, lq, h, d = q.shape
+    lk, kvh = k.shape[1], k.shape[2]
+    es = q.element_size()
+    keep = _keep(mask, causal, window, lq, lk)[:, 0].expand(b, lq, lk)
+    pairs = int(keep.sum()) * h
+    live_keys = int(keep.any(dim=1).sum())
+    q_bytes = q.numel() * es
+    kv_all = 2 * b * lk * kvh * d * es
+    rows = b * h * lq * 4                      # one f32 per row and head
+    kv_live = 2 * live_keys * kvh * d * es
+    if which == "flash_forward":               # q, k, v, mask -> out, lse
+        fixed, n_products = 2 * q_bytes + rows + mask.numel(), 2
+    elif which == "flash_backward_dq":         # + dO, lse, delta -> dq
+        fixed, n_products = 3 * q_bytes + 2 * rows + mask.numel(), 3
+    else:                                      # + dO, lse, delta -> dk, dv
+        fixed = 2 * q_bytes + 2 * rows + mask.numel() + kv_all
+        n_products = 4
+    return fixed + kv_live, 2 * d * n_products * pairs, fixed + kv_all
+
+
+def sdpa_flash_fns(q, k, v, mask, causal, window, dout):
+    """One ``scaled_dot_product_attention`` call on the same inputs
+    (forward) and its forward + backward: yardsticks the port never
+    calls."""
+    import torch
+    import torch.nn.functional as F
+
+    from mlapi_tpu_torch.ops.cuda.flash_attention import _keep
+
+    b, lq, h, _ = q.shape
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    gt = dout.transpose(1, 2).contiguous()
+    kw = {"enable_gqa": h != k.shape[2]}
+    if causal and window is None and bool(mask.all()):
+        kw["is_causal"] = True
+    elif not bool(mask.all()) or causal:
+        kw["attn_mask"] = _keep(mask, causal, window, lq, k.shape[1]) > 0
+
+    def fwd():
+        return F.scaled_dot_product_attention(qt, kt, vt, **kw)
+
+    def fwd_bwd():
+        return torch.autograd.grad(fwd(), (qt, kt, vt), gt)
+
+    return fwd, fwd_bwd
+
+
+def check_flash_kernels(power, sst2_x):
+    """B5, B6 and B7 against their plain versions at the three shapes,
+    timed beside the plain versions, SDPA and the card's bound. B6/B7
+    take the plain forward's lse and delta = rowsum(dO * out)."""
+    import torch
+
+    from mlapi_tpu_torch.ops import cuda as kern
+    from mlapi_tpu_torch.ops.cuda.flash_attention import _keep
+
+    rows = []
+    for i, shape in enumerate(flash_shapes(sst2_x)):
+        name, b, length, h, kvh, dtype, causal, window, _ = shape
+        cfg = dict(causal=causal, scale=0.125, window=window)
+        q, k, v, mask, dout = flash_inputs(shape, seed=100 + i)
+        out_p, lse_p = kern.flash_forward_plain(q, k, v, mask, **cfg)
+        delta = (dout.float() * out_p.float()).sum(-1).transpose(1, 2)
+        delta = delta.contiguous()
+        out, lse = kern.flash_forward(q, k, v, mask, **cfg)
+        dq = kern.flash_backward_dq(q, k, v, mask, dout, lse_p, delta, **cfg)
+        dk, dv = kern.flash_backward_dkv(q, k, v, mask, dout, lse_p, delta,
+                                         **cfg)
+        torch.cuda.synchronize()
+        dq_p, dk_p, dv_p = kern.flash_backward_plain(
+            q, k, v, mask, dout, lse_p, delta, **cfg)
+        keep = _keep(mask, causal, window, length, length)[:, 0]
+        keep = keep.expand(b, length, length)
+        live_q, live_k = keep.any(-1), keep.any(-2)
+        checks = {
+            "flash_forward": [("out", out, out_p, live_q)],
+            "flash_backward_dq": [("dq", dq, dq_p, live_q)],
+            "flash_backward_dkv": [("dk", dk, dk_p, live_k),
+                                   ("dv", dv, dv_p, live_k)],
+        }
+        lse_err = float((lse - lse_p).abs()[
+            live_q[:, None, :].expand_as(lse)].max())
+        # Copies of the inputs, rotated so that a launch does not find the
+        # previous one's operands in the 50 MB L2; each with its own lse
+        # and delta (from the kernel's forward).
+        nbytes0 = 4 * q.numel() * q.element_size()
+        sets = []
+        for s_i in range(min(8, max(2, math.ceil(160e6 / nbytes0)))):
+            qs, ks, vs, ms, ds = flash_inputs(shape, seed=200 + 10 * i + s_i)
+            o_s, l_s = kern.flash_forward(qs, ks, vs, ms, **cfg)
+            d_s = (ds.float() * o_s.float()).sum(-1).transpose(1, 2)
+            sets.append((qs, ks, vs, ms, ds, l_s, d_s.contiguous()))
+        calls = {
+            "flash_forward": lambda a: kern.flash_forward(*a[:4], **cfg),
+            "flash_backward_dq":
+                lambda a: kern.flash_backward_dq(*a, **cfg),
+            "flash_backward_dkv":
+                lambda a: kern.flash_backward_dkv(*a, **cfg),
+        }
+        plains = {
+            "flash_forward": lambda a: kern.flash_forward_plain(*a[:4], **cfg),
+            "flash_backward_dq":
+                lambda a: kern.flash_backward_plain(*a, **cfg)[0],
+            "flash_backward_dkv":
+                lambda a: kern.flash_backward_plain(*a, **cfg)[1:],
+        }
+        sdpa = [sdpa_flash_fns(*a[:4], causal, window, a[4]) for a in sets]
+        lib_fwd = graph_ms([f for f, _ in sdpa])
+        lib_bwd = (cuda_ms([fb for _, fb in sdpa], iters=20)
+                   - cuda_ms([f for f, _ in sdpa], iters=20))
+        del sdpa
+        peak = BF16_FLOPS_PER_S if dtype == "bfloat16" else F32_FLOPS_PER_S
+        for which in FLASH:
+            errs, refs, dead_zero, finite = {}, {}, True, True
+            for label, got, want, live in checks[which]:
+                errs[label] = float(
+                    (got.float() - want.float()).abs()[live].max())
+                refs[label] = float(want.float().abs()[live].max())
+                dead_zero &= not bool(got[~live].any())
+                finite &= bool(torch.isfinite(got).all())
+            err = max(errs.values())
+            rel = max(errs[k] / refs[k] if refs[k] else math.inf
+                      for k in errs)
+            nbytes, flops, dense = flash_bytes_flops(which, q, k, mask,
+                                                     causal, window)
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = flops / peak * 1e3
+            fn, pf = calls[which], plains[which]
+            row = {
+                "case": "flash_kernel", "kernel": which, "shape": name,
+                "B": b, "L": length, "H": h, "KVH": kvh, "D": 64,
+                "dtype": dtype, "causal": causal, "window": window,
+                "live_key_rows": int(live_k.sum()),
+                "max_abs_err": err, "errors": errs,
+                "ref_max_abs": refs, "max_rel_err": rel,
+                "lse_max_abs_err": lse_err if which == "flash_forward"
+                else None,
+                "dead_rows_exact_zero": dead_zero, "finite": finite,
+                "ms": graph_ms([(lambda a=a: fn(a)) for a in sets]),
+                "eager_ms": cuda_ms([(lambda a=a: fn(a)) for a in sets]),
+                "plain_ms": graph_ms([(lambda a=a: pf(a)) for a in sets[:2]],
+                                     iters=6),
+                "library_ms": lib_fwd if which == "flash_forward"
+                else lib_bwd,
+                "library": "sdpa forward" if which == "flash_forward"
+                else "sdpa forward+backward minus forward (dq, dk, dv "
+                     "together), eager",
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "bytes": nbytes, "dense_bytes": dense, "flops": flops,
+                "card": power,
+            }
+            emit(row)
+            if (not finite or not dead_zero
+                    or err > FLASH_TOLERANCE[dtype]
+                    or rel > FLASH_TOLERANCE[dtype]):
+                raise SystemExit(
+                    f"{which} at {name}: kernel disagrees with its plain "
+                    f"version (errors {errs} of largest values {refs}, "
+                    f"finite {finite}, exact zeros where dead {dead_zero}, "
+                    f"tolerance {FLASH_TOLERANCE[dtype]}, absolute and "
+                    "relative)"
+                )
+            rows.append(row)
+        if lse_err > 1e-4:
+            raise SystemExit(f"B5 lse at {name}: max abs err {lse_err}")
+        del sets
+        torch.cuda.empty_cache()
+    return rows
+
+
+# -- phase 7: training --------------------------------------------------
+
+def batch_tensors(x, y):
+    import torch
+
+    return (torch.as_tensor(x).long().to("cuda"),
+            torch.as_tensor(y).long().to("cuda"))
+
+
+def train_run(cfg, splits):
+    """The sst2-bert preset through the train CLI's ``run`` at full width
+    for SST2_STEPS steps, then its test-set evaluation; the launch
+    counters zeroed just before and read just after. The checkpoint it
+    writes is read back."""
+    import dataclasses
+    import statistics
+
+    from mlapi_tpu_torch.checkpoint import load_checkpoint, tree_signature
+    from mlapi_tpu_torch.models import get_model
+    from mlapi_tpu_torch.ops import cuda as kern
+    from mlapi_tpu_torch.train.__main__ import run
+
+    cfg = dataclasses.replace(cfg, steps=SST2_STEPS)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        out = Path(tmp) / "sst2-bert"
+        for name in KERNELS:
+            getattr(kern, name).launches = 0
+        t0 = time.perf_counter()
+        summary = run(cfg, str(out))
+        run_s = time.perf_counter() - t0
+        launches = {name: getattr(kern, name).launches for name in KERNELS}
+        model = get_model(cfg.model, **cfg.model_kwargs, seed=None,
+                          device="cpu")
+        state, meta = load_checkpoint(out, model)   # checks the signature
+        model.load_state_dict(state)
+        ckpt_ok = (meta.vocab is not None
+                   and meta.vocab.labels == splits.vocab.labels
+                   and meta.tree_signature == tree_signature(model)
+                   and meta.step == SST2_STEPS)
+    layers = model.num_layers
+    eval_batches = math.ceil(len(splits.x_test) / 4096)
+    want = {name: 0 for name in SERVING}
+    want.update(flash_forward=layers * (SST2_STEPS + eval_batches),
+                flash_backward_dq=layers * SST2_STEPS,
+                flash_backward_dkv=layers * SST2_STEPS)
+    last = summary["step_ms"][-20:]
+    median = statistics.median(last)
+    row = {
+        "case": "train", "preset": cfg.name, "steps": SST2_STEPS,
+        "batch": cfg.batch_size, "max_len": splits.x_train.shape[1],
+        "model": cfg.model_kwargs, "device": summary["device"],
+        "dataset_source": summary["dataset_source"],
+        "first_loss": summary["first_loss"],
+        "final_loss": summary["final_loss"],
+        "test_accuracy": summary["test_accuracy"],
+        "wall_ms_per_step": {"median_last_20": median, "min": min(last),
+                             "max": max(last)},
+        "first_step_ms": summary["step_ms"][0],
+        "tokens_per_s": cfg.batch_size * splits.x_train.shape[1]
+        / (median / 1e3),
+        "run_seconds": run_s, "launches": launches,
+        "launches_expected": want, "checkpoint_round_trip": ckpt_ok,
+    }
+    emit(row)
+    if not (math.isfinite(row["first_loss"])
+            and math.isfinite(row["final_loss"])):
+        raise SystemExit(f"sst2-bert: non-finite loss: {row}")
+    if launches != want:
+        raise SystemExit(f"sst2-bert: launches {launches}, want {want}")
+    if not ckpt_ok:
+        raise SystemExit("sst2-bert: the checkpoint did not round-trip")
+    return row
+
+
+def flash_vs_full(cfg, x, y):
+    """One step's loss and gradients from the same weights on the same
+    batch, flash attention against full attention, at full width."""
+    import torch
+    import torch.nn.functional as F
+
+    from mlapi_tpu_torch.models import get_model
+
+    xt, yt = batch_tensors(x, y)
+    losses, grads = {}, {}
+    for impl in ("flash", "full"):
+        model = get_model(cfg.model, **{**cfg.model_kwargs,
+                                        "attention_impl": impl},
+                          seed=cfg.seed, device="cuda")
+        loss = F.cross_entropy(model.apply(xt).float(), yt)
+        loss.backward()
+        losses[impl] = loss.item()
+        grads[impl] = {k: p.grad.float() for k, p in model.named_parameters()}
+        del model
+    rel = {
+        k: float((grads["flash"][k] - g).norm() / g.norm().clamp_min(1e-30))
+        for k, g in grads["full"].items()
+    }
+    # Softmax is invariant to a shift of all of a query's scores, so the
+    # key projection's bias gets no gradient: both sides compute rounding
+    # noise there. Its norms are reported; the bound holds on the rest.
+    no_grad = [k for k in rel if k.endswith(".k.bias")]
+    worst = max((k for k in rel if k not in no_grad), key=rel.get)
+    row = {"case": "flash_vs_full", "loss_flash": losses["flash"],
+           "loss_full": losses["full"],
+           "loss_abs_diff": abs(losses["flash"] - losses["full"]),
+           "grad_rel_l2_max": rel[worst], "grad_rel_l2_worst_leaf": worst,
+           "grad_rel_l2": rel,
+           "key_bias_grad_norm": {
+               k: {impl: float(grads[impl][k].norm())
+                   for impl in ("flash", "full")} for k in no_grad},
+           "grad_norm_median_leaf": float(torch.stack(
+               [g.norm() for g in grads["full"].values()]).median())}
+    emit(row)
+    del grads
+    torch.cuda.empty_cache()
+    if row["loss_abs_diff"] > 1e-2 or rel[worst] > 5e-2:
+        raise SystemExit(f"flash and full attention disagree: {row}")
+
+
+def profile_train_step(cfg, splits, runs: int = 5):
+    """Where one sst2-bert training step's time goes: ``runs`` steps
+    timed without the profiler (host clock around each step, ending in
+    the loss read, which waits for the device), then one step under
+    ``torch.profiler``: device time, kernels per step, B5+B6+B7's share
+    of device time and the top kernels. Busy share = profiled device time
+    / unprofiled wall time."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from mlapi_tpu_torch.models import get_model
+    from mlapi_tpu_torch.train.loop import _make_optimizer, make_train_step
+
+    model = get_model(cfg.model, **cfg.model_kwargs, seed=cfg.seed,
+                      device="cuda")
+    params = list(model.parameters())
+    opt = _make_optimizer(cfg.optimizer, cfg.learning_rate, params)
+    step = make_train_step(model.apply, params, opt,
+                           weight_decay=cfg.weight_decay)
+    n = len(splits.x_train)
+
+    def batch(i):
+        idx = np.random.default_rng((cfg.seed, i)).choice(
+            n, size=cfg.batch_size, replace=False)
+        return splits.x_train[idx], splits.y_train[idx]
+
+    for i in range(3):                                  # warm
+        float(step(*batch_tensors(*batch(i))))
+    walls = []
+    for i in range(runs):
+        t0 = time.perf_counter()
+        float(step(*batch_tensors(*batch(3 + i))))
+        walls.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        float(step(*batch_tensors(*batch(3 + runs))))
+        prof_wall = (time.perf_counter() - t0) * 1e3
+    kernels = device_kernels(prof)
+    dev_us = sum(e.device_time_total for e in kernels)
+    by_name: dict = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total
+    flash_us = {k: sum(v for n_, v in by_name.items() if k in n_)
+                for k in ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+                          "flash_bwd_dkv_kernel")}
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    walls.sort()
+    dev_ms = dev_us / 1e3
+    row = {
+        "case": "train_profile", "preset": cfg.name, "batch": cfg.batch_size,
+        "wall_ms_per_step": {"min": walls[0], "median": walls[runs // 2],
+                             "max": walls[-1], "runs": runs},
+        "profiled_wall_ms": prof_wall,
+        "device_ms_per_step": dev_ms if dev_us else "not measured",
+        "device_busy_share": {
+            "median": dev_ms / walls[runs // 2],
+            "min": dev_ms / walls[-1], "max": dev_ms / walls[0],
+        } if dev_us else "not measured",
+        "kernels_per_step": len(kernels),
+        "flash_share_of_device": {k: v / dev_us for k, v in flash_us.items()}
+        if dev_us else "not measured",
+        "flash_ms_per_step": {k: v / 1e3 for k, v in flash_us.items()},
+        "top_kernels_ms": [{"kernel": k[:90], "ms": v / 1e3} for k, v in top],
+    }
+    emit(row)
+    del model, opt
+    torch.cuda.empty_cache()
+    return row
 
 
 def main() -> int:
@@ -874,14 +1342,24 @@ def main() -> int:
 
     # 3. kernels against their plain versions
     rows = check_kernels(power)
+    cfg, splits, x0, y0 = sst2_first_batch()
+    flash_rows = check_flash_kernels(power, x0)
 
-    # 4. serving, 5. correctness
+    # 4. training: the sst2-bert run through the train CLI's run(), the
+    # flash-vs-full check, one profiled step
+    scratch = ROOT / "build"
+    scratch.mkdir(exist_ok=True)
+    train_row = train_run(cfg, splits)
+    flash_vs_full(cfg, x0, y0)
+    profile_train_step(cfg, splits)
+    del splits
+    torch.cuda.empty_cache()
+
+    # 5. serving, 6. correctness
     # Launches per serving path, each path's counts zeroed just before
     # its requests: {kernel: {"none": N, "int8": N, "none, page 16": N,
     # "int8, page 16": N}}.
-    launches = {name: {} for name in KERNELS}
-    scratch = ROOT / "build"
-    scratch.mkdir(exist_ok=True)
+    launches = {name: {} for name in SERVING}
     with tempfile.TemporaryDirectory(dir=scratch) as tmp:
         ckpt = make_checkpoint(Path(tmp) / "gpt2_small_seed0")
         for page in (None, PAGE):
@@ -899,7 +1377,7 @@ def main() -> int:
     check_small_f32()
 
     summary = []
-    for name in KERNELS:
+    for name in SERVING:
         mine = [r for r in rows if r["kernel"] == name]
         main_row = next(r for r in mine
                         if r["format"] == "bf16" and r["L"] == 1024)
@@ -907,10 +1385,28 @@ def main() -> int:
         # layout; the other runs' counts stand beside it.
         main_path = "none, page 16" if name.startswith("paged_") else "none"
         summary.append({
-            "name": name, "route": "cuda", "source": SOURCE,
+            "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],
             "launches": launches[name][main_path],
             "launches_per_path": launches[name],
+            "max_abs_err": max(r["max_abs_err"] for r in mine),
+            "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+            "bound_ms": main_row["bound_ms"],
+            "bound_by": main_row["bound_by"],
+            "library_ms": main_row["library_ms"],
+        })
+    for name in FLASH:
+        # The main path of B5-B7: the sst2-bert training run (steps and
+        # its test-set evaluation); the row at its shape.
+        mine = [r for r in flash_rows if r["kernel"] == name]
+        main_row = next(r for r in mine if r["shape"] == "sst2-bert")
+        summary.append({
+            "name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name],
+            "launches": train_row["launches"][name],
+            "launches_per_path": {
+                f"train sst2-bert, {SST2_STEPS} steps + test eval":
+                train_row["launches"][name]},
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"],

@@ -11,6 +11,9 @@ archive is written first and the manifest last, each through a
 temporary name and a rename, so a manifest's presence means a complete
 checkpoint.
 
+A classifier's label vocab is stored in the manifest as the JAX package
+stores it (``{"labels": [...]}``).
+
 Layout::
 
     <dir>/MANIFEST.json
@@ -31,6 +34,7 @@ import numpy as np
 import torch
 
 from mlapi_tpu_torch import __version__ as _framework_version
+from mlapi_tpu_torch.utils.vocab import LabelVocab
 
 FORMAT_VERSION = 1
 _MANIFEST = "MANIFEST.json"
@@ -102,7 +106,7 @@ class CheckpointMeta:
     config: dict
     config_hash: str
     tree_signature: str
-    vocab: dict | None = None
+    vocab: LabelVocab | None = None
 
     def to_json(self) -> dict:
         return {
@@ -113,7 +117,7 @@ class CheckpointMeta:
             "config": self.config,
             "config_hash": self.config_hash,
             "tree_signature": self.tree_signature,
-            "vocab": self.vocab,
+            "vocab": self.vocab.to_json() if self.vocab else None,
         }
 
     @classmethod
@@ -126,15 +130,18 @@ class CheckpointMeta:
             config=obj["config"],
             config_hash=obj["config_hash"],
             tree_signature=obj["tree_signature"],
-            vocab=obj.get("vocab"),
+            vocab=(LabelVocab.from_json(obj["vocab"]) if obj.get("vocab")
+                   else None),
         )
 
 
 def save_checkpoint(path: str | os.PathLike, params, *, step: int = 0,
-                    config: dict | None = None) -> Path:
+                    config: dict | None = None,
+                    vocab: LabelVocab | None = None) -> Path:
     """Write a complete checkpoint at ``path``: ``params`` (a module or
-    state dict; bf16 leaves are stored as float32) and ``config``
-    (``{"model": ..., "model_kwargs": ..., "tokenizer": ...}``)."""
+    state dict; bf16 leaves are stored as float32), ``config``
+    (``{"model": ..., "model_kwargs": ..., "tokenizer": ...}``) and the
+    label ``vocab`` of a classifier."""
     path = Path(path).resolve()
     path.mkdir(parents=True, exist_ok=True)
     config = dict(config or {})
@@ -150,6 +157,7 @@ def save_checkpoint(path: str | os.PathLike, params, *, step: int = 0,
         config=config,
         config_hash=_stable_hash(config),
         tree_signature=tree_signature(flat),
+        vocab=vocab,
     )
     tmp = path / f".{_MANIFEST}.tmp"
     tmp.write_text(json.dumps(meta.to_json(), indent=2, sort_keys=True))

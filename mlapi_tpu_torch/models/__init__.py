@@ -1,5 +1,6 @@
 """Model registry: ``get_model(name, **kwargs)`` builds a model by its
-config name, the name a checkpoint's manifest records (``gpt_lm``)."""
+config name, the name a checkpoint's manifest records (``gpt_lm``,
+``bert_classifier``)."""
 
 from __future__ import annotations
 
@@ -14,6 +15,11 @@ def get_model(name: str, **kwargs):
     return _REGISTRY.get(name)(**kwargs)
 
 
+def model_registered(name: str) -> bool:
+    return name in _REGISTRY.names()
+
+
 # Import model modules for their registration side effects.
 from mlapi_tpu_torch.models import gpt as _gpt  # noqa: E402,F401
+from mlapi_tpu_torch.models.bert import BertClassifier  # noqa: E402,F401
 from mlapi_tpu_torch.models.gpt import GptLM  # noqa: E402,F401

@@ -37,6 +37,7 @@ from torch import nn
 
 from mlapi_tpu_torch.models import register_model
 from mlapi_tpu_torch.ops.attention import NEG, full_attention
+from mlapi_tpu_torch.ops.cuda.flash_attention import flash_attention
 from mlapi_tpu_torch.ops.quant import (
     KV_FORMATS,
     init_kv_cache,
@@ -54,11 +55,11 @@ _FILTERED = -1e30  # finite stand-in for -inf (prob == 0)
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def _layer_norm(x, scale, bias):
+def _layer_norm(x, scale, bias, eps: float = _LN_EPS):
     x = x.to(torch.float32)
     mean = x.mean(dim=-1, keepdim=True)
     var = ((x - mean) ** 2).mean(dim=-1, keepdim=True)
-    return (x - mean) * torch.rsqrt(var + _LN_EPS) * scale + bias
+    return (x - mean) * torch.rsqrt(var + eps) * scale + bias
 
 
 def _param(*shape) -> nn.Parameter:
@@ -104,8 +105,10 @@ class GptLM(nn.Module):
     unless ``device="cpu"`` or ``MLAPI_TPU_PLATFORM=cpu``; raises with
     no card); ``seed=None`` skips the draw for weights about to be
     loaded.
-    ``attention_impl`` accepts only ``"full"``: the Pallas flash and
-    ring attention of training and scoring are not ported yet.
+    ``attention_impl`` is ``"full"`` or ``"flash"`` (the full-sequence
+    ``apply`` through the B5-B7 kernels, ``ops/cuda/flash_attention``);
+    ``"ring"`` waits for the parallel slice (ROADMAP Queue A8). The
+    cache paths attend as ``decode_attn_impl`` says, whatever this is.
     """
 
     input_kind = "text"
@@ -127,11 +130,13 @@ class GptLM(nn.Module):
     ):
         super().__init__()
         dev = resolve_device(device)
-        if attention_impl != "full":
+        if attention_impl == "ring":
             raise NotImplementedError(
-                f"attention_impl={attention_impl!r} is not ported (only "
-                '"full"; flash and ring attention wait for a later slice)'
+                'attention_impl="ring" is not ported (sequence-parallel '
+                "ring attention waits for ROADMAP Queue A8)"
             )
+        if attention_impl not in ("full", "flash"):
+            raise ValueError(f"unknown attention_impl {attention_impl!r}")
         if hidden_size % num_heads:
             raise ValueError("hidden_size must divide evenly into heads")
         if compute_dtype not in _DTYPES:
@@ -243,6 +248,8 @@ class GptLM(nn.Module):
         x = self.wte[token_ids] + self.wpe[pos][None]
 
         def attend(q, k, v):
+            if self.attention_impl == "flash":
+                return flash_attention(q, k, v, causal=True)
             return full_attention(q, k, v, causal=True)
 
         for n in range(self.num_layers):

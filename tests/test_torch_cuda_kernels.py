@@ -216,3 +216,116 @@ def test_model_streams_equal_through_kernels_and_einsum(card):
                     ids, max_new_tokens=24, pad_lens=[0, 5, 17]
                 ).tolist())
         assert streams[0] == streams[1], kv_quant
+
+
+# -- flash attention for training: B5 forward, B6 dq, B7 dk/dv ------------
+
+FLASH_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+
+
+def _flash_case(card, b, lq, lk, h, kvh, dtype, ragged, seed):
+    """q/k/v drawn N(0, 1); dO drawn 0.1 * N(0, 1) (a training step's
+    gradients reaching attention are smaller still), so bf16 gradients
+    stay where one bf16 step is below the tolerance. ``ragged``: key
+    lengths drawn per row, the last batch row fully masked."""
+    rng = np.random.default_rng(seed)
+
+    def t(*shape, s=1.0):
+        return torch.as_tensor(s * rng.standard_normal(shape),
+                               dtype=torch.float32).to(card, dtype)
+
+    q, k, v = t(b, lq, h, 64), t(b, lk, kvh, 64), t(b, lk, kvh, 64)
+    mask = torch.ones(b, lk, device=card)
+    if ragged:
+        lens = rng.integers(1, lk + 1, b)
+        mask = (torch.arange(lk)[None] < torch.as_tensor(lens)[:, None])
+        mask[-1] = False
+        mask = mask.to(card, torch.float32)
+    return q, k, v, mask, t(b, lq, h, 64, s=0.1)
+
+
+@pytest.mark.parametrize(
+    "b,lq,lk,h,kvh,dtype,causal,window,ragged",
+    [(4, 128, 128, 12, 12, torch.bfloat16, False, None, True),  # sst2-bert
+     (2, 200, 200, 4, 4, torch.bfloat16, True, None, False),    # ragged edge
+     (2, 150, 150, 8, 2, torch.float32, True, 40, True),        # GQA window
+     (3, 50, 130, 4, 2, torch.float32, False, None, True),      # Lq != Lk
+     (2, 256, 256, 12, 12, torch.float32, False, None, True)],
+)
+def test_flash_kernels_match_plain(card, b, lq, lk, h, kvh, dtype, causal,
+                                   window, ragged):
+    from mlapi_tpu_torch.ops.cuda.flash_attention import _keep
+
+    q, k, v, mask, dout = _flash_case(card, b, lq, lk, h, kvh, dtype, ragged,
+                                      seed=lq + lk)
+    cfg = dict(causal=causal, scale=0.125, window=window)
+    n = [f.launches for f in (kern.flash_forward, kern.flash_backward_dq,
+                              kern.flash_backward_dkv)]
+    out, lse = kern.flash_forward(q, k, v, mask, **cfg)
+    out_p, lse_p = kern.flash_forward_plain(q, k, v, mask, **cfg)
+    delta = (dout.float() * out_p.float()).sum(-1).transpose(1, 2)
+    delta = delta.contiguous()
+    dq = kern.flash_backward_dq(q, k, v, mask, dout, lse_p, delta, **cfg)
+    dk, dv = kern.flash_backward_dkv(q, k, v, mask, dout, lse_p, delta, **cfg)
+    torch.cuda.synchronize()
+    assert [f.launches for f in (kern.flash_forward, kern.flash_backward_dq,
+                                 kern.flash_backward_dkv)] == [x + 1 for x in n]
+    dq_p, dk_p, dv_p = kern.flash_backward_plain(q, k, v, mask, dout, lse_p,
+                                                 delta, **cfg)
+    keep = _keep(mask, causal, window, lq, lk)[:, 0].expand(b, lq, lk)
+    live_q, live_k = keep.any(-1), keep.any(-2)          # [B, Lq], [B, Lk]
+    tol = FLASH_TOL[dtype]
+    for name, got, want, live in (
+        ("out", out, out_p, live_q), ("dq", dq, dq_p, live_q),
+        ("dk", dk, dk_p, live_k), ("dv", dv, dv_p, live_k),
+    ):
+        assert torch.isfinite(got).all(), name
+        err = (got.float() - want.float()).abs()[live].max().item()
+        ref = want.float().abs()[live].max().item()
+        # Absolute, and relative to the largest value: a small gradient
+        # must not pass by being small.
+        assert err <= tol and err <= tol * ref, (name, err, ref)
+        assert not got[~live].any(), name     # exact zeros where dead
+    err = (lse - lse_p).abs()[live_q[:, None, :].expand_as(lse)].max().item()
+    assert err <= 1e-4, err
+
+
+def test_flash_autograd_runs_the_three_kernels(card):
+    q, k, v, mask, dout = _flash_case(card, 2, 128, 128, 12, 12,
+                                      torch.bfloat16, True, seed=4)
+    qkv = [x.clone().requires_grad_() for x in (q, k, v)]
+    n = [f.launches for f in (kern.flash_forward, kern.flash_backward_dq,
+                              kern.flash_backward_dkv)]
+    out = kern.flash_attention(*qkv, mask)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    assert [f.launches for f in (kern.flash_forward, kern.flash_backward_dq,
+                                 kern.flash_backward_dkv)] == [x + 1 for x in n]
+    _, lse_p = kern.flash_forward_plain(q, k, v, mask, scale=0.125)
+    delta = (dout.float() * out.detach().float()).sum(-1).transpose(1, 2)
+    want = kern.flash_backward_plain(q, k, v, mask, dout, lse_p,
+                                     delta.contiguous(), scale=0.125)
+    for t, w in zip(qkv, want):
+        err = (t.grad.float() - w.float()).abs().max().item()
+        assert err <= 2e-2 * w.float().abs().max().item()
+
+
+def test_flash_reads_strided_views_of_a_fused_projection(card):
+    q, k, v, mask, _ = _flash_case(card, 2, 96, 96, 12, 12, torch.bfloat16,
+                                   False, seed=5)
+    qkv = torch.cat([q, k, v], dim=2)              # [B, L, 3H, D]
+    views = qkv.split(12, dim=2)
+    assert not views[0].is_contiguous()
+    got, lse = kern.flash_forward(*views, mask, causal=True, scale=0.125)
+    want, lse_c = kern.flash_forward(q.contiguous(), k.contiguous(),
+                                     v.contiguous(), mask, causal=True,
+                                     scale=0.125)
+    assert torch.equal(got, want) and torch.equal(lse, lse_c)
+
+
+def test_flash_head_dim_other_than_64_raises(card):
+    q = torch.zeros(2, 32, 4, 128, device=card, dtype=torch.bfloat16)
+    n0 = kern.flash_forward.launches
+    with pytest.raises(ValueError, match="head_dim 128 not compiled"):
+        kern.flash_attention(q, q, q)
+    assert kern.flash_forward.launches == n0
