@@ -11,18 +11,23 @@ the JAX package. Phases, each fatal on failure:
 1. device — the card's name, count, and ``nvidia-smi`` name + power
    limit;
 2. build — ``nvcc`` for ``sm_90a``, one process per source, printing
-   ``ptxas -v`` and seconds;
+   ``ptxas -v`` and seconds; the build row gives each kernel's registers
+   and spill bytes;
 3. kernels — flash-decode (B1), flash-extend (B2) and their paged
-   twins (B3, B4: 16-token pages behind a shuffled page table, tiles no
+   twins (B3, B4: 16-token pages behind a shuffled page table, pages no
    query attends on the null page), bf16 and int8 caches, at the shapes
-   the serving phase gives them and at the full 1024-token window: each
-   wrapper against its plain PyTorch version (max abs error on live rows
-   <= 2e-2), each paged kernel against its contiguous twin over the same
-   bytes (bit for bit). Then flash attention for training — forward
-   (B5), dq (B6), dk/dv (B7) — at (a) the sst2-bert batch (B = 32,
-   L = 128, 12 heads, bf16, its own key mask with the last row fully
-   masked), (b) GPT-2 small causal (B = 8, L = 1024, bf16) and (c) a
-   GQA sliding window in float32: each against its plain version
+   the serving phase gives them and at the full 1024-token window, and
+   for B2/B4 a GQA row (16 query heads on 4 KV heads) and a ragged one
+   (U = 100, L = 1000, 8-token pages): each wrapper against its plain
+   PyTorch version (max abs error on live rows <= 2e-2, exact zeros on
+   rows with no valid key), each paged kernel against its contiguous
+   twin over the same bytes (bit for bit); each row names the body that
+   ran (``mma``: tensor cores, ``fma``). Then flash attention for
+   training — forward (B5), dq (B6), dk/dv (B7) — at (a) the sst2-bert
+   batch (B = 32, L = 128, 12 heads, bf16, its own key mask with the
+   last row fully masked), (b) GPT-2 small causal (B = 8, L = 1024,
+   bf16) and (c) a GQA sliding window in float32: each against its
+   plain version
    (<= 2e-2 bf16, <= 1e-4 f32 on live rows, exact zeros where nothing
    is attended). Every kernel is timed beside its plain version,
    ``scaled_dot_product_attention`` (a yardstick the port never calls;
@@ -47,12 +52,19 @@ the JAX package. Phases, each fatal on failure:
    GPT-2-small checkpoint served with ``--decode-attn-impl flash``
    through the CLI's engine factory and the HTTP server, sent 8
    concurrent short prompts (one batch), one NDJSON stream, one prompt
-   longer than the largest bucket (chunked prefill), and an admission
-   leg: a 96-token stream, then 4 short prompts sent once its first
-   chunk arrived, which must join the running batch. Launch counters
-   are zeroed just before the requests and read just after; a paged run
-   must launch B3 and B4 and never B1 or B2 (and never B5-B7), and end
-   with every page back in the pool. Then an 8-step decode chunk at
+   longer than the largest bucket (chunked prefill), an admission
+   leg (a 96-token stream, then 4 short prompts sent once its first
+   chunk arrived, which must join the running batch), and a
+   prefill-heavy leg: 8 concurrent streams of 512-880-byte prompts, one
+   batch of seven 128-token chunks at B = 8, each request's time to its
+   first NDJSON line reported. Launch counters are zeroed just before
+   the requests and read just after: flash-extend exactly 12 per chunk
+   (one per layer), all on the tensor-core body; a paged run (its pool
+   sized for 8 full windows) must launch B3 and B4 and never B1 or B2
+   (and never B5-B7), and end with every page back in the pool. Then
+   one 896-token prefill at B = 8 through the engine's layout (wall ms,
+   device ms, flash-extend's share, kernels per chunk) and an 8-step
+   decode chunk at
    B = 8 through the engine's layout: wall time per step over five runs
    without the profiler, and one run under ``torch.profiler`` for
    device time per step, kernels per step, the flash-decode kernel's
@@ -171,13 +183,15 @@ def graph_ms(calls, iters: int = 30) -> float:
 
 # -- phase 3: kernels ---------------------------------------------------
 
-def kernel_case(kernel, fmt, b, u, length, pos, seed):
-    """Inputs at one serving shape: GPT-2-small heads, a cache holding
-    ragged left pads (per-row ``n_pad``), the decode token (or the
-    extend span's first token) at slot ``pos``, masks built by the
-    model's own mask helpers. A paged kernel gets the same cache in
-    pool pages (:func:`to_pages`) and, for the comparisons, the
-    contiguous cache beside it."""
+def kernel_case(kernel, fmt, b, u, length, pos, seed, h=12, kvh=12,
+                page=PAGE):
+    """Inputs at one serving shape: GPT-2-small heads unless ``h`` /
+    ``kvh`` say otherwise, a cache holding ragged left pads (per-row
+    ``n_pad``), the decode token (or the extend span's first token) at
+    slot ``pos``, masks built by the model's own mask helpers. A paged
+    kernel gets the same cache in ``page``-token pool pages
+    (:func:`to_pages`) and, for the comparisons, the contiguous cache
+    beside it."""
     import torch
 
     from mlapi_tpu_torch.models.gpt import (
@@ -185,7 +199,6 @@ def kernel_case(kernel, fmt, b, u, length, pos, seed):
     )
     from mlapi_tpu_torch.ops.quant import kv_quantize
 
-    h = kvh = 12
     d = 64
     g = torch.Generator().manual_seed(seed)
     dev = "cuda"
@@ -205,31 +218,31 @@ def kernel_case(kernel, fmt, b, u, length, pos, seed):
         k, v = {"q": kq, "scale": ks}, {"q": vq, "scale": vs}
     if not kernel.startswith("paged_"):
         return q, k, v, mask
-    pk, table = to_pages(k, mask, seed)
-    pv, _ = to_pages(v, mask, seed)
+    pk, table = to_pages(k, mask, seed, page)
+    pv, _ = to_pages(v, mask, seed, page)
     return q, pk, pv, table, mask, k, v
 
 
-def to_pages(cache, mask, seed):
+def to_pages(cache, mask, seed, page=PAGE):
     """A contiguous ``[B, L, KVH, D]`` cache (or int8 pair) copied into
-    ``PAGE``-token pool pages behind a shuffled page table; tiles no
+    ``page``-token pool pages behind a shuffled page table; pages no
     query attends map to the null page 0, which holds finite garbage."""
     import torch
 
     leaves = cache if isinstance(cache, dict) else {"t": cache}
     some = next(iter(leaves.values()))
     b, length = some.shape[:2]
-    n_tiles = length // PAGE
+    n_tiles = length // page
     n_pages = b * n_tiles + 1
     g = torch.Generator().manual_seed(seed)
     ids = (torch.randperm(n_pages - 1, generator=g) + 1).reshape(b, n_tiles)
-    live = mask.reshape(b, -1, n_tiles, PAGE).any(dim=(1, 3)).cpu()
+    live = mask.reshape(b, -1, n_tiles, page).any(dim=(1, 3)).cpu()
     table = torch.where(live, ids, 0).to("cuda", torch.int32)
     pools = {}
     for name, leaf in leaves.items():
-        pool = torch.randn((n_pages, PAGE) + tuple(leaf.shape[2:]),
+        pool = torch.randn((n_pages, page) + tuple(leaf.shape[2:]),
                            generator=g).abs().to("cuda", leaf.dtype)
-        tiles = leaf.reshape((b, n_tiles, PAGE) + tuple(leaf.shape[2:]))
+        tiles = leaf.reshape((b, n_tiles, page) + tuple(leaf.shape[2:]))
         on = table != 0
         pool[table[on].long()] = tiles[on]
         pools[name] = pool
@@ -268,14 +281,20 @@ def sdpa_fn(q, k, v, mask):
     kt = k.transpose(1, 2).contiguous()
     vt = v.transpose(1, 2).contiguous()
     m4 = mask.reshape(b, 1, u, mask.shape[-1]).contiguous()
-    return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=m4)
+    gqa = h != k.shape[2]
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=m4,
+                                                  enable_gqa=gqa)
 
 
 def check_kernels(power):
+    import importlib
+
     import torch
 
     from mlapi_tpu_torch.ops import cuda as kern
 
+    wrappers = importlib.import_module(
+        "mlapi_tpu_torch.ops.cuda.decode_attention")
     plain = {name: getattr(kern, name + "_plain") for name in SERVING}
     twin = {"paged_decode_attention": kern.decode_attention,
             "paged_extend_attention": kern.extend_attention}
@@ -287,7 +306,11 @@ def check_kernels(power):
     # 256 and decodes 16 tokens at slots 384-399, alone. B = 1 gets its
     # own split layout (one 32-key tile per split at L = 416). The paged
     # twins read 16-token pages: NP = 3 (L = 48), 26 (L = 416), 64
-    # (L = 1024), 9 (L = 144: the admission leg's batch at B = 8).
+    # (L = 1024), 9 (L = 144: the admission leg's batch at B = 8). The
+    # prefill-heavy leg's chunks are B = 8 at L = 928 (the full-window row
+    # stands for them). Beyond the serving shapes, B2 and B4 get a GQA row
+    # (16 query heads on 4 KV heads) and a ragged one (U = 100, L = 1000,
+    # 8-token pages: 1000 is no multiple of 16 or 64).
     shapes = [
         ("decode_attention", 8, 1, 48, 47),
         ("decode_attention", 1, 1, 48, 47),
@@ -303,12 +326,21 @@ def check_kernels(power):
         ("paged_extend_attention", 1, 128, 416, 256),
         ("paged_extend_attention", 8, 128, 1024, 768),
     ]
+    gqa = dict(h=16, kvh=4)
+    for name in ("extend_attention", "paged_extend_attention"):
+        shapes.append((name, 4, 128, 1024, 768, gqa))
+        shapes.append((name, 2, 100, 1000, 850, dict(page=8)))
     results = []
-    for i, (name, b, u, length, pos) in enumerate(shapes):
+    for i, (name, b, u, length, pos, *extra) in enumerate(shapes):
+        shape = extra[0] if extra else {}
+        h, kvh = shape.get("h", 12), shape.get("kvh", 12)
         for fmt in ("bf16", "int8"):
-            args = kernel_case(name, fmt, b, u, length, pos, seed=i)
+            args = kernel_case(name, fmt, b, u, length, pos, seed=i, **shape)
             fn = getattr(kern, name)
             paged = name.startswith("paged_")
+            geo = wrappers._geometry(
+                "mlapi_" + name, torch.bfloat16, b, u, h, kvh, length, 64,
+                wrappers._sm_count(0))
             q, mask = args[0], args[-3 if paged else -1]
             contiguous = (q, *args[-2:], mask) if paged else args
             out = fn(*args[:5] if paged else args)
@@ -323,6 +355,7 @@ def check_kernels(power):
                 (out.float() - ref.float()).abs()[live].max()
             )
             finite = bool(torch.isfinite(out).all())
+            dead_zero = not bool(out[~live].any())
             nbytes, flops = case_bytes_flops(*contiguous)
             if paged:
                 nbytes += args[3].numel() * args[3].element_size()
@@ -333,7 +366,7 @@ def check_kernels(power):
             sets = [args]
             for s in range(1, min(8, max(2, math.ceil(160e6 / nbytes)))):
                 sets.append(kernel_case(name, fmt, b, u, length, pos,
-                                        seed=1000 + 10 * i + s))
+                                        seed=1000 + 10 * i + s, **shape))
             ops = [a[:5] if paged else a for a in sets]
             calls = [(lambda a=a: fn(*a)) for a in ops]
             kernel_ms = graph_ms(calls)
@@ -351,10 +384,12 @@ def check_kernels(power):
             row = {
                 "case": "kernel", "kernel": name, "format": fmt,
                 "B": b, "U": u, "L": length, "pos": pos,
-                "H": 12, "KVH": 12, "D": 64,
-                "page": PAGE if paged else None,
+                "H": h, "KVH": kvh, "D": 64,
+                "page": shape.get("page", PAGE) if paged else None,
+                "body": geo.body, "splits": geo.splits,
                 "equals_contiguous": same,
                 "max_abs_err": err, "finite": finite,
+                "dead_rows_exact_zero": dead_zero,
                 "ms": kernel_ms, "eager_ms": eager_ms, "plain_ms": plain_ms,
                 "library_ms": library_ms,
                 "bound_ms": max(t_bytes, t_ops),
@@ -362,11 +397,12 @@ def check_kernels(power):
                 "bytes": nbytes, "flops": flops, "card": power,
             }
             emit(row)
-            if not finite or err > TOLERANCE:
+            if not finite or err > TOLERANCE or not dead_zero:
                 raise SystemExit(
                     f"{name} {fmt} B={b} U={u} L={length}: kernel disagrees "
                     f"with its plain version (max abs err {err}, finite "
-                    f"{finite}, tolerance {TOLERANCE})"
+                    f"{finite}, tolerance {TOLERANCE}, exact zeros on dead "
+                    f"rows {dead_zero})"
                 )
             if same is False:
                 raise SystemExit(
@@ -424,6 +460,64 @@ LONG_PROMPT = ("a prompt longer than the largest bucket prefills in "
 ADMIT_STREAM, ADMIT_JOIN = 96, 16
 JOINERS = ["join the batch", "admitted mid-run", "a row of its own",
            "pages on demand"]
+# The prefill-heavy leg: 8 concurrent prompts of 512-880 bytes (one token
+# a byte), drawn from seed 0, the longest set to 880, 16 new tokens each:
+# bucket 896 (7 chunks of 128), window 928 <= GPT-2's 1024 positions. A
+# prompt over 896 bytes would round to a 1024 bucket and overflow them.
+LONG_LEG_BYTES, LONG_LEG_NEW, LONG_LEG_BUCKET = (512, 880), 16, 896
+
+
+def long_leg_prompts() -> list:
+    import numpy as np
+
+    lo, hi = LONG_LEG_BYTES
+    sizes = np.random.default_rng(0).integers(lo, hi + 1, 8)
+    sizes[int(np.argmax(sizes))] = hi
+    text = ("a long prompt pays its prefill in time to first token; "
+            "every chunk of it reads the cache written so far. ") * 20
+    return [text[i:i + int(n)] for i, n in enumerate(sizes)]
+
+
+def long_leg(port: int):
+    """The 8 long prompts as concurrent NDJSON streams: per request the
+    wall ms to its first line (TTFT) and its done line."""
+    prompts = long_leg_prompts()
+    ttft: list = [None] * len(prompts)
+    done: list = [None] * len(prompts)
+    errors: list = []
+    barrier = threading.Barrier(len(prompts))
+
+    def one(i):
+        try:
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{port}/generate", data=json.dumps({
+                    "text": prompts[i], "stream": True,
+                    "max_new_tokens": LONG_LEG_NEW,
+                }).encode(), headers={"content-type": "application/json"},
+            )
+            barrier.wait()
+            t0 = time.perf_counter()
+            with urllib.request.urlopen(req, timeout=300) as r:
+                lines = [json.loads(r.readline())]
+                ttft[i] = (time.perf_counter() - t0) * 1e3
+                lines += [json.loads(x) for x in r.read().decode().splitlines()
+                          if x.strip()]
+            streamed = [t for x in lines[:-1] for t in x["token_ids"]]
+            if not lines[-1].get("done") or streamed != lines[-1]["token_ids"]:
+                raise ValueError("NDJSON chunks disagree with the done line")
+            done[i] = lines[-1]
+        except BaseException as e:  # reported below
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=one, args=(i,))
+               for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    if errors or any(d is None for d in done):
+        raise SystemExit(f"prefill-heavy leg: requests failed: {errors}")
+    return [len(p) for p in prompts], ttft, done
 
 
 def admission_leg(port: int):
@@ -466,6 +560,8 @@ def admission_leg(port: int):
 def serve_run(ckpt: Path, kv_quant, page):
     """One serving run (``page``: the KV page size, None for the
     contiguous cache): returns its summary row and the engine."""
+    import statistics
+
     from mlapi_tpu_torch.ops import cuda as kern
     from mlapi_tpu_torch.serving.__main__ import build_engine
     from mlapi_tpu_torch.serving.app import build_app
@@ -475,12 +571,25 @@ def serve_run(ckpt: Path, kv_quant, page):
     # --checkpoint ... [--kv-quant int8] --decode-attn-impl flash
     # [--kv-page-size 16]); a wider batch window so 8 concurrent arrivals
     # form one batch.
+    # The paged runs size the pool for the prefill-heavy leg: 8 rows of a
+    # full 1024-token window (the leg's 928 need 8 * 58 + 1 = 465 pages),
+    # where the default covers the largest short bucket only.
+    kv_pages = None
+    if page:
+        kv_pages = 8 * -(-GPT2_SMALL["max_positions"] // page) + 1
     engine = build_engine(ckpt, kv_quant=kv_quant, decode_attn_impl="flash",
-                          kv_page_size=page, max_wait_ms=50.0)
+                          kv_page_size=page, kv_pages=kv_pages,
+                          max_wait_ms=50.0)
+    window = engine._cache_len(LONG_LEG_BUCKET, LONG_LEG_NEW)
+    if page and kv_pages < 8 * -(-window // page) + 1:
+        raise SystemExit(f"{kv_pages} pages cannot hold 8 x {window} tokens")
     n_new = 32
     with BackgroundServer(build_app(engine)) as srv:
         for name in KERNELS:
             getattr(kern, name).launches = 0
+        for name in SERVING:
+            getattr(kern, name).bodies = {"mma": 0, "fma": 0}
+        all_chunks0 = engine.prefill_chunks
         batches0 = engine.batch_calls
         t0 = time.perf_counter()
         outs: list = [None] * len(SHORT_PROMPTS)
@@ -517,7 +626,15 @@ def serve_run(ckpt: Path, kv_quant, page):
         admit_ids, admit_done, joined = admission_leg(srv.port)
         admit_s = time.perf_counter() - t0
         admitted = engine.admitted - admitted0
+        chunks0, batches0 = engine.prefill_chunks, engine.batch_calls
+        t0 = time.perf_counter()
+        leg_bytes, leg_ttft, leg_done = long_leg(srv.port)
+        leg_s = time.perf_counter() - t0
+        leg_chunks = engine.prefill_chunks - chunks0
+        leg_batches = engine.batch_calls - batches0
+        all_chunks = engine.prefill_chunks - all_chunks0
         launches = {name: getattr(kern, name).launches for name in KERNELS}
+        bodies = {name: dict(getattr(kern, name).bodies) for name in SERVING}
         # Pages go back on the device thread after the terminal frames.
         deadline = time.monotonic() + 60.0
         while engine.kv_pages_in_use and time.monotonic() < deadline:
@@ -561,6 +678,24 @@ def serve_run(ckpt: Path, kv_quant, page):
             f"kernels of the path: want {mine} launched and no other, "
             f"got {launches}"
         )
+    # Flash-extend: exactly one launch per layer per 128-token prefill
+    # chunk (the long prompt's 3, the prefill-heavy leg's 7), every one on
+    # the tensor-core body.
+    layers = GPT2_SMALL["num_layers"]
+    extend = mine[1]
+    if (leg_chunks != LONG_LEG_BUCKET // 128 or all_chunks != 3 + leg_chunks
+            or launches[extend] != layers * all_chunks):
+        raise SystemExit(
+            f"{extend}: {launches[extend]} launches for {all_chunks} prefill "
+            f"chunks ({leg_chunks} in the prefill-heavy leg), want "
+            f"{layers} per chunk and {LONG_LEG_BUCKET // 128} leg chunks"
+        )
+    if bodies[extend]["fma"] or bodies[extend]["mma"] != launches[extend]:
+        raise SystemExit(f"{extend}: bodies {bodies[extend]}, want all mma")
+    if leg_batches != 1:
+        raise SystemExit(f"8 long prompts took {leg_batches} batches")
+    if [len(d["token_ids"]) for d in leg_done] != [LONG_LEG_NEW] * 8:
+        raise SystemExit("prefill-heavy leg: a request missed its tokens")
     if metrics["counters"]["generate.prefill_chunks"] < 3:
         raise SystemExit("/metrics lost the prefill chunks")
     g = metrics["gauges"]
@@ -573,6 +708,15 @@ def serve_run(ckpt: Path, kv_quant, page):
         "short_batch_s": batch_s, "short_batches": short_batches,
         "stream_lines": len(lines), "long_prefill_chunks": long_chunks,
         "admission_s": admit_s, "admitted": admitted,
+        "prefill_leg": {
+            "prompt_bytes": leg_bytes, "max_new_tokens": LONG_LEG_NEW,
+            "bucket": LONG_LEG_BUCKET, "window": window,
+            "chunks": leg_chunks, "batches": leg_batches, "seconds": leg_s,
+            "ttft_ms": leg_ttft,
+            "ttft_ms_p50": statistics.median(leg_ttft),
+            "ttft_ms_max": max(leg_ttft),
+        },
+        "prefill_chunks": all_chunks, "bodies": bodies,
         "growths": metrics["counters"]["generate.growths"],
         "compactions": metrics["counters"]["generate.compactions"],
         "kv_pages_in_use_at_end": g["generate.kv_pages_in_use"],
@@ -869,6 +1013,78 @@ def profile_decode(engine, runs: int = 5) -> None:
         "page_coords_host_ms": coords_ms if coords is not None else None,
         "host_syncs_per_step": syncs,
         "host_top_ops": host_top,
+    })
+
+
+def profile_prefill(engine, runs: int = 5) -> None:
+    """Where one long prefill's time goes: an 896-token prompt at B = 8
+    (the prefill-heavy leg's bucket, 7 chunks of 128) through the
+    engine's layout -- ``extend_chunk_fn`` on a contiguous cache,
+    ``paged_extend_fn`` through pool pages. Wall ms per prefill without
+    the profiler (``runs`` prefills, each timed alone with a device sync),
+    then one under ``torch.profiler``: device ms, flash-extend's share
+    (the B2/B4 kernel and, with several splits, its merge) and kernels per
+    chunk."""
+    import statistics
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from mlapi_tpu_torch.models.gpt import extend_chunk_fn, paged_extend_fn
+    from mlapi_tpu_torch.ops.quant import paged_cache_tree
+
+    model, b, cp = engine.model, 8, engine.prompt_buckets[-1]
+    bucket = LONG_LEG_BUCKET
+    total = engine._cache_len(bucket, LONG_LEG_NEW)
+    g = torch.Generator().manual_seed(6)
+    prompt = torch.randint(4, 260, (b, bucket), generator=g).to(engine.device)
+    n_pad = torch.zeros(b, dtype=torch.long, device=engine.device)
+    pool = engine.pool
+    pages = None
+    if pool is not None:
+        pages = pool.alloc(b * -(-total // pool.page))
+
+    def prefill():
+        if pool is None:
+            cache, fn = model.init_cache(b, total), extend_chunk_fn
+        else:
+            cache = paged_cache_tree(pool.layers, pages.reshape(b, -1))
+            fn = paged_extend_fn
+        for c0 in range(0, bucket, cp):
+            cache, _ = fn(model, cache, prompt[:, c0:c0 + cp], c0, n_pad)
+
+    def timed() -> float:
+        t0 = time.perf_counter()
+        prefill()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    with torch.inference_mode():
+        timed()                                     # warm
+        walls = sorted(timed() for _ in range(runs))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            prefill()
+            torch.cuda.synchronize()
+    if pages is not None:
+        pool.release(pages)
+    kernels = device_kernels(prof)
+    dev_us = sum(e.device_time_total for e in kernels)
+    ext_us = sum(e.device_time_total for e in kernels
+                 if "extend_mma" in e.name or "splitk" in e.name)
+    chunks = bucket // cp
+    emit({
+        "case": "prefill_profile", "B": b, "bucket": bucket, "L": total,
+        "chunks": chunks, "kv_quant": engine.kv_quant,
+        "kv_page_size": pool.page if pool is not None else None,
+        "through": "extend_chunk_fn" if pool is None else "paged_extend_fn",
+        "wall_ms": {"median": statistics.median(walls), "min": walls[0],
+                    "max": walls[-1], "runs": runs},
+        "device_ms": dev_us / 1e3 if dev_us else "not measured",
+        "flash_extend_ms": ext_us / 1e3 if dev_us else "not measured",
+        "flash_extend_share_of_device": ext_us / dev_us if dev_us
+        else "not measured",
+        "kernels_per_chunk": len(kernels) / chunks,
     })
 
 
@@ -1297,6 +1513,43 @@ def profile_train_step(cfg, splits, runs: int = 5):
     return row
 
 
+def kernel_label(mangled: str) -> str:
+    """``extend_mma_kernel<true, false>`` from the mangled name ptxas
+    prints (the template arguments these sources use: bool, int, float,
+    bf16)."""
+    import re
+
+    m = re.search(r"\d+([a-z][a-z_]*_kernel)I(.+?)EEvN", mangled)
+    if not m:
+        return mangled
+    args = [
+        {"Lb0E": "false", "Lb1E": "true", "f": "float",
+         "13__nv_bfloat16": "bf16"}.get(a, a.strip("LiE"))
+        for a in re.findall(r"Lb[01]E|Li\d+E|13__nv_bfloat16|f", m.group(2))
+    ]
+    return f"{m.group(1)}<{', '.join(args)}>"
+
+
+def ptxas_summary(log: str) -> dict:
+    """Registers and spill bytes of every kernel in a ``ptxas -v`` log."""
+    import re
+
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = kernel_label(m.group(1))
+            out[name] = {}
+        elif name and "spill stores" in line:
+            st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
+            out[name].update(spill_store_bytes=int(st),
+                             spill_load_bytes=int(ld))
+        elif name and "Used" in line and "registers" in line:
+            out[name]["registers"] = int(
+                re.search(r"Used (\d+) registers", line).group(1))
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -1338,7 +1591,9 @@ def main() -> int:
             if "ptxas" in line or "spill" in line:
                 print(line, flush=True)
     emit({"case": "build", "seconds": time.perf_counter() - t0,
-          "libraries": sorted(built)})
+          "libraries": sorted(built),
+          "kernels": {name: ptxas_summary(b.log)
+                      for name, b in built.items()}})
 
     # 3. kernels against their plain versions
     rows = check_kernels(power)
@@ -1370,6 +1625,7 @@ def main() -> int:
                 for k in launches:
                     launches[k][path] = row["launches"][k]
                 profile_decode(engine)
+                profile_prefill(engine)
                 if page is None:
                     agreement(engine, kv_quant)
                 del engine

@@ -22,24 +22,35 @@ about that. Here are the public functions, with the JAX layouts kept:
 For a CUDA tensor a wrapper launches its kernel or raises; it runs the
 plain version (``*_plain`` below, the same algorithm in PyTorch ops)
 only for tensors on the CPU. Each wrapper counts its kernel launches
-in ``<wrapper>.launches``. The split-K merge, which the JAX package
-computes in jnp outside its Pallas kernel, is a second small CUDA
-kernel launched by the same C call.
+in ``<wrapper>.launches``, and by body in ``<wrapper>.bodies``. The
+split-K merge, which the JAX package computes in jnp outside its Pallas
+kernel, is a second small CUDA kernel launched by the same C call when
+the call has more than one split.
+
+The source has two bodies (:func:`_geometry` says which one a call
+runs): ``"mma"``, tensor cores, for the extend entry points with bf16
+queries over a bf16 or int8 cache; ``"fma"``, CUDA-core f32, for every
+decode call and for f32 queries.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
 from mlapi_tpu_torch.ops.attention import NEG
 from mlapi_tpu_torch.ops.quant import _is_quant_leaf, kv_gather_pages
 
-_TILE_KEYS = 32   # keys per tile in the kernel
-_ROW_CHUNK = 32   # query rows per block in the kernel
 _KERNEL_HEAD_DIMS = (64,)
+# Per body: keys per tile, query rows per block, blocks aimed at per SM,
+# most tiles in one split (the mma body holds a split's mask words). The
+# mma body aims at one block per SM: a call with one split skips the
+# merge kernel, which costs more than the occupancy a second split buys.
+_BODIES = {"mma": (64, 64, 1, 16), "fma": (32, 32, 4, None)}
+_EXTEND_ENTRIES = ("mlapi_extend_attention", "mlapi_paged_extend_attention")
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -250,10 +261,52 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+class Geometry(NamedTuple):
+    """How one call is cut: the body that runs, its tile and row-block
+    sizes, the grid's row blocks and splits, and the f32 scratch the
+    kernel writes its partials into."""
+
+    body: str               # "mma" (tensor cores) or "fma" (CUDA cores)
+    tile_keys: int          # keys per tile
+    rows_per_block: int     # query rows per block
+    row_chunks: int         # row blocks per KV head
+    splits: int             # key splits per row block
+    tiles_per_split: int
+    # acc [n, D] + m [n] + l [n], n = B*S*KVH*rows; none when the mma
+    # body runs one split (it then writes the output itself).
+    partial_floats: int
+
+
+def _geometry(entry: str, dtype, b: int, u: int, h: int, kvh: int,
+              lk: int, d: int, sm_count: int) -> Geometry:
+    """The grid of one call (pure, so the CPU tests reach it). The body
+    is the C source's dispatch: ``mma`` for an extend entry point with
+    bf16 queries and ``u > 1``, else ``fma``. Splits of the key tiles
+    are chosen so that the blocks number about ``per_sm * sm_count``,
+    never more splits than tiles, no empty split and, for the mma body,
+    at most 16 tiles in a split."""
+    mma = entry in _EXTEND_ENTRIES and dtype == torch.bfloat16 and u > 1
+    body = "mma" if mma else "fma"
+    tile, chunk_rows, per_sm, most = _BODIES[body]
+    rows = u * (h // kvh)
+    row_chunks = -(-rows // chunk_rows)
+    n_tiles = -(-lk // tile)
+    blocks = b * kvh * row_chunks
+    splits = min(n_tiles, max(1, -(-per_sm * sm_count // blocks)))
+    if most is not None:
+        splits = max(splits, -(-n_tiles // most))
+    per_split = -(-n_tiles // splits)
+    splits = -(-n_tiles // per_split)
+    partials = 0 if mma and splits == 1 else b * splits * kvh * rows * (d + 2)
+    return Geometry(body, tile, chunk_rows, row_chunks, splits, per_split,
+                    partials)
+
+
 def _launch(entry: str, q, kq, ks, vq, vs, mask3, scale, table=None):
-    """Validate, then one C call: the split kernel and its merge →
-    ``[B, U, H, D]`` in ``q.dtype``. ``table`` selects the paged
-    layout (``kq`` etc. are then pools)."""
+    """Validate, then one C call: the split kernel and, with several
+    splits, its merge → ``([B, U, H, D]`` in ``q.dtype``, the body that
+    ran)``. ``table`` selects the paged layout (``kq`` etc. are then
+    pools)."""
     b, u, h, d = q.shape
     kvh = kq.shape[2]
     lk = kq.shape[1] if table is None else table.shape[1] * kq.shape[1]
@@ -271,31 +324,25 @@ def _launch(entry: str, q, kq, ks, vq, vs, mask3, scale, table=None):
         )
     if quant and (kq.dtype != torch.int8 or ks.dtype != torch.float32):
         raise ValueError(f"{entry}: int8 cache needs int8 + f32 scales")
-    if q.stride(-1) != 1:
+    for t in (q, kq, ks, vq, vs, mask3, table):
+        if t is not None and t.device.type != "cuda":
+            raise ValueError(f"{entry}: every operand must be on the card")
+    geo = _geometry(entry, q.dtype, b, u, h, kvh, lk, d,
+                    _sm_count(q.device.index))
+    # The FMA body reads q by element; the mma body by 16-byte rows.
+    if q.stride(-1) != 1 or (geo.body == "mma" and (
+            q.data_ptr() % 16 or any(s % 8 for s in q.stride()[:3]))):
         q = q.contiguous()
     if mask3.dtype != torch.bool:
         mask3 = mask3 != 0
     mask3 = mask3.contiguous()
-    for t in (q, kq, ks, vq, vs, mask3, table):
-        if t is not None and t.device.type != "cuda":
-            raise ValueError(f"{entry}: every operand must be on the card")
     for t in (kq, ks, vq, vs, table):
         if t is not None and not t.is_contiguous():
             raise ValueError(f"{entry}: cache operands must be contiguous")
     if kq.data_ptr() % 16 or vq.data_ptr() % 16:
         raise ValueError(f"{entry}: K/V payloads must be 16-byte aligned")
-    rows = u * (h // kvh)
-    row_chunks = -(-rows // _ROW_CHUNK)
-    n_tiles = -(-lk // _TILE_KEYS)
-    # Enough blocks for ~4 per SM, never more splits than tiles.
-    blocks = b * kvh * row_chunks
-    splits = min(n_tiles, max(1, -(-4 * _sm_count(q.device.index) // blocks)))
-    per_split = -(-n_tiles // splits)
-    splits = -(-n_tiles // per_split)
-    partials = torch.empty(
-        (b * splits * kvh * rows * (d + 2),), dtype=torch.float32,
-        device=q.device,
-    )
+    partials = torch.empty((geo.partial_floats,), dtype=torch.float32,
+                           device=q.device)
     out = torch.empty((b, u, h, d), dtype=q.dtype, device=q.device)
     if table is None:
         layout = [mask3.data_ptr()]
@@ -308,13 +355,18 @@ def _launch(entry: str, q, kq, ks, vq, vs, mask3, scale, table=None):
         ks.data_ptr() if quant else None, vs.data_ptr() if quant else None,
         *layout, partials.data_ptr(), out.data_ptr(),
         q.stride(0), q.stride(1), q.stride(2),
-        _DTYPE_CODES[q.dtype], int(quant), b, u, h, kvh, *dims, d, splits,
-        per_split, row_chunks, float(scale),
+        _DTYPE_CODES[q.dtype], int(quant), b, u, h, kvh, *dims, d,
+        geo.splits, geo.tiles_per_split, geo.row_chunks, float(scale),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"{entry} launch failed: cudaError {rc}")
-    return out
+    return out, geo.body
+
+
+def _count(fn, body: str) -> None:
+    fn.launches += 1
+    fn.bodies[body] += 1
 
 
 def decode_attention(q, k, v, mask, *, scale=None):
@@ -330,9 +382,9 @@ def decode_attention(q, k, v, mask, *, scale=None):
     scale = (1.0 / q.shape[-1] ** 0.5) if scale is None else scale
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, mask, scale=scale)
-    out = _launch("mlapi_decode_attention", q, kq, ks, vq, vs,
-                  mask[:, None, :], scale)
-    decode_attention.launches += 1
+    out, body = _launch("mlapi_decode_attention", q, kq, ks, vq, vs,
+                        mask[:, None, :], scale)
+    _count(decode_attention, body)
     return out
 
 
@@ -344,8 +396,9 @@ def extend_attention(q, k, v, mask, *, scale=None):
     scale = (1.0 / q.shape[-1] ** 0.5) if scale is None else scale
     if q.device.type == "cpu":
         return extend_attention_plain(q, k, v, mask, scale=scale)
-    out = _launch("mlapi_extend_attention", q, kq, ks, vq, vs, mask, scale)
-    extend_attention.launches += 1
+    out, body = _launch("mlapi_extend_attention", q, kq, ks, vq, vs, mask,
+                        scale)
+    _count(extend_attention, body)
     return out
 
 
@@ -366,9 +419,9 @@ def paged_decode_attention(q, k, v, table, mask, *, scale=None):
     if q.device.type == "cpu":
         return paged_decode_attention_plain(q, k, v, table, mask,
                                             scale=scale)
-    out = _launch("mlapi_paged_decode_attention", q, kq, ks, vq, vs,
-                  mask[:, None, :], scale, table)
-    paged_decode_attention.launches += 1
+    out, body = _launch("mlapi_paged_decode_attention", q, kq, ks, vq, vs,
+                        mask[:, None, :], scale, table)
+    _count(paged_decode_attention, body)
     return out
 
 
@@ -383,13 +436,14 @@ def paged_extend_attention(q, k, v, table, mask, *, scale=None):
     if q.device.type == "cpu":
         return paged_extend_attention_plain(q, k, v, table, mask,
                                             scale=scale)
-    out = _launch("mlapi_paged_extend_attention", q, kq, ks, vq, vs, mask,
-                  scale, table)
-    paged_extend_attention.launches += 1
+    out, body = _launch("mlapi_paged_extend_attention", q, kq, ks, vq, vs,
+                        mask, scale, table)
+    _count(paged_extend_attention, body)
     return out
 
 
-decode_attention.launches = 0
-extend_attention.launches = 0
-paged_decode_attention.launches = 0
-paged_extend_attention.launches = 0
+for _fn in (decode_attention, extend_attention, paged_decode_attention,
+            paged_extend_attention):
+    _fn.launches = 0
+    _fn.bodies = {"mma": 0, "fma": 0}
+del _fn

@@ -218,6 +218,120 @@ def test_model_streams_equal_through_kernels_and_einsum(card):
         assert streams[0] == streams[1], kv_quant
 
 
+# -- flash-extend on the tensor cores (B2/B4, bf16 and int8) ---------------
+
+def _span_case(card, b, u, h, kvh, length, slot, dtype, fmt, seed):
+    """A U-token span whose first token sits at ``slot`` of every row,
+    ragged left pads up to the slot, causal inside the span; batch row 0
+    has no valid key when ``b > 1``."""
+    rng = np.random.default_rng(seed)
+
+    def t(*shape):
+        return torch.as_tensor(rng.standard_normal(shape),
+                               dtype=torch.float32).to(card, dtype)
+
+    q = t(b, u, h, 64)
+    k, v = t(b, length, kvh, 64), t(b, length, kvh, 64)
+    if fmt == "int8":
+        k = dict(zip(("q", "scale"), kv_quantize(k)))
+        v = dict(zip(("q", "scale"), kv_quantize(v)))
+    idx = torch.arange(length, device=card)
+    pads = torch.as_tensor(rng.integers(0, slot + 1, b), device=card)
+    qpos = slot + torch.arange(u, device=card)
+    mask = (idx[None, None] <= qpos[None, :, None]) & (
+        idx[None, None] >= pads[:, None, None])
+    if b > 1:
+        mask[0] = False
+    return q, k, v, mask
+
+
+def _check_body(fn, body, got_args, plain, dtype):
+    """One launch of ``fn`` on ``body``, within tolerance of ``plain``
+    on live rows, exact zeros on dead rows; returns the output."""
+    q, mask = got_args[0], got_args[-1]
+    n0, b0 = fn.launches, dict(fn.bodies)
+    got = fn(*got_args)
+    torch.cuda.synchronize()
+    assert fn.launches == n0 + 1
+    assert fn.bodies[body] == b0[body] + 1, fn.bodies
+    want = plain(*got_args)
+    live = mask.reshape(q.shape[0], -1, mask.shape[-1]).any(-1)
+    err = (got.float() - want.float()).abs()[live].max().item()
+    assert torch.isfinite(got).all() and err <= TOL[dtype], err
+    assert not got[~live].any()
+    return got
+
+
+@pytest.mark.parametrize("fmt", ["none", "int8"])
+@pytest.mark.parametrize(
+    "b,u,h,kvh,length,slot",
+    [(2, 2, 12, 12, 70, 30),        # U = 2, L not a multiple of 64
+     (2, 17, 16, 4, 1000, 500),     # group 4, U = 17
+     (3, 64, 8, 2, 1000, 0),        # span at slot 0, group 4
+     (2, 128, 12, 12, 1000, 850),   # the ragged chip_smoke row
+     (4, 128, 16, 4, 1024, 768)],   # GQA at the full window
+)
+def test_extend_mma_matches_plain(card, b, u, h, kvh, length, slot, fmt):
+    args = _span_case(card, b, u, h, kvh, length, slot, torch.bfloat16, fmt,
+                      seed=u + length)
+    _check_body(kern.extend_attention, "mma", args,
+                kern.extend_attention_plain, torch.bfloat16)
+
+
+@pytest.mark.parametrize("page", [8, 16, 64])
+@pytest.mark.parametrize("fmt", ["none", "int8"])
+@pytest.mark.parametrize(
+    "b,u,h,kvh,length,slot",
+    [(2, 17, 16, 4, 256, 100),      # group 4, a span mid-page
+     (1, 128, 12, 12, 448, 200),    # a chunked-prefill chunk
+     (3, 64, 12, 12, 192, 0)],      # slot 0, a row with no valid key
+)
+def test_paged_extend_mma_equals_contiguous(card, b, u, h, kvh, length, slot,
+                                            fmt, page):
+    """B4's tensor-core body against its plain version, and bit for bit
+    against B2 over the same bytes."""
+    q, k, v, mask = _span_case(card, b, u, h, kvh, length, slot,
+                               torch.bfloat16, fmt, seed=length + page)
+    pk, table = _paged(card, k, page, mask, seed=1)
+    pv, _ = _paged(card, v, page, mask, seed=1)
+    got = _check_body(kern.paged_extend_attention, "mma",
+                      (q, pk, pv, table, mask),
+                      kern.paged_extend_attention_plain, torch.bfloat16)
+    same = kern.extend_attention(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(got, same)
+
+
+def test_extend_mma_reads_a_strided_query(card):
+    """q as a view of the fused QKV projection (heads strided by 3H*D
+    per span position): the same bits as a contiguous q."""
+    q, k, v, mask = _span_case(card, 2, 128, 12, 12, 416, 256,
+                               torch.bfloat16, "none", seed=9)
+    view = torch.cat([q, q, q], dim=2)[:, :, :12]
+    assert not view.is_contiguous()
+    n0 = kern.extend_attention.bodies["mma"]
+    got = kern.extend_attention(view, k, v, mask)
+    want = kern.extend_attention(q.contiguous(), k, v, mask)
+    assert kern.extend_attention.bodies["mma"] == n0 + 2
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("fmt", ["none", "int8"])
+@pytest.mark.parametrize("dtype,u", [(torch.float32, 17),
+                                     (torch.bfloat16, 1)])
+def test_extend_f32_and_single_token_run_the_fma_body(card, dtype, u, fmt):
+    """f32 queries (the 1e-5 witness) and a one-token span keep the
+    CUDA-core body, contiguous and paged."""
+    q, k, v, mask = _span_case(card, 2, u, 8, 2, 200, 60, dtype, fmt,
+                               seed=u)
+    _check_body(kern.extend_attention, "fma", (q, k, v, mask),
+                kern.extend_attention_plain, dtype)
+    pk, table = _paged(card, k, 8, mask, seed=2)
+    pv, _ = _paged(card, v, 8, mask, seed=2)
+    _check_body(kern.paged_extend_attention, "fma", (q, pk, pv, table, mask),
+                kern.paged_extend_attention_plain, dtype)
+
+
 # -- flash attention for training: B5 forward, B6 dq, B7 dk/dv ------------
 
 FLASH_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}

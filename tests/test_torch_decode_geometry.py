@@ -1,0 +1,140 @@
+"""The grid of the flash-decode / flash-extend kernels (B1-B4), on the CPU.
+
+``_geometry`` decides which body of ``csrc/decode_attention.cu`` a call
+runs and how the call is cut into blocks; the kernels cannot run here, so
+these tests hold the cut to what the kernels index: every query row and
+every key tile covered exactly once, no empty split, and partials exactly
+as large as the kernel writes. Pure Python; nothing is compiled.
+"""
+
+import importlib
+import re
+from pathlib import Path
+
+import pytest
+import torch
+
+geo_mod = importlib.import_module("mlapi_tpu_torch.ops.cuda.decode_attention")
+_geometry = geo_mod._geometry
+
+EXTEND = ("mlapi_extend_attention", "mlapi_paged_extend_attention")
+DECODE = ("mlapi_decode_attention", "mlapi_paged_decode_attention")
+SHAPES = [  # b, u, h, kvh, lk
+    (8, 128, 12, 12, 1024),     # the full-window chunk
+    (1, 128, 12, 12, 416),      # the serving run's chunk
+    (8, 128, 12, 12, 928),      # the prefill-heavy leg's chunks
+    (4, 128, 16, 4, 1024),      # GQA
+    (2, 100, 12, 12, 1000),     # ragged
+    (3, 17, 16, 4, 70),
+    (2, 2, 12, 12, 64),
+    (1, 5, 8, 2, 4096),         # more tiles than one split holds
+    (8, 1, 12, 12, 1024),       # decode
+    (1, 1, 8, 2, 100),
+]
+
+
+def _cases():
+    for entry in EXTEND + DECODE:
+        for dtype in (torch.bfloat16, torch.float32):
+            for b, u, h, kvh, lk in SHAPES:
+                if entry in DECODE and u != 1:
+                    continue
+                for sm in (132, 16):
+                    yield entry, dtype, b, u, h, kvh, lk, sm
+
+
+@pytest.mark.parametrize("entry,dtype,b,u,h,kvh,lk,sm", list(_cases()))
+def test_every_row_and_tile_is_covered_exactly_once(entry, dtype, b, u, h,
+                                                    kvh, lk, sm):
+    g = _geometry(entry, dtype, b, u, h, kvh, lk, 64, sm)
+    rows = u * (h // kvh)
+    n_tiles = -(-lk // g.tile_keys)
+    row_hits = [0] * rows
+    for chunk in range(g.row_chunks):
+        block = range(chunk * g.rows_per_block,
+                      min(rows, (chunk + 1) * g.rows_per_block))
+        assert len(block) > 0
+        for r in block:
+            row_hits[r] += 1
+    tile_hits = [0] * n_tiles
+    for split in range(g.splits):
+        tiles = range(split * g.tiles_per_split,
+                      min(n_tiles, (split + 1) * g.tiles_per_split))
+        assert len(tiles) > 0                 # no empty split
+        for t in tiles:
+            tile_hits[t] += 1
+    assert row_hits == [1] * rows
+    assert tile_hits == [1] * n_tiles
+    assert 1 <= g.splits <= n_tiles
+    if g.body == "mma":
+        assert g.tiles_per_split <= 16        # the mask words a block holds
+
+
+@pytest.mark.parametrize("entry,dtype,b,u,h,kvh,lk,sm", list(_cases()))
+def test_partials_are_exactly_what_the_kernel_writes(entry, dtype, b, u, h,
+                                                     kvh, lk, sm):
+    """Every (batch row, split, head, row) writes acc[D], m and l at the
+    offsets the kernel computes -- acc at ((b*S + s)*KVH*rows + j*rows +
+    r)*D + d, then m and l after all acc -- so the scratch must hold
+    exactly that, each float written once; the mma body with one split
+    writes the output itself and needs none. (A head dim of 8 keeps the
+    index arrays small; the layout does not depend on it.)"""
+    d = 8
+    g = _geometry(entry, dtype, b, u, h, kvh, lk, d, sm)
+    rows = u * (h // kvh)
+    if g.body == "mma" and g.splits == 1:
+        assert g.partial_floats == 0
+        return
+    n_rows = b * g.splits * kvh * rows
+    bi, s, j, r = torch.meshgrid(torch.arange(b), torch.arange(g.splits),
+                                 torch.arange(kvh), torch.arange(rows),
+                                 indexing="ij")
+    row = ((bi * g.splits + s) * kvh * rows + j * rows + r).flatten()
+    acc = (row[:, None] * d + torch.arange(d)[None]).flatten()
+    every = torch.cat([acc, n_rows * d + row, n_rows * d + n_rows + row])
+    written = torch.bincount(every, minlength=g.partial_floats)
+    assert bool((written == 1).all())
+
+
+@pytest.mark.parametrize("entry", EXTEND)
+def test_bf16_extend_takes_the_tensor_core_body(entry):
+    for b, u, h, kvh, lk in SHAPES:
+        body = _geometry(entry, torch.bfloat16, b, u, h, kvh, lk, 64,
+                         132).body
+        assert body == ("mma" if u > 1 else "fma")
+        assert _geometry(entry, torch.float32, b, u, h, kvh, lk, 64,
+                         132).body == "fma"
+
+
+@pytest.mark.parametrize("entry", DECODE)
+def test_decode_keeps_the_fma_body(entry):
+    for dtype in (torch.bfloat16, torch.float32):
+        assert _geometry(entry, dtype, 8, 1, 12, 12, 1024, 64,
+                         132).body == "fma"
+
+
+def test_main_path_shapes():
+    """The serving chunk spreads over the card (one or two tiles per
+    split); the full window runs as one split, without the merge."""
+    small = _geometry(EXTEND[0], torch.bfloat16, 1, 128, 12, 12, 416, 64, 132)
+    assert small.tiles_per_split <= 2 and small.splits > 1
+    full = _geometry(EXTEND[0], torch.bfloat16, 8, 128, 12, 12, 1024, 64, 132)
+    assert (full.splits, full.rows_per_block, full.tile_keys) == (1, 64, 64)
+    assert full.partial_floats == 0
+
+
+def test_python_geometry_matches_the_cuda_source():
+    """The tile and row-block sizes the wrapper assumes are the ones the
+    kernels are compiled with."""
+    src = (Path(geo_mod.__file__).resolve().parents[2] / "csrc"
+           / "decode_attention.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+    tile, rows, _, most = geo_mod._BODIES["mma"]
+    assert (tile, rows, most) == (const("kMmaKeys"), const("kMmaRows"),
+                                  const("kMaxSplitTiles"))
+    tile, rows, _, _ = geo_mod._BODIES["fma"]
+    assert (tile, rows) == (const("kTileKeys"), const("kRowChunk"))
+    assert "return extend && dtype == 1 && U > 1;" in src
