@@ -18,25 +18,31 @@ the JAX package. Phases, each fatal on failure:
    query attends on the null page), bf16 and int8 caches, at the shapes
    the serving phase gives them and at the full 1024-token window, and
    for B2/B4 a GQA row (16 query heads on 4 KV heads) and a ragged one
-   (U = 100, L = 1000, 8-token pages): each wrapper against its plain
-   PyTorch version (max abs error on live rows <= 2e-2, exact zeros on
-   rows with no valid key), each paged kernel against its contiguous
-   twin over the same bytes (bit for bit); each row names the body that
-   ran (``mma``: tensor cores, ``fma``). Then flash attention for
-   training — forward (B5), dq (B6), dk/dv (B7) — at (a) the sst2-bert
-   batch (B = 32, L = 128, 12 heads, bf16, its own key mask with the
-   last row fully masked), (b) GPT-2 small causal (B = 8, L = 1024,
-   bf16) and (c) a GQA sliding window in float32: each against its
-   plain version
+   (U = 100, L = 1000, 8-token pages), for B1/B3 a GQA row, and B1-B4
+   rows at Llama-class widths (32 query heads on 8 KV heads of 128) and
+   docs-gpt's (4 heads of 32; B1/B3 in f32 too): each wrapper against
+   its plain PyTorch version (max abs error on live rows <= 2e-2, 1e-5
+   in f32, exact zeros on rows with no valid key), each paged kernel
+   against its contiguous twin over the same bytes (bit for bit); each
+   row names the body that ran, read from the wrapper's counters
+   (``decode``: the cluster memory pipeline, every B1/B3 call; ``mma``:
+   tensor cores; ``fma``), and its share of the bound. Then flash
+   attention for training — forward (B5), dq (B6), dk/dv (B7) — at (a)
+   the sst2-bert batch (B = 32, L = 128, 12 heads, bf16, its own key
+   mask with the last row fully masked), (b) GPT-2 small causal (B = 8,
+   L = 1024, bf16), (c) a GQA sliding window in float32, (d) docs-gpt's
+   batch (head dim 32, float32, causal) and (e) Llama-class causal GQA
+   (head dim 128, bf16): each against its plain version
    (<= 2e-2 bf16, <= 1e-4 f32 on live rows, exact zeros where nothing
    is attended). Every kernel is timed beside its plain version,
    ``scaled_dot_product_attention`` (a yardstick the port never calls;
    on the gathered contiguous copy for B3/B4; forward + backward minus
    forward for B6/B7) and the card's bound for the same work. ``ms`` is
    device time (each call captured in a CUDA graph, graphs replayed in
-   turn over enough input copies to defeat the L2, CUDA events);
-   ``eager_ms`` is the wrapper called eagerly, host launch costs
-   included;
+   turn over enough input copies to defeat the L2, CUDA events: it
+   includes the gap between two replays); B1-B4 rows add ``device_ms``,
+   the kernels' own durations under ``torch.profiler``; ``eager_ms`` is
+   the wrapper called eagerly, host launch costs included;
 4. training — ``python -m mlapi_tpu_torch.train --preset sst2-bert``'s
    ``run`` at full width (BERT-base, batch 32, 128 tokens, AdamW 2e-5,
    random weights from the preset's seed) for 30 steps and its test-set
@@ -74,7 +80,8 @@ the JAX package. Phases, each fatal on failure:
    time, and for a paged engine the contiguous layout's step timed in
    alternation;
 6. correctness — a small float32 model's greedy streams are identical
-   through paged flash, contiguous flash and the einsum oracle; a
+   through paged flash, contiguous flash and the einsum oracle, at two
+   heads of 64 and at docs-gpt's four heads of 32; a
    joiner admitted into the row of a request that just finished streams
    what its prompt streams alone, on both layouts; and the
    teacher-forced top-1 agreement of flash with einsum at GPT-2 small
@@ -102,7 +109,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM (NVIDIA data sheet)
 BF16_FLOPS_PER_S = 989e12       # dense tensor-core bf16 peak
-TOLERANCE = 2e-2                # bf16, live rows
+TOLERANCE = {"bf16": 2e-2, "int8": 2e-2, "f32": 1e-5}   # live rows
 GPT2_SMALL = dict(                # openai-community/gpt2
     vocab_size=50257, hidden_size=768, num_layers=12, num_heads=12,
     max_positions=1024, compute_dtype="bfloat16",
@@ -181,17 +188,37 @@ def graph_ms(calls, iters: int = 30) -> float:
     return _events_ms(lambda i: graphs[i % len(graphs)].replay(), iters)
 
 
+def profiled_ms(calls, iters: int = 12) -> float:
+    """Device time per call: the calls (in turn, after a warm-up) under
+    ``torch.profiler``, the durations of the CUDA kernels they launched
+    summed and divided by the calls -- the kernels alone, without the
+    gap that separates two graph replays."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for f in calls:
+        f()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            calls[i % len(calls)]()
+        torch.cuda.synchronize()
+    us = sum(e.device_time_total for e in device_kernels(prof))
+    return us / 1e3 / iters
+
+
 # -- phase 3: kernels ---------------------------------------------------
 
 def kernel_case(kernel, fmt, b, u, length, pos, seed, h=12, kvh=12,
-                page=PAGE):
-    """Inputs at one serving shape: GPT-2-small heads unless ``h`` /
-    ``kvh`` say otherwise, a cache holding ragged left pads (per-row
-    ``n_pad``), the decode token (or the extend span's first token) at
-    slot ``pos``, masks built by the model's own mask helpers. A paged
-    kernel gets the same cache in ``page``-token pool pages
-    (:func:`to_pages`) and, for the comparisons, the contiguous cache
-    beside it."""
+                page=PAGE, d=64):
+    """Inputs at one serving shape: GPT-2-small heads and head dim unless
+    ``h`` / ``kvh`` / ``d`` say otherwise, bf16 queries over a bf16 or
+    int8 cache (``fmt`` ``f32``: f32 throughout), a cache holding ragged
+    left pads (per-row ``n_pad``), the decode token (or the extend span's
+    first token) at slot ``pos``, masks built by the model's own mask
+    helpers. A paged kernel gets the same cache in ``page``-token pool
+    pages (:func:`to_pages`) and, for the comparisons, the contiguous
+    cache beside it."""
     import torch
 
     from mlapi_tpu_torch.models.gpt import (
@@ -199,12 +226,12 @@ def kernel_case(kernel, fmt, b, u, length, pos, seed, h=12, kvh=12,
     )
     from mlapi_tpu_torch.ops.quant import kv_quantize
 
-    d = 64
     g = torch.Generator().manual_seed(seed)
     dev = "cuda"
-    q = torch.randn(b, u, h, d, generator=g).to(dev, torch.bfloat16)
-    k = torch.randn(b, length, kvh, d, generator=g).to(dev, torch.bfloat16)
-    v = torch.randn(b, length, kvh, d, generator=g).to(dev, torch.bfloat16)
+    dt = torch.float32 if fmt == "f32" else torch.bfloat16
+    q = torch.randn(b, u, h, d, generator=g).to(dev, dt)
+    k = torch.randn(b, length, kvh, d, generator=g).to(dev, dt)
+    v = torch.randn(b, length, kvh, d, generator=g).to(dev, dt)
     n_pad = torch.randint(0, max(1, length // 8), (b,), generator=g).to(dev)
     if kernel.endswith("decode_attention"):
         valid, _ = decode_valid_and_shift(length, pos, n_pad)
@@ -310,7 +337,10 @@ def check_kernels(power):
     # prefill-heavy leg's chunks are B = 8 at L = 928 (the full-window row
     # stands for them). Beyond the serving shapes, B2 and B4 get a GQA row
     # (16 query heads on 4 KV heads) and a ragged one (U = 100, L = 1000,
-    # 8-token pages: 1000 is no multiple of 16 or 64).
+    # 8-token pages: 1000 is no multiple of 16 or 64); B1 and B3 a GQA
+    # row; and B1-B4 rows at Llama-class widths (32 query heads on 8 KV
+    # heads, head dim 128) and at docs-gpt's (4 heads of 32, its 256
+    # positions; B1/B3 in f32 too, the preset's dtype).
     shapes = [
         ("decode_attention", 8, 1, 48, 47),
         ("decode_attention", 1, 1, 48, 47),
@@ -330,21 +360,38 @@ def check_kernels(power):
     for name in ("extend_attention", "paged_extend_attention"):
         shapes.append((name, 4, 128, 1024, 768, gqa))
         shapes.append((name, 2, 100, 1000, 850, dict(page=8)))
+    for name in ("decode_attention", "paged_decode_attention"):
+        shapes.append((name, 8, 1, 1024, 1023, gqa))
+    llama = dict(h=32, kvh=8, d=128)
+    docs_gpt = dict(h=4, kvh=4, d=32)
+    for name in SERVING:
+        decode = name.endswith("decode_attention")
+        shapes.append((name, 8, 1 if decode else 128, 1024,
+                       1023 if decode else 768, llama))
+        shapes.append((name, 8, 1 if decode else 128, 256,
+                       255 if decode else 128, docs_gpt))
+        if decode:
+            shapes.append((name, 8, 1, 256, 255, dict(docs_gpt, f32=True)))
     results = []
     for i, (name, b, u, length, pos, *extra) in enumerate(shapes):
-        shape = extra[0] if extra else {}
+        shape = dict(extra[0]) if extra else {}
+        fmts = ("f32",) if shape.pop("f32", False) else ("bf16", "int8")
         h, kvh = shape.get("h", 12), shape.get("kvh", 12)
-        for fmt in ("bf16", "int8"):
+        d = shape.get("d", 64)
+        for fmt in fmts:
             args = kernel_case(name, fmt, b, u, length, pos, seed=i, **shape)
             fn = getattr(kern, name)
             paged = name.startswith("paged_")
+            dtype = torch.float32 if fmt == "f32" else torch.bfloat16
             geo = wrappers._geometry(
-                "mlapi_" + name, torch.bfloat16, b, u, h, kvh, length, 64,
-                wrappers._sm_count(0))
+                "mlapi_" + name, dtype, b, u, h, kvh, length, d,
+                wrappers._sm_count(0), fmt == "int8")
             q, mask = args[0], args[-3 if paged else -1]
             contiguous = (q, *args[-2:], mask) if paged else args
+            before = dict(fn.bodies)
             out = fn(*args[:5] if paged else args)
             torch.cuda.synchronize()
+            ran = [k for k in fn.bodies if fn.bodies[k] != before[k]]
             ref = plain[name](*args[:5] if paged else args)
             same = None
             if paged:
@@ -370,10 +417,11 @@ def check_kernels(power):
             ops = [a[:5] if paged else a for a in sets]
             calls = [(lambda a=a: fn(*a)) for a in ops]
             kernel_ms = graph_ms(calls)
+            device_ms = profiled_ms(calls)
             eager_ms = cuda_ms(calls)
             plain_ms = graph_ms([(lambda a=a: plain[name](*a)) for a in ops])
             library_ms = None
-            if fmt == "bf16":
+            if fmt != "int8":
                 # SDPA on the (gathered) contiguous cache: a yardstick.
                 library_ms = graph_ms([
                     sdpa_fn(a[0], *a[-2:], a[-3]) if paged else sdpa_fn(*a)
@@ -381,28 +429,35 @@ def check_kernels(power):
                 ])
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             t_ops = flops / BF16_FLOPS_PER_S * 1e3
+            bound = max(t_bytes, t_ops)
             row = {
                 "case": "kernel", "kernel": name, "format": fmt,
                 "B": b, "U": u, "L": length, "pos": pos,
-                "H": h, "KVH": kvh, "D": 64,
+                "H": h, "KVH": kvh, "D": d,
                 "page": shape.get("page", PAGE) if paged else None,
-                "body": geo.body, "splits": geo.splits,
+                "body": ran[0] if len(ran) == 1 else ran,
+                "splits": geo.splits, "tiles_per_split": geo.tiles_per_split,
                 "equals_contiguous": same,
                 "max_abs_err": err, "finite": finite,
                 "dead_rows_exact_zero": dead_zero,
-                "ms": kernel_ms, "eager_ms": eager_ms, "plain_ms": plain_ms,
-                "library_ms": library_ms,
-                "bound_ms": max(t_bytes, t_ops),
+                "ms": kernel_ms, "device_ms": device_ms, "eager_ms": eager_ms,
+                "plain_ms": plain_ms, "library_ms": library_ms,
+                "bound_ms": bound, "bound_share": bound / kernel_ms,
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "bytes": nbytes, "flops": flops, "card": power,
             }
             emit(row)
-            if not finite or err > TOLERANCE or not dead_zero:
+            if ran != [geo.body] or (u == 1 and ran != ["decode"]):
                 raise SystemExit(
-                    f"{name} {fmt} B={b} U={u} L={length}: kernel disagrees "
-                    f"with its plain version (max abs err {err}, finite "
-                    f"{finite}, tolerance {TOLERANCE}, exact zeros on dead "
-                    f"rows {dead_zero})"
+                    f"{name} {fmt} B={b} U={u} L={length} D={d}: ran the "
+                    f"bodies {ran}, the geometry says {geo.body}"
+                )
+            if not finite or err > TOLERANCE[fmt] or not dead_zero:
+                raise SystemExit(
+                    f"{name} {fmt} B={b} U={u} L={length} D={d}: kernel "
+                    f"disagrees with its plain version (max abs err {err}, "
+                    f"finite {finite}, tolerance {TOLERANCE[fmt]}, exact "
+                    f"zeros on dead rows {dead_zero})"
                 )
             if same is False:
                 raise SystemExit(
@@ -588,7 +643,7 @@ def serve_run(ckpt: Path, kv_quant, page):
         for name in KERNELS:
             getattr(kern, name).launches = 0
         for name in SERVING:
-            getattr(kern, name).bodies = {"mma": 0, "fma": 0}
+            getattr(kern, name).bodies = {"mma": 0, "fma": 0, "decode": 0}
         all_chunks0 = engine.prefill_chunks
         batches0 = engine.batch_calls
         t0 = time.perf_counter()
@@ -690,8 +745,12 @@ def serve_run(ckpt: Path, kv_quant, page):
             f"chunks ({leg_chunks} in the prefill-heavy leg), want "
             f"{layers} per chunk and {LONG_LEG_BUCKET // 128} leg chunks"
         )
-    if bodies[extend]["fma"] or bodies[extend]["mma"] != launches[extend]:
+    if bodies[extend]["mma"] != launches[extend]:
         raise SystemExit(f"{extend}: bodies {bodies[extend]}, want all mma")
+    # Flash-decode: every launch on the decode body (one launch a call).
+    if bodies[mine[0]]["decode"] != launches[mine[0]]:
+        raise SystemExit(
+            f"{mine[0]}: bodies {bodies[mine[0]]}, want all decode")
     if leg_batches != 1:
         raise SystemExit(f"8 long prompts took {leg_batches} batches")
     if [len(d["token_ids"]) for d in leg_done] != [LONG_LEG_NEW] * 8:
@@ -756,17 +815,19 @@ def paged_generate(model, ids, pads, n_new):
     return torch.cat([first[:, None], rest], dim=1)
 
 
-def check_small_f32():
+def check_small_f32(num_heads: int):
     """A small float32 model: greedy streams through the flash kernels,
     contiguous and paged, equal the einsum oracle's, for both cache
-    formats."""
+    formats. Two heads of 64; four heads of 32 are docs-gpt's widths
+    (``mlapi_tpu/config.py``: hidden 128, 4 heads, 256 positions). The
+    two-head model also drives the admission check."""
     import torch
 
     from mlapi_tpu_torch.models.gpt import GptLM
 
     model = GptLM(vocab_size=260, hidden_size=128, num_layers=2,
-                  num_heads=2, max_positions=256, compute_dtype="float32",
-                  seed=1, device="cuda")
+                  num_heads=num_heads, max_positions=256,
+                  compute_dtype="float32", seed=1, device="cuda")
     with torch.no_grad():   # sharper logits than the 0.02 init
         for p in model.parameters():
             if p.ndim == 2:
@@ -790,10 +851,13 @@ def check_small_f32():
         f"{kvq}, {impl}": streams[(kvq, "einsum")] == streams[(kvq, impl)]
         for kvq in ("none", "int8") for impl in ("flash", "paged flash")
     }
-    emit({"case": "f32_greedy_identity", "equals_einsum": same})
+    emit({"case": "f32_greedy_identity", "num_heads": num_heads,
+          "head_dim": model.head_dim, "equals_einsum": same})
     if not all(same.values()):
-        raise SystemExit(f"greedy streams differ from einsum: {same}")
-    check_admission_f32(model)
+        raise SystemExit(f"greedy streams differ from einsum at "
+                         f"{num_heads} heads: {same}")
+    if num_heads == 2:
+        check_admission_f32(model)
 
 
 ADMIT_F32 = (("the first long request", 48), ("joiner", 3),
@@ -977,7 +1041,7 @@ def profile_decode(engine, runs: int = 5) -> None:
     kernels = device_kernels(prof)
     dev_us = sum(e.device_time_total for e in kernels)
     attn_us = sum(e.device_time_total for e in kernels
-                  if "splitk" in e.name)
+                  if "decode_kernel" in e.name)
     # Where the host's time goes: the ops with the most self CPU time
     # under the profiler (which inflates each), per step.
     host = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)
@@ -1106,19 +1170,24 @@ def sst2_first_batch():
 
 
 def flash_shapes(sst2_x):
-    """(name, B, L, H, KVH, dtype, causal, window, key lengths): (a) the
-    sst2-bert training batch's key mask (its own lengths; the last row
-    fully masked), (b) GPT-2 small causal at its full window, (c) a GQA
-    sliding window in float32 with ragged key lengths."""
+    """(name, B, L, H, KVH, dtype, causal, window, key lengths, D): (a)
+    the sst2-bert training batch's key mask (its own lengths; the last
+    row fully masked), (b) GPT-2 small causal at its full window, (c) a
+    GQA sliding window in float32 with ragged key lengths, (d) docs-gpt's
+    training batch (64 x 128 tokens, 4 heads of 32, float32, causal) and
+    (e) Llama-class causal GQA (32 query heads on 8 KV heads of 128, bf16,
+    L = 1024)."""
     import numpy as np
 
     lengths = (sst2_x != 0).sum(axis=1)
     lengths[-1] = 0
     ragged = np.random.default_rng(7).integers(128, 257, 4)
     return [
-        ("sst2-bert", 32, 128, 12, 12, "bfloat16", False, None, lengths),
-        ("gpt2-causal", 8, 1024, 12, 12, "bfloat16", True, None, None),
-        ("gqa-window-f32", 4, 256, 8, 2, "float32", True, 64, ragged),
+        ("sst2-bert", 32, 128, 12, 12, "bfloat16", False, None, lengths, 64),
+        ("gpt2-causal", 8, 1024, 12, 12, "bfloat16", True, None, None, 64),
+        ("gqa-window-f32", 4, 256, 8, 2, "float32", True, 64, ragged, 64),
+        ("docs-gpt-d32", 64, 128, 4, 4, "float32", True, None, None, 32),
+        ("llama-d128", 2, 1024, 32, 8, "bfloat16", True, None, None, 128),
     ]
 
 
@@ -1127,12 +1196,12 @@ def flash_inputs(shape, seed):
     shape's key mask."""
     import torch
 
-    _, b, length, h, kvh, dtype, _, _, lengths = shape
+    _, b, length, h, kvh, dtype, _, _, lengths, d = shape
     dt = getattr(torch, dtype)
     g = torch.Generator().manual_seed(seed)
 
     def t(heads, s=1.0):
-        return (s * torch.randn(b, length, heads, 64, generator=g)).to(
+        return (s * torch.randn(b, length, heads, d, generator=g)).to(
             "cuda", dt)
 
     mask = torch.ones(b, length)
@@ -1209,8 +1278,8 @@ def check_flash_kernels(power, sst2_x):
 
     rows = []
     for i, shape in enumerate(flash_shapes(sst2_x)):
-        name, b, length, h, kvh, dtype, causal, window, _ = shape
-        cfg = dict(causal=causal, scale=0.125, window=window)
+        name, b, length, h, kvh, dtype, causal, window, _, d = shape
+        cfg = dict(causal=causal, scale=d ** -0.5, window=window)
         q, k, v, mask, dout = flash_inputs(shape, seed=100 + i)
         out_p, lse_p = kern.flash_forward_plain(q, k, v, mask, **cfg)
         delta = (dout.float() * out_p.float()).sum(-1).transpose(1, 2)
@@ -1279,9 +1348,10 @@ def check_flash_kernels(power, sst2_x):
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             t_ops = flops / peak * 1e3
             fn, pf = calls[which], plains[which]
+            kernel_ms = graph_ms([(lambda a=a: fn(a)) for a in sets])
             row = {
                 "case": "flash_kernel", "kernel": which, "shape": name,
-                "B": b, "L": length, "H": h, "KVH": kvh, "D": 64,
+                "B": b, "L": length, "H": h, "KVH": kvh, "D": d,
                 "dtype": dtype, "causal": causal, "window": window,
                 "live_key_rows": int(live_k.sum()),
                 "max_abs_err": err, "errors": errs,
@@ -1289,7 +1359,7 @@ def check_flash_kernels(power, sst2_x):
                 "lse_max_abs_err": lse_err if which == "flash_forward"
                 else None,
                 "dead_rows_exact_zero": dead_zero, "finite": finite,
-                "ms": graph_ms([(lambda a=a: fn(a)) for a in sets]),
+                "ms": kernel_ms,
                 "eager_ms": cuda_ms([(lambda a=a: fn(a)) for a in sets]),
                 "plain_ms": graph_ms([(lambda a=a: pf(a)) for a in sets[:2]],
                                      iters=6),
@@ -1300,6 +1370,7 @@ def check_flash_kernels(power, sst2_x):
                      "together), eager",
                 "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "bound_share": max(t_bytes, t_ops) / kernel_ms,
                 "bytes": nbytes, "dense_bytes": dense, "flops": flops,
                 "card": power,
             }
@@ -1630,7 +1701,8 @@ def main() -> int:
                     agreement(engine, kv_quant)
                 del engine
                 torch.cuda.empty_cache()
-    check_small_f32()
+    check_small_f32(2)
+    check_small_f32(4)     # docs-gpt: head dim 32
 
     summary = []
     for name in SERVING:

@@ -37,21 +37,32 @@
 // tensor cores stop being memory-bound, so the bound is bytes at 3.35
 // TB/s. At L = 1024 (GPT-2 causal) the FLOPs dominate.
 //
+// Head dims: every kernel is compiled for D in {16, 32, 64, 128}; the
+// wrapper zero-pads any other d <= 128 to the next of them (zero columns
+// leave q . k unchanged and give zero output and gradient columns) and
+// passes the scale of the original d.
+//
 // What this first version does about it -- it computes the function, not
 // the Pallas grid, and leaves tensor cores (mma/wgmma) and TMA for later:
 //   * one block of 128 threads per (query tile, head, batch row) for B5
 //     (64 rows) and B6 (32 rows), and per (key tile, KV head, batch row)
 //     for B7, so BERT-base at B = 32 puts 768 blocks on the 132 SMs;
-//   * tiles live in shared memory as f32 (rows padded to D + 1 floats, so
-//     the dot-product reads hit distinct banks); each thread owns a
-//     micro-tile of the score block (rows x strided columns) and of the
-//     output, in registers; a row's 8 owners reduce max and sum with
-//     three shuffles;
+//   * tiles live in dynamic shared memory as f32 (rows padded to D + 1
+//     floats, so the dot-product reads hit distinct banks; 42-75 KB a
+//     block at D = 64-128, granted by a checked attribute call); each
+//     thread owns a micro-tile of the score block (rows x strided
+//     columns) and of the output, in registers; a row's 8 owners reduce
+//     max and sum with three shuffles;
 //   * causal and windowed calls walk only the tiles that hold an
 //     attendable (query, key) pair, and a key tile whose mask is zero for
 //     the batch row is skipped before its load (exact: its p is 0), so
 //     the padded tails of short sentences cost nothing;
 //   * all math is CUDA-core f32 FMAs (so the f32 path is exact f32).
+//
+// Build: nvcc compiles this file once per compiled head dim
+// (-DMLAPI_UNIT=16, 32, 64, 128) and once for the C entry points
+// (-DMLAPI_UNIT=0), all at once, and links one library; without
+// MLAPI_UNIT it is one translation unit holding all.
 //
 // C interface (for ctypes): device pointers, a host pointer to 12 int64
 // element strides (batch, row, head for q, k, v, dO; the last dim is
@@ -62,11 +73,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace {
+#ifndef MLAPI_UNIT
+#define MLAPI_UNIT -1
+#endif
+
+namespace mlapi_flash {
 
 constexpr int kThreads = 128;  // 16 row groups x 8 column lanes
-constexpr int kD = 64;         // the one compiled head dim
-constexpr int kPad = kD + 1;
 constexpr float kNeg = -1e30f;
 
 struct Strides {
@@ -89,6 +102,18 @@ struct Params {
   int B, Lq, Lk, H, KVH, causal, window;  // window 0: none
   float scale;
 };
+
+enum Which { kForward, kDq, kDkv };
+
+// The kernels of compiled head dim D (defined in unit D).
+template <int D>
+int launch_for_d(Which which, int dtype, const Params& p, cudaStream_t s);
+
+}  // namespace mlapi_flash
+
+#if MLAPI_UNIT != 0
+namespace mlapi_flash {
+namespace {
 
 template <typename T> struct Ops;
 
@@ -121,11 +146,11 @@ template <> struct Ops<__nv_bfloat16> {
 // Rows [row0, row0 + R) of head `head` of batch row b, from a
 // [B, L, heads, D] tensor with strides `st`, into dst as f32; rows at or
 // past L load 0.
-template <typename T, int R>
+template <typename T, int R, int D>
 __device__ void load_rows(const void* src, const Strides& st, int b,
-                          int head, int row0, int L, float (*dst)[kPad]) {
+                          int head, int row0, int L, float (*dst)[D + 1]) {
   constexpr int kVec = Ops<T>::kVec;
-  constexpr int kVecs = kD / kVec;
+  constexpr int kVecs = D / kVec;
   for (int idx = threadIdx.x; idx < R * kVecs; idx += kThreads) {
     const int r = idx / kVecs, c = idx % kVecs, row = row0 + r;
     float vals[kVec];
@@ -206,20 +231,55 @@ __device__ __forceinline__ float group8_sum(float x) {
 
 // B5. Thread (rg, cg) owns query rows rg * R + i and, of a score tile,
 // key columns cg + 8 * c; of the output, columns cg + 8 * o.
-template <typename T>
+// Dynamic shared memory of the three kernels (f32 tiles, rows of D + 1).
+template <int D>
+struct FwdSmem {
+  float q[64][D + 1];
+  float k[32][D + 1];
+  float v[32][D + 1];
+  float p[64][33];
+  float km[32];
+};
+
+template <int D>
+struct DqSmem {
+  float q[32][D + 1];
+  float dout[32][D + 1];
+  float k[32][D + 1];
+  float v[32][D + 1];
+  float ds[32][33];
+  float km[32];
+};
+
+template <int D>
+struct DkvSmem {
+  float k[32][D + 1];
+  float v[32][D + 1];
+  float q[32][D + 1];
+  float dout[32][D + 1];
+  float pt[32][33];
+  float dst[32][33];
+  float lse[32];
+  float delta[32];
+  float km[32];
+};
+
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
-  constexpr int BQ = 64, BK = 32, R = BQ / 16, CS = BK / 8, CO = kD / 8;
-  __shared__ float q_s[BQ][kPad];
-  __shared__ float k_s[BK][kPad];
-  __shared__ float v_s[BK][kPad];
-  __shared__ float p_s[BQ][BK + 1];
-  __shared__ float km_s[BK];
+  constexpr int BQ = 64, BK = 32, R = BQ / 16, CS = BK / 8, CO = D / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  FwdSmem<D>& sm = *reinterpret_cast<FwdSmem<D>*>(smem_raw);
+  auto& q_s = sm.q;
+  auto& k_s = sm.k;
+  auto& v_s = sm.v;
+  auto& p_s = sm.p;
+  auto& km_s = sm.km;
 
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
   const int j = h / (p.H / p.KVH);
   const int rg = threadIdx.x >> 3, cg = threadIdx.x & 7;
 
-  load_rows<T, BQ>(p.q, p.sq, b, h, q0, p.Lq, q_s);
+  load_rows<T, BQ, D>(p.q, p.sq, b, h, q0, p.Lq, q_s);
   float m[R], l[R], acc[R][CO];
 #pragma unroll
   for (int i = 0; i < R; ++i) {
@@ -234,8 +294,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
   for (int t = t_lo; t < t_hi; ++t) {
     const int k0 = t * BK;
     if (!load_key_mask<BK>(p, b, k0, km_s)) continue;  // no valid key
-    load_rows<T, BK>(p.k, p.sk, b, j, k0, p.Lk, k_s);
-    load_rows<T, BK>(p.v, p.sv, b, j, k0, p.Lk, v_s);
+    load_rows<T, BK, D>(p.k, p.sk, b, j, k0, p.Lk, k_s);
+    load_rows<T, BK, D>(p.v, p.sv, b, j, k0, p.Lk, v_s);
     __syncthreads();
 
     float s[R][CS];
@@ -244,7 +304,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
 #pragma unroll
       for (int c = 0; c < CS; ++c) s[i][c] = 0.f;
 #pragma unroll 8
-    for (int d = 0; d < kD; ++d) {
+    for (int d = 0; d < D; ++d) {
       float qv[R], kv[CS];
 #pragma unroll
       for (int i = 0; i < R; ++i) qv[i] = q_s[rg * R + i][d];
@@ -301,7 +361,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
     if (qi >= p.Lq) continue;
     const float den = fmaxf(l[i], 1e-30f);
     T* o_row = static_cast<T*>(p.out) +
-               ((static_cast<size_t>(b) * p.Lq + qi) * p.H + h) * kD;
+               ((static_cast<size_t>(b) * p.Lq + qi) * p.H + h) * D;
 #pragma unroll
     for (int o = 0; o < CO; ++o) o_row[cg + 8 * o] = Ops<T>::store(acc[i][o] / den);
     if (cg == 0)
@@ -311,22 +371,24 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
 
 // B6. Thread (rg, cg) owns query rows rg * R + i; key columns cg + 8 * c
 // of the score tile; dq columns cg + 8 * o.
-template <typename T>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Params p) {
-  constexpr int BQ = 32, BK = 32, R = BQ / 16, CS = BK / 8, CO = kD / 8;
-  __shared__ float q_s[BQ][kPad];
-  __shared__ float do_s[BQ][kPad];
-  __shared__ float k_s[BK][kPad];
-  __shared__ float v_s[BK][kPad];
-  __shared__ float ds_s[BQ][BK + 1];
-  __shared__ float km_s[BK];
+  constexpr int BQ = 32, BK = 32, R = BQ / 16, CS = BK / 8, CO = D / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  DqSmem<D>& sm = *reinterpret_cast<DqSmem<D>*>(smem_raw);
+  auto& q_s = sm.q;
+  auto& do_s = sm.dout;
+  auto& k_s = sm.k;
+  auto& v_s = sm.v;
+  auto& ds_s = sm.ds;
+  auto& km_s = sm.km;
 
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
   const int j = h / (p.H / p.KVH);
   const int rg = threadIdx.x >> 3, cg = threadIdx.x & 7;
 
-  load_rows<T, BQ>(p.q, p.sq, b, h, q0, p.Lq, q_s);
-  load_rows<T, BQ>(p.dout, p.sdo, b, h, q0, p.Lq, do_s);
+  load_rows<T, BQ, D>(p.q, p.sq, b, h, q0, p.Lq, q_s);
+  load_rows<T, BQ, D>(p.dout, p.sdo, b, h, q0, p.Lq, do_s);
   float lse[R], delta[R], dq[R][CO];
 #pragma unroll
   for (int i = 0; i < R; ++i) {
@@ -343,8 +405,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Params p) {
   for (int t = t_lo; t < t_hi; ++t) {
     const int k0 = t * BK;
     if (!load_key_mask<BK>(p, b, k0, km_s)) continue;
-    load_rows<T, BK>(p.k, p.sk, b, j, k0, p.Lk, k_s);
-    load_rows<T, BK>(p.v, p.sv, b, j, k0, p.Lk, v_s);
+    load_rows<T, BK, D>(p.k, p.sk, b, j, k0, p.Lk, k_s);
+    load_rows<T, BK, D>(p.v, p.sv, b, j, k0, p.Lk, v_s);
     __syncthreads();
 
     float s[R][CS], dp[R][CS];
@@ -353,7 +415,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Params p) {
 #pragma unroll
       for (int c = 0; c < CS; ++c) s[i][c] = dp[i][c] = 0.f;
 #pragma unroll 8
-    for (int d = 0; d < kD; ++d) {
+    for (int d = 0; d < D; ++d) {
       float qv[R], dov[R], kv[CS], vv[CS];
 #pragma unroll
       for (int i = 0; i < R; ++i) {
@@ -405,7 +467,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Params p) {
     const int qi = q0 + rg * R + i;
     if (qi >= p.Lq) continue;
     T* row = static_cast<T*>(p.dq) +
-             ((static_cast<size_t>(b) * p.Lq + qi) * p.H + h) * kD;
+             ((static_cast<size_t>(b) * p.Lq + qi) * p.H + h) * D;
 #pragma unroll
     for (int o = 0; o < CO; ++o) row[cg + 8 * o] = Ops<T>::store(dq[i][o]);
   }
@@ -413,18 +475,20 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Params p) {
 
 // B7. Thread (rg, cg) owns key rows rg * R + i; query columns cg + 8 * c
 // of the transposed score tile; dk/dv columns cg + 8 * o.
-template <typename T>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Params p) {
-  constexpr int BK = 32, BQ = 32, R = BK / 16, CS = BQ / 8, CO = kD / 8;
-  __shared__ float k_s[BK][kPad];
-  __shared__ float v_s[BK][kPad];
-  __shared__ float q_s[BQ][kPad];
-  __shared__ float do_s[BQ][kPad];
-  __shared__ float pt_s[BK][BQ + 1];
-  __shared__ float dst_s[BK][BQ + 1];
-  __shared__ float lse_s[BQ];
-  __shared__ float delta_s[BQ];
-  __shared__ float km_s[BK];
+  constexpr int BK = 32, BQ = 32, R = BK / 16, CS = BQ / 8, CO = D / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  DkvSmem<D>& sm = *reinterpret_cast<DkvSmem<D>*>(smem_raw);
+  auto& k_s = sm.k;
+  auto& v_s = sm.v;
+  auto& q_s = sm.q;
+  auto& do_s = sm.dout;
+  auto& pt_s = sm.pt;
+  auto& dst_s = sm.dst;
+  auto& lse_s = sm.lse;
+  auto& delta_s = sm.delta;
+  auto& km_s = sm.km;
 
   const int k0 = blockIdx.x * BK, j = blockIdx.y, b = blockIdx.z;
   const int group = p.H / p.KVH;
@@ -437,8 +501,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Params p) {
 
   // A tile of keys that are all masked gets dk = dv = 0 (its p is 0).
   if (load_key_mask<BK>(p, b, k0, km_s)) {
-    load_rows<T, BK>(p.k, p.sk, b, j, k0, p.Lk, k_s);
-    load_rows<T, BK>(p.v, p.sv, b, j, k0, p.Lk, v_s);
+    load_rows<T, BK, D>(p.k, p.sk, b, j, k0, p.Lk, k_s);
+    load_rows<T, BK, D>(p.v, p.sv, b, j, k0, p.Lk, v_s);
     int t_lo, t_hi;
     query_tiles(p, k0, BK, BQ, &t_lo, &t_hi);
     for (int g = 0; g < group; ++g) {
@@ -446,8 +510,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Params p) {
       for (int t = t_lo; t < t_hi; ++t) {
         const int q0 = t * BQ;
         __syncthreads();  // the previous step's readers are done
-        load_rows<T, BQ>(p.q, p.sq, b, h, q0, p.Lq, q_s);
-        load_rows<T, BQ>(p.dout, p.sdo, b, h, q0, p.Lq, do_s);
+        load_rows<T, BQ, D>(p.q, p.sq, b, h, q0, p.Lq, q_s);
+        load_rows<T, BQ, D>(p.dout, p.sdo, b, h, q0, p.Lq, do_s);
         for (int r = threadIdx.x; r < BQ; r += kThreads) {
           const int qi = q0 + r;
           const size_t at = (static_cast<size_t>(b) * p.H + h) * p.Lq + qi;
@@ -462,7 +526,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Params p) {
 #pragma unroll
           for (int c = 0; c < CS; ++c) st[i][c] = dpt[i][c] = 0.f;
 #pragma unroll 8
-        for (int d = 0; d < kD; ++d) {
+        for (int d = 0; d < D; ++d) {
           float kv[R], vv[R], qv[CS], dov[CS];
 #pragma unroll
           for (int i = 0; i < R; ++i) {
@@ -524,7 +588,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Params p) {
   for (int i = 0; i < R; ++i) {
     const int kj = k0 + rg * R + i;
     if (kj >= p.Lk) continue;
-    const size_t row = ((static_cast<size_t>(b) * p.Lk + kj) * p.KVH + j) * kD;
+    const size_t row = ((static_cast<size_t>(b) * p.Lk + kj) * p.KVH + j) * D;
 #pragma unroll
     for (int o = 0; o < CO; ++o) {
       static_cast<T*>(p.dk)[row + cg + 8 * o] = Ops<T>::store(dk[i][o]);
@@ -533,26 +597,71 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Params p) {
   }
 }
 
-enum Which { kForward, kDq, kDkv };
+// Grant a kernel `bytes` of dynamic shared memory (once; checked).
+template <typename K>
+cudaError_t grant_smem(K kernel, int bytes, int* granted) {
+  if (bytes <= *granted) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) *granted = bytes;
+  return err;
+}
 
-template <typename T>
+template <typename T, int D>
 int launch_t(Which which, const Params& p, cudaStream_t s) {
+  cudaError_t err = cudaSuccess;
   switch (which) {
-    case kForward:
-      flash_fwd_kernel<T><<<dim3((p.Lq + 63) / 64, p.H, p.B), kThreads, 0,
-                            s>>>(p);
+    case kForward: {
+      static int granted = 48 * 1024;
+      constexpr int smem = sizeof(FwdSmem<D>);
+      err = grant_smem(flash_fwd_kernel<T, D>, smem, &granted);
+      if (err != cudaSuccess) break;
+      flash_fwd_kernel<T, D><<<dim3((p.Lq + 63) / 64, p.H, p.B), kThreads,
+                               smem, s>>>(p);
       break;
-    case kDq:
-      flash_bwd_dq_kernel<T><<<dim3((p.Lq + 31) / 32, p.H, p.B), kThreads,
-                               0, s>>>(p);
+    }
+    case kDq: {
+      static int granted = 48 * 1024;
+      constexpr int smem = sizeof(DqSmem<D>);
+      err = grant_smem(flash_bwd_dq_kernel<T, D>, smem, &granted);
+      if (err != cudaSuccess) break;
+      flash_bwd_dq_kernel<T, D><<<dim3((p.Lq + 31) / 32, p.H, p.B),
+                                  kThreads, smem, s>>>(p);
       break;
-    case kDkv:
-      flash_bwd_dkv_kernel<T><<<dim3((p.Lk + 31) / 32, p.KVH, p.B),
-                                kThreads, 0, s>>>(p);
+    }
+    case kDkv: {
+      static int granted = 48 * 1024;
+      constexpr int smem = sizeof(DkvSmem<D>);
+      err = grant_smem(flash_bwd_dkv_kernel<T, D>, smem, &granted);
+      if (err != cudaSuccess) break;
+      flash_bwd_dkv_kernel<T, D><<<dim3((p.Lk + 31) / 32, p.KVH, p.B),
+                                   kThreads, smem, s>>>(p);
       break;
+    }
   }
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
+
+}  // namespace
+
+template <int D>
+int launch_for_d(Which which, int dtype, const Params& p, cudaStream_t s) {
+  if (dtype == 0) return launch_t<float, D>(which, p, s);
+  return launch_t<__nv_bfloat16, D>(which, p, s);
+}
+
+#if MLAPI_UNIT > 0
+template int launch_for_d<MLAPI_UNIT>(Which, int, const Params&,
+                                      cudaStream_t);
+#endif
+
+}  // namespace mlapi_flash
+#endif  // MLAPI_UNIT != 0
+
+#if MLAPI_UNIT <= 0
+namespace mlapi_flash {
+namespace {
 
 int launch(Which which, const void* q, const void* k, const void* v,
            const void* mask, const void* dout, void* out, void* lse,
@@ -560,8 +669,9 @@ int launch(Which which, const void* q, const void* k, const void* v,
            const long long* strides, int dtype, int B, int Lq, int Lk, int H,
            int KVH, int D, int causal, int window, float scale,
            void* stream) {
-  if (D != kD || B < 1 || Lq < 1 || Lk < 1 || KVH < 1 || H % KVH ||
-      window < 0 || B > 65535 || H > 65535)
+  if ((D != 16 && D != 32 && D != 64 && D != 128) || B < 1 || Lq < 1 ||
+      Lk < 1 || KVH < 1 || H % KVH || window < 0 || B > 65535 || H > 65535 ||
+      (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.q = q;
@@ -588,12 +698,21 @@ int launch(Which which, const void* q, const void* k, const void* v,
   p.window = window;
   p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_t<float>(which, p, s);
-  if (dtype == 1) return launch_t<__nv_bfloat16>(which, p, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  switch (D) {
+    case 16: return launch_for_d<16>(which, dtype, p, s);
+    case 32: return launch_for_d<32>(which, dtype, p, s);
+    case 64: return launch_for_d<64>(which, dtype, p, s);
+    default: return launch_for_d<128>(which, dtype, p, s);
+  }
 }
 
 }  // namespace
+}  // namespace mlapi_flash
+
+using mlapi_flash::launch;
+using mlapi_flash::kForward;
+using mlapi_flash::kDq;
+using mlapi_flash::kDkv;
 
 // dtype: 0 f32, 1 bf16 (q, k, v, dO and every output but lse share it).
 // strides: q, k, v, dO, each (batch, row, head) in elements; the forward
@@ -637,3 +756,4 @@ int mlapi_flash_backward_dkv(const void* q, const void* k, const void* v,
 }
 
 }  // extern "C"
+#endif  // MLAPI_UNIT <= 0

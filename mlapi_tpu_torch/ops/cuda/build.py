@@ -3,11 +3,14 @@
 Each ``.cu`` source under ``csrc/`` compiles with ``nvcc`` for Hopper
 (``sm_90a``) into a shared library with a plain C interface, loaded
 through ``ctypes`` — no PyTorch headers, so a build takes seconds, not
-minutes. Libraries are built at first use from the sources in the
+minutes. A source compiles as several translation units (``UNITS``):
+``-DMLAPI_UNIT=D`` holds the kernels of compiled head dim ``D``,
+``-DMLAPI_UNIT=0`` the C entry points; the objects link into one
+library. Libraries are built at first use from the sources in the
 checkout and cached under a key that hashes the source and the flags,
 in ``build/kernels/`` at the repository root (``.gitignore`` lists
 ``build/``), or in ``$MLAPI_TPU_TORCH_BUILD_DIR``. :func:`build`
-starts one ``nvcc`` per missing source, all at once.
+starts one ``nvcc`` per unit of every missing source, all at once.
 
 Nothing here runs at import time: the CPU test suite imports every
 module of the port on a machine without ``nvcc``.
@@ -27,11 +30,13 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 REPO_ROOT = Path(__file__).resolve().parents[3]
 SOURCES = ("decode_attention", "flash_attention")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-    "-Xptxas", "-v",
+    *ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# Translation units of every source: the entry points, then one per
+# compiled head dim.
+UNITS = (0, 16, 32, 64, 128)
 
 
 @dataclass
@@ -70,16 +75,23 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    flags = " ".join(NVCC_FLAGS) + f" units {UNITS}"
+    key = hashlib.sha256(src + flags.encode()).hexdigest()
     return build_dir() / key[:16] / f"lib{name}.so"
 
 
+def _run(cmd) -> subprocess.Popen:
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
 def build(names=SOURCES) -> dict[str, Built]:
-    """Compile every named source whose library is not cached yet, one
-    ``nvcc`` process per source, all started together; raise with the
-    compiler's output if any fails."""
+    """Compile every named source whose library is not cached yet: one
+    ``nvcc -c`` process per unit of every such source, all started
+    together, then one link per source; raise with the compiler's output
+    if any step fails."""
     out: dict[str, Built] = {}
-    procs = []
+    jobs = []
     for name in names:
         target = _target(name)
         log_path = target.with_suffix(".log")
@@ -88,18 +100,29 @@ def build(names=SOURCES) -> dict[str, Built]:
             out[name] = Built(name, target, log)
             continue
         target.parent.mkdir(parents=True, exist_ok=True)
-        # Build to a private name, then rename: concurrent builds of the
-        # same key never see a half-written library.
-        tmp = target.with_name(f".{target.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs.append((name, target, tmp, log_path, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        )))
+        # Build under private names, then rename: concurrent builds of
+        # the same key never see a half-written library.
+        stem = f".{name}.{os.getpid()}"
+        objs = [target.with_name(f"{stem}.{u}.o") for u in UNITS]
+        compiles = [_run([_nvcc(), *NVCC_FLAGS, f"-DMLAPI_UNIT={u}", "-c",
+                          "-o", str(obj), str(CSRC / f"{name}.cu")])
+                    for u, obj in zip(UNITS, objs)]
+        jobs.append((name, target, log_path, objs, compiles))
     errors = []
-    for name, target, tmp, log_path, proc in procs:
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            errors.append(f"nvcc failed for {name}.cu:\n{log}")
+    for name, target, log_path, objs, compiles in jobs:
+        logs = [proc.communicate()[0] for proc in compiles]
+        if any(proc.returncode for proc in compiles):
+            errors.append(f"nvcc failed for {name}.cu:\n" + "".join(logs))
+            continue
+        tmp = target.with_name(f".{target.name}.{os.getpid()}.tmp")
+        link = _run([_nvcc(), *ARCH, "-shared", "-o", str(tmp),
+                     *map(str, objs)])
+        logs.append(link.communicate()[0])
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+        log = "".join(logs)
+        if link.returncode != 0:
+            errors.append(f"nvcc could not link {name}:\n{log}")
             continue
         log_path.write_text(log)
         os.replace(tmp, target)

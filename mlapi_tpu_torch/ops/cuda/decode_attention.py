@@ -22,15 +22,22 @@ about that. Here are the public functions, with the JAX layouts kept:
 For a CUDA tensor a wrapper launches its kernel or raises; it runs the
 plain version (``*_plain`` below, the same algorithm in PyTorch ops)
 only for tensors on the CPU. Each wrapper counts its kernel launches
-in ``<wrapper>.launches``, and by body in ``<wrapper>.bodies``. The
-split-K merge, which the JAX package computes in jnp outside its Pallas
-kernel, is a second small CUDA kernel launched by the same C call when
-the call has more than one split.
+in ``<wrapper>.launches``, and by body in ``<wrapper>.bodies``.
 
-The source has two bodies (:func:`_geometry` says which one a call
-runs): ``"mma"``, tensor cores, for the extend entry points with bf16
-queries over a bf16 or int8 cache; ``"fma"``, CUDA-core f32, for every
-decode call and for f32 queries.
+The source has three bodies (:func:`_geometry` says which one a call
+runs): ``"decode"`` for every decode call (B1, B3), a memory pipeline
+whose splits meet in a thread-block cluster, so one launch per call;
+``"mma"``, tensor cores, for the extend entry points with bf16 queries
+over a bf16 or int8 cache at a compiled head dim; ``"fma"``, CUDA-core
+f32, for the other extend calls (f32 queries, one-token spans, other
+head dims), whose split-K merge -- computed in jnp outside the Pallas
+kernel by the JAX package -- is a second small CUDA kernel launched by
+the same C call when the call has more than one split, as it is for a
+multi-split ``mma`` call.
+
+Head dims: every ``d`` from 1 to 128. The bodies are compiled for ``d``
+in 16, 32, 64 and 128; another ``d`` runs the CUDA-core bodies at the
+next of them with guarded loads, over the cache as it is.
 """
 
 from __future__ import annotations
@@ -44,12 +51,22 @@ import torch
 from mlapi_tpu_torch.ops.attention import NEG
 from mlapi_tpu_torch.ops.quant import _is_quant_leaf, kv_gather_pages
 
-_KERNEL_HEAD_DIMS = (64,)
+_KERNEL_HEAD_DIMS = range(1, 129)
+_COMPILED_DIMS = (16, 32, 64, 128)
 # Per body: keys per tile, query rows per block, blocks aimed at per SM,
 # most tiles in one split (the mma body holds a split's mask words). The
 # mma body aims at one block per SM: a call with one split skips the
 # merge kernel, which costs more than the occupancy a second split buys.
-_BODIES = {"mma": (64, 64, 1, 16), "fma": (32, 32, 4, None)}
+# The decode body's tile, rows per block and blocks per SM depend on the
+# call (below); its splits, one cluster, are at most 8 (``kMaxCluster``).
+_BODIES = {"mma": (64, 64, 1, 16), "fma": (32, 32, 4, None),
+           "decode": (None, None, None, 8)}
+# decode: bytes of K (and of V) in a warp's tile (``kDecTileBytes``), and
+# the blocks of 128 threads that fit an SM by the registers of a body
+# serving 1, 2, 4 or 8 query heads (ptxas: at most 72, 96, 128 and 255
+# registers; the 24-26 KB rings would fit eight).
+_DECODE_TILE_BYTES = 1024
+_DECODE_BLOCKS_PER_SM = {1: 7, 2: 5, 4: 4, 8: 2}
 _EXTEND_ENTRIES = ("mlapi_extend_attention", "mlapi_paged_extend_attention")
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -277,44 +294,77 @@ class Geometry(NamedTuple):
     partial_floats: int
 
 
+def _compiled_d(d: int) -> int:
+    """The compiled head dim a call of head dim ``d`` runs at (the C
+    source's ``compiled_d``)."""
+    return next(c for c in _COMPILED_DIMS if c >= d)
+
+
+def _decode_heads(group: int) -> int:
+    """Query heads one decode block serves (``dec_heads``): the group,
+    rounded up to 1, 2, 4 or 8; a larger group takes blocks of 8."""
+    return 1 if group == 1 else 2 if group == 2 else 4 if group <= 4 else 8
+
+
 def _geometry(entry: str, dtype, b: int, u: int, h: int, kvh: int,
-              lk: int, d: int, sm_count: int) -> Geometry:
+              lk: int, d: int, sm_count: int, quant: bool = False
+              ) -> Geometry:
     """The grid of one call (pure, so the CPU tests reach it). The body
-    is the C source's dispatch: ``mma`` for an extend entry point with
-    bf16 queries and ``u > 1``, else ``fma``. Splits of the key tiles
-    are chosen so that the blocks number about ``per_sm * sm_count``,
-    never more splits than tiles, no empty split and, for the mma body,
-    at most 16 tiles in a split."""
-    mma = entry in _EXTEND_ENTRIES and dtype == torch.bfloat16 and u > 1
-    body = "mma" if mma else "fma"
+    is the C source's dispatch: ``decode`` for a decode entry point,
+    ``mma`` for an extend entry point with bf16 queries, ``u > 1`` and a
+    compiled ``d``, else ``fma``. Splits of the key tiles are chosen so
+    that the blocks number about ``per_sm * sm_count``, never more splits
+    than tiles, no empty split; for the mma body at most 16 tiles in a
+    split; for the decode body a power of two of at most 8 splits (one
+    cluster) and no more blocks than fit the card at once.
+
+    The decode body's tile is 1 KB of K: ``1024 / (D * itemsize)`` keys,
+    ``D`` the compiled head dim and ``itemsize`` the cache's (4 f32, 2
+    bf16, 1 int8); a block serves :func:`_decode_heads` query heads of
+    one KV head."""
+    if entry not in _EXTEND_ENTRIES:
+        body = "decode"
+    elif dtype == torch.bfloat16 and u > 1 and d in _COMPILED_DIMS:
+        body = "mma"
+    else:
+        body = "fma"
     tile, chunk_rows, per_sm, most = _BODIES[body]
     rows = u * (h // kvh)
+    if body == "decode":
+        itemsize = 1 if quant else 4 if dtype == torch.float32 else 2
+        tile = _DECODE_TILE_BYTES // (_compiled_d(d) * itemsize)
+        chunk_rows = _decode_heads(h // kvh)
+        per_sm = _DECODE_BLOCKS_PER_SM[chunk_rows]
     row_chunks = -(-rows // chunk_rows)
     n_tiles = -(-lk // tile)
     blocks = b * kvh * row_chunks
-    splits = min(n_tiles, max(1, -(-per_sm * sm_count // blocks)))
-    if most is not None:
-        splits = max(splits, -(-n_tiles // most))
+    if body == "decode":
+        fit = max(1, min(most, n_tiles, per_sm * sm_count // blocks))
+        splits = 1 << (fit.bit_length() - 1)
+    else:
+        splits = min(n_tiles, max(1, -(-per_sm * sm_count // blocks)))
+        if most is not None:
+            splits = max(splits, -(-n_tiles // most))
     per_split = -(-n_tiles // splits)
     splits = -(-n_tiles // per_split)
-    partials = 0 if mma and splits == 1 else b * splits * kvh * rows * (d + 2)
+    one_pass = body == "decode" or (body == "mma" and splits == 1)
+    partials = 0 if one_pass else b * splits * kvh * rows * (d + 2)
     return Geometry(body, tile, chunk_rows, row_chunks, splits, per_split,
                     partials)
 
 
 def _launch(entry: str, q, kq, ks, vq, vs, mask3, scale, table=None):
-    """Validate, then one C call: the split kernel and, with several
-    splits, its merge → ``([B, U, H, D]`` in ``q.dtype``, the body that
-    ran)``. ``table`` selects the paged layout (``kq`` etc. are then
-    pools)."""
+    """Validate, then one C call: the body's kernel and, for a split-K
+    body with several splits, its merge → ``([B, U, H, D]`` in
+    ``q.dtype``, the body that ran)``. ``table`` selects the paged
+    layout (``kq`` etc. are then pools)."""
     b, u, h, d = q.shape
     kvh = kq.shape[2]
     lk = kq.shape[1] if table is None else table.shape[1] * kq.shape[1]
     quant = ks is not None
     if d not in _KERNEL_HEAD_DIMS:
         raise ValueError(
-            f"{entry}: head_dim {d} not compiled (one of "
-            f"{_KERNEL_HEAD_DIMS})"
+            f"{entry}: head_dim {d} not compiled (1 <= D <= 128)"
         )
     if q.dtype not in _DTYPE_CODES:
         raise ValueError(f"{entry}: unsupported dtype {q.dtype}")
@@ -328,8 +378,9 @@ def _launch(entry: str, q, kq, ks, vq, vs, mask3, scale, table=None):
         if t is not None and t.device.type != "cuda":
             raise ValueError(f"{entry}: every operand must be on the card")
     geo = _geometry(entry, q.dtype, b, u, h, kvh, lk, d,
-                    _sm_count(q.device.index))
-    # The FMA body reads q by element; the mma body by 16-byte rows.
+                    _sm_count(q.device.index), quant)
+    # The CUDA-core bodies read q by element; the mma body by 16-byte
+    # rows.
     if q.stride(-1) != 1 or (geo.body == "mma" and (
             q.data_ptr() % 16 or any(s % 8 for s in q.stride()[:3]))):
         q = q.contiguous()
@@ -445,5 +496,5 @@ def paged_extend_attention(q, k, v, table, mask, *, scale=None):
 for _fn in (decode_attention, extend_attention, paged_decode_attention,
             paged_extend_attention):
     _fn.launches = 0
-    _fn.bodies = {"mma": 0, "fma": 0}
+    _fn.bodies = {"mma": 0, "fma": 0, "decode": 0}
 del _fn

@@ -21,6 +21,13 @@ that. The public functions keep the JAX layouts and contract:
 The Pallas tiling knobs (``block_q``, ``block_k``, ``interpret``) have
 no counterpart: the CUDA kernels fix their own tiles.
 
+Head dims: every ``D`` from 1 to 128. The kernels are compiled for 16,
+32, 64 and 128; for another ``D`` each wrapper zero-pads q, k, v and
+dO along the last dim to the next of them (zero columns leave q·k
+unchanged and give zero output and gradient columns, so the result is
+exact), runs the kernel with the scale of the original ``D`` (the
+wrappers always receive it explicitly) and slices the result back.
+
 For CUDA tensors each wrapper (:func:`flash_forward`,
 :func:`flash_backward_dq`, :func:`flash_backward_dkv`) launches its
 kernel or raises; for CPU tensors it runs the plain version
@@ -42,7 +49,8 @@ import torch
 from mlapi_tpu_torch.ops.attention import NEG
 from mlapi_tpu_torch.ops.quant import maybe_dequant_kv
 
-_KERNEL_HEAD_DIMS = (64,)
+_KERNEL_HEAD_DIMS = range(1, 129)
+_COMPILED_DIMS = (16, 32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -179,15 +187,33 @@ def _row_aligned(t):
     return t
 
 
-def _launch(entry, q, k, v, mask, causal, scale, window, ptrs, dout=None):
-    """Validate, then one C call of ``entry``; ``ptrs`` are the output
-    (and lse/delta) pointers that follow dO in its argument list."""
-    b, lq, h, d = q.shape
-    lk, kvh = k.shape[1], k.shape[2]
+def _compiled_d(entry, d):
+    """The compiled head dim that takes ``d``; a ``d`` past 128 raises
+    before anything reaches the card."""
     if d not in _KERNEL_HEAD_DIMS:
         raise ValueError(
-            f"{entry}: head_dim {d} not compiled (one of "
-            f"{_KERNEL_HEAD_DIMS})"
+            f"{entry}: head_dim {d} not compiled (1 <= D <= 128)"
+        )
+    return next(c for c in _COMPILED_DIMS if c >= d)
+
+
+def _pad(t, dc):
+    """``t`` zero-padded along its last dim to ``dc`` columns."""
+    if t is None or t.shape[-1] == dc:
+        return t
+    return torch.nn.functional.pad(t, (0, dc - t.shape[-1]))
+
+
+def _launch(entry, q, k, v, mask, causal, scale, window, ptrs, dout=None):
+    """Validate, then one C call of ``entry`` (head dims compiled only:
+    the wrappers pad the others); ``ptrs`` are the output (and
+    lse/delta) pointers that follow dO in its argument list."""
+    b, lq, h, d = q.shape
+    lk, kvh = k.shape[1], k.shape[2]
+    if d not in _COMPILED_DIMS:
+        raise ValueError(
+            f"{entry}: head_dim {d} not compiled (one of {_COMPILED_DIMS}; "
+            "the wrappers pad 1 <= D <= 128 to them)"
         )
     if q.dtype not in _DTYPE_CODES:
         raise ValueError(f"{entry}: unsupported dtype {q.dtype}")
@@ -227,12 +253,13 @@ def flash_forward(q, k, v, mask, *, causal=False, scale, window=None):
         return flash_forward_plain(q, k, v, mask, causal=causal, scale=scale,
                                    window=window)
     b, lq, h, d = q.shape
-    out = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device)
+    dc = _compiled_d("mlapi_flash_forward", d)
+    out = torch.empty((b, lq, h, dc), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
-    _launch("mlapi_flash_forward", q, k, v, mask, causal, scale, window,
-            [out.data_ptr(), lse.data_ptr()])
+    _launch("mlapi_flash_forward", _pad(q, dc), _pad(k, dc), _pad(v, dc),
+            mask, causal, scale, window, [out.data_ptr(), lse.data_ptr()])
     flash_forward.launches += 1
-    return out, lse
+    return (out if dc == d else out[..., :d].contiguous()), lse
 
 
 def _rows_f32(t, like):
@@ -251,11 +278,14 @@ def flash_backward_dq(q, k, v, mask, dout, lse, delta, *, causal=False,
                                     causal=causal, scale=scale,
                                     window=window)[0]
     lse, delta = _rows_f32(lse, q), _rows_f32(delta, q)
-    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _launch("mlapi_flash_backward_dq", q, k, v, mask, causal, scale, window,
-            [lse.data_ptr(), delta.data_ptr(), dq.data_ptr()], dout)
+    d = q.shape[-1]
+    dc = _compiled_d("mlapi_flash_backward_dq", d)
+    dq = torch.empty(q.shape[:-1] + (dc,), dtype=q.dtype, device=q.device)
+    _launch("mlapi_flash_backward_dq", _pad(q, dc), _pad(k, dc), _pad(v, dc),
+            mask, causal, scale, window,
+            [lse.data_ptr(), delta.data_ptr(), dq.data_ptr()], _pad(dout, dc))
     flash_backward_dq.launches += 1
-    return dq
+    return dq if dc == d else dq[..., :d].contiguous()
 
 
 def flash_backward_dkv(q, k, v, mask, dout, lse, delta, *, causal=False,
@@ -267,12 +297,17 @@ def flash_backward_dkv(q, k, v, mask, dout, lse, delta, *, causal=False,
                                     causal=causal, scale=scale,
                                     window=window)[1:]
     lse, delta = _rows_f32(lse, q), _rows_f32(delta, q)
-    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
-    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    _launch("mlapi_flash_backward_dkv", q, k, v, mask, causal, scale, window,
+    d = q.shape[-1]
+    dc = _compiled_d("mlapi_flash_backward_dkv", d)
+    dk = torch.empty(k.shape[:-1] + (dc,), dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape[:-1] + (dc,), dtype=v.dtype, device=v.device)
+    _launch("mlapi_flash_backward_dkv", _pad(q, dc), _pad(k, dc),
+            _pad(v, dc), mask, causal, scale, window,
             [lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr()],
-            dout)
+            _pad(dout, dc))
     flash_backward_dkv.launches += 1
+    if dc != d:
+        dk, dv = dk[..., :d].contiguous(), dv[..., :d].contiguous()
     return dk, dv
 
 

@@ -185,7 +185,7 @@ def test_strided_query_from_the_fused_projection(card):
 
 
 def test_unsupported_head_dim_raises_not_falls_back(card):
-    q, k, v, mask = _case(card, 2, 1, 4, 4, 64, 128, torch.bfloat16,
+    q, k, v, mask = _case(card, 2, 1, 4, 4, 64, 160, torch.bfloat16,
                           "none", seed=2)
     n0 = kern.decode_attention.launches
     with pytest.raises(ValueError, match="head_dim"):
@@ -438,8 +438,208 @@ def test_flash_reads_strided_views_of_a_fused_projection(card):
 
 
 def test_flash_head_dim_other_than_64_raises(card):
-    q = torch.zeros(2, 32, 4, 128, device=card, dtype=torch.bfloat16)
+    q = torch.zeros(2, 32, 4, 160, device=card, dtype=torch.bfloat16)
     n0 = kern.flash_forward.launches
-    with pytest.raises(ValueError, match="head_dim 128 not compiled"):
+    with pytest.raises(ValueError, match="head_dim 160 not compiled"):
         kern.flash_attention(q, q, q)
     assert kern.flash_forward.launches == n0
+
+
+# -- every head dim up to 128; the decode body (B1/B3) ----------------------
+
+DECODE_FORMATS = {  # name: (query dtype, cache format)
+    "bf16": (torch.bfloat16, "none"), "f32": (torch.float32, "none"),
+    "int8": (torch.bfloat16, "int8"),
+}
+
+
+def _decode_case(card, b, h, kvh, length, d, fmt, seed):
+    """One decode token per row: keys from a ragged left pad up to a
+    random last slot attend; batch row 0 has no valid key."""
+    dtype, cache = DECODE_FORMATS[fmt]
+    rng = np.random.default_rng(seed)
+
+    def t(*shape):
+        return torch.as_tensor(rng.standard_normal(shape),
+                               dtype=torch.float32).to(card, dtype)
+
+    q = t(b, 1, h, d)
+    k, v = t(b, length, kvh, d), t(b, length, kvh, d)
+    if cache == "int8":
+        k = dict(zip(("q", "scale"), kv_quantize(k)))
+        v = dict(zip(("q", "scale"), kv_quantize(v)))
+    idx = torch.arange(length, device=card)
+    last = torch.as_tensor(rng.integers(length // 2, length, b), device=card)
+    pads = torch.as_tensor(rng.integers(0, length // 4 + 1, b), device=card)
+    mask = (idx[None] <= last[:, None]) & (idx[None] >= pads[:, None])
+    mask[0] = False
+    return q, k, v, mask
+
+
+@pytest.mark.parametrize("fmt", list(DECODE_FORMATS))
+@pytest.mark.parametrize("group", [1, 2, 4, 6])
+@pytest.mark.parametrize("d", [12, 16, 32, 64, 128])
+def test_decode_body_matches_plain(card, d, group, fmt):
+    """B1's decode body against its plain version at every context length
+    a served window reaches (1, 48, 416, 1000, 1024), with a batch row
+    that attends nothing: within tolerance on live rows, exact zeros on
+    the dead one, one launch on the decode body each."""
+    dtype = DECODE_FORMATS[fmt][0]
+    for length in (1, 48, 416, 1000, 1024):
+        args = _decode_case(card, 3, 2 * group, 2, length, d, fmt,
+                            seed=length + d + group)
+        _check_body(kern.decode_attention, "decode", args,
+                    kern.decode_attention_plain, dtype)
+
+
+@pytest.mark.parametrize("page", [8, 16, 64])
+@pytest.mark.parametrize("fmt", ["bf16", "int8", "f32"])
+@pytest.mark.parametrize("d", [12, 32, 128])
+def test_paged_decode_body_equals_contiguous(card, d, fmt, page):
+    """B3 on the decode body: within tolerance of its plain version, and
+    bit for bit B1 over the same bytes (group 4, a dead batch row)."""
+    dtype = DECODE_FORMATS[fmt][0]
+    q, k, v, mask = _decode_case(card, 3, 8, 2, 448, d, fmt, seed=d + page)
+    pk, table = _paged(card, k, page, mask, seed=1)
+    pv, _ = _paged(card, v, page, mask, seed=1)
+    got = _check_body(kern.paged_decode_attention, "decode",
+                      (q, pk, pv, table, mask),
+                      kern.paged_decode_attention_plain, dtype)
+    n0 = kern.decode_attention.bodies["decode"]
+    same = kern.decode_attention(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert kern.decode_attention.bodies["decode"] == n0 + 1
+    assert torch.equal(got, same)
+
+
+@pytest.mark.parametrize("d", [12, 64, 128])
+def test_decode_body_reads_a_strided_query(card, d):
+    """q as a view of the fused QKV projection, GQA: the same bits as a
+    contiguous q."""
+    q, k, v, mask = _decode_case(card, 4, 8, 2, 300, d, "bf16", seed=d)
+    view = torch.cat([q, q, q], dim=2)[:, :, :8]
+    assert not view.is_contiguous()
+    n0 = kern.decode_attention.bodies["decode"]
+    got = kern.decode_attention(view, k, v, mask)
+    want = kern.decode_attention(q.contiguous(), k, v, mask)
+    assert kern.decode_attention.bodies["decode"] == n0 + 2
+    assert torch.equal(got, want)
+
+
+def _span_case_d(card, b, u, h, kvh, length, slot, d, dtype, fmt, seed):
+    """``_span_case`` at head dim ``d``."""
+    rng = np.random.default_rng(seed)
+
+    def t(*shape):
+        return torch.as_tensor(rng.standard_normal(shape),
+                               dtype=torch.float32).to(card, dtype)
+
+    q = t(b, u, h, d)
+    k, v = t(b, length, kvh, d), t(b, length, kvh, d)
+    if fmt == "int8":
+        k = dict(zip(("q", "scale"), kv_quantize(k)))
+        v = dict(zip(("q", "scale"), kv_quantize(v)))
+    idx = torch.arange(length, device=card)
+    pads = torch.as_tensor(rng.integers(0, slot + 1, b), device=card)
+    qpos = slot + torch.arange(u, device=card)
+    mask = (idx[None, None] <= qpos[None, :, None]) & (
+        idx[None, None] >= pads[:, None, None])
+    mask[0] = False
+    return q, k, v, mask
+
+
+@pytest.mark.parametrize("fmt", ["none", "int8"])
+@pytest.mark.parametrize("d", [16, 32, 128])
+def test_extend_mma_head_dims(card, d, fmt):
+    """B2 and B4 on the tensor-core body at compiled head dims other than
+    64, GQA, paged bit for bit equal to contiguous."""
+    q, k, v, mask = _span_case_d(card, 3, 40, 8, 2, 456, 300, d,
+                                 torch.bfloat16, fmt, seed=d)
+    got = _check_body(kern.extend_attention, "mma", (q, k, v, mask),
+                      kern.extend_attention_plain, torch.bfloat16)
+    pk, table = _paged(card, k, 8, mask, seed=3)
+    pv, _ = _paged(card, v, 8, mask, seed=3)
+    paged = _check_body(kern.paged_extend_attention, "mma",
+                        (q, pk, pv, table, mask),
+                        kern.paged_extend_attention_plain, torch.bfloat16)
+    assert torch.equal(got, paged)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [12, 48])
+def test_extend_uncompiled_head_dim_runs_the_fma_body(card, d, dtype):
+    """A head dim outside {16, 32, 64, 128} runs the CUDA-core body at the
+    next compiled dim over the cache as it is, contiguous and paged."""
+    q, k, v, mask = _span_case_d(card, 2, 9, 8, 2, 200, 60, d, dtype,
+                                 "none", seed=d)
+    got = _check_body(kern.extend_attention, "fma", (q, k, v, mask),
+                      kern.extend_attention_plain, dtype)
+    pk, table = _paged(card, k, 8, mask, seed=2)
+    pv, _ = _paged(card, v, 8, mask, seed=2)
+    paged = _check_body(kern.paged_extend_attention, "fma",
+                        (q, pk, pv, table, mask),
+                        kern.paged_extend_attention_plain, dtype)
+    assert torch.equal(got, paged)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [12, 16, 32, 128])
+def test_flash_kernels_head_dims(card, d, dtype):
+    """B5-B7 at head dims other than 64 (12 through the wrappers' zero
+    padding): against the plain versions, GQA, causal, a dead batch row;
+    the autograd Function's gradients too."""
+    from mlapi_tpu_torch.ops.cuda.flash_attention import _keep
+
+    rng = np.random.default_rng(d)
+
+    def t(*shape, s=1.0):
+        return torch.as_tensor(s * rng.standard_normal(shape),
+                               dtype=torch.float32).to(card, dtype)
+
+    b, length, h, kvh = 2, 96, 4, 2
+    q, k, v = t(b, length, h, d), t(b, length, kvh, d), t(b, length, kvh, d)
+    dout = t(b, length, h, d, s=0.1)
+    mask = torch.ones(b, length, device=card)
+    mask[-1] = 0.0
+    cfg = dict(causal=True, scale=d ** -0.5, window=None)
+    n = [f.launches for f in (kern.flash_forward, kern.flash_backward_dq,
+                              kern.flash_backward_dkv)]
+    out, lse = kern.flash_forward(q, k, v, mask, **cfg)
+    out_p, lse_p = kern.flash_forward_plain(q, k, v, mask, **cfg)
+    delta = (dout.float() * out_p.float()).sum(-1).transpose(1, 2)
+    delta = delta.contiguous()
+    dq = kern.flash_backward_dq(q, k, v, mask, dout, lse_p, delta, **cfg)
+    dk, dv = kern.flash_backward_dkv(q, k, v, mask, dout, lse_p, delta, **cfg)
+    torch.cuda.synchronize()
+    assert [f.launches for f in (kern.flash_forward, kern.flash_backward_dq,
+                                 kern.flash_backward_dkv)] == [x + 1 for x in n]
+    dq_p, dk_p, dv_p = kern.flash_backward_plain(q, k, v, mask, dout, lse_p,
+                                                 delta, **cfg)
+    keep = _keep(mask, True, None, length, length)[:, 0].expand(b, length,
+                                                                length)
+    live_q, live_k = keep.any(-1), keep.any(-2)
+    tol = FLASH_TOL[dtype]
+    for name, got, want, live in (
+        ("out", out, out_p, live_q), ("dq", dq, dq_p, live_q),
+        ("dk", dk, dk_p, live_k), ("dv", dv, dv_p, live_k),
+    ):
+        assert got.shape == want.shape and got.is_contiguous(), name
+        assert torch.isfinite(got).all(), name
+        err = (got.float() - want.float()).abs()[live].max().item()
+        ref = want.float().abs()[live].max().item()
+        assert err <= tol and err <= tol * ref, (name, err, ref)
+        assert not got[~live].any(), name
+    err = (lse - lse_p).abs()[live_q[:, None, :].expand_as(lse)].max().item()
+    assert err <= 1e-4, err
+    # Through the autograd Function: B5 forward, B6 + B7 backward.
+    qkv = [x.clone().requires_grad_() for x in (q, k, v)]
+    n = [f.launches for f in (kern.flash_forward, kern.flash_backward_dq,
+                              kern.flash_backward_dkv)]
+    kern.flash_attention(*qkv, mask, causal=True).backward(dout)
+    torch.cuda.synchronize()
+    assert [f.launches for f in (kern.flash_forward, kern.flash_backward_dq,
+                                 kern.flash_backward_dkv)] == [x + 1 for x in n]
+    for x, w in zip(qkv, (dq_p, dk_p, dv_p)):
+        assert x.grad.shape == w.shape
+        err = (x.grad.float() - w.float()).abs().max().item()
+        assert err <= 2e-2 * max(w.float().abs().max().item(), 1e-3), err

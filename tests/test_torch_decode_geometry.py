@@ -3,8 +3,10 @@
 ``_geometry`` decides which body of ``csrc/decode_attention.cu`` a call
 runs and how the call is cut into blocks; the kernels cannot run here, so
 these tests hold the cut to what the kernels index: every query row and
-every key tile covered exactly once, no empty split, and partials exactly
-as large as the kernel writes. Pure Python; nothing is compiled.
+every key tile covered exactly once, no empty split, partials exactly as
+large as the kernel writes, the decode body's splits one cluster of at
+most 8 blocks, and every head dim up to 128 on the next compiled one.
+Pure Python; nothing is compiled.
 """
 
 import importlib
@@ -82,7 +84,9 @@ def test_partials_are_exactly_what_the_kernel_writes(entry, dtype, b, u, h,
     d = 8
     g = _geometry(entry, dtype, b, u, h, kvh, lk, d, sm)
     rows = u * (h // kvh)
-    if g.body == "mma" and g.splits == 1:
+    if g.body == "decode" or (g.body == "mma" and g.splits == 1):
+        # One pass: the decode body's splits meet in their cluster, a
+        # one-split mma block writes the output itself.
         assert g.partial_floats == 0
         return
     n_rows = b * g.splits * kvh * rows
@@ -108,9 +112,13 @@ def test_bf16_extend_takes_the_tensor_core_body(entry):
 
 @pytest.mark.parametrize("entry", DECODE)
 def test_decode_keeps_the_fma_body(entry):
+    """Every decode call runs the decode body (a CUDA-core memory
+    pipeline), whatever the dtype, format and head dim."""
     for dtype in (torch.bfloat16, torch.float32):
-        assert _geometry(entry, dtype, 8, 1, 12, 12, 1024, 64,
-                         132).body == "fma"
+        for d in (12, 64, 128):
+            for quant in (False, True):
+                assert _geometry(entry, dtype, 8, 1, 12, 12, 1024, d, 132,
+                                 quant).body == "decode"
 
 
 def test_main_path_shapes():
@@ -137,4 +145,96 @@ def test_python_geometry_matches_the_cuda_source():
                                   const("kMaxSplitTiles"))
     tile, rows, _, _ = geo_mod._BODIES["fma"]
     assert (tile, rows) == (const("kTileKeys"), const("kRowChunk"))
-    assert "return extend && dtype == 1 && U > 1;" in src
+    _, _, _, most = geo_mod._BODIES["decode"]
+    assert most == const("kMaxCluster")
+    assert geo_mod._DECODE_TILE_BYTES == const("kDecTileBytes")
+    # The dispatch, head-dim rounding and decode geometry _geometry mirrors.
+    assert "return extend && dtype == 1 && U > 1 && compiled_d(D) == D;" in src
+    assert "if (!extend) return kBodyDecode;" in src
+    assert ("return d <= 16 ? 16 : d <= 32 ? 32 : d <= 64 ? 64 : "
+            "d <= 128 ? 128 : 0;") in src
+    assert "return kDecTileBytes / (d_c * itemsize);" in src
+    assert "dec_tile_keys(compiled_d(D), quant ? 1 : dtype == 0 ? 4 : 2)" in src
+    assert ("return group == 1 ? 1 : group == 2 ? 2 : group <= 4 ? 4 : 8;"
+            in src)
+
+
+DECODE_SHAPES = [  # b, h, kvh, lk
+    (8, 12, 12, 1024),          # GPT-2 small, full window
+    (8, 12, 12, 48),            # the short tier
+    (1, 12, 12, 416),           # one stream, long prompt
+    (4, 16, 4, 1024),           # GQA 4
+    (8, 32, 8, 1024),           # Llama-class
+    (3, 12, 2, 1000),           # group 6
+    (2, 40, 2, 100),            # group 20: head chunks of 8
+    (1, 4, 1, 1),               # one key
+    (64, 12, 12, 4096),         # more blocks than fit the card at once
+]
+
+
+def _decode_cases():
+    for entry in DECODE:
+        for b, h, kvh, lk in DECODE_SHAPES:
+            for d in (12, 16, 32, 64, 100, 128):
+                for dtype, quant in ((torch.bfloat16, False),
+                                     (torch.float32, False),
+                                     (torch.bfloat16, True)):
+                    yield entry, dtype, quant, b, h, kvh, lk, d
+
+
+@pytest.mark.parametrize("entry,dtype,quant,b,h,kvh,lk,d",
+                         list(_decode_cases()))
+def test_decode_cluster_covers_every_tile_and_head_once(entry, dtype, quant,
+                                                        b, h, kvh, lk, d):
+    """The decode body: the splits of one (b, KV head, head chunk) are one
+    cluster -- at most 8 blocks, the whole of grid x, so the cluster
+    divides the grid -- and cover every key tile exactly once; the
+    block's warps take every fourth tile of their split, each exactly
+    once; the head chunks cover the group exactly once. Splits are a power
+    of two but where fewer tiles force fewer."""
+    sm = 132
+    g = _geometry(entry, dtype, b, 1, h, kvh, lk, d, sm, quant)
+    assert g.body == "decode" and g.partial_floats == 0
+    group = h // kvh
+    itemsize = 1 if quant else 4 if dtype == torch.float32 else 2
+    dc = geo_mod._compiled_d(d)
+    assert g.tile_keys == 1024 // (dc * itemsize)
+    assert 1 <= g.splits <= 8
+    grid = (g.splits, kvh * g.row_chunks, b)
+    assert grid[0] % g.splits == 0           # the cluster divides the grid
+    blocks = grid[0] * grid[1] * grid[2]
+    per_sm = geo_mod._DECODE_BLOCKS_PER_SM[g.rows_per_block]
+    assert g.splits == 1 or blocks <= per_sm * sm   # one wave
+    n_tiles = -(-lk // g.tile_keys)
+    hits = [0] * n_tiles
+    for split in range(g.splits):
+        tiles = range(split * g.tiles_per_split,
+                      min(n_tiles, (split + 1) * g.tiles_per_split))
+        assert len(tiles) > 0                # no empty split
+        for warp in range(4):
+            for t in tiles[warp::4]:
+                hits[t] += 1
+    assert hits == [1] * n_tiles
+    if g.splits & (g.splits - 1):
+        assert g.splits < 8 and g.tiles_per_split * (g.splits + 1) > n_tiles
+    heads = [0] * group
+    for chunk in range(g.row_chunks):
+        served = range(chunk * g.rows_per_block,
+                       min(group, (chunk + 1) * g.rows_per_block))
+        assert 0 < len(served) <= 8
+        for hh in served:
+            heads[hh] += 1
+    assert heads == [1] * group
+    assert g.rows_per_block == min(8, 1 << (group - 1).bit_length())
+
+
+def test_every_head_dim_maps_to_the_next_compiled_one():
+    """1 <= D <= 128 run: the CUDA-core bodies at the next of 16, 32, 64,
+    128; the tensor-core body only at those four."""
+    for d in range(1, 129):
+        dc = geo_mod._compiled_d(d)
+        assert dc == min(c for c in (16, 32, 64, 128) if c >= d)
+        body = _geometry(EXTEND[0], torch.bfloat16, 2, 40, 8, 2, 456, d,
+                         132).body
+        assert body == ("mma" if d == dc else "fma")
+    assert list(geo_mod._KERNEL_HEAD_DIMS) == list(range(1, 129))

@@ -126,11 +126,12 @@ def test_kv_head_mismatch_and_head_dim_refused():
     k = torch.zeros(B, L, 4, D)
     with pytest.raises(ValueError, match="head counts disagree"):
         port.flash_attention(q, k, torch.zeros(B, L, 2, D))
-    # The card's wrappers compile head_dim 64 only, and say so before
-    # anything reaches the card.
-    with pytest.raises(ValueError, match="head_dim 16 not compiled"):
-        port._launch("mlapi_flash_forward", q, k, k, torch.ones(B, L),
-                      False, 0.25, None, [])
+    # The card's wrappers take head dims up to 128, and refuse a larger
+    # one before anything reaches the card.
+    wide = torch.zeros(B, L, 4, 160)
+    with pytest.raises(ValueError, match="head_dim 160 not compiled"):
+        port._launch("mlapi_flash_forward", wide, wide, wide,
+                      torch.ones(B, L), False, 0.25, None, [])
 
 
 def test_int8_kv_dequantizes_at_entry():
