@@ -19,8 +19,10 @@ the JAX package. Phases, each fatal on failure:
    the serving phase gives them and at the full 1024-token window, and
    for B2/B4 a GQA row (16 query heads on 4 KV heads) and a ragged one
    (U = 100, L = 1000, 8-token pages), for B1/B3 a GQA row, and B1-B4
-   rows at Llama-class widths (32 query heads on 8 KV heads of 128) and
-   docs-gpt's (4 heads of 32; B1/B3 in f32 too): each wrapper against
+   rows at Llama-class widths (32 query heads on 8 KV heads of 128),
+   docs-gpt's (4 heads of 32; B1/B3 in f32 too) and head dims 160 and
+   256 (8 query heads on 4 KV heads; B1/B3 at 256 in f32 too): each
+   wrapper against
    its plain PyTorch version (max abs error on live rows <= 2e-2, 1e-5
    in f32, exact zeros on rows with no valid key), each paged kernel
    against its contiguous twin over the same bytes (bit for bit); each
@@ -31,28 +33,37 @@ the JAX package. Phases, each fatal on failure:
    the sst2-bert batch (B = 32, L = 128, 12 heads, bf16, its own key
    mask with the last row fully masked), (b) GPT-2 small causal (B = 8,
    L = 1024, bf16), (c) a GQA sliding window in float32, (d) docs-gpt's
-   batch (head dim 32, float32, causal) and (e) Llama-class causal GQA
-   (head dim 128, bf16): each against its plain version
+   batch (head dim 32, float32, causal), (e) Llama-class causal GQA
+   (head dim 128, bf16) and causal bf16 rows at head dims 256 (8 heads)
+   and 160 (8 on 4 KV heads): each against its plain version
    (<= 2e-2 bf16, <= 1e-4 f32 on live rows, exact zeros where nothing
-   is attended). Every kernel is timed beside its plain version,
+   is attended), each row naming the body that ran (``mma``: tensor
+   cores, every bf16 B5/B7 call at D <= 128; ``fma``) as the C entry
+   point reports it to the wrapper's counters, held to the wrapper's
+   mirror of that dispatch. Every kernel
+   is timed beside its plain version,
    ``scaled_dot_product_attention`` (a yardstick the port never calls;
    on the gathered contiguous copy for B3/B4; forward + backward minus
    forward for B6/B7) and the card's bound for the same work. ``ms`` is
    device time (each call captured in a CUDA graph, graphs replayed in
    turn over enough input copies to defeat the L2, CUDA events: it
    includes the gap between two replays); B1-B4 rows add ``device_ms``,
-   the kernels' own durations under ``torch.profiler``; ``eager_ms`` is
-   the wrapper called eagerly, host launch costs included;
+   the kernels' own durations under ``torch.profiler`` (B5-B7: the
+   flash kernels alone, without the wrapper's mask conversion or head-dim
+   padding); ``eager_ms`` is the wrapper called eagerly, host launch
+   costs included;
 4. training — ``python -m mlapi_tpu_torch.train --preset sst2-bert``'s
    ``run`` at full width (BERT-base, batch 32, 128 tokens, AdamW 2e-5,
    random weights from the preset's seed) for 30 steps and its test-set
    evaluation, with the launch counters zeroed just before and read
    just after: B5 exactly 12 per step and per eval batch, B6 and B7 12
-   per step, B1-B4 none; the checkpoint it writes must read back (tree
-   signature and label vocab). Then one step's loss and gradients with
-   flash against full attention from the same weights on the same
-   batch, and one profiled step (device time, kernels per step, the
-   B5-B7 share, the device's busy share against unprofiled wall time);
+   per step, B1-B4 none, every B5 and B7 launch on the tensor-core body
+   and every B6 launch on the CUDA-core one; the checkpoint it writes
+   must read back (tree signature and label vocab). Then one step's
+   loss and gradients with flash against full attention from the same
+   weights on the same batch, and one profiled step (device time,
+   kernels per step, the B5-B7 share, the device's busy share against
+   unprofiled wall time);
 5. serving — for each cache format (none, int8) and each layout
    (contiguous, then paged with ``--kv-page-size 16``): a seeded
    GPT-2-small checkpoint served with ``--decode-attn-impl flash``
@@ -188,11 +199,12 @@ def graph_ms(calls, iters: int = 30) -> float:
     return _events_ms(lambda i: graphs[i % len(graphs)].replay(), iters)
 
 
-def profiled_ms(calls, iters: int = 12) -> float:
+def profiled_ms(calls, iters: int = 12, only: str = "") -> float:
     """Device time per call: the calls (in turn, after a warm-up) under
     ``torch.profiler``, the durations of the CUDA kernels they launched
-    summed and divided by the calls -- the kernels alone, without the
-    gap that separates two graph replays."""
+    (those whose name holds ``only``) summed and divided by the calls --
+    the kernels alone, without the gap that separates two graph
+    replays."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -203,7 +215,8 @@ def profiled_ms(calls, iters: int = 12) -> float:
         for i in range(iters):
             calls[i % len(calls)]()
         torch.cuda.synchronize()
-    us = sum(e.device_time_total for e in device_kernels(prof))
+    us = sum(e.device_time_total for e in device_kernels(prof)
+             if only in e.name)
     return us / 1e3 / iters
 
 
@@ -339,8 +352,9 @@ def check_kernels(power):
     # (16 query heads on 4 KV heads) and a ragged one (U = 100, L = 1000,
     # 8-token pages: 1000 is no multiple of 16 or 64); B1 and B3 a GQA
     # row; and B1-B4 rows at Llama-class widths (32 query heads on 8 KV
-    # heads, head dim 128) and at docs-gpt's (4 heads of 32, its 256
-    # positions; B1/B3 in f32 too, the preset's dtype).
+    # heads, head dim 128), at docs-gpt's (4 heads of 32, its 256
+    # positions; B1/B3 in f32 too, the preset's dtype) and at head dims
+    # 160 and 256 (8 query heads on 4 KV heads, L = 512).
     shapes = [
         ("decode_attention", 8, 1, 48, 47),
         ("decode_attention", 1, 1, 48, 47),
@@ -372,6 +386,13 @@ def check_kernels(power):
                        255 if decode else 128, docs_gpt))
         if decode:
             shapes.append((name, 8, 1, 256, 255, dict(docs_gpt, f32=True)))
+        # Head dims past 128: the CUDA-core bodies (decode, fma).
+        for d in (160, 256):
+            shapes.append((name, 2, 1 if decode else 64, 512,
+                           511 if decode else 448, dict(h=8, kvh=4, d=d)))
+        if decode:
+            shapes.append((name, 2, 1, 512, 511,
+                           dict(h=8, kvh=4, d=256, f32=True)))
     results = []
     for i, (name, b, u, length, pos, *extra) in enumerate(shapes):
         shape = dict(extra[0]) if extra else {}
@@ -1174,9 +1195,10 @@ def flash_shapes(sst2_x):
     the sst2-bert training batch's key mask (its own lengths; the last
     row fully masked), (b) GPT-2 small causal at its full window, (c) a
     GQA sliding window in float32 with ragged key lengths, (d) docs-gpt's
-    training batch (64 x 128 tokens, 4 heads of 32, float32, causal) and
+    training batch (64 x 128 tokens, 4 heads of 32, float32, causal),
     (e) Llama-class causal GQA (32 query heads on 8 KV heads of 128, bf16,
-    L = 1024)."""
+    L = 1024), and causal bf16 at head dims 256 (8 heads) and 160 (8 on 4
+    KV heads, zero-padded to 256 by the wrappers), B = 2, L = 256."""
     import numpy as np
 
     lengths = (sst2_x != 0).sum(axis=1)
@@ -1188,12 +1210,17 @@ def flash_shapes(sst2_x):
         ("gqa-window-f32", 4, 256, 8, 2, "float32", True, 64, ragged, 64),
         ("docs-gpt-d32", 64, 128, 4, 4, "float32", True, None, None, 32),
         ("llama-d128", 2, 1024, 32, 8, "bfloat16", True, None, None, 128),
+        ("d256-causal", 2, 256, 8, 8, "bfloat16", True, None, None, 256),
+        ("d160-gqa", 2, 256, 8, 4, "bfloat16", True, None, None, 160),
     ]
 
 
 def flash_inputs(shape, seed):
     """q/k/v drawn N(0, 1) and dO 0.1 * N(0, 1) on the card, with the
-    shape's key mask."""
+    shape's key mask as a float tensor: each wrapper compares it with 0
+    inside the timed call (the training path does that once per layer,
+    in ``flash_attention_with_lse``, and hands the kernels a bool
+    mask)."""
     import torch
 
     _, b, length, h, kvh, dtype, _, _, lengths, d = shape
@@ -1268,14 +1295,19 @@ def sdpa_flash_fns(q, k, v, mask, causal, window, dout):
 
 
 def check_flash_kernels(power, sst2_x):
-    """B5, B6 and B7 against their plain versions at the three shapes,
-    timed beside the plain versions, SDPA and the card's bound. B6/B7
-    take the plain forward's lse and delta = rowsum(dO * out)."""
+    """B5, B6 and B7 against their plain versions at every shape of
+    :func:`flash_shapes`, each row naming the body that ran, timed beside
+    the plain versions, SDPA and the card's bound. B6/B7 take the plain
+    forward's lse and delta = rowsum(dO * out)."""
+    import importlib
+
     import torch
 
     from mlapi_tpu_torch.ops import cuda as kern
     from mlapi_tpu_torch.ops.cuda.flash_attention import _keep
 
+    wrappers = importlib.import_module(
+        "mlapi_tpu_torch.ops.cuda.flash_attention")
     rows = []
     for i, shape in enumerate(flash_shapes(sst2_x)):
         name, b, length, h, kvh, dtype, causal, window, _, d = shape
@@ -1284,11 +1316,19 @@ def check_flash_kernels(power, sst2_x):
         out_p, lse_p = kern.flash_forward_plain(q, k, v, mask, **cfg)
         delta = (dout.float() * out_p.float()).sum(-1).transpose(1, 2)
         delta = delta.contiguous()
+        before = {w: dict(getattr(kern, w).bodies) for w in FLASH}
         out, lse = kern.flash_forward(q, k, v, mask, **cfg)
         dq = kern.flash_backward_dq(q, k, v, mask, dout, lse_p, delta, **cfg)
         dk, dv = kern.flash_backward_dkv(q, k, v, mask, dout, lse_p, delta,
                                          **cfg)
         torch.cuda.synchronize()
+        # The body each kernel ran, as the C entry point reported it to
+        # the counters, and the one the wrapper's mirror names.
+        ran = {w: [x for x, n in getattr(kern, w).bodies.items()
+                   if n != before[w][x]] for w in FLASH}
+        dc = wrappers._compiled_d(name, d)
+        want_body = {w: wrappers._body("mlapi_" + w, q.dtype, dc)
+                     for w in FLASH}
         dq_p, dk_p, dv_p = kern.flash_backward_plain(
             q, k, v, mask, dout, lse_p, delta, **cfg)
         keep = _keep(mask, causal, window, length, length)[:, 0]
@@ -1349,10 +1389,12 @@ def check_flash_kernels(power, sst2_x):
             t_ops = flops / peak * 1e3
             fn, pf = calls[which], plains[which]
             kernel_ms = graph_ms([(lambda a=a: fn(a)) for a in sets])
+            body = ran[which][0] if len(ran[which]) == 1 else ran[which]
             row = {
                 "case": "flash_kernel", "kernel": which, "shape": name,
                 "B": b, "L": length, "H": h, "KVH": kvh, "D": d,
                 "dtype": dtype, "causal": causal, "window": window,
+                "body": body,
                 "live_key_rows": int(live_k.sum()),
                 "max_abs_err": err, "errors": errs,
                 "ref_max_abs": refs, "max_rel_err": rel,
@@ -1360,6 +1402,8 @@ def check_flash_kernels(power, sst2_x):
                 else None,
                 "dead_rows_exact_zero": dead_zero, "finite": finite,
                 "ms": kernel_ms,
+                "device_ms": profiled_ms(
+                    [(lambda a=a: fn(a)) for a in sets], only="flash_"),
                 "eager_ms": cuda_ms([(lambda a=a: fn(a)) for a in sets]),
                 "plain_ms": graph_ms([(lambda a=a: pf(a)) for a in sets[:2]],
                                      iters=6),
@@ -1375,6 +1419,11 @@ def check_flash_kernels(power, sst2_x):
                 "card": power,
             }
             emit(row)
+            if ran[which] != [want_body[which]]:
+                raise SystemExit(
+                    f"{which} at {name}: ran the bodies {ran[which]}, the "
+                    f"wrapper's mirror says {want_body[which]}"
+                )
             if (not finite or not dead_zero
                     or err > FLASH_TOLERANCE[dtype]
                     or rel > FLASH_TOLERANCE[dtype]):
@@ -1390,6 +1439,15 @@ def check_flash_kernels(power, sst2_x):
             raise SystemExit(f"B5 lse at {name}: max abs err {lse_err}")
         del sets
         torch.cuda.empty_cache()
+    # What the training path pays for its float key mask: the one
+    # comparison with 0 that flash_attention_with_lse makes per layer (the
+    # rows above pay it once in each call).
+    shape = flash_shapes(sst2_x)[0]
+    masks = [flash_inputs(shape, seed=300 + s)[3] for s in range(8)]
+    calls = [(lambda m=m: m != 0) for m in masks]
+    emit({"case": "flash_mask_compare", "shape": shape[0], "B": shape[1],
+          "L": shape[2], "ms": graph_ms(calls),
+          "device_ms": profiled_ms(calls), "card": power})
     return rows
 
 
@@ -1420,10 +1478,13 @@ def train_run(cfg, splits):
         out = Path(tmp) / "sst2-bert"
         for name in KERNELS:
             getattr(kern, name).launches = 0
+        for name in FLASH:
+            getattr(kern, name).bodies = {"mma": 0, "fma": 0}
         t0 = time.perf_counter()
         summary = run(cfg, str(out))
         run_s = time.perf_counter() - t0
         launches = {name: getattr(kern, name).launches for name in KERNELS}
+        bodies = {name: dict(getattr(kern, name).bodies) for name in FLASH}
         model = get_model(cfg.model, **cfg.model_kwargs, seed=None,
                           device="cpu")
         state, meta = load_checkpoint(out, model)   # checks the signature
@@ -1454,7 +1515,8 @@ def train_run(cfg, splits):
         "tokens_per_s": cfg.batch_size * splits.x_train.shape[1]
         / (median / 1e3),
         "run_seconds": run_s, "launches": launches,
-        "launches_expected": want, "checkpoint_round_trip": ckpt_ok,
+        "launches_expected": want, "bodies": bodies,
+        "checkpoint_round_trip": ckpt_ok,
     }
     emit(row)
     if not (math.isfinite(row["first_loss"])
@@ -1462,6 +1524,15 @@ def train_run(cfg, splits):
         raise SystemExit(f"sst2-bert: non-finite loss: {row}")
     if launches != want:
         raise SystemExit(f"sst2-bert: launches {launches}, want {want}")
+    # bf16 at head dim 64: B5 and B7 on the tensor cores, B6 on the CUDA
+    # cores, every launch.
+    want_bodies = {
+        "flash_forward": {"mma": want["flash_forward"], "fma": 0},
+        "flash_backward_dq": {"mma": 0, "fma": want["flash_backward_dq"]},
+        "flash_backward_dkv": {"mma": want["flash_backward_dkv"], "fma": 0},
+    }
+    if bodies != want_bodies:
+        raise SystemExit(f"sst2-bert: bodies {bodies}, want {want_bodies}")
     if not ckpt_ok:
         raise SystemExit("sst2-bert: the checkpoint did not round-trip")
     return row
@@ -1557,8 +1628,7 @@ def profile_train_step(cfg, splits, runs: int = 5):
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total
     flash_us = {k: sum(v for n_, v in by_name.items() if k in n_)
-                for k in ("flash_fwd_kernel", "flash_bwd_dq_kernel",
-                          "flash_bwd_dkv_kernel")}
+                for k in ("flash_fwd_", "flash_bwd_dq_", "flash_bwd_dkv_")}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     walls.sort()
     dev_ms = dev_us / 1e3
@@ -1735,6 +1805,7 @@ def main() -> int:
             "launches_per_path": {
                 f"train sst2-bert, {SST2_STEPS} steps + test eval":
                 train_row["launches"][name]},
+            "bodies": train_row["bodies"][name],
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"],

@@ -18,12 +18,14 @@
 // index map, done per key row here), so a tile may straddle pages of any
 // size. The result is [B, U, H, d] in q's dtype.
 //
-// Head dims: every body is compiled for D in {16, 32, 64, 128}. A call
-// with another d <= 128 (12, 48, ...) runs a CUDA-core body at the next
-// compiled D with the runtime d: loads and stores are guarded per
-// element, and a cache row whose d elements are no whole number of the
-// body's copy chunks is read element by element. The cache is never
-// copied or padded. The tensor-core body takes the compiled dims only.
+// Head dims: the CUDA-core bodies are compiled for D in {16, 32, 64, 128,
+// 256}, the tensor-core body for {16, 32, 64, 128} (at 256 its O
+// accumulators alone would take 128 registers a thread and its ring 235
+// KB). A call with another d <= 256 (12, 48, 160, ...) runs a CUDA-core
+// body at the next compiled D with the runtime d: loads and stores are
+// guarded per element, and a cache row whose d elements are no whole
+// number of the body's copy chunks is read element by element. The cache
+// is never copied or padded. D > 256 is refused before any launch.
 //
 // Three bodies, chosen by entry point, dtype and d (a dispatch, not a
 // fallback: each call runs exactly one of them, and the wrapper's
@@ -32,11 +34,12 @@
 //   decode_kernel           every decode call (B1, B3), f32 or bf16
 //                           queries over a bf16, f32 or int8 cache;
 //   extend_mma_kernel       the extend entry points (B2, B4) with bf16
-//                           queries, U > 1 and a compiled d;
+//                           queries, U > 1 and a compiled d <= 128;
 //   splitk_attention_kernel every other extend call: f32 queries (tensor
 //                           cores would need TF32, which breaks the port's
 //                           1e-5 bound in f32; f32 is the card's
-//                           correctness witness), U = 1, uncompiled d.
+//                           correctness witness), U = 1, uncompiled d,
+//                           d > 128.
 //
 // What bounds them on the card: the cache read. A decode step does about
 // one FLOP per byte of K/V (4*H*d FLOPs per key against 2*KVH*d stored
@@ -133,9 +136,11 @@
 // stay within 2e-2 in bf16 on live rows, 1e-5 in f32.
 //
 // Build: nvcc compiles this file once per compiled head dim
-// (-DMLAPI_UNIT=16, 32, 64, 128: the kernels of that D) and once for the C
-// entry points (-DMLAPI_UNIT=0), all at once, and links the objects into
-// one library; without MLAPI_UNIT it is one translation unit holding all.
+// (-DMLAPI_UNIT=16, 32, 64, 128, 256: the kernels of that D) and once for
+// the C entry points (-DMLAPI_UNIT=0), all at once, and links the objects
+// into one library; without MLAPI_UNIT it is one translation unit holding
+// all. The cp.async, ldmatrix and mma.sync wrappers live in
+// tile_primitives.cuh, shared with flash_attention.cu.
 //
 // C interface (for ctypes): every pointer is a device pointer, the
 // stream is a cudaStream_t, and the return value is the first CUDA error
@@ -148,6 +153,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "tile_primitives.cuh"
 
 #ifndef MLAPI_UNIT
 #define MLAPI_UNIT -1
@@ -174,18 +181,24 @@ constexpr int kMaxCluster = 8;         // splits of one (b, KV head): one cluste
 
 enum Body { kBodyFma = 0, kBodyMma = 1, kBodyDecode = 2 };
 
-// The head dim a call compiles to: the least of {16, 32, 64, 128} that
-// holds d, or 0 past 128.
+// The head dim a call compiles to: the least of {16, 32, 64, 128, 256}
+// that holds d, or 0 past 256.
 __host__ __device__ constexpr int compiled_d(int d) {
-  return d <= 16 ? 16 : d <= 32 ? 32 : d <= 64 ? 64 : d <= 128 ? 128 : 0;
+  return d <= 16    ? 16
+         : d <= 32  ? 32
+         : d <= 64  ? 64
+         : d <= 128 ? 128
+         : d <= 256 ? 256
+                    : 0;
 }
 
 // decode_kernel's geometry: elements in one lane's chunk of a key row (16
-// bytes of f32 or bf16, 8 bytes of int8); keys per warp tile (1 KB of K
-// and 1 KB of V); query heads a block serves for a GQA group (the
+// bytes of f32 or bf16, 8 bytes of int8; 32 bytes of f32 at D = 256, so
+// that a row still fits the 32 lanes of a warp); keys per warp tile (1 KB
+// of K and 1 KB of V); query heads a block serves for a GQA group (the
 // register arrays are sized by it).
-__host__ __device__ constexpr int dec_chunk_elems(bool f32_cache) {
-  return f32_cache ? 4 : 8;
+__host__ __device__ constexpr int dec_chunk_elems(bool f32_cache, int d_c) {
+  return f32_cache && d_c <= 128 ? 4 : 8;
 }
 __host__ __device__ constexpr int dec_tile_keys(int d_c, int itemsize) {
   return kDecTileBytes / (d_c * itemsize);
@@ -223,6 +236,8 @@ int launch_for_d(Body body, int dtype, bool quant, bool paged,
 #if MLAPI_UNIT != 0
 namespace mlapi_decode {
 namespace {
+
+using namespace mlapi_tiles;
 
 // Row (in units of d elements) of key `key`, head j, in pool page pid.
 __device__ __forceinline__ size_t pool_row(const Params& p, int pid, int slot,
@@ -291,45 +306,6 @@ using RawOf = typename std::conditional<
     sizeof(S) == 1, uint8_t,
     typename std::conditional<sizeof(S) == 2, uint16_t, uint32_t>::type>::type;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-}
-
-// 16 bytes global -> shared, asynchronous; zero-filled when !valid.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async8(void* dst, const void* src,
-                                          bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(valid ? 8 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(valid ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Wait until at most N of this thread's committed groups are in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // Bit e of the result: byte e of the 16 is nonzero.
 __device__ __forceinline__ uint32_t nonzero_bits16(const uint4& raw) {
   const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
@@ -355,13 +331,6 @@ __device__ float warp_sum(float x) {
   return x;
 }
 
-// 2^x on the special-function unit; 0 for large negative x.
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // -- decode_kernel: B1/B3 ------------------------------------------------
 
 // Shared memory of a decode block: four warps' rings, then the mask words
@@ -374,6 +343,13 @@ struct DecLayout {
   static constexpr int kStage = 2 * kTK * kRow + (QUANT ? 2 * kTK * 4 : 0);
   static constexpr int kRing = kDecWarps * kDecStages * kStage;
 };
+
+// Bytes before the mask words: the rings, or -- where it is larger (D = 256
+// with 8 heads) -- the end-of-loop exchange that reuses them.
+template <typename Lay, int D, int G>
+__host__ __device__ constexpr int dec_front() {
+  return Lay::kRing > G * (5 * D + 10) * 4 ? Lay::kRing : G * (5 * D + 10) * 4;
+}
 
 // Mask words and page ids a block of `tps` tiles holds (unit: 4 bytes).
 __host__ __device__ inline int dec_words(int tps, int tk) {
@@ -389,7 +365,7 @@ template <typename T, bool QUANT, bool PAGED, int D, int G>
 __global__ void __launch_bounds__(kDecThreads) decode_kernel(Params p) {
   using S = typename std::conditional<QUANT, int8_t, T>::type;
   using Raw = RawOf<S>;
-  constexpr int EV = dec_chunk_elems(std::is_same<S, float>::value);
+  constexpr int EV = dec_chunk_elems(std::is_same<S, float>::value, D);
   constexpr int LPK = D / EV;       // lanes per key row
   constexpr int KPW = 32 / LPK;     // keys per warp instruction
   using Lay = DecLayout<S, QUANT, D, EV>;
@@ -401,8 +377,8 @@ __global__ void __launch_bounds__(kDecThreads) decode_kernel(Params p) {
   constexpr bool kBase2 = !std::is_same<T, float>::value;
   auto exp_ = [](float x) { return kBase2 ? ex2(x) : expf(x); };
   const float scale = kBase2 ? p.scale * 1.4426950408889634f : p.scale;
-  // The end-of-loop exchange reuses the rings.
-  static_assert(G * (5 * D + 10) * 4 <= Lay::kRing, "exchange does not fit");
+  // The end-of-loop exchange reuses the rings (dec_front covers it).
+  constexpr int kFront = dec_front<Lay, D, G>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
 
   const int split = blockIdx.x;
@@ -420,7 +396,7 @@ __global__ void __launch_bounds__(kDecThreads) decode_kernel(Params p) {
   const int key_begin = t_begin * TK, key_end = min(p.L, t_end * TK);
   const int w0 = key_begin / 32;               // first mask word (absolute)
   const int nw = (t_end * TK + 31) / 32 - w0;
-  uint32_t* bits = reinterpret_cast<uint32_t*>(smem_raw + Lay::kRing);
+  uint32_t* bits = reinterpret_cast<uint32_t*>(smem_raw + kFront);
   int* page_of = reinterpret_cast<int*>(
       bits + dec_words(p.tiles_per_split, TK));
 
@@ -535,6 +511,11 @@ __global__ void __launch_bounds__(kDecThreads) decode_kernel(Params p) {
         if constexpr (EV * sizeof(S) == 16) {
           cp_async16(kd, kg + (on ? src : 0), on);
           cp_async16(vd, vg + (on ? src : 0), on);
+        } else if constexpr (EV * sizeof(S) == 32) {
+          cp_async16(kd, kg + (on ? src : 0), on);
+          cp_async16(vd, vg + (on ? src : 0), on);
+          cp_async16(kd + 4, kg + (on ? src + 4 : 0), on);
+          cp_async16(vd + 4, vg + (on ? src + 4 : 0), on);
         } else {
           cp_async8(kd, kg + (on ? src : 0), on);
           cp_async8(vd, vg + (on ? src : 0), on);
@@ -564,7 +545,9 @@ __global__ void __launch_bounds__(kDecThreads) decode_kernel(Params p) {
 #pragma unroll
       for (int e = 0; e < EV; ++e) out[e] = Ops<T>::dequant(q8[e], sc);
     } else {
-      Ops<T>::unpack(*reinterpret_cast<const uint4*>(src), out);
+#pragma unroll
+      for (int e = 0; e < EV; e += Ops<T>::kVec)
+        Ops<T>::unpack(*reinterpret_cast<const uint4*>(src + e), out + e);
     }
   };
 
@@ -947,32 +930,6 @@ struct MmaSmem {
   typename std::conditional<QUANT, Int8Stage<D>, NoStage>::type i8[kStages];
 };
 
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* ptr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(ptr)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
-                                              const void* ptr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(ptr)));
-}
-
-// c += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // Signed byte e of `word` as a float, exactly, without an I2F: the
 // biased byte e + 128 becomes the mantissa of 2^23 + (e + 128).
 __device__ __forceinline__ float s8_to_float(uint32_t word, int e) {
@@ -981,16 +938,9 @@ __device__ __forceinline__ float s8_to_float(uint32_t word, int e) {
   return __uint_as_float(bits) - 8388736.0f;  // 2^23 + 128
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Fragment layout of mma.m16n8k16 (lane = 4 * g + t): a C tile holds
-// c[0..1] at row g, columns 2t, 2t+1 and c[2..3] at row g + 8; an A tile
-// holds rows g / g + 8 at columns 2t.. and 2t + 8... So the scores of
-// key tiles 2k and 2k + 1, rounded to bf16, are exactly the A fragment of
-// P for keys 16k..16k + 15.
+// Fragment layout of mma.m16n8k16: see tile_primitives.cuh. The scores
+// of key tiles 2k and 2k + 1, rounded to bf16, are exactly the A fragment
+// of P for keys 16k..16k + 15.
 //
 // Warp w owns rows 16 * (w % 4).. of the block and key half w / 4 (keys
 // 32 * (w / 4).. of every tile): two warps share each row, each with its
@@ -1506,9 +1456,9 @@ int launch_mma(const Params& p, cudaStream_t stream) {
 template <typename T, bool QUANT, bool PAGED, int D, int G>
 int launch_decode_g(const Params& p, cudaStream_t stream) {
   using S = typename std::conditional<QUANT, int8_t, T>::type;
-  using Lay = DecLayout<S, QUANT, D, dec_chunk_elems(std::is_same<S, float>::value)>;
+  using Lay = DecLayout<S, QUANT, D, dec_chunk_elems(std::is_same<S, float>::value, D)>;
   const int smem =
-      Lay::kRing + 4 * (dec_words(p.tiles_per_split, Lay::kTK) +
+      dec_front<Lay, D, G>() + 4 * (dec_words(p.tiles_per_split, Lay::kTK) +
                         (PAGED ? dec_pages(p.tiles_per_split, Lay::kTK, p.page)
                                : 0));
   static int granted = 48 * 1024;
@@ -1554,11 +1504,16 @@ template <int D>
 int launch_for_d(Body body, int dtype, bool quant, bool paged,
                  const Params& p, cudaStream_t s) {
   if (body == kBodyMma) {
-    if (quant)
-      return paged ? launch_mma<true, true, D>(p, s)
-                   : launch_mma<true, false, D>(p, s);
-    return paged ? launch_mma<false, true, D>(p, s)
-                 : launch_mma<false, false, D>(p, s);
+    // The tensor-core body is compiled for D <= 128 only (takes_mma).
+    if constexpr (D <= 128) {
+      if (quant)
+        return paged ? launch_mma<true, true, D>(p, s)
+                     : launch_mma<true, false, D>(p, s);
+      return paged ? launch_mma<false, true, D>(p, s)
+                   : launch_mma<false, false, D>(p, s);
+    } else {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
   }
   if (dtype == 0) {
     if (quant)
@@ -1590,7 +1545,7 @@ namespace {
 // than one span position and a compiled head dim (mirrored by the
 // wrapper's _geometry()).
 bool takes_mma(bool extend, int dtype, int U, int D) {
-  return extend && dtype == 1 && U > 1 && compiled_d(D) == D;
+  return extend && dtype == 1 && U > 1 && compiled_d(D) == D && D <= 128;
 }
 
 // Every decode call runs the decode body; an extend call the tensor-core
@@ -1670,7 +1625,8 @@ int launch(bool extend, const void* q, const void* k, const void* v,
     case 16: return launch_for_d<16>(body, dtype, quant, paged, p, s);
     case 32: return launch_for_d<32>(body, dtype, quant, paged, p, s);
     case 64: return launch_for_d<64>(body, dtype, quant, paged, p, s);
-    default: return launch_for_d<128>(body, dtype, quant, paged, p, s);
+    case 128: return launch_for_d<128>(body, dtype, quant, paged, p, s);
+    default: return launch_for_d<256>(body, dtype, quant, paged, p, s);
   }
 }
 
@@ -1683,7 +1639,7 @@ using mlapi_decode::launch;
 // contiguous), k, v (payloads), ks, vs (int8 scales or NULL), mask (bool
 // [B, U, L]), partials (f32 scratch of B*S*H*U*(D+2) floats; none for the
 // decode body), out (the [B, U, H, D] result in q's dtype). dtype: 0 f32,
-// 1 bf16. D: the head dim, 1 <= D <= 128. The paged entry points take k,
+// 1 bf16. D: the head dim, 1 <= D <= 256. The paged entry points take k,
 // v, ks, vs as pools [P, page, KVH, D | 1], the int32 page table [B, NP]
 // and L = NP * page virtual slots.
 extern "C" {

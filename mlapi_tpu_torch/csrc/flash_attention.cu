@@ -12,17 +12,19 @@
 // optionally causal masking with a sliding window (keep q_pos - k_pos <
 // window). Scores are s = (q . k) * scale + (1 - keep) * NEG with the
 // finite NEG = -1e30.
-//   B5: online softmax over 32-key tiles: out = softmax(s) . v in q's
-//       dtype, and the per-row log-sum-exp lse = m + log(max(l, 1e-30)),
-//       f32 [B, H, Lq]. A row with no valid key gives out = 0.
+//   B5: online softmax over key tiles: out = softmax(s) . v in q's dtype,
+//       and the per-row log-sum-exp lse = m + log(max(l, 1e-30)), f32
+//       [B, H, Lq], in natural log. A row with no valid key gives out = 0
+//       and lse = NEG.
 //   B6: dq = sum over key tiles of ds . k, where p = exp(s - lse) * keep
 //       is recomputed from the saved lse, dp = dO . v^T and
 //       ds = p * (dp - delta) * scale; delta = rowsum(dO * O) minus any
 //       lse cotangent comes from the caller (one torch op, as in JAX).
-//   B7: per KV head and 32-key tile, dv = sum p^T . dO and dk = sum
-//       ds^T . q over every query head of the group and every query tile
-//       that can see the keys: the whole group accumulates in registers of
-//       one block, so the sums are deterministic (no atomics).
+//   B7: per KV head and key tile, dv = sum p^T . dO and dk = sum ds^T . q
+//       over every query head of the group and every query tile that can
+//       see the keys: the whole group accumulates in registers of one
+//       block, in a fixed order, so the sums are deterministic (no
+//       atomics).
 // The multiply-by-keep zeroes masked lanes, so a row with no valid key
 // (lse ~ NEG) gives exact zeros in every gradient, never exp(NEG - NEG).
 // Rounding follows the Pallas kernels: products of the stored dtype with
@@ -35,24 +37,86 @@
 // does 4 * D FLOPs per (query, key) pair per product pair -- about 64
 // FLOPs per byte, below the ~295 FLOP/byte at which an H100's bf16
 // tensor cores stop being memory-bound, so the bound is bytes at 3.35
-// TB/s. At L = 1024 (GPT-2 causal) the FLOPs dominate.
+// TB/s. At L = 1024 (GPT-2 causal) and at D = 128 the FLOPs dominate. On
+// the CUDA cores (67 TFLOP/s in f32, 1/15 of the bf16 tensor cores) every
+// one of these shapes is operations-bound; so bf16 runs on the tensor
+// cores.
 //
-// Head dims: every kernel is compiled for D in {16, 32, 64, 128}; the
-// wrapper zero-pads any other d <= 128 to the next of them (zero columns
-// leave q . k unchanged and give zero output and gradient columns) and
-// passes the scale of the original d.
+// Two bodies per kernel, chosen by dtype and head dim (a dispatch, not a
+// fallback: each call runs exactly one, flash_body() below decides and
+// reports it to the caller, and the wrapper's _body() mirrors it for the
+// CPU tests):
 //
-// What this first version does about it -- it computes the function, not
-// the Pallas grid, and leaves tensor cores (mma/wgmma) and TMA for later:
+//   mma  B5 and B7 in bf16 at D in {16, 32, 64, 128}: mma.sync.m16n8k16
+//        bf16 -> f32 (tile_primitives.cuh), flash-attention-2 shaped;
+//   fma  f32 (kept exact f32: tensor cores would need TF32, three
+//        decimal digits), D = 256, and every B6 call: CUDA-core f32 FMAs
+//        over f32 tiles in shared memory (in bf16 below D = 256 only B6's
+//        is built).
+//
+// flash_fwd_mma_kernel (B5): one block of 4 warps per (64 query rows,
+// head, batch row); warp w owns rows 16w.. and walks every live 64-key
+// tile.
+//   * Q is read once through its strides (a view of the fused QKV
+//     projection works) and held as A fragments (ldmatrix) for the whole
+//     key loop.
+//   * K/V tiles stream through a two-stage cp.async ring into rows padded
+//     by 16 bytes (the eight rows an ldmatrix reads fall in distinct
+//     banks); K is read by ldmatrix, V by ldmatrix.trans. Two stages: a
+//     third measured no faster at D = 64 and would leave one block an SM
+//     at D = 128.
+//   * S = Q K^T stays in registers; the online softmax runs on the
+//     accumulators in base 2 (ex2 on the special-function unit); P,
+//     rounded to bf16, becomes the A fragment of P V without leaving the
+//     registers. lse is written in natural log, m * ln 2 + log(l).
+//   * Only tiles that hold an attendable (query, key) pair are walked
+//     (causal, window); the block first reads its key range of the mask,
+//     16 bytes a thread, into one live bit per tile, and a tile whose keys
+//     are all masked for the batch row is neither copied nor computed.
+//     Each tile's 64 mask bytes ride in its ring stage. A warp skips the
+//     products of a tile none of its rows can see; the causal test runs
+//     per element only on tiles the diagonal or the window cuts.
+//   * The output goes through shared memory (Q's idle rows) to 16-byte
+//     row stores; rows past Lq are not written.
+//
+// flash_bwd_dkv_mma_kernel (B7): one block of 4 warps per (64 keys, KV
+// head, batch row); warp w owns keys 16w.., and its dk and dv
+// accumulators for all D columns stay in registers for the whole block.
+// For every query head of the group and every query tile that can see the
+// keys, in a fixed order, Q, dO and the tile's lse and delta stream
+// through a two-stage cp.async ring, and five steps run on the warp's
+// keys: S^T = K Q^T (mma), P^T = exp(S^T scale + (1 - keep) NEG - lse) *
+// keep, dV += P^T dO (mma, P^T rounded to bf16 in registers), dP^T = V
+// dO^T (mma), dS^T = P^T (dP^T - delta) scale and dK += dS^T Q (mma, dS^T
+// rounded to bf16). Q and dO are B operands: by ldmatrix for K Q^T and V
+// dO^T, by ldmatrix.trans for P^T dO and dS^T Q.
+//   * Registers decide the tiles. dk + dv for 16 keys are D / 2 f32
+//     registers a thread each (64 + 64 at D = 128). At D <= 64 the warp
+//     also holds K and V as A fragments and takes 64-query tiles; at
+//     D = 128 it reads K and V fragments from shared memory for each
+//     product (ldmatrix, 8 KB a query tile) and takes 32-query tiles, so
+//     that S^T and dP^T (16 x BQ each) fit beside the accumulators
+//     without a spill (ptxas -v, chip_smoke's build row).
+//   * A block whose 64 keys are all masked writes zeros and stops.
+//
+// Head dims: every kernel is compiled for D in {16, 32, 64, 128, 256}
+// (the tensor-core bodies for D <= 128); the wrapper zero-pads any other
+// d <= 256 to the next of them (zero columns leave q . k unchanged and
+// give zero output and gradient columns) and passes the scale of the
+// original d. D > 256 is refused before any launch: B5's f32 tiles at
+// D = 512 alone would pass the 227 KB a block may hold.
+//
+// The CUDA-core bodies (fma) -- they compute the function, not the Pallas
+// grid:
 //   * one block of 128 threads per (query tile, head, batch row) for B5
 //     (64 rows) and B6 (32 rows), and per (key tile, KV head, batch row)
-//     for B7, so BERT-base at B = 32 puts 768 blocks on the 132 SMs;
+//     for B7 (32 keys);
 //   * tiles live in dynamic shared memory as f32 (rows padded to D + 1
 //     floats, so the dot-product reads hit distinct banks; 42-75 KB a
-//     block at D = 64-128, granted by a checked attribute call); each
-//     thread owns a micro-tile of the score block (rows x strided
-//     columns) and of the output, in registers; a row's 8 owners reduce
-//     max and sum with three shuffles;
+//     block at D = 64-128, 136-141 KB at D = 256, granted by a checked
+//     attribute call); each thread owns a micro-tile of the score block
+//     (rows x strided columns) and of the output, in registers; a row's 8
+//     owners reduce max and sum with three shuffles;
 //   * causal and windowed calls walk only the tiles that hold an
 //     attendable (query, key) pair, and a key tile whose mask is zero for
 //     the batch row is skipped before its load (exact: its p is 0), so
@@ -60,18 +124,25 @@
 //   * all math is CUDA-core f32 FMAs (so the f32 path is exact f32).
 //
 // Build: nvcc compiles this file once per compiled head dim
-// (-DMLAPI_UNIT=16, 32, 64, 128) and once for the C entry points
+// (-DMLAPI_UNIT=16, 32, 64, 128, 256) and once for the C entry points
 // (-DMLAPI_UNIT=0), all at once, and links one library; without
 // MLAPI_UNIT it is one translation unit holding all.
 //
 // C interface (for ctypes): device pointers, a host pointer to 12 int64
 // element strides (batch, row, head for q, k, v, dO; the last dim is
 // contiguous and every row 16-byte aligned), the stream as a
-// cudaStream_t; the return value is cudaGetLastError() after the launch.
+// cudaStream_t, and a host pointer that receives the body the call runs;
+// the return value is cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue for a call the kernels do not take.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "tile_primitives.cuh"
 
 #ifndef MLAPI_UNIT
 #define MLAPI_UNIT -1
@@ -79,8 +150,19 @@
 
 namespace mlapi_flash {
 
-constexpr int kThreads = 128;  // 16 row groups x 8 column lanes
+constexpr int kThreads = 128;  // fma: 16 row groups x 8 column lanes
 constexpr float kNeg = -1e30f;
+
+// The tensor-core bodies: 4 warps; B5 blocks of 64 query rows over 64-key
+// tiles; B7 blocks of 64 keys over query tiles of dkv_q_rows(D).
+constexpr int kMmaThreads = 128;
+constexpr int kFwdRows = 64;
+constexpr int kFwdKeys = 64;
+constexpr int kDkvKeys = 64;
+// Stages of the tensor-core bodies' cp.async rings (see the note above).
+constexpr int kMmaStages = 2;
+
+__host__ __device__ constexpr int dkv_q_rows(int d) { return d <= 64 ? 64 : 32; }
 
 struct Strides {
   long long b, l, h;  // elements
@@ -104,16 +186,20 @@ struct Params {
 };
 
 enum Which { kForward, kDq, kDkv };
+enum Body { kBodyFma = 0, kBodyMma = 1 };
 
 // The kernels of compiled head dim D (defined in unit D).
 template <int D>
-int launch_for_d(Which which, int dtype, const Params& p, cudaStream_t s);
+int launch_for_d(Which which, Body body, int dtype, const Params& p,
+                 cudaStream_t s);
 
 }  // namespace mlapi_flash
 
 #if MLAPI_UNIT != 0
 namespace mlapi_flash {
 namespace {
+
+using namespace mlapi_tiles;
 
 template <typename T> struct Ops;
 
@@ -597,7 +683,577 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Params p) {
   }
 }
 
-// Grant a kernel `bytes` of dynamic shared memory (once; checked).
+
+// -- the tensor-core bodies (bf16, D <= 128) ----------------------------
+
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// Dynamic shared memory of a B5 block: Q (then the output tile), a
+// two-stage K/V ring and each stage's 64 key-mask bytes; then (sized by
+// the launch) one live bit per key tile of the block's range. Rows are
+// padded by 8 bf16 (16 bytes). 46 KB at D = 64, 87 KB at D = 128.
+template <int D>
+struct FwdMmaSmem {
+  static constexpr int kPadRow = D + 8;
+  static constexpr int kStages = kMmaStages;
+  __nv_bfloat16 q[kFwdRows][kPadRow];
+  __nv_bfloat16 k[kStages][kFwdKeys][kPadRow];
+  __nv_bfloat16 v[kStages][kFwdKeys][kPadRow];
+  uint8_t mask[kStages][kFwdKeys];
+};
+
+// Live bits of the key tiles [t_lo, t_lo + n_t) of batch row b: bit t of
+// live[] is set when some key of tile t_lo + t is valid. Every thread
+// reads 16 mask bytes at a time where the rows allow it. Ends with a
+// barrier.
+__device__ void tile_live_bits(const Params& p, int b, int t_lo, int n_t,
+                               int tile, uint32_t* live) {
+  for (int i = threadIdx.x; i < (n_t + 31) / 32; i += kMmaThreads)
+    live[i] = 0u;
+  __syncthreads();
+  const uint8_t* mrow = p.mask + static_cast<size_t>(b) * p.Lk;
+  const int k_begin = t_lo * tile, k_end = min(p.Lk, (t_lo + n_t) * tile);
+  if (p.Lk % 16 == 0 && reinterpret_cast<uintptr_t>(p.mask) % 16 == 0) {
+    for (int key = k_begin + 16 * threadIdx.x; key < k_end;
+         key += 16 * kMmaThreads) {
+      const uint4 raw = __ldg(reinterpret_cast<const uint4*>(mrow + key));
+      if (raw.x | raw.y | raw.z | raw.w) {
+        const int t = key / tile - t_lo;   // a piece never straddles tiles
+        atomicOr(&live[t >> 5], 1u << (t & 31));
+      }
+    }
+  } else {
+    for (int key = k_begin + threadIdx.x; key < k_end; key += kMmaThreads)
+      if (mrow[key]) {
+        const int t = key / tile - t_lo;
+        atomicOr(&live[t >> 5], 1u << (t & 31));
+      }
+  }
+  __syncthreads();
+}
+
+// The first live tile at or after t (relative), or n_t.
+__device__ __forceinline__ int next_live_tile(const uint32_t* live, int t,
+                                              int n_t) {
+  while (t < n_t) {
+    const uint32_t w = live[t >> 5] >> (t & 31);
+    if (w) return min(n_t, t + __ffs(w) - 1);
+    t = (t | 31) + 1;
+  }
+  return n_t;
+}
+
+// Whether query qi keeps key kj by the position terms (causal, window).
+__device__ __forceinline__ bool pos_keep(const Params& p, int qi, int kj) {
+  return kj <= qi && (p.window == 0 || qi - kj < p.window);
+}
+
+// B5 on the tensor cores. Block (query tile, head h, batch row b); warp w
+// owns query rows q0 + 16w.. (rows g and g + 8 of its m16 tile in each
+// thread, g = lane / 4). At most 170 registers a thread at D = 64 (the
+// training path's head dim), so that three blocks share an SM; ptxas
+// needs 168 and spills nothing there.
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads, D == 64 ? 3 : 2)
+    flash_fwd_mma_kernel(Params p) {
+  using bf16 = __nv_bfloat16;
+  using Smem = FwdMmaSmem<D>;
+  constexpr int KS = D / 16;   // 16-wide steps of d
+  constexpr int DT = D / 8;    // 8-wide output column tiles
+  constexpr int NT = kFwdKeys / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
+  uint32_t* live = reinterpret_cast<uint32_t*>(smem_raw + sizeof(Smem));
+
+  // The last query tiles first: under a causal mask they walk the most
+  // key tiles, and would otherwise make the tail of the launch.
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kFwdRows;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int j = h / (p.H / p.KVH);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;
+
+  // Q rows -> shared, one cp.async group of its own (zeros past Lq), in
+  // flight while the mask is read.
+  const bf16* qg = static_cast<const bf16*>(p.q) + b * p.sq.b + h * p.sq.h;
+  for (int idx = tid; idx < kFwdRows * DT; idx += kMmaThreads) {
+    const int r = idx / DT, c = idx % DT, qi = q0 + r;
+    const bool ok = qi < p.Lq;
+    cp_async16(&sm.q[r][c * 8], qg + (ok ? qi : 0) * p.sq.l + c * 8, ok);
+  }
+  cp_async_commit();
+
+  int t_lo, t_hi;
+  key_tiles(p, q0, kFwdRows, kFwdKeys, &t_lo, &t_hi);
+  const int n_t = t_hi - t_lo;
+  tile_live_bits(p, b, t_lo, n_t, kFwdKeys, live);
+
+  const bf16* kg = static_cast<const bf16*>(p.k) + b * p.sk.b + j * p.sk.h;
+  const bf16* vg = static_cast<const bf16*>(p.v) + b * p.sv.b + j * p.sv.h;
+  const uint8_t* mrow = p.mask + static_cast<size_t>(b) * p.Lk;
+  const bool mvec = p.Lk % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(p.mask) % 16 == 0;
+  // Tile t's K/V rows and mask bytes -> stage st (zeros past Lk).
+  auto issue = [&](int t, int st) {
+    const int key0 = (t_lo + t) * kFwdKeys;
+    for (int idx = tid; idx < kFwdKeys * DT; idx += kMmaThreads) {
+      const int r = idx / DT, c = idx % DT, key = key0 + r;
+      const bool ok = key < p.Lk;
+      const int kk = ok ? key : 0;
+      cp_async16(&sm.k[st][r][c * 8], kg + kk * p.sk.l + c * 8, ok);
+      cp_async16(&sm.v[st][r][c * 8], vg + kk * p.sv.l + c * 8, ok);
+    }
+    if (mvec) {
+      if (tid < kFwdKeys / 16) {
+        const int key = key0 + 16 * tid;
+        const bool ok = key < p.Lk;
+        cp_async16(&sm.mask[st][16 * tid], mrow + (ok ? key : 0), ok);
+      }
+    } else if (tid < kFwdKeys) {
+      const int key = key0 + tid;
+      sm.mask[st][tid] = key < p.Lk ? mrow[key] : 0;
+    }
+  };
+
+  // The ring: the first kStages - 1 live tiles in flight, one commit
+  // group each (empty past the last live tile).
+  constexpr int kStages = Smem::kStages;
+  int fetch = next_live_tile(live, 0, n_t);
+#pragma unroll
+  for (int st = 0; st < kStages - 1; ++st) {
+    if (fetch < n_t) {
+      issue(fetch, st);
+      fetch = next_live_tile(live, fetch + 1, n_t);
+    }
+    cp_async_commit();
+  }
+  cp_async_wait<kStages - 1>();  // Q has landed
+  __syncthreads();
+
+  // This warp's Q rows as A fragments, d in 16-wide steps.
+  uint32_t qa[KS][4];
+  {
+    const int r = warp * 16 + (lane % 8) + ((lane / 8) % 2) * 8;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+      ldsm_x4(qa[kk], &sm.q[r][kk * 16 + (lane / 16) * 8]);
+  }
+
+  float o[DT][4];
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) o[dt][c] = 0.f;
+  float m_r[2] = {-INFINITY, -INFINITY}, l_r[2] = {0.f, 0.f};
+  const float scale2 = p.scale * kLog2e;
+  const int qw0 = q0 + warp * 16;   // this warp's first row
+
+  int st = 0;
+  for (int cur = next_live_tile(live, 0, n_t); cur < n_t;
+       cur = next_live_tile(live, cur + 1, n_t)) {
+    cp_async_wait<kStages - 2>();  // tile cur has landed
+    // Every warp is past tile cur - 1, whose stage the next copy reuses.
+    __syncthreads();
+    if (fetch < n_t) {
+      issue(fetch, (st + kStages - 1) % kStages);
+      fetch = next_live_tile(live, fetch + 1, n_t);
+    }
+    cp_async_commit();
+
+    const int key0 = (t_lo + cur) * kFwdKeys;
+    // The tile's key mask: bit r = key key0 + r is valid.
+    const unsigned long long kbits =
+        (static_cast<unsigned long long>(
+             __ballot_sync(0xffffffffu, sm.mask[st][32 + lane] != 0))
+         << 32) |
+        __ballot_sync(0xffffffffu, sm.mask[st][lane] != 0);
+    // Some row of this warp sees some key of the tile by position; the
+    // per-element position test only where the diagonal or window cuts.
+    const bool seen =
+        qw0 < p.Lq &&
+        (!p.causal || (key0 <= qw0 + 15 &&
+                       (p.window == 0 || qw0 - (key0 + kFwdKeys - 1) <
+                                             p.window)));
+    const bool cut =
+        p.causal && (key0 + kFwdKeys - 1 > qw0 ||
+                     (p.window > 0 && qw0 + 15 - key0 >= p.window));
+    if (seen) {
+      // S = Q K^T: key tiles 2np, 2np + 1 per ldmatrix.x4 of K.
+      float s[NT][4];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) s[nt][c] = 0.f;
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk) {
+          uint32_t kb[4];
+          ldsm_x4(kb, &sm.k[st][np * 16 + (lane % 8) + (lane / 16) * 8]
+                               [kk * 16 + ((lane / 8) % 2) * 8]);
+          mma_bf16(s[2 * np], qa[kk], kb[0], kb[1]);
+          mma_bf16(s[2 * np + 1], qa[kk], kb[2], kb[3]);
+        }
+      }
+      // Scale to base 2 (times scale * log2(e)); a masked score becomes
+      // -inf, so that its p is exactly 0. Only a tile that holds a masked
+      // key, or that the diagonal or the window cuts, pays for the mask.
+      if (cut || kbits != ~0ull) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int qi = qw0 + g + 8 * e;
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              const int kr = 8 * nt + 2 * t4 + c;
+              const bool kp = ((kbits >> kr) & 1ull) &&
+                              (!cut || pos_keep(p, qi, key0 + kr));
+              s[nt][2 * e + c] = kp ? s[nt][2 * e + c] * scale2 : -INFINITY;
+            }
+        }
+      } else {
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) s[nt][c] *= scale2;
+      }
+      // Online softmax of rows g (e = 0) and g + 8 (e = 1), m in base-2
+      // units until the write-out. A row that has seen no valid key keeps
+      // m = -inf and subtracts 0: its p and l stay exactly 0.
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+          mx = fmaxf(mx, fmaxf(s[nt][2 * e], s[nt][2 * e + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m_r[e], mx);
+        const float m_sub = m_new == -INFINITY ? 0.f : m_new;
+        const float alpha = ex2(m_r[e] - m_sub);
+        float sum = 0.f;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const float pe = ex2(s[nt][2 * e + c] - m_sub);
+            s[nt][2 * e + c] = pe;
+            sum += pe;
+          }
+        // l stays per thread (its four lanes meet once, at the end).
+        l_r[e] = l_r[e] * alpha + sum;
+        m_r[e] = m_new;
+#pragma unroll
+        for (int dt = 0; dt < DT; ++dt) {
+          o[dt][2 * e] *= alpha;
+          o[dt][2 * e + 1] *= alpha;
+        }
+      }
+      // O += P V: P (rounded to bf16, v's dtype) straight from the score
+      // registers; V tiles 2dp, 2dp + 1 per ldmatrix.x4.trans.
+#pragma unroll
+      for (int kk = 0; kk < NT / 2; ++kk) {
+        const uint32_t pa[4] = {
+            pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+            pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+            pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+            pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]),
+        };
+#pragma unroll
+        for (int dp = 0; dp < KS; ++dp) {
+          uint32_t vb[4];
+          ldsm_x4_trans(vb, &sm.v[st][kk * 16 + (lane % 8) +
+                                      ((lane / 8) % 2) * 8]
+                                     [dp * 16 + (lane / 16) * 8]);
+          mma_bf16(o[2 * dp], pa, vb[0], vb[1]);
+          mma_bf16(o[2 * dp + 1], pa, vb[2], vb[3]);
+        }
+      }
+    }
+    st = (st + 1) % kStages;
+  }
+  cp_async_wait<0>();
+  __syncthreads();   // every warp is done with Q's rows and the ring
+
+  // out = acc / max(l, 1e-30) (times the reciprocal), staged in Q's rows;
+  // lse = m + log(max(l, 1e-30)) in natural log (m = NEG on a row that
+  // saw no valid key, whose l and output are exactly 0).
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    l_r[e] += __shfl_xor_sync(0xffffffffu, l_r[e], 1);
+    l_r[e] += __shfl_xor_sync(0xffffffffu, l_r[e], 2);
+    const int r = warp * 16 + g + 8 * e, qi = q0 + r;
+    const float den = fmaxf(l_r[e], 1e-30f);
+    const float inv_l = 1.f / den;
+#pragma unroll
+    for (int dt = 0; dt < DT; ++dt)
+      *reinterpret_cast<__nv_bfloat162*>(&sm.q[r][dt * 8 + 2 * t4]) =
+          __floats2bfloat162_rn(o[dt][2 * e] * inv_l,
+                                o[dt][2 * e + 1] * inv_l);
+    if (t4 == 0 && qi < p.Lq)
+      p.lse[(static_cast<size_t>(b) * p.H + h) * p.Lq + qi] =
+          (l_r[e] > 0.f ? m_r[e] * kLn2 : kNeg) + logf(den);
+  }
+  __syncthreads();
+  for (int idx = tid; idx < kFwdRows * DT; idx += kMmaThreads) {
+    const int r = idx / DT, c = idx % DT, qi = q0 + r;
+    if (qi >= p.Lq) continue;
+    *reinterpret_cast<uint4*>(
+        static_cast<bf16*>(p.out) +
+        ((static_cast<size_t>(b) * p.Lq + qi) * p.H + h) * D + c * 8) =
+        *reinterpret_cast<const uint4*>(&sm.q[r][c * 8]);
+  }
+}
+
+// Dynamic shared memory of a B7 block: its K and V rows (then the dk/dv
+// tiles), a two-stage ring of Q and dO tiles, and each stage's lse and
+// delta. 56 KB at D = 64, 70 KB at D = 128.
+template <int D>
+struct DkvMmaSmem {
+  static constexpr int kPadRow = D + 8;
+  static constexpr int BQ = dkv_q_rows(D);
+  static constexpr int kStages = kMmaStages;
+  __nv_bfloat16 k[kDkvKeys][kPadRow];
+  __nv_bfloat16 v[kDkvKeys][kPadRow];
+  __nv_bfloat16 q[kStages][BQ][kPadRow];
+  __nv_bfloat16 dout[kStages][BQ][kPadRow];
+  float lse[kStages][BQ];
+  float delta[kStages][BQ];
+};
+
+// B7 on the tensor cores. Block (key tile, KV head j, batch row b); warp w
+// owns keys k0 + 16w.. (rows g and g + 8 of its m16 tile in each thread).
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+    flash_bwd_dkv_mma_kernel(Params p) {
+  using bf16 = __nv_bfloat16;
+  using Smem = DkvMmaSmem<D>;
+  constexpr int BQ = Smem::BQ;
+  constexpr int KS = D / 16;   // 16-wide steps of d
+  constexpr int DT = D / 8;    // 8-wide dk/dv column tiles
+  constexpr int NT = BQ / 8;   // 8-wide query column tiles of S^T
+  constexpr bool kHoldKV = D <= 64;   // K, V A fragments in registers
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
+
+  const int k0 = blockIdx.x * kDkvKeys, j = blockIdx.y, b = blockIdx.z;
+  const int group = p.H / p.KVH;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int kw0 = k0 + warp * 16;   // this warp's first key
+
+  // This thread's two keys (g, g + 8 of the warp's 16) and their mask;
+  // a block whose keys are all masked gets dk = dv = 0 (its p is 0).
+  bool km[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int kj = kw0 + g + 8 * e;
+    km[e] = kj < p.Lk && p.mask[static_cast<size_t>(b) * p.Lk + kj];
+  }
+  const bool block_live = __syncthreads_or(km[0] || km[1]);
+
+  float dk[DT][4], dv[DT][4];
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) dk[dt][c] = dv[dt][c] = 0.f;
+
+  if (block_live) {
+    // K and V rows of the block -> shared (zeros past Lk).
+    const bf16* kg = static_cast<const bf16*>(p.k) + b * p.sk.b + j * p.sk.h;
+    const bf16* vg = static_cast<const bf16*>(p.v) + b * p.sv.b + j * p.sv.h;
+    for (int idx = tid; idx < kDkvKeys * DT; idx += kMmaThreads) {
+      const int r = idx / DT, c = idx % DT, key = k0 + r;
+      const bool ok = key < p.Lk;
+      const int kk = ok ? key : 0;
+      cp_async16(&sm.k[r][c * 8], kg + kk * p.sk.l + c * 8, ok);
+      cp_async16(&sm.v[r][c * 8], vg + kk * p.sv.l + c * 8, ok);
+    }
+    int t_lo, t_hi;
+    query_tiles(p, k0, kDkvKeys, BQ, &t_lo, &t_hi);
+    const int n_t = t_hi - t_lo, n_items = group * n_t;
+    // Item i: query head j * group + i / n_t, query tile t_lo + i % n_t.
+    auto issue = [&](int i, int st) {
+      const int h = j * group + i / n_t, q0 = (t_lo + i % n_t) * BQ;
+      const bf16* qg =
+          static_cast<const bf16*>(p.q) + b * p.sq.b + h * p.sq.h;
+      const bf16* dg =
+          static_cast<const bf16*>(p.dout) + b * p.sdo.b + h * p.sdo.h;
+      for (int idx = tid; idx < BQ * DT; idx += kMmaThreads) {
+        const int r = idx / DT, c = idx % DT, qi = q0 + r;
+        const bool ok = qi < p.Lq;
+        const int qq = ok ? qi : 0;
+        cp_async16(&sm.q[st][r][c * 8], qg + qq * p.sq.l + c * 8, ok);
+        cp_async16(&sm.dout[st][r][c * 8], dg + qq * p.sdo.l + c * 8, ok);
+      }
+      const size_t rows = (static_cast<size_t>(b) * p.H + h) * p.Lq;
+      if (tid < 2 * BQ) {
+        const int r = tid % BQ, qi = q0 + r;
+        const bool ok = qi < p.Lq;
+        const float* src = (tid < BQ ? p.lse : p.delta) + rows + (ok ? qi : 0);
+        cp_async4(tid < BQ ? &sm.lse[st][r] : &sm.delta[st][r], src, ok);
+      }
+    };
+    // The ring: items 0 .. kStages - 2 in flight (the first group also
+    // holds K and V), one commit group each.
+    constexpr int kStages = Smem::kStages;
+    int fetch = 0;
+#pragma unroll
+    for (int st = 0; st < kStages - 1; ++st) {
+      if (fetch < n_items) issue(fetch++, st);
+      cp_async_commit();
+    }
+    cp_async_wait<kStages - 2>();   // K, V and item 0 have landed
+    __syncthreads();
+
+    // This warp's K and V rows as A fragments (D <= 64: held for the
+    // whole block; D = 128: read again for each product).
+    const int ar = warp * 16 + (lane % 8) + ((lane / 8) % 2) * 8;
+    const int ac = (lane / 16) * 8;
+    uint32_t ka[kHoldKV ? KS : 1][4], va[kHoldKV ? KS : 1][4];
+    if constexpr (kHoldKV) {
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        ldsm_x4(ka[kk], &sm.k[ar][kk * 16 + ac]);
+        ldsm_x4(va[kk], &sm.v[ar][kk * 16 + ac]);
+      }
+    }
+    // C[nt] += A(rows of src) . B^T where B's rows are BQ query rows of
+    // `rows` (x = K with Q, or V with dO): S^T or dP^T.
+    auto rows_times = [&](float (&c)[NT][4], const bf16 (*arows)[Smem::kPadRow],
+                          const uint32_t (&held)[kHoldKV ? KS : 1][4],
+                          const bf16 (*brows)[Smem::kPadRow]) {
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) c[nt][x] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        uint32_t a[4];
+        if constexpr (kHoldKV) {
+#pragma unroll
+          for (int x = 0; x < 4; ++x) a[x] = held[kk][x];
+        } else {
+          ldsm_x4(a, &arows[ar][kk * 16 + ac]);
+        }
+#pragma unroll
+        for (int np = 0; np < NT / 2; ++np) {
+          uint32_t bb[4];
+          ldsm_x4(bb, &brows[np * 16 + (lane % 8) + (lane / 16) * 8]
+                            [kk * 16 + ((lane / 8) % 2) * 8]);
+          mma_bf16(c[2 * np], a, bb[0], bb[1]);
+          mma_bf16(c[2 * np + 1], a, bb[2], bb[3]);
+        }
+      }
+    };
+    // acc[dt] += A . rows, A = a 16 x BQ tile in C registers (rounded to
+    // bf16 here), `rows` BQ query rows of D columns (ldmatrix.trans).
+    auto times_rows = [&](float (&acc)[DT][4], const float (&c)[NT][4],
+                          const bf16 (*rows)[Smem::kPadRow]) {
+#pragma unroll
+      for (int kq = 0; kq < NT / 2; ++kq) {
+        const uint32_t a[4] = {
+            pack_bf16(c[2 * kq][0], c[2 * kq][1]),
+            pack_bf16(c[2 * kq][2], c[2 * kq][3]),
+            pack_bf16(c[2 * kq + 1][0], c[2 * kq + 1][1]),
+            pack_bf16(c[2 * kq + 1][2], c[2 * kq + 1][3]),
+        };
+#pragma unroll
+        for (int dp = 0; dp < KS; ++dp) {
+          uint32_t bb[4];
+          ldsm_x4_trans(bb, &rows[kq * 16 + (lane % 8) + ((lane / 8) % 2) * 8]
+                                 [dp * 16 + (lane / 16) * 8]);
+          mma_bf16(acc[2 * dp], a, bb[0], bb[1]);
+          mma_bf16(acc[2 * dp + 1], a, bb[2], bb[3]);
+        }
+      }
+    };
+
+    // Some key of this warp is valid.
+    const bool warp_live = __any_sync(0xffffffffu, km[0] || km[1]);
+    int st = 0;
+    for (int i = 0; i < n_items; ++i) {
+      if (i > 0) {
+        cp_async_wait<kStages - 2>();  // item i has landed
+        // Every warp is past item i - 1, whose stage the next copy reuses.
+        __syncthreads();
+      }
+      if (fetch < n_items) issue(fetch++, (st + kStages - 1) % kStages);
+      cp_async_commit();
+      const int q0 = (t_lo + i % n_t) * BQ;
+      // Some key of this warp is seen by some query of the tile (by
+      // position: causal, window; rows past Lq are outside the range).
+      const bool seen =
+          warp_live &&
+          (!p.causal ||
+           (kw0 <= q0 + BQ - 1 &&
+            (p.window == 0 || q0 - (kw0 + 15) < p.window)));
+      // The position terms cut this warp's keys and the tile's queries.
+      const bool cut =
+          p.causal && (kw0 + 15 > q0 ||
+                       (p.window > 0 && q0 + BQ - 1 - kw0 >= p.window));
+      if (seen) {
+        float sp[NT][4], dpt[NT][4];
+        rows_times(sp, sm.k, ka, sm.q[st]);       // S^T = K Q^T
+        rows_times(dpt, sm.v, va, sm.dout[st]);   // dP^T = V dO^T
+        // P^T = exp(S^T scale + (1 - keep) NEG - lse) * keep (base 2 on
+        // ex2); dS^T = P^T (dP^T - delta) scale. Element (nt, x): key row
+        // g + 8 (x / 2), query column 8 nt + 2 t4 + x % 2. A query row
+        // past Lq needs no test: its Q, dO, lse and delta load as zeros,
+        // so its terms of dV and dK are exactly 0.
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int x = 0; x < 4; ++x) {
+            const int qc = 8 * nt + 2 * t4 + (x & 1), qi = q0 + qc;
+            const int kj = kw0 + g + 8 * (x >> 1);
+            const float kp =
+                km[x >> 1] && (!cut || pos_keep(p, qi, kj)) ? 1.f : 0.f;
+            const float sv = sp[nt][x] * p.scale + (1.f - kp) * kNeg -
+                             sm.lse[st][qc];
+            const float pe = ex2(sv * kLog2e) * kp;
+            sp[nt][x] = pe;
+            dpt[nt][x] = pe * (dpt[nt][x] - sm.delta[st][qc]) * p.scale;
+          }
+        times_rows(dv, sp, sm.dout[st]);   // dV += P^T dO
+        times_rows(dk, dpt, sm.q[st]);     // dK += dS^T Q
+      }
+      st = (st + 1) % kStages;
+    }
+    cp_async_wait<0>();
+    __syncthreads();   // every warp is done with K, V and the ring
+  }
+
+  // dk, dv -> the K/V rows in shared memory (bf16), then 16-byte row
+  // stores; keys past Lk are not written.
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int r = warp * 16 + g + 8 * e;
+#pragma unroll
+    for (int dt = 0; dt < DT; ++dt) {
+      *reinterpret_cast<__nv_bfloat162*>(&sm.k[r][dt * 8 + 2 * t4]) =
+          __floats2bfloat162_rn(dk[dt][2 * e], dk[dt][2 * e + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(&sm.v[r][dt * 8 + 2 * t4]) =
+          __floats2bfloat162_rn(dv[dt][2 * e], dv[dt][2 * e + 1]);
+    }
+  }
+  __syncthreads();
+  for (int idx = tid; idx < kDkvKeys * DT; idx += kMmaThreads) {
+    const int r = idx / DT, c = idx % DT, kj = k0 + r;
+    if (kj >= p.Lk) continue;
+    const size_t at = ((static_cast<size_t>(b) * p.Lk + kj) * p.KVH + j) * D +
+                      c * 8;
+    *reinterpret_cast<uint4*>(static_cast<bf16*>(p.dk) + at) =
+        *reinterpret_cast<const uint4*>(&sm.k[r][c * 8]);
+    *reinterpret_cast<uint4*>(static_cast<bf16*>(p.dv) + at) =
+        *reinterpret_cast<const uint4*>(&sm.v[r][c * 8]);
+  }
+}
+
+// Grant a kernel `bytes` of dynamic shared memory (once per size it grows
+// to; checked).
 template <typename K>
 cudaError_t grant_smem(K kernel, int bytes, int* granted) {
   if (bytes <= *granted) return cudaSuccess;
@@ -607,17 +1263,24 @@ cudaError_t grant_smem(K kernel, int bytes, int* granted) {
   return err;
 }
 
+// The CUDA-core bodies. In bf16 below D = 256, B5 and B7 run the tensor-
+// core bodies (flash_body), so only B6's kernel is built there.
 template <typename T, int D>
 int launch_t(Which which, const Params& p, cudaStream_t s) {
+  constexpr bool kDqOnly = std::is_same_v<T, __nv_bfloat16> && D <= 128;
   cudaError_t err = cudaSuccess;
   switch (which) {
     case kForward: {
-      static int granted = 48 * 1024;
-      constexpr int smem = sizeof(FwdSmem<D>);
-      err = grant_smem(flash_fwd_kernel<T, D>, smem, &granted);
-      if (err != cudaSuccess) break;
-      flash_fwd_kernel<T, D><<<dim3((p.Lq + 63) / 64, p.H, p.B), kThreads,
-                               smem, s>>>(p);
+      if constexpr (kDqOnly) {
+        err = cudaErrorInvalidValue;
+      } else {
+        static int granted = 48 * 1024;
+        constexpr int smem = sizeof(FwdSmem<D>);
+        err = grant_smem(flash_fwd_kernel<T, D>, smem, &granted);
+        if (err != cudaSuccess) break;
+        flash_fwd_kernel<T, D><<<dim3((p.Lq + 63) / 64, p.H, p.B), kThreads,
+                                 smem, s>>>(p);
+      }
       break;
     }
     case kDq: {
@@ -630,12 +1293,16 @@ int launch_t(Which which, const Params& p, cudaStream_t s) {
       break;
     }
     case kDkv: {
-      static int granted = 48 * 1024;
-      constexpr int smem = sizeof(DkvSmem<D>);
-      err = grant_smem(flash_bwd_dkv_kernel<T, D>, smem, &granted);
-      if (err != cudaSuccess) break;
-      flash_bwd_dkv_kernel<T, D><<<dim3((p.Lk + 31) / 32, p.KVH, p.B),
-                                   kThreads, smem, s>>>(p);
+      if constexpr (kDqOnly) {
+        err = cudaErrorInvalidValue;
+      } else {
+        static int granted = 48 * 1024;
+        constexpr int smem = sizeof(DkvSmem<D>);
+        err = grant_smem(flash_bwd_dkv_kernel<T, D>, smem, &granted);
+        if (err != cudaSuccess) break;
+        flash_bwd_dkv_kernel<T, D><<<dim3((p.Lk + 31) / 32, p.KVH, p.B),
+                                     kThreads, smem, s>>>(p);
+      }
       break;
     }
   }
@@ -643,16 +1310,51 @@ int launch_t(Which which, const Params& p, cudaStream_t s) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// The tensor-core bodies (bf16; D <= 128): B5 and B7.
+template <int D>
+int launch_mma(Which which, const Params& p, cudaStream_t s) {
+  cudaError_t err = cudaSuccess;
+  if (which == kForward) {
+    // The live bits of the longest key range a block walks.
+    const int n_tiles = (p.Lk + kFwdKeys - 1) / kFwdKeys;
+    const int smem =
+        static_cast<int>(sizeof(FwdMmaSmem<D>)) + 4 * ((n_tiles + 31) / 32);
+    static int granted = 48 * 1024;
+    err = grant_smem(flash_fwd_mma_kernel<D>, smem, &granted);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    flash_fwd_mma_kernel<D><<<dim3((p.Lq + kFwdRows - 1) / kFwdRows, p.H,
+                                   p.B),
+                              kMmaThreads, smem, s>>>(p);
+  } else {
+    constexpr int smem = sizeof(DkvMmaSmem<D>);
+    static int granted = 48 * 1024;
+    err = grant_smem(flash_bwd_dkv_mma_kernel<D>, smem, &granted);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    flash_bwd_dkv_mma_kernel<D><<<dim3((p.Lk + kDkvKeys - 1) / kDkvKeys,
+                                       p.KVH, p.B),
+                                  kMmaThreads, smem, s>>>(p);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 template <int D>
-int launch_for_d(Which which, int dtype, const Params& p, cudaStream_t s) {
+int launch_for_d(Which which, Body body, int dtype, const Params& p,
+                 cudaStream_t s) {
+  if (body == kBodyMma) {
+    if constexpr (D <= 128) {
+      return launch_mma<D>(which, p, s);
+    } else {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
   if (dtype == 0) return launch_t<float, D>(which, p, s);
   return launch_t<__nv_bfloat16, D>(which, p, s);
 }
 
 #if MLAPI_UNIT > 0
-template int launch_for_d<MLAPI_UNIT>(Which, int, const Params&,
+template int launch_for_d<MLAPI_UNIT>(Which, Body, int, const Params&,
                                       cudaStream_t);
 #endif
 
@@ -663,16 +1365,25 @@ template int launch_for_d<MLAPI_UNIT>(Which, int, const Params&,
 namespace mlapi_flash {
 namespace {
 
+// The body of a call (mirrored by the wrapper's _body() for the CPU
+// tests): B5 and B7 in bf16 at D <= 128 on the tensor cores; f32, D = 256
+// and every B6 call on the CUDA cores.
+Body flash_body(Which which, int dtype, int D) {
+  return which != kDq && dtype == 1 && D <= 128 ? kBodyMma : kBodyFma;
+}
+
 int launch(Which which, const void* q, const void* k, const void* v,
            const void* mask, const void* dout, void* out, void* lse,
            const void* delta, void* dq, void* dk, void* dv,
            const long long* strides, int dtype, int B, int Lq, int Lk, int H,
-           int KVH, int D, int causal, int window, float scale,
-           void* stream) {
-  if ((D != 16 && D != 32 && D != 64 && D != 128) || B < 1 || Lq < 1 ||
-      Lk < 1 || KVH < 1 || H % KVH || window < 0 || B > 65535 || H > 65535 ||
-      (dtype != 0 && dtype != 1))
+           int KVH, int D, int causal, int window, float scale, void* stream,
+           int* body) {
+  if ((D != 16 && D != 32 && D != 64 && D != 128 && D != 256) || B < 1 ||
+      Lq < 1 || Lk < 1 || KVH < 1 || H % KVH || window < 0 || B > 65535 ||
+      H > 65535 || (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
+  const Body b = flash_body(which, dtype, D);
+  *body = b;
   Params p;
   p.q = q;
   p.k = k;
@@ -699,10 +1410,11 @@ int launch(Which which, const void* q, const void* k, const void* v,
   p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 16: return launch_for_d<16>(which, dtype, p, s);
-    case 32: return launch_for_d<32>(which, dtype, p, s);
-    case 64: return launch_for_d<64>(which, dtype, p, s);
-    default: return launch_for_d<128>(which, dtype, p, s);
+    case 16: return launch_for_d<16>(which, b, dtype, p, s);
+    case 32: return launch_for_d<32>(which, b, dtype, p, s);
+    case 64: return launch_for_d<64>(which, b, dtype, p, s);
+    case 128: return launch_for_d<128>(which, b, dtype, p, s);
+    default: return launch_for_d<256>(which, b, dtype, p, s);
   }
 }
 
@@ -717,6 +1429,7 @@ using mlapi_flash::kDkv;
 // dtype: 0 f32, 1 bf16 (q, k, v, dO and every output but lse share it).
 // strides: q, k, v, dO, each (batch, row, head) in elements; the forward
 // ignores dO's. mask: uint8 [B, Lk]. window: 0 for none (causal only).
+// body (out): the body the call runs, 0 CUDA cores, 1 tensor cores.
 extern "C" {
 
 // B5: out [B, Lq, H, D] and lse f32 [B, H, Lq].
@@ -724,10 +1437,10 @@ int mlapi_flash_forward(const void* q, const void* k, const void* v,
                         const void* mask, void* out, void* lse,
                         const long long* strides, int dtype, int B, int Lq,
                         int Lk, int H, int KVH, int D, int causal, int window,
-                        float scale, void* stream) {
+                        float scale, void* stream, int* body) {
   return launch(kForward, q, k, v, mask, nullptr, out, lse, nullptr, nullptr,
                 nullptr, nullptr, strides, dtype, B, Lq, Lk, H, KVH, D,
-                causal, window, scale, stream);
+                causal, window, scale, stream, body);
 }
 
 // B6: dq [B, Lq, H, D] from dO, lse and delta (f32 [B, H, Lq]).
@@ -736,10 +1449,11 @@ int mlapi_flash_backward_dq(const void* q, const void* k, const void* v,
                             const void* lse, const void* delta, void* dq,
                             const long long* strides, int dtype, int B,
                             int Lq, int Lk, int H, int KVH, int D, int causal,
-                            int window, float scale, void* stream) {
+                            int window, float scale, void* stream,
+                            int* body) {
   return launch(kDq, q, k, v, mask, dout, nullptr, const_cast<void*>(lse),
                 delta, dq, nullptr, nullptr, strides, dtype, B, Lq, Lk, H,
-                KVH, D, causal, window, scale, stream);
+                KVH, D, causal, window, scale, stream, body);
 }
 
 // B7: dk, dv [B, Lk, KVH, D] from dO, lse and delta.
@@ -749,10 +1463,10 @@ int mlapi_flash_backward_dkv(const void* q, const void* k, const void* v,
                              void* dv, const long long* strides, int dtype,
                              int B, int Lq, int Lk, int H, int KVH, int D,
                              int causal, int window, float scale,
-                             void* stream) {
+                             void* stream, int* body) {
   return launch(kDkv, q, k, v, mask, dout, nullptr, const_cast<void*>(lse),
                 delta, nullptr, dk, dv, strides, dtype, B, Lq, Lk, H, KVH, D,
-                causal, window, scale, stream);
+                causal, window, scale, stream, body);
 }
 
 }  // extern "C"

@@ -7,7 +7,8 @@ minutes. A source compiles as several translation units (``UNITS``):
 ``-DMLAPI_UNIT=D`` holds the kernels of compiled head dim ``D``,
 ``-DMLAPI_UNIT=0`` the C entry points; the objects link into one
 library. Libraries are built at first use from the sources in the
-checkout and cached under a key that hashes the source and the flags,
+checkout and cached under a key that hashes the source, the headers
+beside it (``csrc/*.cuh``) and the flags,
 in ``build/kernels/`` at the repository root (``.gitignore`` lists
 ``build/``), or in ``$MLAPI_TPU_TORCH_BUILD_DIR``. :func:`build`
 starts one ``nvcc`` per unit of every missing source, all at once.
@@ -36,7 +37,7 @@ NVCC_FLAGS = (
 )
 # Translation units of every source: the entry points, then one per
 # compiled head dim.
-UNITS = (0, 16, 32, 64, 128)
+UNITS = (0, 16, 32, 64, 128, 256)
 
 
 @dataclass
@@ -74,7 +75,9 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # The source and every header beside it (both sources include them).
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     flags = " ".join(NVCC_FLAGS) + f" units {UNITS}"
     key = hashlib.sha256(src + flags.encode()).hexdigest()
     return build_dir() / key[:16] / f"lib{name}.so"

@@ -28,16 +28,17 @@ The source has three bodies (:func:`_geometry` says which one a call
 runs): ``"decode"`` for every decode call (B1, B3), a memory pipeline
 whose splits meet in a thread-block cluster, so one launch per call;
 ``"mma"``, tensor cores, for the extend entry points with bf16 queries
-over a bf16 or int8 cache at a compiled head dim; ``"fma"``, CUDA-core
-f32, for the other extend calls (f32 queries, one-token spans, other
-head dims), whose split-K merge -- computed in jnp outside the Pallas
+over a bf16 or int8 cache at a compiled head dim up to 128; ``"fma"``,
+CUDA-core f32, for the other extend calls (f32 queries, one-token spans,
+other head dims), whose split-K merge -- computed in jnp outside the Pallas
 kernel by the JAX package -- is a second small CUDA kernel launched by
 the same C call when the call has more than one split, as it is for a
 multi-split ``mma`` call.
 
-Head dims: every ``d`` from 1 to 128. The bodies are compiled for ``d``
-in 16, 32, 64 and 128; another ``d`` runs the CUDA-core bodies at the
-next of them with guarded loads, over the cache as it is.
+Head dims: every ``d`` from 1 to 256. The CUDA-core bodies are
+compiled for ``d`` in 16, 32, 64, 128 and 256, the tensor-core body for
+16, 32, 64 and 128; another ``d`` runs the CUDA-core bodies at the next
+compiled one with guarded loads, over the cache as it is.
 """
 
 from __future__ import annotations
@@ -51,8 +52,9 @@ import torch
 from mlapi_tpu_torch.ops.attention import NEG
 from mlapi_tpu_torch.ops.quant import _is_quant_leaf, kv_gather_pages
 
-_KERNEL_HEAD_DIMS = range(1, 129)
-_COMPILED_DIMS = (16, 32, 64, 128)
+_KERNEL_HEAD_DIMS = range(1, 257)
+_COMPILED_DIMS = (16, 32, 64, 128, 256)
+_MMA_DIMS = (16, 32, 64, 128)
 # Per body: keys per tile, query rows per block, blocks aimed at per SM,
 # most tiles in one split (the mma body holds a split's mask words). The
 # mma body aims at one block per SM: a call with one split skips the
@@ -312,19 +314,20 @@ def _geometry(entry: str, dtype, b: int, u: int, h: int, kvh: int,
     """The grid of one call (pure, so the CPU tests reach it). The body
     is the C source's dispatch: ``decode`` for a decode entry point,
     ``mma`` for an extend entry point with bf16 queries, ``u > 1`` and a
-    compiled ``d``, else ``fma``. Splits of the key tiles are chosen so
-    that the blocks number about ``per_sm * sm_count``, never more splits
-    than tiles, no empty split; for the mma body at most 16 tiles in a
-    split; for the decode body a power of two of at most 8 splits (one
+    compiled ``d`` up to 128, else ``fma``. Splits of the key tiles are
+    chosen so that the blocks number about ``per_sm * sm_count``, never
+    more splits than tiles, no empty split; for the mma body at most 16
+    tiles in a split; for the decode body a power of two of at most 8 splits (one
     cluster) and no more blocks than fit the card at once.
 
     The decode body's tile is 1 KB of K: ``1024 / (D * itemsize)`` keys,
     ``D`` the compiled head dim and ``itemsize`` the cache's (4 f32, 2
-    bf16, 1 int8); a block serves :func:`_decode_heads` query heads of
+    bf16, 1 int8; at D = 256 one f32 key a tile, its row in 32-byte lane
+    chunks); a block serves :func:`_decode_heads` query heads of
     one KV head."""
     if entry not in _EXTEND_ENTRIES:
         body = "decode"
-    elif dtype == torch.bfloat16 and u > 1 and d in _COMPILED_DIMS:
+    elif dtype == torch.bfloat16 and u > 1 and d in _MMA_DIMS:
         body = "mma"
     else:
         body = "fma"
@@ -364,7 +367,7 @@ def _launch(entry: str, q, kq, ks, vq, vs, mask3, scale, table=None):
     quant = ks is not None
     if d not in _KERNEL_HEAD_DIMS:
         raise ValueError(
-            f"{entry}: head_dim {d} not compiled (1 <= D <= 128)"
+            f"{entry}: head_dim {d} not compiled (1 <= D <= 256)"
         )
     if q.dtype not in _DTYPE_CODES:
         raise ValueError(f"{entry}: unsupported dtype {q.dtype}")

@@ -21,12 +21,17 @@ that. The public functions keep the JAX layouts and contract:
 The Pallas tiling knobs (``block_q``, ``block_k``, ``interpret``) have
 no counterpart: the CUDA kernels fix their own tiles.
 
-Head dims: every ``D`` from 1 to 128. The kernels are compiled for 16,
-32, 64 and 128; for another ``D`` each wrapper zero-pads q, k, v and
-dO along the last dim to the next of them (zero columns leave q·k
+Head dims: every ``D`` from 1 to 256. The kernels are compiled for 16,
+32, 64, 128 and 256; for another ``D`` each wrapper zero-pads q, k, v
+and dO along the last dim to the next of them (zero columns leave q·k
 unchanged and give zero output and gradient columns, so the result is
 exact), runs the kernel with the scale of the original ``D`` (the
 wrappers always receive it explicitly) and slices the result back.
+
+Two bodies (the C source's ``flash_body`` picks one and reports it;
+:func:`_body` mirrors that choice for the CPU tests): ``"mma"``, tensor
+cores, for B5 and B7 in bf16 at a compiled ``D`` up to 128; ``"fma"``,
+CUDA-core f32, for f32 (exact, no TF32), ``D = 256`` and every B6 call.
 
 For CUDA tensors each wrapper (:func:`flash_forward`,
 :func:`flash_backward_dq`, :func:`flash_backward_dkv`) launches its
@@ -34,9 +39,10 @@ kernel or raises; for CPU tensors it runs the plain version
 (:func:`flash_forward_plain`, :func:`flash_backward_plain`: the same
 function in whole-tensor PyTorch ops, as the JAX package's
 ``_jnp_flash``, with the kernels' rounding points). Each wrapper counts
-its launches in ``<wrapper>.launches``. ``delta = rowsum(dO * O)``
-minus any lse cotangent is one PyTorch op outside the kernels, as in
-JAX (``flash_attention.py:512-521``).
+its launches in ``<wrapper>.launches``, and by body in
+``<wrapper>.bodies``. ``delta = rowsum(dO * O)`` minus any lse
+cotangent is one PyTorch op outside the kernels, as in JAX
+(``flash_attention.py:512-521``).
 """
 
 from __future__ import annotations
@@ -47,11 +53,13 @@ import functools
 import torch
 
 from mlapi_tpu_torch.ops.attention import NEG
+from mlapi_tpu_torch.ops.cuda.decode_attention import _count
 from mlapi_tpu_torch.ops.quant import maybe_dequant_kv
 
-_KERNEL_HEAD_DIMS = range(1, 129)
-_COMPILED_DIMS = (16, 32, 64, 128)
+_KERNEL_HEAD_DIMS = range(1, 257)
+_COMPILED_DIMS = (16, 32, 64, 128, 256)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_BODY_NAMES = ("fma", "mma")   # the C source's enum Body, by value
 
 
 def _prepare(q, k, v, mask, causal, scale, window):
@@ -149,7 +157,7 @@ def flash_backward_plain(q, k, v, mask, dout, lse, delta, *, causal=False,
 
 _ENTRIES = {
     # q, k, v, mask, out, lse | strides | dtype, B, Lq, Lk, H, KVH, D,
-    # causal, window | scale, stream
+    # causal, window | scale | stream, body (out)
     "mlapi_flash_forward": 6,
     # q, k, v, mask, dout, lse, delta, dq
     "mlapi_flash_backward_dq": 8,
@@ -162,7 +170,8 @@ _ENTRIES = {
 def _entries():
     """The three entry points of the kernel library, argtypes set once:
     pointers, the stride array and the stream as ``c_void_p`` (none cut
-    to 32 bits), the sizes ``c_int``, the scale ``c_float``."""
+    to 32 bits), the sizes ``c_int``, the scale ``c_float``, and the
+    ``int*`` that receives the body the call ran."""
     from mlapi_tpu_torch.ops.cuda import build
 
     lib = build.load("flash_attention")
@@ -170,7 +179,8 @@ def _entries():
     for name, n_ptrs in _ENTRIES.items():
         fn = getattr(lib, name)
         fn.argtypes = ([ctypes.c_void_p] * (n_ptrs + 1) + [ctypes.c_int] * 9
-                       + [ctypes.c_float, ctypes.c_void_p])
+                       + [ctypes.c_float, ctypes.c_void_p,
+                          ctypes.POINTER(ctypes.c_int)])
         fn.restype = ctypes.c_int
         out[name] = fn
     return out
@@ -188,13 +198,24 @@ def _row_aligned(t):
 
 
 def _compiled_d(entry, d):
-    """The compiled head dim that takes ``d``; a ``d`` past 128 raises
+    """The compiled head dim that takes ``d``; a ``d`` past 256 raises
     before anything reaches the card."""
     if d not in _KERNEL_HEAD_DIMS:
         raise ValueError(
-            f"{entry}: head_dim {d} not compiled (1 <= D <= 128)"
+            f"{entry}: head_dim {d} not compiled (1 <= D <= 256)"
         )
     return next(c for c in _COMPILED_DIMS if c >= d)
+
+
+def _body(entry, dtype, dc):
+    """The body a call of compiled head dim ``dc`` runs (a mirror of the
+    C source's ``flash_body``, which decides on the card): tensor cores
+    for B5 and B7 in bf16 at ``dc <= 128``, the CUDA cores otherwise
+    (f32, ``dc = 256``, every B6 call)."""
+    if (entry != "mlapi_flash_backward_dq" and dtype == torch.bfloat16
+            and dc <= 128):
+        return "mma"
+    return "fma"
 
 
 def _pad(t, dc):
@@ -204,16 +225,25 @@ def _pad(t, dc):
     return torch.nn.functional.pad(t, (0, dc - t.shape[-1]))
 
 
+def _mask_bytes(mask):
+    """The key mask as the kernels read it, bytes ``[B, Lk]`` with nonzero
+    = attend: a bool mask viewed as it is, any other compared with 0."""
+    if mask.dtype != torch.bool:
+        mask = mask != 0
+    return mask.view(torch.uint8).contiguous()
+
+
 def _launch(entry, q, k, v, mask, causal, scale, window, ptrs, dout=None):
     """Validate, then one C call of ``entry`` (head dims compiled only:
     the wrappers pad the others); ``ptrs`` are the output (and
-    lse/delta) pointers that follow dO in its argument list."""
+    lse/delta) pointers that follow dO in its argument list. Returns the
+    body that ran, as the C entry point reports it."""
     b, lq, h, d = q.shape
     lk, kvh = k.shape[1], k.shape[2]
     if d not in _COMPILED_DIMS:
         raise ValueError(
             f"{entry}: head_dim {d} not compiled (one of {_COMPILED_DIMS}; "
-            "the wrappers pad 1 <= D <= 128 to them)"
+            "the wrappers pad 1 <= D <= 256 to them)"
         )
     if q.dtype not in _DTYPE_CODES:
         raise ValueError(f"{entry}: unsupported dtype {q.dtype}")
@@ -234,16 +264,18 @@ def _launch(entry, q, k, v, mask, causal, scale, window, ptrs, dout=None):
     strides = [s for t in tensors for s in t.stride()[:3]]
     strides += [0] * (12 - len(strides))
     stride_arr = (ctypes.c_longlong * 12)(*strides)
-    keep = (mask != 0).to(torch.uint8).contiguous()
+    keep = _mask_bytes(mask)
+    body = ctypes.c_int(-1)
     rc = _entries()[entry](
         *(t.data_ptr() for t in tensors[:3]), keep.data_ptr(),
         *(t.data_ptr() for t in tensors[3:]), *ptrs,
         ctypes.addressof(stride_arr), _DTYPE_CODES[q.dtype], b, lq, lk, h,
         kvh, d, int(causal), int(window or 0), float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        torch.cuda.current_stream(q.device).cuda_stream, ctypes.byref(body),
     )
     if rc != 0:
         raise RuntimeError(f"{entry} launch failed: cudaError {rc}")
+    return _BODY_NAMES[body.value]
 
 
 def flash_forward(q, k, v, mask, *, causal=False, scale, window=None):
@@ -256,9 +288,10 @@ def flash_forward(q, k, v, mask, *, causal=False, scale, window=None):
     dc = _compiled_d("mlapi_flash_forward", d)
     out = torch.empty((b, lq, h, dc), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
-    _launch("mlapi_flash_forward", _pad(q, dc), _pad(k, dc), _pad(v, dc),
-            mask, causal, scale, window, [out.data_ptr(), lse.data_ptr()])
-    flash_forward.launches += 1
+    body = _launch("mlapi_flash_forward", _pad(q, dc), _pad(k, dc),
+                   _pad(v, dc), mask, causal, scale, window,
+                   [out.data_ptr(), lse.data_ptr()])
+    _count(flash_forward, body)
     return (out if dc == d else out[..., :d].contiguous()), lse
 
 
@@ -281,10 +314,11 @@ def flash_backward_dq(q, k, v, mask, dout, lse, delta, *, causal=False,
     d = q.shape[-1]
     dc = _compiled_d("mlapi_flash_backward_dq", d)
     dq = torch.empty(q.shape[:-1] + (dc,), dtype=q.dtype, device=q.device)
-    _launch("mlapi_flash_backward_dq", _pad(q, dc), _pad(k, dc), _pad(v, dc),
-            mask, causal, scale, window,
-            [lse.data_ptr(), delta.data_ptr(), dq.data_ptr()], _pad(dout, dc))
-    flash_backward_dq.launches += 1
+    body = _launch("mlapi_flash_backward_dq", _pad(q, dc), _pad(k, dc),
+                   _pad(v, dc), mask, causal, scale, window,
+                   [lse.data_ptr(), delta.data_ptr(), dq.data_ptr()],
+                   _pad(dout, dc))
+    _count(flash_backward_dq, body)
     return dq if dc == d else dq[..., :d].contiguous()
 
 
@@ -301,19 +335,21 @@ def flash_backward_dkv(q, k, v, mask, dout, lse, delta, *, causal=False,
     dc = _compiled_d("mlapi_flash_backward_dkv", d)
     dk = torch.empty(k.shape[:-1] + (dc,), dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape[:-1] + (dc,), dtype=v.dtype, device=v.device)
-    _launch("mlapi_flash_backward_dkv", _pad(q, dc), _pad(k, dc),
-            _pad(v, dc), mask, causal, scale, window,
-            [lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr()],
-            _pad(dout, dc))
-    flash_backward_dkv.launches += 1
+    body = _launch("mlapi_flash_backward_dkv", _pad(q, dc), _pad(k, dc),
+                   _pad(v, dc), mask, causal, scale, window,
+                   [lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+                    dv.data_ptr()],
+                   _pad(dout, dc))
+    _count(flash_backward_dkv, body)
     if dc != d:
         dk, dv = dk[..., :d].contiguous(), dv[..., :d].contiguous()
     return dk, dv
 
 
-flash_forward.launches = 0
-flash_backward_dq.launches = 0
-flash_backward_dkv.launches = 0
+for _fn in (flash_forward, flash_backward_dq, flash_backward_dkv):
+    _fn.launches = 0
+    _fn.bodies = {"mma": 0, "fma": 0}
+del _fn
 
 
 class _Flash(torch.autograd.Function):
@@ -355,6 +391,10 @@ def flash_attention_with_lse(q, k, v, mask=None, *, causal: bool = False,
     k = maybe_dequant_kv(k, q.dtype)
     v = maybe_dequant_kv(v, q.dtype)
     mask, scale = _prepare(q, k, v, mask, causal, scale, window)
+    if q.device.type == "cuda" and mask.dtype != torch.bool:
+        # The kernels read nonzero as attend: one comparison here, not one
+        # in each of B5, B6 and B7.
+        mask = mask != 0
     return _Flash.apply(q, k, v, mask, causal, scale, window)
 
 

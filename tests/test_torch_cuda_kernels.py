@@ -185,7 +185,7 @@ def test_strided_query_from_the_fused_projection(card):
 
 
 def test_unsupported_head_dim_raises_not_falls_back(card):
-    q, k, v, mask = _case(card, 2, 1, 4, 4, 64, 160, torch.bfloat16,
+    q, k, v, mask = _case(card, 2, 1, 4, 4, 64, 288, torch.bfloat16,
                           "none", seed=2)
     n0 = kern.decode_attention.launches
     with pytest.raises(ValueError, match="head_dim"):
@@ -438,9 +438,9 @@ def test_flash_reads_strided_views_of_a_fused_projection(card):
 
 
 def test_flash_head_dim_other_than_64_raises(card):
-    q = torch.zeros(2, 32, 4, 160, device=card, dtype=torch.bfloat16)
+    q = torch.zeros(2, 32, 4, 288, device=card, dtype=torch.bfloat16)
     n0 = kern.flash_forward.launches
-    with pytest.raises(ValueError, match="head_dim 160 not compiled"):
+    with pytest.raises(ValueError, match="head_dim 288 not compiled"):
         kern.flash_attention(q, q, q)
     assert kern.flash_forward.launches == n0
 
@@ -478,7 +478,7 @@ def _decode_case(card, b, h, kvh, length, d, fmt, seed):
 
 @pytest.mark.parametrize("fmt", list(DECODE_FORMATS))
 @pytest.mark.parametrize("group", [1, 2, 4, 6])
-@pytest.mark.parametrize("d", [12, 16, 32, 64, 128])
+@pytest.mark.parametrize("d", [12, 16, 32, 64, 128, 160, 256])
 def test_decode_body_matches_plain(card, d, group, fmt):
     """B1's decode body against its plain version at every context length
     a served window reaches (1, 48, 416, 1000, 1024), with a batch row
@@ -494,7 +494,7 @@ def test_decode_body_matches_plain(card, d, group, fmt):
 
 @pytest.mark.parametrize("page", [8, 16, 64])
 @pytest.mark.parametrize("fmt", ["bf16", "int8", "f32"])
-@pytest.mark.parametrize("d", [12, 32, 128])
+@pytest.mark.parametrize("d", [12, 32, 128, 160, 256])
 def test_paged_decode_body_equals_contiguous(card, d, fmt, page):
     """B3 on the decode body: within tolerance of its plain version, and
     bit for bit B1 over the same bytes (group 4, a dead batch row)."""
@@ -566,10 +566,11 @@ def test_extend_mma_head_dims(card, d, fmt):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("d", [12, 48])
+@pytest.mark.parametrize("d", [12, 48, 160, 256])
 def test_extend_uncompiled_head_dim_runs_the_fma_body(card, d, dtype):
     """A head dim outside {16, 32, 64, 128} runs the CUDA-core body at the
-    next compiled dim over the cache as it is, contiguous and paged."""
+    next compiled dim (256 included) over the cache as it is, contiguous
+    and paged."""
     q, k, v, mask = _span_case_d(card, 2, 9, 8, 2, 200, 60, d, dtype,
                                  "none", seed=d)
     got = _check_body(kern.extend_attention, "fma", (q, k, v, mask),
@@ -583,11 +584,11 @@ def test_extend_uncompiled_head_dim_runs_the_fma_body(card, d, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("d", [12, 16, 32, 128])
+@pytest.mark.parametrize("d", [12, 16, 32, 128, 160, 256])
 def test_flash_kernels_head_dims(card, d, dtype):
-    """B5-B7 at head dims other than 64 (12 through the wrappers' zero
-    padding): against the plain versions, GQA, causal, a dead batch row;
-    the autograd Function's gradients too."""
+    """B5-B7 at head dims other than 64 (12 and 160 through the wrappers'
+    zero padding): against the plain versions, GQA, causal, a dead batch
+    row; the autograd Function's gradients too."""
     from mlapi_tpu_torch.ops.cuda.flash_attention import _keep
 
     rng = np.random.default_rng(d)
@@ -643,3 +644,142 @@ def test_flash_kernels_head_dims(card, d, dtype):
         assert x.grad.shape == w.shape
         err = (x.grad.float() - w.float()).abs().max().item()
         assert err <= 2e-2 * max(w.float().abs().max().item(), 1e-3), err
+
+
+# -- B5 and B7 on the tensor cores (bf16, D <= 128) ------------------------
+
+FLASH = ("flash_forward", "flash_backward_dq", "flash_backward_dkv")
+
+
+def _flash_bf16_case(card, b, length, h, kvh, d, seed, dead_row=True):
+    """q/k/v N(0, 1) and dO 0.1 * N(0, 1) in bf16; key lengths drawn per
+    batch row, the last row fully masked when ``dead_row``."""
+    rng = np.random.default_rng(seed)
+
+    def t(*shape, s=1.0):
+        return torch.as_tensor(s * rng.standard_normal(shape),
+                               dtype=torch.float32).to(card, torch.bfloat16)
+
+    q, k, v = t(b, length, h, d), t(b, length, kvh, d), t(b, length, kvh, d)
+    lens = rng.integers(length // 2, length + 1, b)
+    mask = (torch.arange(length)[None] < torch.as_tensor(lens)[:, None])
+    if dead_row:
+        mask[-1] = False
+    return q, k, v, mask.to(card, torch.float32), t(b, length, h, d, s=0.1)
+
+
+def _flash_run(q, k, v, mask, dout, cfg, bodies):
+    """B5, B6 and B7 once each against their plain versions (B6/B7 from
+    the plain forward's lse): each launches once on the named body;
+    within FLASH_TOL on live rows (absolute and relative to the largest
+    value), exact zeros where nothing is attended, lse within 1e-4.
+    Returns the kernels' (out, lse, dq, dk, dv)."""
+    from mlapi_tpu_torch.ops.cuda.flash_attention import _keep
+
+    b, lq, _, _ = q.shape
+    lk = k.shape[1]
+    fns = [getattr(kern, w) for w in FLASH]
+    n0 = [f.launches for f in fns]
+    b0 = [dict(f.bodies) for f in fns]
+    out, lse = kern.flash_forward(q, k, v, mask, **cfg)
+    out_p, lse_p = kern.flash_forward_plain(q, k, v, mask, **cfg)
+    delta = (dout.float() * out_p.float()).sum(-1).transpose(1, 2)
+    delta = delta.contiguous()
+    dq = kern.flash_backward_dq(q, k, v, mask, dout, lse_p, delta, **cfg)
+    dk, dv = kern.flash_backward_dkv(q, k, v, mask, dout, lse_p, delta, **cfg)
+    torch.cuda.synchronize()
+    for f, n, b_, body in zip(fns, n0, b0, bodies):
+        assert f.launches == n + 1
+        assert f.bodies[body] == b_[body] + 1, (f.__name__, f.bodies)
+    dq_p, dk_p, dv_p = kern.flash_backward_plain(q, k, v, mask, dout, lse_p,
+                                                 delta, **cfg)
+    keep = _keep(mask, cfg["causal"], cfg["window"], lq, lk)[:, 0]
+    keep = keep.expand(b, lq, lk)
+    live_q, live_k = keep.any(-1), keep.any(-2)
+    tol = FLASH_TOL[q.dtype]
+    for name, got, want, live in (
+        ("out", out, out_p, live_q), ("dq", dq, dq_p, live_q),
+        ("dk", dk, dk_p, live_k), ("dv", dv, dv_p, live_k),
+    ):
+        assert got.shape == want.shape and torch.isfinite(got).all(), name
+        err = (got.float() - want.float()).abs()[live].max().item()
+        ref = want.float().abs()[live].max().item()
+        assert err <= tol and err <= tol * ref, (name, err, ref)
+        assert not got[~live].any(), name
+    err = (lse - lse_p).abs()[live_q[:, None, :].expand_as(lse)].max().item()
+    assert err <= 1e-4, err
+    # A query row with no valid key: lse at NEG, as the plain version's.
+    dead = ~live_q[:, None, :].expand_as(lse)
+    assert not dead.any() or bool((lse[dead] <= -1e29).all())
+    return out, lse, dq, dk, dv
+
+
+@pytest.mark.parametrize("causal,window", [(False, None), (True, None),
+                                           (True, 48)])
+@pytest.mark.parametrize("group", [1, 4])
+@pytest.mark.parametrize("length", [100, 128, 1000])
+def test_flash_mma_bodies_match_plain(card, length, group, causal, window):
+    """B5 and B7 in bf16 at D = 64 on the tensor-core bodies (B6 on the
+    CUDA cores): ragged key lengths, a batch row with no valid key, GQA
+    group 1 and 4, causal with and without a sliding window."""
+    h = 8
+    args = _flash_bf16_case(card, 2, length, h, h // group, 64,
+                            seed=length + group)
+    cfg = dict(causal=causal, scale=0.125, window=window)
+    _flash_run(*args, cfg, ("mma", "fma", "mma"))
+
+
+@pytest.mark.parametrize("d", [16, 64, 128])
+def test_flash_mma_bodies_head_dims(card, d):
+    """The tensor-core bodies at D = 16, 64 and 128 (B7 holds K and V as
+    fragments up to 64, reads them per product at 128), causal GQA."""
+    args = _flash_bf16_case(card, 3, 300, 8, 2, d, seed=d)
+    cfg = dict(causal=True, scale=d ** -0.5, window=None)
+    _flash_run(*args, cfg, ("mma", "fma", "mma"))
+
+
+def test_flash_mma_reads_strided_views(card):
+    """q, k, v and dO as views of fused projections (heads strided by
+    3H * D): B5 and B7 on the tensor cores give the same bits as on
+    contiguous copies."""
+    q, k, v, mask, dout = _flash_bf16_case(card, 2, 200, 12, 12, 64, seed=8)
+    views = torch.cat([q, k, v], dim=2).split(12, dim=2)
+    g_view = torch.cat([dout, dout, dout], dim=2)[:, :, :12]
+    assert not views[0].is_contiguous() and not g_view.is_contiguous()
+    cfg = dict(causal=True, scale=0.125, window=None)
+    n0 = (kern.flash_forward.bodies["mma"],
+          kern.flash_backward_dkv.bodies["mma"])
+    got = kern.flash_forward(*views, mask, **cfg)
+    want = kern.flash_forward(q, k, v, mask, **cfg)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    lse = want[1]
+    delta = (dout.float() * want[0].float()).sum(-1).transpose(1, 2)
+    delta = delta.contiguous()
+    got = kern.flash_backward_dkv(*views, mask, g_view, lse, delta, **cfg)
+    want = kern.flash_backward_dkv(q, k, v, mask, dout, lse, delta, **cfg)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert (kern.flash_forward.bodies["mma"],
+            kern.flash_backward_dkv.bodies["mma"]) == (n0[0] + 2, n0[1] + 2)
+
+
+def test_flash_mma_dkv_is_deterministic(card):
+    """B7 sums a GQA group's heads and query tiles in one block, in a
+    fixed order: two runs give the same bits."""
+    q, k, v, mask, dout = _flash_bf16_case(card, 2, 1000, 16, 4, 64, seed=9)
+    cfg = dict(causal=True, scale=0.125, window=None)
+    _, lse = kern.flash_forward(q, k, v, mask, **cfg)
+    delta = torch.randn(lse.shape, device=card) * 0.1
+    first = kern.flash_backward_dkv(q, k, v, mask, dout, lse, delta, **cfg)
+    again = kern.flash_backward_dkv(q, k, v, mask, dout, lse, delta, **cfg)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.parametrize("d", [64, 256])
+def test_flash_f32_and_d256_keep_the_cuda_core_bodies(card, d):
+    """f32 (exact f32, no TF32) and bf16 at D = 256 run the CUDA-core
+    bodies of B5 and B7."""
+    q, k, v, mask, dout = _flash_bf16_case(card, 2, 130, 4, 2, d, seed=d)
+    cfg = dict(causal=True, scale=d ** -0.5, window=None)
+    if d == 64:
+        q, k, v, dout = (x.float() for x in (q, k, v, dout))
+    _flash_run(q, k, v, mask, dout, cfg, ("fma", "fma", "fma"))

@@ -149,10 +149,13 @@ def test_python_geometry_matches_the_cuda_source():
     assert most == const("kMaxCluster")
     assert geo_mod._DECODE_TILE_BYTES == const("kDecTileBytes")
     # The dispatch, head-dim rounding and decode geometry _geometry mirrors.
-    assert "return extend && dtype == 1 && U > 1 && compiled_d(D) == D;" in src
+    assert ("return extend && dtype == 1 && U > 1 && compiled_d(D) == D "
+            "&& D <= 128;") in src
     assert "if (!extend) return kBodyDecode;" in src
-    assert ("return d <= 16 ? 16 : d <= 32 ? 32 : d <= 64 ? 64 : "
-            "d <= 128 ? 128 : 0;") in src
+    assert re.search(
+        r"return d <= 16\s+\? 16\s+: d <= 32\s+\? 32\s+: d <= 64\s+\? 64"
+        r"\s+: d <= 128 \? 128\s+: d <= 256 \? 256\s+: 0;", src)
+    assert "return f32_cache && d_c <= 128 ? 4 : 8;" in src
     assert "return kDecTileBytes / (d_c * itemsize);" in src
     assert "dec_tile_keys(compiled_d(D), quant ? 1 : dtype == 0 ? 4 : 2)" in src
     assert ("return group == 1 ? 1 : group == 2 ? 2 : group <= 4 ? 4 : 8;"
@@ -175,7 +178,7 @@ DECODE_SHAPES = [  # b, h, kvh, lk
 def _decode_cases():
     for entry in DECODE:
         for b, h, kvh, lk in DECODE_SHAPES:
-            for d in (12, 16, 32, 64, 100, 128):
+            for d in (12, 16, 32, 64, 100, 128, 160, 256):
                 for dtype, quant in ((torch.bfloat16, False),
                                      (torch.float32, False),
                                      (torch.bfloat16, True)):
@@ -229,12 +232,12 @@ def test_decode_cluster_covers_every_tile_and_head_once(entry, dtype, quant,
 
 
 def test_every_head_dim_maps_to_the_next_compiled_one():
-    """1 <= D <= 128 run: the CUDA-core bodies at the next of 16, 32, 64,
-    128; the tensor-core body only at those four."""
-    for d in range(1, 129):
+    """1 <= D <= 256 run: the CUDA-core bodies at the next of 16, 32, 64,
+    128, 256; the tensor-core body only at the first four."""
+    for d in range(1, 257):
         dc = geo_mod._compiled_d(d)
-        assert dc == min(c for c in (16, 32, 64, 128) if c >= d)
+        assert dc == min(c for c in (16, 32, 64, 128, 256) if c >= d)
         body = _geometry(EXTEND[0], torch.bfloat16, 2, 40, 8, 2, 456, d,
                          132).body
-        assert body == ("mma" if d == dc else "fma")
-    assert list(geo_mod._KERNEL_HEAD_DIMS) == list(range(1, 129))
+        assert body == ("mma" if d == dc and d <= 128 else "fma")
+    assert list(geo_mod._KERNEL_HEAD_DIMS) == list(range(1, 257))

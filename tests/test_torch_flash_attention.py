@@ -126,10 +126,10 @@ def test_kv_head_mismatch_and_head_dim_refused():
     k = torch.zeros(B, L, 4, D)
     with pytest.raises(ValueError, match="head counts disagree"):
         port.flash_attention(q, k, torch.zeros(B, L, 2, D))
-    # The card's wrappers take head dims up to 128, and refuse a larger
+    # The card's wrappers take head dims up to 256, and refuse a larger
     # one before anything reaches the card.
-    wide = torch.zeros(B, L, 4, 160)
-    with pytest.raises(ValueError, match="head_dim 160 not compiled"):
+    wide = torch.zeros(B, L, 4, 288)
+    with pytest.raises(ValueError, match="head_dim 288 not compiled"):
         port._launch("mlapi_flash_forward", wide, wide, wide,
                       torch.ones(B, L), False, 0.25, None, [])
 

@@ -1,14 +1,15 @@
 """Head dims other than GPT-2's 64: the port's plain versions of B1, B3
 and B5-B7 against the JAX package's Pallas kernels (CPU).
 
-The CUDA kernels take every head dim up to 128 (compiled for 16, 32, 64
-and 128; others run at the next compiled dim, or -- B5-B7 -- are
+The CUDA kernels take every head dim up to 256 (compiled for 16, 32, 64,
+128 and 256; others run at the next compiled dim, or -- B5-B7 -- are
 zero-padded to it by the wrappers). On the card they are held against
 these plain versions (``tests/test_torch_cuda_kernels.py``,
 ``chip_smoke.py``); here the plain versions are held against the
 reference at D = 12 (docs-gpt-draft), 16 (docsclf-bert), 32 (docs-gpt,
-docs-llama) and 128 (Llama-class), the Pallas kernels in interpret mode
-as the JAX package's own tests run them on the CPU. Each interpret-mode
+docs-llama), 128 (Llama-class), 160 (padded to 256) and 256 (the widest
+public decoder heads), the Pallas kernels in interpret mode as the JAX
+package's own tests run them on the CPU. Each interpret-mode
 compile costs about a second, so the grid is sparse: each head dim runs
 once per kernel, B1 and B3 with opposite groups (1 and 4) and the
 formats rotating, so that each kernel meets both groups and all three
@@ -41,7 +42,7 @@ CDT = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": torch.bfloat16}
 FORMATS = ("f32", "bf16", "int8")
 # (D, KV heads: group 1 or 4, format) for B1; B3 takes the other group
 # and the next format.
-DIMS = (12, 16, 32, 128)
+DIMS = (12, 16, 32, 128, 160, 256)
 CELLS = [(d, H if i % 2 == 0 else H // 4, FORMATS[i % 3])
          for i, d in enumerate(DIMS)]
 PAGED_CELLS = [(d, H // 4 if i % 2 == 0 else H, FORMATS[(i + 1) % 3])
@@ -120,7 +121,8 @@ def test_paged_decode_plain_matches_pallas_at_head_dim(d, kvh, fmt):
     _compare(got[:, 0], want[:, 0], mask, fmt)
 
 
-FLASH_CELLS = [(12, "float32"), (32, "float32"), (128, "bfloat16")]
+FLASH_CELLS = [(12, "float32"), (32, "float32"), (128, "bfloat16"),
+               (160, "float32"), (256, "bfloat16")]
 FLASH_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 
 
@@ -196,12 +198,12 @@ def test_flash_zero_padding_is_exact(d):
 
 
 def test_head_dims_past_128_are_refused():
-    with pytest.raises(ValueError, match="head_dim 160 not compiled"):
-        flash._compiled_d("mlapi_flash_forward", 160)
-    q = torch.empty((2, 1, 4, 160), dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="head_dim 288 not compiled"):
+        flash._compiled_d("mlapi_flash_forward", 288)
+    q = torch.empty((2, 1, 4, 288), dtype=torch.bfloat16, device="meta")
     mask = torch.empty((2, 64), dtype=torch.bool, device="meta")
     n0 = kern.decode_attention.launches
-    with pytest.raises(ValueError, match="head_dim 160 not compiled"):
-        kern.decode_attention(q, q.new_empty((2, 64, 4, 160)),
-                              q.new_empty((2, 64, 4, 160)), mask)
+    with pytest.raises(ValueError, match="head_dim 288 not compiled"):
+        kern.decode_attention(q, q.new_empty((2, 64, 4, 288)),
+                              q.new_empty((2, 64, 4, 288)), mask)
     assert kern.decode_attention.launches == n0
