@@ -20,9 +20,10 @@ the JAX package. Phases, each fatal on failure:
    for B2/B4 a GQA row (16 query heads on 4 KV heads) and a ragged one
    (U = 100, L = 1000, 8-token pages), for B1/B3 a GQA row, and B1-B4
    rows at Llama-class widths (32 query heads on 8 KV heads of 128),
-   docs-gpt's (4 heads of 32; B1/B3 in f32 too) and head dims 160 and
-   256 (8 query heads on 4 KV heads; B1/B3 at 256 in f32 too): each
-   wrapper against
+   docs-gpt's (4 heads of 32; B1/B3 in f32 too) and head dims 160,
+   256, 320 and 512 (8 query heads on 4 KV heads; B1/B3 at 256 in f32
+   too; past 256 every B1-B4 call runs the CUDA-core split-K body in
+   256-wide column chunks): each wrapper against
    its plain PyTorch version (max abs error on live rows <= 2e-2, 1e-5
    in f32, exact zeros on rows with no valid key), each paged kernel
    against its contiguous twin over the same bytes (bit for bit); each
@@ -34,17 +35,19 @@ the JAX package. Phases, each fatal on failure:
    mask with the last row fully masked), (b) GPT-2 small causal (B = 8,
    L = 1024, bf16), (c) a GQA sliding window in float32, (d) docs-gpt's
    batch (head dim 32, float32, causal), (e) Llama-class causal GQA
-   (head dim 128, bf16) and causal bf16 rows at head dims 256 (8 heads)
-   and 160 (8 on 4 KV heads): each against its plain version
+   (head dim 128, bf16) and causal bf16 rows at head dims 256 and 512
+   (8 heads) and 160 and 320 (8 on 4 KV heads; 320 and 512 in two
+   256-wide column chunks): each against its plain version
    (<= 2e-2 bf16, <= 1e-4 f32 on live rows, exact zeros where nothing
    is attended), each row naming the body that ran (``mma``: tensor
-   cores, every bf16 B5/B7 call at D <= 128; ``fma``) as the C entry
+   cores, every bf16 call at D <= 128; ``fma``) as the C entry
    point reports it to the wrapper's counters, held to the wrapper's
    mirror of that dispatch. Every kernel
    is timed beside its plain version,
    ``scaled_dot_product_attention`` (a yardstick the port never calls;
    on the gathered contiguous copy for B3/B4; forward + backward minus
-   forward for B6/B7) and the card's bound for the same work. ``ms`` is
+   forward for B6/B7, eager as ``library_ms`` and CUDA-graph captured as
+   ``library_graph_ms``) and the card's bound for the same work. ``ms`` is
    device time (each call captured in a CUDA graph, graphs replayed in
    turn over enough input copies to defeat the L2, CUDA events: it
    includes the gap between two replays); B1-B4 rows add ``device_ms``,
@@ -57,8 +60,8 @@ the JAX package. Phases, each fatal on failure:
    random weights from the preset's seed) for 30 steps and its test-set
    evaluation, with the launch counters zeroed just before and read
    just after: B5 exactly 12 per step and per eval batch, B6 and B7 12
-   per step, B1-B4 none, every B5 and B7 launch on the tensor-core body
-   and every B6 launch on the CUDA-core one; the checkpoint it writes
+   per step, B1-B4 none, every B5, B6 and B7 launch on the tensor-core
+   body; the checkpoint it writes
    must read back (tree signature and label vocab). Then one step's
    loss and gradients with flash against full attention from the same
    weights on the same batch, and one profiled step (device time,
@@ -354,7 +357,7 @@ def check_kernels(power):
     # row; and B1-B4 rows at Llama-class widths (32 query heads on 8 KV
     # heads, head dim 128), at docs-gpt's (4 heads of 32, its 256
     # positions; B1/B3 in f32 too, the preset's dtype) and at head dims
-    # 160 and 256 (8 query heads on 4 KV heads, L = 512).
+    # 160, 256, 320 and 512 (8 query heads on 4 KV heads, L = 512).
     shapes = [
         ("decode_attention", 8, 1, 48, 47),
         ("decode_attention", 1, 1, 48, 47),
@@ -386,8 +389,9 @@ def check_kernels(power):
                        255 if decode else 128, docs_gpt))
         if decode:
             shapes.append((name, 8, 1, 256, 255, dict(docs_gpt, f32=True)))
-        # Head dims past 128: the CUDA-core bodies (decode, fma).
-        for d in (160, 256):
+        # Head dims past 128: the CUDA-core bodies (decode, fma; past 256
+        # fma in column chunks for every entry point).
+        for d in (160, 256, 320, 512):
             shapes.append((name, 2, 1 if decode else 64, 512,
                            511 if decode else 448, dict(h=8, kvh=4, d=d)))
         if decode:
@@ -468,7 +472,8 @@ def check_kernels(power):
                 "bytes": nbytes, "flops": flops, "card": power,
             }
             emit(row)
-            if ran != [geo.body] or (u == 1 and ran != ["decode"]):
+            if ran != [geo.body] or (u == 1 and d <= 256
+                                     and ran != ["decode"]):
                 raise SystemExit(
                     f"{name} {fmt} B={b} U={u} L={length} D={d}: ran the "
                     f"bodies {ran}, the geometry says {geo.body}"
@@ -1197,8 +1202,9 @@ def flash_shapes(sst2_x):
     GQA sliding window in float32 with ragged key lengths, (d) docs-gpt's
     training batch (64 x 128 tokens, 4 heads of 32, float32, causal),
     (e) Llama-class causal GQA (32 query heads on 8 KV heads of 128, bf16,
-    L = 1024), and causal bf16 at head dims 256 (8 heads) and 160 (8 on 4
-    KV heads, zero-padded to 256 by the wrappers), B = 2, L = 256."""
+    L = 1024), and causal bf16 at head dims 256 and 512 (8 heads) and 160
+    and 320 (8 on 4 KV heads, zero-padded to 256 and 512 by the
+    wrappers), B = 2, L = 256."""
     import numpy as np
 
     lengths = (sst2_x != 0).sum(axis=1)
@@ -1212,6 +1218,8 @@ def flash_shapes(sst2_x):
         ("llama-d128", 2, 1024, 32, 8, "bfloat16", True, None, None, 128),
         ("d256-causal", 2, 256, 8, 8, "bfloat16", True, None, None, 256),
         ("d160-gqa", 2, 256, 8, 4, "bfloat16", True, None, None, 160),
+        ("d320-gqa", 2, 256, 8, 4, "bfloat16", True, None, None, 320),
+        ("d512-causal", 2, 256, 8, 8, "bfloat16", True, None, None, 512),
     ]
 
 
@@ -1327,8 +1335,7 @@ def check_flash_kernels(power, sst2_x):
         ran = {w: [x for x, n in getattr(kern, w).bodies.items()
                    if n != before[w][x]] for w in FLASH}
         dc = wrappers._compiled_d(name, d)
-        want_body = {w: wrappers._body("mlapi_" + w, q.dtype, dc)
-                     for w in FLASH}
+        want_body = {w: wrappers._body(q.dtype, dc) for w in FLASH}
         dq_p, dk_p, dv_p = kern.flash_backward_plain(
             q, k, v, mask, dout, lse_p, delta, **cfg)
         keep = _keep(mask, causal, window, length, length)[:, 0]
@@ -1370,6 +1377,10 @@ def check_flash_kernels(power, sst2_x):
         lib_fwd = graph_ms([f for f, _ in sdpa])
         lib_bwd = (cuda_ms([fb for _, fb in sdpa], iters=20)
                    - cuda_ms([f for f, _ in sdpa], iters=20))
+        # The same difference with forward and forward + backward each
+        # captured in a CUDA graph: host launch costs drop out.
+        lib_bwd_graph = (graph_ms([fb for _, fb in sdpa], iters=20)
+                         - graph_ms([f for f, _ in sdpa], iters=20))
         del sdpa
         peak = BF16_FLOPS_PER_S if dtype == "bfloat16" else F32_FLOPS_PER_S
         for which in FLASH:
@@ -1409,9 +1420,12 @@ def check_flash_kernels(power, sst2_x):
                                      iters=6),
                 "library_ms": lib_fwd if which == "flash_forward"
                 else lib_bwd,
+                "library_graph_ms": lib_fwd if which == "flash_forward"
+                else lib_bwd_graph,
                 "library": "sdpa forward" if which == "flash_forward"
                 else "sdpa forward+backward minus forward (dq, dk, dv "
-                     "together), eager",
+                     "together), eager; library_graph_ms the same from "
+                     "CUDA-graph replays",
                 "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "bound_share": max(t_bytes, t_ops) / kernel_ms,
@@ -1524,13 +1538,9 @@ def train_run(cfg, splits):
         raise SystemExit(f"sst2-bert: non-finite loss: {row}")
     if launches != want:
         raise SystemExit(f"sst2-bert: launches {launches}, want {want}")
-    # bf16 at head dim 64: B5 and B7 on the tensor cores, B6 on the CUDA
-    # cores, every launch.
-    want_bodies = {
-        "flash_forward": {"mma": want["flash_forward"], "fma": 0},
-        "flash_backward_dq": {"mma": 0, "fma": want["flash_backward_dq"]},
-        "flash_backward_dkv": {"mma": want["flash_backward_dkv"], "fma": 0},
-    }
+    # bf16 at head dim 64: B5, B6 and B7 on the tensor cores, every
+    # launch.
+    want_bodies = {name: {"mma": want[name], "fma": 0} for name in FLASH}
     if bodies != want_bodies:
         raise SystemExit(f"sst2-bert: bodies {bodies}, want {want_bodies}")
     if not ckpt_ok:
@@ -1811,6 +1821,7 @@ def main() -> int:
             "bound_ms": main_row["bound_ms"],
             "bound_by": main_row["bound_by"],
             "library_ms": main_row["library_ms"],
+            "library_graph_ms": main_row["library_graph_ms"],
         })
     emit({"kernels": summary})
     print(power, flush=True)

@@ -18,28 +18,31 @@
 // index map, done per key row here), so a tile may straddle pages of any
 // size. The result is [B, U, H, d] in q's dtype.
 //
-// Head dims: the CUDA-core bodies are compiled for D in {16, 32, 64, 128,
-// 256}, the tensor-core body for {16, 32, 64, 128} (at 256 its O
-// accumulators alone would take 128 registers a thread and its ring 235
-// KB). A call with another d <= 256 (12, 48, 160, ...) runs a CUDA-core
-// body at the next compiled D with the runtime d: loads and stores are
-// guarded per element, and a cache row whose d elements are no whole
-// number of the body's copy chunks is read element by element. The cache
-// is never copied or padded. D > 256 is refused before any launch.
+// Head dims: every d >= 1. The CUDA-core bodies are compiled for D in
+// {16, 32, 64, 128, 256}, the tensor-core body for {16, 32, 64, 128} (at
+// 256 its O accumulators alone would take 128 registers a thread and its
+// ring 235 KB). A call with another d <= 256 (12, 48, 160, ...) runs a
+// CUDA-core body at the next compiled D with the runtime d: loads and
+// stores are guarded per element, and a cache row whose d elements are no
+// whole number of the body's copy chunks is read element by element. A
+// call with d > 256 runs splitk_attention_kernel at D = 256 in
+// nd = ceil(d / 256) column chunks (below). The cache is never copied or
+// padded.
 //
 // Three bodies, chosen by entry point, dtype and d (a dispatch, not a
 // fallback: each call runs exactly one of them, and the wrapper's
 // _geometry() mirrors the choice):
 //
-//   decode_kernel           every decode call (B1, B3), f32 or bf16
-//                           queries over a bf16, f32 or int8 cache;
+//   decode_kernel           every decode call (B1, B3) at d <= 256, f32
+//                           or bf16 queries over a bf16, f32 or int8
+//                           cache;
 //   extend_mma_kernel       the extend entry points (B2, B4) with bf16
 //                           queries, U > 1 and a compiled d <= 128;
-//   splitk_attention_kernel every other extend call: f32 queries (tensor
-//                           cores would need TF32, which breaks the port's
-//                           1e-5 bound in f32; f32 is the card's
-//                           correctness witness), U = 1, uncompiled d,
-//                           d > 128.
+//   splitk_attention_kernel every other call: extend with f32 queries
+//                           (tensor cores would need TF32, which breaks
+//                           the port's 1e-5 bound in f32; f32 is the
+//                           card's correctness witness), U = 1, uncompiled
+//                           d or d > 128, and every call with d > 256.
 //
 // What bounds them on the card: the cache read. A decode step does about
 // one FLOP per byte of K/V (4*H*d FLOPs per key against 2*KVH*d stored
@@ -83,11 +86,21 @@
 //     and dequantised in registers with the JAX arithmetic, bf16(q) *
 //     bf16(scale) rounded once (Ops<bf16>::dequant).
 //
-// splitk_attention_kernel (f32 / U = 1 / uncompiled-d extend): one block of
-// 4 warps owns 32 query rows of one KV head and a split of 32-key tiles;
-// one warp walks one query row at a time, a key per lane, with f32 FMAs
-// from shared memory; a second small kernel merges the splits with the
-// log-sum-exp algebra of the JAX package's _splitk_merge_rows.
+// splitk_attention_kernel (f32 / U = 1 / uncompiled-d extend, d > 256):
+// one block of 4 warps owns 32 query rows of one KV head and a split of
+// 32-key tiles; one warp walks one query row at a time, a key per lane,
+// with f32 FMAs from shared memory; a second small kernel merges the
+// splits with the log-sum-exp algebra of the JAX package's
+// _splitk_merge_rows.
+//   * d > 256: grid x holds nd = ceil(d / 256) column chunks beside the
+//     splits, and each block owns the 256 output columns of its chunk, so
+//     its shared tiles and accumulators keep their D = 256 size. Its
+//     scores sum over all chunks: each 256-wide chunk of q and K streams
+//     through the same q and K tiles in turn, and then the block's own
+//     chunk of V. The blocks of one (split, rows) compute the same scores
+//     in the same order, so m and l are bit-identical across chunks; chunk
+//     0 writes them. The score work grows nd-fold: no model the port runs
+//     has d > 256, and this path is for correctness.
 //
 // extend_mma_kernel (B2/B4 in bf16 and int8): one block of 8 warps owns
 // 64 query rows of one KV head and a split of at most 16 64-key tiles.
@@ -182,15 +195,15 @@ constexpr int kMaxCluster = 8;         // splits of one (b, KV head): one cluste
 enum Body { kBodyFma = 0, kBodyMma = 1, kBodyDecode = 2 };
 
 // The head dim a call compiles to: the least of {16, 32, 64, 128, 256}
-// that holds d, or 0 past 256.
+// that holds d, and 256 past it (run in d_chunks(d) column chunks).
 __host__ __device__ constexpr int compiled_d(int d) {
   return d <= 16    ? 16
          : d <= 32  ? 32
          : d <= 64  ? 64
          : d <= 128 ? 128
-         : d <= 256 ? 256
-                    : 0;
+                    : 256;
 }
+__host__ __device__ constexpr int d_chunks(int d) { return (d + 255) / 256; }
 
 // decode_kernel's geometry: elements in one lane's chunk of a key row (16
 // bytes of f32 or bf16, 8 bytes of int8; 32 bytes of f32 at D = 256, so
@@ -222,7 +235,8 @@ struct Params {
   long long q_sb, q_su, q_sh;
   int B, U, H, KVH, L, S, tiles_per_split, row_chunks;
   int page, NP;         // paged: L == NP * page
-  int d;                // the call's head dim (<= the compiled D)
+  int d;                // the call's head dim (<= the compiled D * nd)
+  int nd;               // splitk: column chunks of the compiled D
   float scale;
 };
 
@@ -726,27 +740,28 @@ __global__ void __launch_bounds__(kDecThreads) decode_kernel(Params p) {
   cluster.sync();   // no block leaves while rank 0 reads its shared memory
 }
 
-// -- splitk_attention_kernel: f32, U = 1 and uncompiled-d extend --------
+// -- splitk_attention_kernel: f32, U = 1, uncompiled-d extend, d > 256 --
 
-// Load one [kTileKeys, D] tile of K or V for head j into shared memory
-// as f32 (dequantised for the int8 format). Keys at or past L, and columns
-// at or past d, load 0; rows of whole 16-byte pieces load 16 bytes a
-// thread, others element by element.
+// Load columns [col0, col0 + D) of one [kTileKeys, d] tile of K or V for
+// head j into shared memory as f32 (dequantised for the int8 format).
+// Keys at or past L, and columns at or past d, load 0; rows of whole
+// 16-byte pieces load 16 bytes a thread, others element by element.
 template <typename T, bool QUANT, bool PAGED, int D>
 __device__ void load_tile(const Params& p, const void* src,
                           const float* scales, int b, int j, int key0,
-                          float* dst, int stride) {
+                          int col0, float* dst, int stride) {
   constexpr int kPer = QUANT ? 16 : Ops<T>::kVec;  // elements per 16 bytes
   constexpr int kVecs = D / kPer;
   const bool vec = p.d % kPer == 0;
   for (int idx = threadIdx.x; idx < kTileKeys * kVecs; idx += kThreads) {
     const int t = idx / kVecs, c = idx % kVecs, key = key0 + t;
+    const int col = col0 + c * kPer;
     float vals[kPer];
 #pragma unroll
     for (int i = 0; i < kPer; ++i) vals[i] = 0.f;
-    if (key < p.L && c * kPer < p.d) {
+    if (key < p.L && col < p.d) {
       const size_t off = kv_row<PAGED>(p, b, key, j);
-      const size_t at = off * p.d + c * kPer;
+      const size_t at = off * p.d + col;
       if constexpr (QUANT) {
         const int8_t* s8 = static_cast<const int8_t*>(src);
         const float s = scales[off];
@@ -758,7 +773,7 @@ __device__ void load_tile(const Params& p, const void* src,
         } else {
 #pragma unroll
           for (int i = 0; i < kPer; ++i)
-            if (c * kPer + i < p.d) vals[i] = Ops<T>::dequant(s8[at + i], s);
+            if (col + i < p.d) vals[i] = Ops<T>::dequant(s8[at + i], s);
         }
       } else {
         const T* st = static_cast<const T*>(src);
@@ -767,7 +782,7 @@ __device__ void load_tile(const Params& p, const void* src,
         } else {
 #pragma unroll
           for (int i = 0; i < kPer; ++i)
-            if (c * kPer + i < p.d) vals[i] = Ops<T>::load(st + at + i);
+            if (col + i < p.d) vals[i] = Ops<T>::load(st + at + i);
         }
       }
     }
@@ -783,10 +798,12 @@ constexpr int splitk_smem_bytes() {
   return 4 * (kRowChunk * (2 * D + 2) + kTileKeys * (2 * D + 1));
 }
 
+// Block (split and column chunk, KV head j and row chunk, b).
 template <typename T, bool QUANT, bool PAGED, int D>
 __global__ void __launch_bounds__(kThreads)
     splitk_attention_kernel(Params p) {
   constexpr int kPerLane = (D + 31) / 32;  // output columns each lane owns
+  constexpr int kRowsPerWarp = kRowChunk / kWarps;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* q_s = reinterpret_cast<float*>(smem_raw);  // [kRowChunk][D]
   float* acc_s = q_s + kRowChunk * D;               // [kRowChunk][D]
@@ -795,7 +812,8 @@ __global__ void __launch_bounds__(kThreads)
   float* k_s = l_s + kRowChunk;                     // [kTileKeys][D + 1]
   float* v_s = k_s + kTileKeys * (D + 1);           // [kTileKeys][D]
 
-  const int split = blockIdx.x;
+  const int split = blockIdx.x % p.S;
+  const int col0 = (blockIdx.x / p.S) * D;  // this block's output columns
   const int j = blockIdx.y / p.row_chunks;
   const int chunk = blockIdx.y % p.row_chunks;
   const int b = blockIdx.z;
@@ -805,15 +823,21 @@ __global__ void __launch_bounds__(kThreads)
   const int nr = min(kRowChunk, rows - r0);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
-  for (int idx = threadIdx.x; idx < nr * D; idx += kThreads) {
-    int r = idx / D, d = idx % D, rr = r0 + r;
-    int u = rr / group, h = j * group + rr % group;
-    q_s[r * D + d] = d < p.d ? Ops<T>::load(static_cast<const T*>(p.q) +
-                                            b * p.q_sb + u * p.q_su +
-                                            h * p.q_sh + d)
-                             : 0.f;
-    acc_s[r * D + d] = 0.f;
-  }
+  // Columns [c0, c0 + D) of the block's query rows -> q_s (0 past d).
+  auto load_q = [&](int c0) {
+    for (int idx = threadIdx.x; idx < nr * D; idx += kThreads) {
+      int r = idx / D, d = idx % D, rr = r0 + r;
+      int u = rr / group, h = j * group + rr % group;
+      q_s[r * D + d] = c0 + d < p.d
+                           ? Ops<T>::load(static_cast<const T*>(p.q) +
+                                          b * p.q_sb + u * p.q_su +
+                                          h * p.q_sh + c0 + d)
+                           : 0.f;
+    }
+  };
+  if (p.nd == 1) load_q(0);   // else streamed with K, chunk by chunk
+  for (int idx = threadIdx.x; idx < nr * D; idx += kThreads)
+    acc_s[idx] = 0.f;
   for (int r = threadIdx.x; r < nr; r += kThreads) {
     m_s[r] = kNeg;
     l_s[r] = 0.f;
@@ -835,22 +859,42 @@ __global__ void __launch_bounds__(kThreads)
     // Also the barrier that keeps the previous tile's readers ahead of
     // this tile's writers.
     if (!__syncthreads_or(live)) continue;  // dead tile: no load, no math
-    load_tile<T, QUANT, PAGED, D>(p, p.k, p.ks, b, j, key0, k_s, D + 1);
-    load_tile<T, QUANT, PAGED, D>(p, p.v, p.vs, b, j, key0, v_s, D);
-    __syncthreads();
+    load_tile<T, QUANT, PAGED, D>(p, p.v, p.vs, b, j, key0, col0, v_s, D);
+    // q . k of this lane's key for the warp's rows (r = warp + 4 i), one
+    // D-wide column chunk after another.
+    float dots[kRowsPerWarp];
+#pragma unroll
+    for (int i = 0; i < kRowsPerWarp; ++i) dots[i] = 0.f;
+    for (int cc = 0; cc < p.nd; ++cc) {
+      if (cc > 0) __syncthreads();  // the previous chunk's readers are done
+      if (p.nd > 1) load_q(cc * D);
+      load_tile<T, QUANT, PAGED, D>(p, p.k, p.ks, b, j, key0, cc * D, k_s,
+                                    D + 1);
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < kRowsPerWarp; ++i) {
+        const int r = warp + kWarps * i;
+        if (r < nr) {
+          float dot = dots[i];
+#pragma unroll 16
+          for (int d = 0; d < D; ++d)
+            dot = fmaf(q_s[r * D + d], k_s[lane * (D + 1) + d], dot);
+          dots[i] = dot;
+        }
+      }
+    }
 
     const int key = key0 + lane;
-    for (int r = warp; r < nr; r += kWarps) {
+#pragma unroll
+    for (int i = 0; i < kRowsPerWarp; ++i) {
+      const int r = warp + kWarps * i;
+      if (r >= nr) break;
       const int u = (r0 + r) / group;
       const float keep =
           key < p.L && p.mask[(static_cast<size_t>(b) * p.U + u) * p.L + key]
               ? 1.f
               : 0.f;
-      float dot = 0.f;
-#pragma unroll 16
-      for (int d = 0; d < D; ++d)
-        dot = fmaf(q_s[r * D + d], k_s[lane * (D + 1) + d], dot);
-      const float s = dot * p.scale + (1.f - keep) * kNeg;
+      const float s = dots[i] * p.scale + (1.f - keep) * kNeg;
       const float m_old = m_s[r];
       const float m_new = fmaxf(m_old, warp_max(s));
       const float pe = expf(s - m_new) * keep;
@@ -859,19 +903,19 @@ __global__ void __launch_bounds__(kThreads)
       const float pv = Ops<T>::round(pe);  // p in the value dtype
       float a[kPerLane];
 #pragma unroll
-      for (int i = 0; i < kPerLane; ++i)
-        a[i] = lane + 32 * i < D ? acc_s[r * D + lane + 32 * i] * alpha : 0.f;
+      for (int c = 0; c < kPerLane; ++c)
+        a[c] = lane + 32 * c < D ? acc_s[r * D + lane + 32 * c] * alpha : 0.f;
 #pragma unroll 8
       for (int t = 0; t < kTileKeys; ++t) {
         const float pt = __shfl_sync(0xffffffffu, pv, t);
 #pragma unroll
-        for (int i = 0; i < kPerLane; ++i)
-          if (lane + 32 * i < D)
-            a[i] = fmaf(pt, v_s[t * D + lane + 32 * i], a[i]);
+        for (int c = 0; c < kPerLane; ++c)
+          if (lane + 32 * c < D)
+            a[c] = fmaf(pt, v_s[t * D + lane + 32 * c], a[c]);
       }
 #pragma unroll
-      for (int i = 0; i < kPerLane; ++i)
-        if (lane + 32 * i < D) acc_s[r * D + lane + 32 * i] = a[i];
+      for (int c = 0; c < kPerLane; ++c)
+        if (lane + 32 * c < D) acc_s[r * D + lane + 32 * c] = a[c];
       __syncwarp();
       if (lane == 0) {
         m_s[r] = m_new;
@@ -885,13 +929,16 @@ __global__ void __launch_bounds__(kThreads)
   const size_t part_rows = static_cast<size_t>(p.KVH) * rows;
   const size_t base = (static_cast<size_t>(b) * p.S + split) * part_rows +
                       static_cast<size_t>(j) * rows + r0;
-  for (int idx = threadIdx.x; idx < nr * p.d; idx += kThreads) {
-    int r = idx / p.d, d = idx % p.d;
-    p.acc[(base + r) * p.d + d] = acc_s[r * D + d];
+  const int width = min(D, p.d - col0);
+  for (int idx = threadIdx.x; idx < nr * width; idx += kThreads) {
+    int r = idx / width, d = idx % width;
+    p.acc[(base + r) * p.d + col0 + d] = acc_s[r * D + d];
   }
-  for (int r = threadIdx.x; r < nr; r += kThreads) {
-    p.m[base + r] = m_s[r];
-    p.l[base + r] = l_s[r];
+  if (col0 == 0) {
+    for (int r = threadIdx.x; r < nr; r += kThreads) {
+      p.m[base + r] = m_s[r];
+      p.l[base + r] = l_s[r];
+    }
   }
 }
 
@@ -1378,11 +1425,12 @@ __global__ void __launch_bounds__(kMmaThreads)
 
 // Split-K merge (the JAX package's _splitk_merge_rows, then the
 // [KVH, U, group] -> [B, U, H, d] relayout): one block per (row, b), one
-// thread per output column. alpha_s = exp(m_s - max m); rows whose l is
-// 0 in every split (no valid key) come out exactly 0.
+// thread per output column (columns past 256 in a loop). alpha_s =
+// exp(m_s - max m); rows whose l is 0 in every split (no valid key) come
+// out exactly 0.
 template <typename T>
 __global__ void splitk_merge_kernel(Params p) {
-  const int ri = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
+  const int ri = blockIdx.x, b = blockIdx.y;
   const int D = p.d;
   const int group = p.H / p.KVH;
   const int rows = p.U * group;
@@ -1392,22 +1440,24 @@ __global__ void splitk_merge_kernel(Params p) {
   const size_t row0 = static_cast<size_t>(b) * p.S * part_rows + ri;
   float m_max = kNeg;
   for (int s = 0; s < p.S; ++s) m_max = fmaxf(m_max, p.m[row0 + s * part_rows]);
-  float l_tot = 0.f, acc = 0.f;
-  for (int s = 0; s < p.S; ++s) {
-    const size_t at = row0 + s * part_rows;
-    const float alpha = expf(p.m[at] - m_max);
-    l_tot += alpha * p.l[at];
-    acc += alpha * p.acc[at * D + d];
+  for (int d = threadIdx.x; d < D; d += blockDim.x) {
+    float l_tot = 0.f, acc = 0.f;
+    for (int s = 0; s < p.S; ++s) {
+      const size_t at = row0 + s * part_rows;
+      const float alpha = expf(p.m[at] - m_max);
+      l_tot += alpha * p.l[at];
+      acc += alpha * p.acc[at * D + d];
+    }
+    const float o = acc / fmaxf(l_tot, 1e-30f);
+    static_cast<T*>(p.out)[((static_cast<size_t>(b) * p.U + u) * p.H + h) * D +
+                           d] = Ops<T>::store(o);
   }
-  const float o = acc / fmaxf(l_tot, 1e-30f);
-  static_cast<T*>(p.out)[((static_cast<size_t>(b) * p.U + u) * p.H + h) * D +
-                         d] = Ops<T>::store(o);
 }
 
 template <typename T>
 int launch_merge(const Params& p, cudaStream_t stream) {
   dim3 mgrid(p.KVH * p.U * (p.H / p.KVH), p.B);
-  splitk_merge_kernel<T><<<mgrid, p.d, 0, stream>>>(p);
+  splitk_merge_kernel<T><<<mgrid, min(p.d, 256), 0, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1429,7 +1479,7 @@ int launch_fma(const Params& p, cudaStream_t stream) {
   auto kernel = splitk_attention_kernel<T, QUANT, PAGED, D>;
   cudaError_t err = grant_smem(kernel, smem, &granted);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(p.S, p.KVH * p.row_chunks, p.B);
+  dim3 grid(p.S * p.nd, p.KVH * p.row_chunks, p.B);
   kernel<<<grid, kThreads, smem, stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1548,9 +1598,11 @@ bool takes_mma(bool extend, int dtype, int U, int D) {
   return extend && dtype == 1 && U > 1 && compiled_d(D) == D && D <= 128;
 }
 
-// Every decode call runs the decode body; an extend call the tensor-core
-// body where it takes the call, the CUDA-core split-K body otherwise.
+// A decode call at d <= 256 runs the decode body; an extend call the
+// tensor-core body where it takes the call; every other call, and every
+// call with d > 256, the CUDA-core split-K body.
 Body body_of(bool extend, int dtype, int U, int D) {
+  if (D > 256) return kBodyFma;
   if (!extend) return kBodyDecode;
   return takes_mma(extend, dtype, U, D) ? kBodyMma : kBodyFma;
 }
@@ -1564,7 +1616,7 @@ int launch(bool extend, const void* q, const void* k, const void* v,
            int U, int H, int KVH, int L, int NP, int page, int D, int S,
            int tiles_per_split, int row_chunks, float scale, void* stream) {
   if (B < 1 || U < 1 || KVH < 1 || H % KVH != 0 || L < 1 || D < 1 ||
-      compiled_d(D) == 0 || (dtype != 0 && dtype != 1))
+      B > 65535 || (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   const Body body = body_of(extend, dtype, U, D);
   // The wrapper's geometry must cover every query row and every key tile
@@ -1585,7 +1637,9 @@ int launch(bool extend, const void* q, const void* k, const void* v,
       (body == kBodyMma && tiles_per_split > kMaxSplitTiles) ||
       (body == kBodyDecode &&
        (S > kMaxCluster || (S - 1) * tiles_per_split >= n_tiles)) ||
-      static_cast<long long>(S) * tiles_per_split < n_tiles)
+      static_cast<long long>(S) * tiles_per_split < n_tiles ||
+      static_cast<long long>(KVH) * row_chunks > 65535 ||
+      static_cast<long long>(S) * d_chunks(D) > 0x7fffffff)
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   const size_t n_rows = static_cast<size_t>(B) * S * KVH * rows;
@@ -1616,6 +1670,7 @@ int launch(bool extend, const void* q, const void* k, const void* v,
   p.page = page;
   p.NP = NP;
   p.d = D;
+  p.nd = d_chunks(D);
   p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool paged = table != nullptr;
@@ -1639,7 +1694,7 @@ using mlapi_decode::launch;
 // contiguous), k, v (payloads), ks, vs (int8 scales or NULL), mask (bool
 // [B, U, L]), partials (f32 scratch of B*S*H*U*(D+2) floats; none for the
 // decode body), out (the [B, U, H, D] result in q's dtype). dtype: 0 f32,
-// 1 bf16. D: the head dim, 1 <= D <= 256. The paged entry points take k,
+// 1 bf16. D: the head dim, any D >= 1. The paged entry points take k,
 // v, ks, vs as pools [P, page, KVH, D | 1], the int32 page table [B, NP]
 // and L = NP * page virtual slots.
 extern "C" {

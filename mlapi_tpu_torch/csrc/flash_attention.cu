@@ -47,12 +47,11 @@
 // reports it to the caller, and the wrapper's _body() mirrors it for the
 // CPU tests):
 //
-//   mma  B5 and B7 in bf16 at D in {16, 32, 64, 128}: mma.sync.m16n8k16
+//   mma  all three in bf16 at D in {16, 32, 64, 128}: mma.sync.m16n8k16
 //        bf16 -> f32 (tile_primitives.cuh), flash-attention-2 shaped;
 //   fma  f32 (kept exact f32: tensor cores would need TF32, three
-//        decimal digits), D = 256, and every B6 call: CUDA-core f32 FMAs
-//        over f32 tiles in shared memory (in bf16 below D = 256 only B6's
-//        is built).
+//        decimal digits) and D >= 256: CUDA-core f32 FMAs over f32 tiles
+//        in shared memory (in bf16 built at D = 256 only).
 //
 // flash_fwd_mma_kernel (B5): one block of 4 warps per (64 query rows,
 // head, batch row); warp w owns rows 16w.. and walks every live 64-key
@@ -99,24 +98,53 @@
 //     without a spill (ptxas -v, chip_smoke's build row).
 //   * A block whose 64 keys are all masked writes zeros and stops.
 //
-// Head dims: every kernel is compiled for D in {16, 32, 64, 128, 256}
-// (the tensor-core bodies for D <= 128); the wrapper zero-pads any other
-// d <= 256 to the next of them (zero columns leave q . k unchanged and
-// give zero output and gradient columns) and passes the scale of the
-// original d. D > 256 is refused before any launch: B5's f32 tiles at
-// D = 512 alone would pass the 227 KB a block may hold.
+// flash_bwd_dq_mma_kernel (B6): B5's grid and walk -- one block of 4
+// warps per (64 query rows, head, batch row), warp w owns rows 16w..,
+// only live tiles that hold an attendable pair, K/V tiles of 64 keys
+// (and their mask bytes) through a two-stage cp.async ring. Per tile,
+// all in registers: S = Q K^T (mma, K by ldmatrix), P = ex2(S scale
+// log2(e) - lse log2(e)) * keep, dP = dO V^T (mma, V by ldmatrix),
+// dS = P (dP - delta) scale packed to bf16 (k's dtype) as the A fragment
+// of dQ += dS K (mma, K by ldmatrix.trans). lse (in base 2) and delta of
+// the thread's two rows stay in registers.
+//   * Registers decide the occupancy: the dq accumulator is D / 2 f32
+//     registers a thread (32 at D = 64, 64 at 128) beside S and dP (32 +
+//     32 at 64 keys). The warp reads its Q and dO fragments from shared
+//     memory for each product (ldmatrix, 4 KB a key tile at D = 64) and
+//     keeps 64-key tiles: 166 registers at D = 64, three blocks an SM (Q
+//     and dO held as fragments took 238, two blocks, and 20 % longer at
+//     sst2-bert and GPT-2 shapes), 240 at D = 128; no spill (ptxas -v,
+//     chip_smoke's build row).
+//   * No atomics: a block owns its dq rows; they go through shared
+//     memory (Q's rows) to 16-byte row stores, rows past Lq unwritten.
+//
+// Head dims: every d >= 1. Every kernel is compiled for D in {16, 32, 64,
+// 128, 256} (the tensor-core bodies for D <= 128, the CUDA-core bodies in
+// bf16 at 256 only); the wrapper zero-pads any other d <= 256 to the next
+// of them, and a d past 256 to a multiple of 256 (zero columns leave
+// q . k unchanged and give zero output and gradient columns), and passes
+// the scale of the original d. A padded D = 256 nd (nd > 1) runs the
+// CUDA-core bodies at D = 256 in nd column chunks: grid x holds the
+// chunks beside the row (B5, B6) or key (B7) tiles, each block owns the
+// 256 columns of its chunk of out, dq or dk/dv, and its scores (q . k,
+// and dO . v in the backward) sum over every chunk, each 256-wide chunk
+// of Q, K (dO, V) streaming through the same f32 tiles in turn. Blocks
+// of one tile compute the same scores in the same order, so m, l and p
+// are bit-identical across chunks; chunk 0 writes lse. The score work
+// grows nd-fold: no model the port runs has d > 256, and this path is
+// for correctness.
 //
 // The CUDA-core bodies (fma) -- they compute the function, not the Pallas
 // grid:
 //   * one block of 128 threads per (query tile, head, batch row) for B5
 //     (64 rows) and B6 (32 rows), and per (key tile, KV head, batch row)
-//     for B7 (32 keys);
+//     for B7 (32 keys), times the column chunks past D = 256;
 //   * tiles live in dynamic shared memory as f32 (rows padded to D + 1
 //     floats, so the dot-product reads hit distinct banks; 42-75 KB a
-//     block at D = 64-128, 136-141 KB at D = 256, granted by a checked
-//     attribute call); each thread owns a micro-tile of the score block
-//     (rows x strided columns) and of the output, in registers; a row's 8
-//     owners reduce max and sum with three shuffles;
+//     block at D = 64-128, 136-141 KB at D = 256 and past it, granted by
+//     a checked attribute call); each thread owns a micro-tile of the
+//     score block (rows x strided columns) and of the output, in
+//     registers; a row's 8 owners reduce max and sum with three shuffles;
 //   * causal and windowed calls walk only the tiles that hold an
 //     attendable (query, key) pair, and a key tile whose mask is zero for
 //     the batch row is skipped before its load (exact: its p is 0), so
@@ -159,6 +187,9 @@ constexpr int kMmaThreads = 128;
 constexpr int kFwdRows = 64;
 constexpr int kFwdKeys = 64;
 constexpr int kDkvKeys = 64;
+// B6: blocks of 64 query rows over 64-key tiles (B5's grid).
+constexpr int kDqRows = 64;
+constexpr int kDqKeys = 64;
 // Stages of the tensor-core bodies' cp.async rings (see the note above).
 constexpr int kMmaStages = 2;
 
@@ -182,6 +213,7 @@ struct Params {
   void* dk;             // [B, Lk, KVH, D] contiguous (B7)
   void* dv;
   int B, Lq, Lk, H, KVH, causal, window;  // window 0: none
+  int nd;               // fma: column chunks (rows are D * nd wide)
   float scale;
 };
 
@@ -229,12 +261,13 @@ template <> struct Ops<__nv_bfloat16> {
   }
 };
 
-// Rows [row0, row0 + R) of head `head` of batch row b, from a
-// [B, L, heads, D] tensor with strides `st`, into dst as f32; rows at or
-// past L load 0.
+// Columns [col0, col0 + D) of rows [row0, row0 + R) of head `head` of
+// batch row b, from a [B, L, heads, D * nd] tensor with strides `st`, into
+// dst as f32; rows at or past L load 0.
 template <typename T, int R, int D>
 __device__ void load_rows(const void* src, const Strides& st, int b,
-                          int head, int row0, int L, float (*dst)[D + 1]) {
+                          int head, int row0, int col0, int L,
+                          float (*dst)[D + 1]) {
   constexpr int kVec = Ops<T>::kVec;
   constexpr int kVecs = D / kVec;
   for (int idx = threadIdx.x; idx < R * kVecs; idx += kThreads) {
@@ -242,7 +275,7 @@ __device__ void load_rows(const void* src, const Strides& st, int b,
     float vals[kVec];
     if (row < L) {
       const T* at = static_cast<const T*>(src) + b * st.b + row * st.l +
-                    head * st.h + c * kVec;
+                    head * st.h + col0 + c * kVec;
       Ops<T>::unpack(*reinterpret_cast<const uint4*>(at), vals);
     } else {
 #pragma unroll
@@ -361,11 +394,15 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
   auto& p_s = sm.p;
   auto& km_s = sm.km;
 
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  // Block (query tile and column chunk, head, batch row).
+  const int n_qt = (p.Lq + BQ - 1) / BQ;
+  const int q0 = (blockIdx.x % n_qt) * BQ, col0 = (blockIdx.x / n_qt) * D;
+  const int h = blockIdx.y, b = blockIdx.z;
   const int j = h / (p.H / p.KVH);
   const int rg = threadIdx.x >> 3, cg = threadIdx.x & 7;
 
-  load_rows<T, BQ, D>(p.q, p.sq, b, h, q0, p.Lq, q_s);
+  // Q once; past D = 256 its chunks stream with K's, tile by tile.
+  if (p.nd == 1) load_rows<T, BQ, D>(p.q, p.sq, b, h, q0, 0, p.Lq, q_s);
   float m[R], l[R], acc[R][CO];
 #pragma unroll
   for (int i = 0; i < R; ++i) {
@@ -380,26 +417,30 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
   for (int t = t_lo; t < t_hi; ++t) {
     const int k0 = t * BK;
     if (!load_key_mask<BK>(p, b, k0, km_s)) continue;  // no valid key
-    load_rows<T, BK, D>(p.k, p.sk, b, j, k0, p.Lk, k_s);
-    load_rows<T, BK, D>(p.v, p.sv, b, j, k0, p.Lk, v_s);
-    __syncthreads();
-
+    load_rows<T, BK, D>(p.v, p.sv, b, j, k0, col0, p.Lk, v_s);
     float s[R][CS];
 #pragma unroll
     for (int i = 0; i < R; ++i)
 #pragma unroll
       for (int c = 0; c < CS; ++c) s[i][c] = 0.f;
+    for (int cc = 0; cc < p.nd; ++cc) {
+      if (cc > 0) __syncthreads();  // the previous chunk's readers are done
+      if (p.nd > 1)
+        load_rows<T, BQ, D>(p.q, p.sq, b, h, q0, cc * D, p.Lq, q_s);
+      load_rows<T, BK, D>(p.k, p.sk, b, j, k0, cc * D, p.Lk, k_s);
+      __syncthreads();
 #pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float qv[R], kv[CS];
+      for (int d = 0; d < D; ++d) {
+        float qv[R], kv[CS];
 #pragma unroll
-      for (int i = 0; i < R; ++i) qv[i] = q_s[rg * R + i][d];
+        for (int i = 0; i < R; ++i) qv[i] = q_s[rg * R + i][d];
 #pragma unroll
-      for (int c = 0; c < CS; ++c) kv[c] = k_s[cg + 8 * c][d];
+        for (int c = 0; c < CS; ++c) kv[c] = k_s[cg + 8 * c][d];
 #pragma unroll
-      for (int i = 0; i < R; ++i)
+        for (int i = 0; i < R; ++i)
 #pragma unroll
-        for (int c = 0; c < CS; ++c) s[i][c] = fmaf(qv[i], kv[c], s[i][c]);
+          for (int c = 0; c < CS; ++c) s[i][c] = fmaf(qv[i], kv[c], s[i][c]);
+      }
     }
 #pragma unroll
     for (int i = 0; i < R; ++i) {
@@ -447,10 +488,11 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
     if (qi >= p.Lq) continue;
     const float den = fmaxf(l[i], 1e-30f);
     T* o_row = static_cast<T*>(p.out) +
-               ((static_cast<size_t>(b) * p.Lq + qi) * p.H + h) * D;
+               ((static_cast<size_t>(b) * p.Lq + qi) * p.H + h) * D * p.nd +
+               col0;
 #pragma unroll
     for (int o = 0; o < CO; ++o) o_row[cg + 8 * o] = Ops<T>::store(acc[i][o] / den);
-    if (cg == 0)
+    if (cg == 0 && col0 == 0)
       p.lse[(static_cast<size_t>(b) * p.H + h) * p.Lq + qi] = m[i] + logf(den);
   }
 }
@@ -469,12 +511,17 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Params p) {
   auto& ds_s = sm.ds;
   auto& km_s = sm.km;
 
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  // Block (query tile and column chunk, head, batch row).
+  const int n_qt = (p.Lq + BQ - 1) / BQ;
+  const int q0 = (blockIdx.x % n_qt) * BQ, col0 = (blockIdx.x / n_qt) * D;
+  const int h = blockIdx.y, b = blockIdx.z;
   const int j = h / (p.H / p.KVH);
   const int rg = threadIdx.x >> 3, cg = threadIdx.x & 7;
 
-  load_rows<T, BQ, D>(p.q, p.sq, b, h, q0, p.Lq, q_s);
-  load_rows<T, BQ, D>(p.dout, p.sdo, b, h, q0, p.Lq, do_s);
+  if (p.nd == 1) {
+    load_rows<T, BQ, D>(p.q, p.sq, b, h, q0, 0, p.Lq, q_s);
+    load_rows<T, BQ, D>(p.dout, p.sdo, b, h, q0, 0, p.Lq, do_s);
+  }
   float lse[R], delta[R], dq[R][CO];
 #pragma unroll
   for (int i = 0; i < R; ++i) {
@@ -491,35 +538,41 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Params p) {
   for (int t = t_lo; t < t_hi; ++t) {
     const int k0 = t * BK;
     if (!load_key_mask<BK>(p, b, k0, km_s)) continue;
-    load_rows<T, BK, D>(p.k, p.sk, b, j, k0, p.Lk, k_s);
-    load_rows<T, BK, D>(p.v, p.sv, b, j, k0, p.Lk, v_s);
-    __syncthreads();
-
     float s[R][CS], dp[R][CS];
 #pragma unroll
     for (int i = 0; i < R; ++i)
 #pragma unroll
       for (int c = 0; c < CS; ++c) s[i][c] = dp[i][c] = 0.f;
+    for (int cc = 0; cc < p.nd; ++cc) {
+      if (cc > 0) __syncthreads();  // the previous chunk's readers are done
+      if (p.nd > 1) {
+        load_rows<T, BQ, D>(p.q, p.sq, b, h, q0, cc * D, p.Lq, q_s);
+        load_rows<T, BQ, D>(p.dout, p.sdo, b, h, q0, cc * D, p.Lq, do_s);
+      }
+      load_rows<T, BK, D>(p.k, p.sk, b, j, k0, cc * D, p.Lk, k_s);
+      load_rows<T, BK, D>(p.v, p.sv, b, j, k0, cc * D, p.Lk, v_s);
+      __syncthreads();
 #pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float qv[R], dov[R], kv[CS], vv[CS];
+      for (int d = 0; d < D; ++d) {
+        float qv[R], dov[R], kv[CS], vv[CS];
 #pragma unroll
-      for (int i = 0; i < R; ++i) {
-        qv[i] = q_s[rg * R + i][d];
-        dov[i] = do_s[rg * R + i][d];
-      }
-#pragma unroll
-      for (int c = 0; c < CS; ++c) {
-        kv[c] = k_s[cg + 8 * c][d];
-        vv[c] = v_s[cg + 8 * c][d];
-      }
-#pragma unroll
-      for (int i = 0; i < R; ++i)
+        for (int i = 0; i < R; ++i) {
+          qv[i] = q_s[rg * R + i][d];
+          dov[i] = do_s[rg * R + i][d];
+        }
 #pragma unroll
         for (int c = 0; c < CS; ++c) {
-          s[i][c] = fmaf(qv[i], kv[c], s[i][c]);
-          dp[i][c] = fmaf(dov[i], vv[c], dp[i][c]);
+          kv[c] = k_s[cg + 8 * c][d];
+          vv[c] = v_s[cg + 8 * c][d];
         }
+#pragma unroll
+        for (int i = 0; i < R; ++i)
+#pragma unroll
+          for (int c = 0; c < CS; ++c) {
+            s[i][c] = fmaf(qv[i], kv[c], s[i][c]);
+            dp[i][c] = fmaf(dov[i], vv[c], dp[i][c]);
+          }
+      }
     }
 #pragma unroll
     for (int i = 0; i < R; ++i) {
@@ -532,6 +585,11 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Params p) {
         const float ds = pe * (dp[i][c] - delta[i]) * p.scale;
         ds_s[rg * R + i][cg + 8 * c] = Ops<T>::round(ds);  // k's dtype
       }
+    }
+    if (col0 != (p.nd - 1) * D) {
+      // k_s holds the last chunk; ds . K needs this block's.
+      __syncthreads();
+      load_rows<T, BK, D>(p.k, p.sk, b, j, k0, col0, p.Lk, k_s);
     }
     __syncthreads();
 #pragma unroll 4
@@ -553,7 +611,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Params p) {
     const int qi = q0 + rg * R + i;
     if (qi >= p.Lq) continue;
     T* row = static_cast<T*>(p.dq) +
-             ((static_cast<size_t>(b) * p.Lq + qi) * p.H + h) * D;
+             ((static_cast<size_t>(b) * p.Lq + qi) * p.H + h) * D * p.nd +
+             col0;
 #pragma unroll
     for (int o = 0; o < CO; ++o) row[cg + 8 * o] = Ops<T>::store(dq[i][o]);
   }
@@ -576,7 +635,10 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Params p) {
   auto& delta_s = sm.delta;
   auto& km_s = sm.km;
 
-  const int k0 = blockIdx.x * BK, j = blockIdx.y, b = blockIdx.z;
+  // Block (key tile and column chunk, KV head, batch row).
+  const int n_kt = (p.Lk + BK - 1) / BK;
+  const int k0 = (blockIdx.x % n_kt) * BK, col0 = (blockIdx.x / n_kt) * D;
+  const int j = blockIdx.y, b = blockIdx.z;
   const int group = p.H / p.KVH;
   const int rg = threadIdx.x >> 3, cg = threadIdx.x & 7;
   float dk[R][CO], dv[R][CO];
@@ -587,50 +649,61 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Params p) {
 
   // A tile of keys that are all masked gets dk = dv = 0 (its p is 0).
   if (load_key_mask<BK>(p, b, k0, km_s)) {
-    load_rows<T, BK, D>(p.k, p.sk, b, j, k0, p.Lk, k_s);
-    load_rows<T, BK, D>(p.v, p.sv, b, j, k0, p.Lk, v_s);
+    // K and V once; past D = 256 their chunks stream with Q's and dO's.
+    if (p.nd == 1) {
+      load_rows<T, BK, D>(p.k, p.sk, b, j, k0, 0, p.Lk, k_s);
+      load_rows<T, BK, D>(p.v, p.sv, b, j, k0, 0, p.Lk, v_s);
+    }
     int t_lo, t_hi;
     query_tiles(p, k0, BK, BQ, &t_lo, &t_hi);
     for (int g = 0; g < group; ++g) {
       const int h = j * group + g;
       for (int t = t_lo; t < t_hi; ++t) {
         const int q0 = t * BQ;
-        __syncthreads();  // the previous step's readers are done
-        load_rows<T, BQ, D>(p.q, p.sq, b, h, q0, p.Lq, q_s);
-        load_rows<T, BQ, D>(p.dout, p.sdo, b, h, q0, p.Lq, do_s);
-        for (int r = threadIdx.x; r < BQ; r += kThreads) {
-          const int qi = q0 + r;
-          const size_t at = (static_cast<size_t>(b) * p.H + h) * p.Lq + qi;
-          lse_s[r] = qi < p.Lq ? p.lse[at] : 0.f;
-          delta_s[r] = qi < p.Lq ? p.delta[at] : 0.f;
-        }
-        __syncthreads();
-
         float st[R][CS], dpt[R][CS];
 #pragma unroll
         for (int i = 0; i < R; ++i)
 #pragma unroll
           for (int c = 0; c < CS; ++c) st[i][c] = dpt[i][c] = 0.f;
+        for (int cc = 0; cc < p.nd; ++cc) {
+          __syncthreads();  // the previous step's readers are done
+          if (p.nd > 1) {
+            load_rows<T, BK, D>(p.k, p.sk, b, j, k0, cc * D, p.Lk, k_s);
+            load_rows<T, BK, D>(p.v, p.sv, b, j, k0, cc * D, p.Lk, v_s);
+          }
+          load_rows<T, BQ, D>(p.q, p.sq, b, h, q0, cc * D, p.Lq, q_s);
+          load_rows<T, BQ, D>(p.dout, p.sdo, b, h, q0, cc * D, p.Lq, do_s);
+          if (cc == 0) {
+            for (int r = threadIdx.x; r < BQ; r += kThreads) {
+              const int qi = q0 + r;
+              const size_t at =
+                  (static_cast<size_t>(b) * p.H + h) * p.Lq + qi;
+              lse_s[r] = qi < p.Lq ? p.lse[at] : 0.f;
+              delta_s[r] = qi < p.Lq ? p.delta[at] : 0.f;
+            }
+          }
+          __syncthreads();
 #pragma unroll 8
-        for (int d = 0; d < D; ++d) {
-          float kv[R], vv[R], qv[CS], dov[CS];
+          for (int d = 0; d < D; ++d) {
+            float kv[R], vv[R], qv[CS], dov[CS];
 #pragma unroll
-          for (int i = 0; i < R; ++i) {
-            kv[i] = k_s[rg * R + i][d];
-            vv[i] = v_s[rg * R + i][d];
-          }
-#pragma unroll
-          for (int c = 0; c < CS; ++c) {
-            qv[c] = q_s[cg + 8 * c][d];
-            dov[c] = do_s[cg + 8 * c][d];
-          }
-#pragma unroll
-          for (int i = 0; i < R; ++i)
+            for (int i = 0; i < R; ++i) {
+              kv[i] = k_s[rg * R + i][d];
+              vv[i] = v_s[rg * R + i][d];
+            }
 #pragma unroll
             for (int c = 0; c < CS; ++c) {
-              st[i][c] = fmaf(kv[i], qv[c], st[i][c]);
-              dpt[i][c] = fmaf(vv[i], dov[c], dpt[i][c]);
+              qv[c] = q_s[cg + 8 * c][d];
+              dov[c] = do_s[cg + 8 * c][d];
             }
+#pragma unroll
+            for (int i = 0; i < R; ++i)
+#pragma unroll
+              for (int c = 0; c < CS; ++c) {
+                st[i][c] = fmaf(kv[i], qv[c], st[i][c]);
+                dpt[i][c] = fmaf(vv[i], dov[c], dpt[i][c]);
+              }
+          }
         }
 #pragma unroll
         for (int i = 0; i < R; ++i) {
@@ -645,6 +718,13 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Params p) {
             pt_s[kr][qr] = Ops<T>::round(pe);   // dO's dtype
             dst_s[kr][qr] = Ops<T>::round(ds);  // q's dtype
           }
+        }
+        if (col0 != (p.nd - 1) * D) {
+          // q_s and do_s hold the last chunk; the products need this
+          // block's.
+          __syncthreads();
+          load_rows<T, BQ, D>(p.q, p.sq, b, h, q0, col0, p.Lq, q_s);
+          load_rows<T, BQ, D>(p.dout, p.sdo, b, h, q0, col0, p.Lq, do_s);
         }
         __syncthreads();
 #pragma unroll 4
@@ -674,7 +754,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Params p) {
   for (int i = 0; i < R; ++i) {
     const int kj = k0 + rg * R + i;
     if (kj >= p.Lk) continue;
-    const size_t row = ((static_cast<size_t>(b) * p.Lk + kj) * p.KVH + j) * D;
+    const size_t row =
+        ((static_cast<size_t>(b) * p.Lk + kj) * p.KVH + j) * D * p.nd + col0;
 #pragma unroll
     for (int o = 0; o < CO; ++o) {
       static_cast<T*>(p.dk)[row + cg + 8 * o] = Ops<T>::store(dk[i][o]);
@@ -1252,6 +1333,255 @@ __global__ void __launch_bounds__(kMmaThreads)
   }
 }
 
+// Dynamic shared memory of a B6 block: Q (then the dq tile) and dO, a
+// two-stage K/V ring and each stage's 64 key-mask bytes; then (sized by
+// the launch) one live bit per key tile of the block's range. Rows are
+// padded by 8 bf16 (16 bytes). 55 KB at D = 64, 104 KB at D = 128.
+template <int D>
+struct DqMmaSmem {
+  static constexpr int kPadRow = D + 8;
+  static constexpr int kStages = kMmaStages;
+  __nv_bfloat16 q[kDqRows][kPadRow];
+  __nv_bfloat16 dout[kDqRows][kPadRow];
+  __nv_bfloat16 k[kStages][kDqKeys][kPadRow];
+  __nv_bfloat16 v[kStages][kDqKeys][kPadRow];
+  uint8_t mask[kStages][kDqKeys];
+};
+
+// B6 on the tensor cores. Block (query tile, head h, batch row b); warp w
+// owns query rows q0 + 16w.. (rows g and g + 8 of its m16 tile in each
+// thread, g = lane / 4).
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+    flash_bwd_dq_mma_kernel(Params p) {
+  using bf16 = __nv_bfloat16;
+  using Smem = DqMmaSmem<D>;
+  constexpr int KS = D / 16;   // 16-wide steps of d
+  constexpr int DT = D / 8;    // 8-wide dq column tiles
+  constexpr int NT = kDqKeys / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
+  uint32_t* live = reinterpret_cast<uint32_t*>(smem_raw + sizeof(Smem));
+
+  // The last query tiles first, as in B5: under a causal mask they walk
+  // the most key tiles.
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kDqRows;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int j = h / (p.H / p.KVH);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;
+
+  // Q and dO rows -> shared, one cp.async group of their own (zeros past
+  // Lq), in flight while the mask is read.
+  const bf16* qg = static_cast<const bf16*>(p.q) + b * p.sq.b + h * p.sq.h;
+  const bf16* dg =
+      static_cast<const bf16*>(p.dout) + b * p.sdo.b + h * p.sdo.h;
+  for (int idx = tid; idx < kDqRows * DT; idx += kMmaThreads) {
+    const int r = idx / DT, c = idx % DT, qi = q0 + r;
+    const bool ok = qi < p.Lq;
+    const int qq = ok ? qi : 0;
+    cp_async16(&sm.q[r][c * 8], qg + qq * p.sq.l + c * 8, ok);
+    cp_async16(&sm.dout[r][c * 8], dg + qq * p.sdo.l + c * 8, ok);
+  }
+  cp_async_commit();
+
+  // lse (in base 2) and delta of this thread's rows g and g + 8; rows
+  // past Lq read 0 (their dq is not written).
+  const int qw0 = q0 + warp * 16;   // this warp's first row
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int qi = qw0 + g + 8 * e;
+    const size_t at = (static_cast<size_t>(b) * p.H + h) * p.Lq + qi;
+    lse2[e] = qi < p.Lq ? p.lse[at] * kLog2e : 0.f;
+    dlt[e] = qi < p.Lq ? p.delta[at] : 0.f;
+  }
+
+  int t_lo, t_hi;
+  key_tiles(p, q0, kDqRows, kDqKeys, &t_lo, &t_hi);
+  const int n_t = t_hi - t_lo;
+  tile_live_bits(p, b, t_lo, n_t, kDqKeys, live);
+
+  const bf16* kg = static_cast<const bf16*>(p.k) + b * p.sk.b + j * p.sk.h;
+  const bf16* vg = static_cast<const bf16*>(p.v) + b * p.sv.b + j * p.sv.h;
+  const uint8_t* mrow = p.mask + static_cast<size_t>(b) * p.Lk;
+  const bool mvec = p.Lk % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(p.mask) % 16 == 0;
+  // Tile t's K/V rows and mask bytes -> stage st (zeros past Lk).
+  auto issue = [&](int t, int st) {
+    const int key0 = (t_lo + t) * kDqKeys;
+    for (int idx = tid; idx < kDqKeys * DT; idx += kMmaThreads) {
+      const int r = idx / DT, c = idx % DT, key = key0 + r;
+      const bool ok = key < p.Lk;
+      const int kk = ok ? key : 0;
+      cp_async16(&sm.k[st][r][c * 8], kg + kk * p.sk.l + c * 8, ok);
+      cp_async16(&sm.v[st][r][c * 8], vg + kk * p.sv.l + c * 8, ok);
+    }
+    if (mvec) {
+      if (tid < kDqKeys / 16) {
+        const int key = key0 + 16 * tid;
+        const bool ok = key < p.Lk;
+        cp_async16(&sm.mask[st][16 * tid], mrow + (ok ? key : 0), ok);
+      }
+    } else if (tid < kDqKeys) {
+      const int key = key0 + tid;
+      sm.mask[st][tid] = key < p.Lk ? mrow[key] : 0;
+    }
+  };
+
+  // The ring: the first kStages - 1 live tiles in flight, one commit
+  // group each (empty past the last live tile).
+  constexpr int kStages = Smem::kStages;
+  int fetch = next_live_tile(live, 0, n_t);
+#pragma unroll
+  for (int st = 0; st < kStages - 1; ++st) {
+    if (fetch < n_t) {
+      issue(fetch, st);
+      fetch = next_live_tile(live, fetch + 1, n_t);
+    }
+    cp_async_commit();
+  }
+  cp_async_wait<kStages - 1>();  // Q and dO have landed
+  __syncthreads();
+  // c[nt] = A . B^T over d: A this warp's 16 rows of `arows` (ldmatrix
+  // for each product), B the 64 keys of `brows` (Q with K: S; dO with V:
+  // dP).
+  const int ar = warp * 16 + (lane % 8) + ((lane / 8) % 2) * 8;
+  const int ac = (lane / 16) * 8;
+  auto rows_times = [&](float (&c)[NT][4], const bf16 (*arows)[Smem::kPadRow],
+                        const bf16 (*brows)[Smem::kPadRow]) {
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) c[nt][x] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t a[4];
+      ldsm_x4(a, &arows[ar][kk * 16 + ac]);
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t bb[4];
+        ldsm_x4(bb, &brows[np * 16 + (lane % 8) + (lane / 16) * 8]
+                          [kk * 16 + ((lane / 8) % 2) * 8]);
+        mma_bf16(c[2 * np], a, bb[0], bb[1]);
+        mma_bf16(c[2 * np + 1], a, bb[2], bb[3]);
+      }
+    }
+  };
+
+  float dq[DT][4];
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) dq[dt][c] = 0.f;
+  const float scale2 = p.scale * kLog2e;
+
+  int st = 0;
+  for (int cur = next_live_tile(live, 0, n_t); cur < n_t;
+       cur = next_live_tile(live, cur + 1, n_t)) {
+    cp_async_wait<kStages - 2>();  // tile cur has landed
+    // Every warp is past tile cur - 1, whose stage the next copy reuses.
+    __syncthreads();
+    if (fetch < n_t) {
+      issue(fetch, (st + kStages - 1) % kStages);
+      fetch = next_live_tile(live, fetch + 1, n_t);
+    }
+    cp_async_commit();
+
+    const int key0 = (t_lo + cur) * kDqKeys;
+    // The tile's key mask: bit r = key key0 + r is valid.
+    const unsigned long long kbits =
+        (static_cast<unsigned long long>(
+             __ballot_sync(0xffffffffu, sm.mask[st][32 + lane] != 0))
+         << 32) |
+        __ballot_sync(0xffffffffu, sm.mask[st][lane] != 0);
+    // Some row of this warp sees some key of the tile by position; the
+    // per-element position test only where the diagonal or window cuts.
+    const bool seen =
+        qw0 < p.Lq &&
+        (!p.causal || (key0 <= qw0 + 15 &&
+                       (p.window == 0 || qw0 - (key0 + kDqKeys - 1) <
+                                             p.window)));
+    const bool cut =
+        p.causal && (key0 + kDqKeys - 1 > qw0 ||
+                     (p.window > 0 && qw0 + 15 - key0 >= p.window));
+    if (seen) {
+      float s[NT][4], dp[NT][4];
+      rows_times(s, sm.q, sm.k[st]);      // S = Q K^T
+      rows_times(dp, sm.dout, sm.v[st]);  // dP = dO V^T
+      // P = exp(S scale - lse) * keep (base 2 on ex2; a masked score's p
+      // is exactly 0) and dS = P (dP - delta) scale, into dp. Element
+      // (nt, x): row g + 8 (x / 2), key 8 nt + 2 t4 + x % 2. Only a tile
+      // that holds a masked key, or that the diagonal or the window cuts,
+      // pays for the mask.
+      if (cut || kbits != ~0ull) {
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int x = 0; x < 4; ++x) {
+            const int e = x >> 1, kr = 8 * nt + 2 * t4 + (x & 1);
+            const bool kp = ((kbits >> kr) & 1ull) &&
+                            (!cut || pos_keep(p, qw0 + g + 8 * e, key0 + kr));
+            const float pe = kp ? ex2(fmaf(s[nt][x], scale2, -lse2[e])) : 0.f;
+            dp[nt][x] = pe * (dp[nt][x] - dlt[e]) * p.scale;
+          }
+      } else {
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int x = 0; x < 4; ++x) {
+            const int e = x >> 1;
+            const float pe = ex2(fmaf(s[nt][x], scale2, -lse2[e]));
+            dp[nt][x] = pe * (dp[nt][x] - dlt[e]) * p.scale;
+          }
+      }
+      // dQ += dS K: dS (rounded to bf16, k's dtype) straight from the
+      // registers; K tiles 2dp, 2dp + 1 per ldmatrix.x4.trans.
+#pragma unroll
+      for (int kk = 0; kk < NT / 2; ++kk) {
+        const uint32_t a[4] = {
+            pack_bf16(dp[2 * kk][0], dp[2 * kk][1]),
+            pack_bf16(dp[2 * kk][2], dp[2 * kk][3]),
+            pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]),
+            pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3]),
+        };
+#pragma unroll
+        for (int dc = 0; dc < KS; ++dc) {
+          uint32_t kb[4];
+          ldsm_x4_trans(kb, &sm.k[st][kk * 16 + (lane % 8) +
+                                      ((lane / 8) % 2) * 8]
+                                     [dc * 16 + (lane / 16) * 8]);
+          mma_bf16(dq[2 * dc], a, kb[0], kb[1]);
+          mma_bf16(dq[2 * dc + 1], a, kb[2], kb[3]);
+        }
+      }
+    }
+    st = (st + 1) % kStages;
+  }
+  cp_async_wait<0>();
+  __syncthreads();   // every warp is done with Q's rows and the ring
+
+  // dq -> Q's rows in shared memory (bf16), then 16-byte row stores; rows
+  // past Lq are not written.
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int r = warp * 16 + g + 8 * e;
+#pragma unroll
+    for (int dt = 0; dt < DT; ++dt)
+      *reinterpret_cast<__nv_bfloat162*>(&sm.q[r][dt * 8 + 2 * t4]) =
+          __floats2bfloat162_rn(dq[dt][2 * e], dq[dt][2 * e + 1]);
+  }
+  __syncthreads();
+  for (int idx = tid; idx < kDqRows * DT; idx += kMmaThreads) {
+    const int r = idx / DT, c = idx % DT, qi = q0 + r;
+    if (qi >= p.Lq) continue;
+    *reinterpret_cast<uint4*>(
+        static_cast<bf16*>(p.dq) +
+        ((static_cast<size_t>(b) * p.Lq + qi) * p.H + h) * D + c * 8) =
+        *reinterpret_cast<const uint4*>(&sm.q[r][c * 8]);
+  }
+}
+
 // Grant a kernel `bytes` of dynamic shared memory (once per size it grows
 // to; checked).
 template <typename K>
@@ -1263,24 +1593,20 @@ cudaError_t grant_smem(K kernel, int bytes, int* granted) {
   return err;
 }
 
-// The CUDA-core bodies. In bf16 below D = 256, B5 and B7 run the tensor-
-// core bodies (flash_body), so only B6's kernel is built there.
+// The CUDA-core bodies (f32 at every compiled D; bf16 at D = 256 only:
+// below it every bf16 call runs a tensor-core body, flash_body). Grid x
+// holds the row or key tiles times p.nd column chunks.
 template <typename T, int D>
 int launch_t(Which which, const Params& p, cudaStream_t s) {
-  constexpr bool kDqOnly = std::is_same_v<T, __nv_bfloat16> && D <= 128;
   cudaError_t err = cudaSuccess;
   switch (which) {
     case kForward: {
-      if constexpr (kDqOnly) {
-        err = cudaErrorInvalidValue;
-      } else {
-        static int granted = 48 * 1024;
-        constexpr int smem = sizeof(FwdSmem<D>);
-        err = grant_smem(flash_fwd_kernel<T, D>, smem, &granted);
-        if (err != cudaSuccess) break;
-        flash_fwd_kernel<T, D><<<dim3((p.Lq + 63) / 64, p.H, p.B), kThreads,
-                                 smem, s>>>(p);
-      }
+      static int granted = 48 * 1024;
+      constexpr int smem = sizeof(FwdSmem<D>);
+      err = grant_smem(flash_fwd_kernel<T, D>, smem, &granted);
+      if (err != cudaSuccess) break;
+      flash_fwd_kernel<T, D><<<dim3((p.Lq + 63) / 64 * p.nd, p.H, p.B),
+                               kThreads, smem, s>>>(p);
       break;
     }
     case kDq: {
@@ -1288,21 +1614,18 @@ int launch_t(Which which, const Params& p, cudaStream_t s) {
       constexpr int smem = sizeof(DqSmem<D>);
       err = grant_smem(flash_bwd_dq_kernel<T, D>, smem, &granted);
       if (err != cudaSuccess) break;
-      flash_bwd_dq_kernel<T, D><<<dim3((p.Lq + 31) / 32, p.H, p.B),
+      flash_bwd_dq_kernel<T, D><<<dim3((p.Lq + 31) / 32 * p.nd, p.H, p.B),
                                   kThreads, smem, s>>>(p);
       break;
     }
     case kDkv: {
-      if constexpr (kDqOnly) {
-        err = cudaErrorInvalidValue;
-      } else {
-        static int granted = 48 * 1024;
-        constexpr int smem = sizeof(DkvSmem<D>);
-        err = grant_smem(flash_bwd_dkv_kernel<T, D>, smem, &granted);
-        if (err != cudaSuccess) break;
-        flash_bwd_dkv_kernel<T, D><<<dim3((p.Lk + 31) / 32, p.KVH, p.B),
-                                     kThreads, smem, s>>>(p);
-      }
+      static int granted = 48 * 1024;
+      constexpr int smem = sizeof(DkvSmem<D>);
+      err = grant_smem(flash_bwd_dkv_kernel<T, D>, smem, &granted);
+      if (err != cudaSuccess) break;
+      flash_bwd_dkv_kernel<T, D><<<dim3((p.Lk + 31) / 32 * p.nd, p.KVH,
+                                        p.B),
+                                   kThreads, smem, s>>>(p);
       break;
     }
   }
@@ -1310,21 +1633,32 @@ int launch_t(Which which, const Params& p, cudaStream_t s) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// The tensor-core bodies (bf16; D <= 128): B5 and B7.
+// The tensor-core bodies (bf16; D <= 128): B5, B6 and B7.
 template <int D>
 int launch_mma(Which which, const Params& p, cudaStream_t s) {
   cudaError_t err = cudaSuccess;
-  if (which == kForward) {
-    // The live bits of the longest key range a block walks.
+  if (which == kForward || which == kDq) {
+    // The live bits of the longest key range a block walks (B5 and B6
+    // share their tiles: kFwdKeys == kDqKeys).
     const int n_tiles = (p.Lk + kFwdKeys - 1) / kFwdKeys;
-    const int smem =
-        static_cast<int>(sizeof(FwdMmaSmem<D>)) + 4 * ((n_tiles + 31) / 32);
-    static int granted = 48 * 1024;
-    err = grant_smem(flash_fwd_mma_kernel<D>, smem, &granted);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    flash_fwd_mma_kernel<D><<<dim3((p.Lq + kFwdRows - 1) / kFwdRows, p.H,
-                                   p.B),
-                              kMmaThreads, smem, s>>>(p);
+    const int bits = 4 * ((n_tiles + 31) / 32);
+    if (which == kForward) {
+      const int smem = static_cast<int>(sizeof(FwdMmaSmem<D>)) + bits;
+      static int granted = 48 * 1024;
+      err = grant_smem(flash_fwd_mma_kernel<D>, smem, &granted);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      flash_fwd_mma_kernel<D><<<dim3((p.Lq + kFwdRows - 1) / kFwdRows, p.H,
+                                     p.B),
+                                kMmaThreads, smem, s>>>(p);
+    } else {
+      const int smem = static_cast<int>(sizeof(DqMmaSmem<D>)) + bits;
+      static int granted = 48 * 1024;
+      err = grant_smem(flash_bwd_dq_mma_kernel<D>, smem, &granted);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      flash_bwd_dq_mma_kernel<D><<<dim3((p.Lq + kDqRows - 1) / kDqRows, p.H,
+                                        p.B),
+                                   kMmaThreads, smem, s>>>(p);
+    }
   } else {
     constexpr int smem = sizeof(DkvMmaSmem<D>);
     static int granted = 48 * 1024;
@@ -1350,7 +1684,11 @@ int launch_for_d(Which which, Body body, int dtype, const Params& p,
     }
   }
   if (dtype == 0) return launch_t<float, D>(which, p, s);
-  return launch_t<__nv_bfloat16, D>(which, p, s);
+  if constexpr (D <= 128) {
+    return static_cast<int>(cudaErrorInvalidValue);   // bf16 runs mma
+  } else {
+    return launch_t<__nv_bfloat16, D>(which, p, s);
+  }
 }
 
 #if MLAPI_UNIT > 0
@@ -1366,10 +1704,10 @@ namespace mlapi_flash {
 namespace {
 
 // The body of a call (mirrored by the wrapper's _body() for the CPU
-// tests): B5 and B7 in bf16 at D <= 128 on the tensor cores; f32, D = 256
-// and every B6 call on the CUDA cores.
-Body flash_body(Which which, int dtype, int D) {
-  return which != kDq && dtype == 1 && D <= 128 ? kBodyMma : kBodyFma;
+// tests): bf16 at D <= 128 on the tensor cores; f32 and D >= 256 on the
+// CUDA cores.
+Body flash_body(int dtype, int D) {
+  return dtype == 1 && D <= 128 ? kBodyMma : kBodyFma;
 }
 
 int launch(Which which, const void* q, const void* k, const void* v,
@@ -1378,11 +1716,16 @@ int launch(Which which, const void* q, const void* k, const void* v,
            const long long* strides, int dtype, int B, int Lq, int Lk, int H,
            int KVH, int D, int causal, int window, float scale, void* stream,
            int* body) {
-  if ((D != 16 && D != 32 && D != 64 && D != 128 && D != 256) || B < 1 ||
-      Lq < 1 || Lk < 1 || KVH < 1 || H % KVH || window < 0 || B > 65535 ||
-      H > 65535 || (dtype != 0 && dtype != 1))
+  // D: a compiled head dim, or 256 nd (column chunks of the D = 256
+  // bodies); grid x (tiles times nd) within its limit.
+  const long long nd = D >= 256 ? D / 256 : 1;
+  if ((D != 16 && D != 32 && D != 64 && D != 128 && D % 256 != 0) ||
+      D < 1 || B < 1 || Lq < 1 || Lk < 1 || KVH < 1 || H % KVH ||
+      window < 0 || B > 65535 || H > 65535 || (dtype != 0 && dtype != 1) ||
+      (static_cast<long long>(Lq) + 31) / 32 * nd > 0x7fffffff ||
+      (static_cast<long long>(Lk) + 31) / 32 * nd > 0x7fffffff)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Body b = flash_body(which, dtype, D);
+  const Body b = flash_body(dtype, D);
   *body = b;
   Params p;
   p.q = q;
@@ -1407,6 +1750,7 @@ int launch(Which which, const void* q, const void* k, const void* v,
   p.KVH = KVH;
   p.causal = causal;
   p.window = window;
+  p.nd = static_cast<int>(nd);
   p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
@@ -1427,6 +1771,7 @@ using mlapi_flash::kDq;
 using mlapi_flash::kDkv;
 
 // dtype: 0 f32, 1 bf16 (q, k, v, dO and every output but lse share it).
+// D: 16, 32, 64, 128 or a multiple of 256 (the wrapper pads to one).
 // strides: q, k, v, dO, each (batch, row, head) in elements; the forward
 // ignores dO's. mask: uint8 [B, Lk]. window: 0 for none (causal only).
 // body (out): the body the call runs, 0 CUDA cores, 1 tensor cores.

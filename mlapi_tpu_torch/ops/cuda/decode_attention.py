@@ -35,10 +35,13 @@ kernel by the JAX package -- is a second small CUDA kernel launched by
 the same C call when the call has more than one split, as it is for a
 multi-split ``mma`` call.
 
-Head dims: every ``d`` from 1 to 256. The CUDA-core bodies are
-compiled for ``d`` in 16, 32, 64, 128 and 256, the tensor-core body for
-16, 32, 64 and 128; another ``d`` runs the CUDA-core bodies at the next
-compiled one with guarded loads, over the cache as it is.
+Head dims: every ``d >= 1``. The CUDA-core bodies are compiled for
+``d`` in 16, 32, 64, 128 and 256, the tensor-core body for 16, 32, 64
+and 128; another ``d`` up to 256 runs the CUDA-core bodies at the next
+compiled one with guarded loads, over the cache as it is. A ``d`` past
+256 runs the CUDA-core split-K body (``"fma"``, decode calls too) at 256
+in ``ceil(d / 256)`` column chunks: each block owns 256 output columns
+and sums its scores over every chunk.
 """
 
 from __future__ import annotations
@@ -52,7 +55,6 @@ import torch
 from mlapi_tpu_torch.ops.attention import NEG
 from mlapi_tpu_torch.ops.quant import _is_quant_leaf, kv_gather_pages
 
-_KERNEL_HEAD_DIMS = range(1, 257)
 _COMPILED_DIMS = (16, 32, 64, 128, 256)
 _MMA_DIMS = (16, 32, 64, 128)
 # Per body: keys per tile, query rows per block, blocks aimed at per SM,
@@ -285,7 +287,7 @@ class Geometry(NamedTuple):
     sizes, the grid's row blocks and splits, and the f32 scratch the
     kernel writes its partials into."""
 
-    body: str               # "mma" (tensor cores) or "fma" (CUDA cores)
+    body: str               # "decode", "mma" (tensor cores) or "fma"
     tile_keys: int          # keys per tile
     rows_per_block: int     # query rows per block
     row_chunks: int         # row blocks per KV head
@@ -294,12 +296,21 @@ class Geometry(NamedTuple):
     # acc [n, D] + m [n] + l [n], n = B*S*KVH*rows; none when the mma
     # body runs one split (it then writes the output itself).
     partial_floats: int
+    # fma: 256-wide column chunks of a head dim past 256 (grid x holds
+    # splits * d_chunks blocks); 1 otherwise.
+    d_chunks: int = 1
 
 
 def _compiled_d(d: int) -> int:
     """The compiled head dim a call of head dim ``d`` runs at (the C
-    source's ``compiled_d``)."""
-    return next(c for c in _COMPILED_DIMS if c >= d)
+    source's ``compiled_d``): 256 past 256, in :func:`_d_chunks`
+    chunks."""
+    return next((c for c in _COMPILED_DIMS if c >= d), 256)
+
+
+def _d_chunks(d: int) -> int:
+    """256-wide column chunks of head dim ``d`` (``d_chunks``)."""
+    return -(-d // 256)
 
 
 def _decode_heads(group: int) -> int:
@@ -312,9 +323,10 @@ def _geometry(entry: str, dtype, b: int, u: int, h: int, kvh: int,
               lk: int, d: int, sm_count: int, quant: bool = False
               ) -> Geometry:
     """The grid of one call (pure, so the CPU tests reach it). The body
-    is the C source's dispatch: ``decode`` for a decode entry point,
-    ``mma`` for an extend entry point with bf16 queries, ``u > 1`` and a
-    compiled ``d`` up to 128, else ``fma``. Splits of the key tiles are
+    is the C source's dispatch: ``fma`` for any ``d`` past 256, else
+    ``decode`` for a decode entry point, ``mma`` for an extend entry
+    point with bf16 queries, ``u > 1`` and a compiled ``d`` up to 128,
+    else ``fma``. Splits of the key tiles are
     chosen so that the blocks number about ``per_sm * sm_count``, never
     more splits than tiles, no empty split; for the mma body at most 16
     tiles in a split; for the decode body a power of two of at most 8 splits (one
@@ -325,7 +337,9 @@ def _geometry(entry: str, dtype, b: int, u: int, h: int, kvh: int,
     bf16, 1 int8; at D = 256 one f32 key a tile, its row in 32-byte lane
     chunks); a block serves :func:`_decode_heads` query heads of
     one KV head."""
-    if entry not in _EXTEND_ENTRIES:
+    if d > 256:
+        body = "fma"
+    elif entry not in _EXTEND_ENTRIES:
         body = "decode"
     elif dtype == torch.bfloat16 and u > 1 and d in _MMA_DIMS:
         body = "mma"
@@ -340,7 +354,8 @@ def _geometry(entry: str, dtype, b: int, u: int, h: int, kvh: int,
         per_sm = _DECODE_BLOCKS_PER_SM[chunk_rows]
     row_chunks = -(-rows // chunk_rows)
     n_tiles = -(-lk // tile)
-    blocks = b * kvh * row_chunks
+    d_chunks = _d_chunks(d)
+    blocks = b * kvh * row_chunks * d_chunks
     if body == "decode":
         fit = max(1, min(most, n_tiles, per_sm * sm_count // blocks))
         splits = 1 << (fit.bit_length() - 1)
@@ -353,7 +368,7 @@ def _geometry(entry: str, dtype, b: int, u: int, h: int, kvh: int,
     one_pass = body == "decode" or (body == "mma" and splits == 1)
     partials = 0 if one_pass else b * splits * kvh * rows * (d + 2)
     return Geometry(body, tile, chunk_rows, row_chunks, splits, per_split,
-                    partials)
+                    partials, d_chunks)
 
 
 def _launch(entry: str, q, kq, ks, vq, vs, mask3, scale, table=None):
@@ -365,10 +380,6 @@ def _launch(entry: str, q, kq, ks, vq, vs, mask3, scale, table=None):
     kvh = kq.shape[2]
     lk = kq.shape[1] if table is None else table.shape[1] * kq.shape[1]
     quant = ks is not None
-    if d not in _KERNEL_HEAD_DIMS:
-        raise ValueError(
-            f"{entry}: head_dim {d} not compiled (1 <= D <= 256)"
-        )
     if q.dtype not in _DTYPE_CODES:
         raise ValueError(f"{entry}: unsupported dtype {q.dtype}")
     if not quant and kq.dtype != q.dtype:

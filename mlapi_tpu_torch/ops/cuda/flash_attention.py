@@ -21,17 +21,19 @@ that. The public functions keep the JAX layouts and contract:
 The Pallas tiling knobs (``block_q``, ``block_k``, ``interpret``) have
 no counterpart: the CUDA kernels fix their own tiles.
 
-Head dims: every ``D`` from 1 to 256. The kernels are compiled for 16,
-32, 64, 128 and 256; for another ``D`` each wrapper zero-pads q, k, v
-and dO along the last dim to the next of them (zero columns leave q·k
-unchanged and give zero output and gradient columns, so the result is
-exact), runs the kernel with the scale of the original ``D`` (the
-wrappers always receive it explicitly) and slices the result back.
+Head dims: every ``D >= 1``. The kernels are compiled for 16, 32, 64,
+128 and 256; for another ``D`` each wrapper zero-pads q, k, v and dO
+along the last dim to the next of them, or past 256 to the next
+multiple of 256 (zero columns leave q·k unchanged and give zero output
+and gradient columns, so the result is exact), runs the kernel with the
+scale of the original ``D`` (the wrappers always receive it explicitly)
+and slices the result back. A padded ``D = 256 · nd`` runs the D = 256
+bodies in ``nd`` column chunks (the C source's note).
 
 Two bodies (the C source's ``flash_body`` picks one and reports it;
 :func:`_body` mirrors that choice for the CPU tests): ``"mma"``, tensor
-cores, for B5 and B7 in bf16 at a compiled ``D`` up to 128; ``"fma"``,
-CUDA-core f32, for f32 (exact, no TF32), ``D = 256`` and every B6 call.
+cores, for B5, B6 and B7 in bf16 at a compiled ``D`` up to 128;
+``"fma"``, CUDA-core f32, for f32 (exact, no TF32) and ``D >= 256``.
 
 For CUDA tensors each wrapper (:func:`flash_forward`,
 :func:`flash_backward_dq`, :func:`flash_backward_dkv`) launches its
@@ -56,7 +58,6 @@ from mlapi_tpu_torch.ops.attention import NEG
 from mlapi_tpu_torch.ops.cuda.decode_attention import _count
 from mlapi_tpu_torch.ops.quant import maybe_dequant_kv
 
-_KERNEL_HEAD_DIMS = range(1, 257)
 _COMPILED_DIMS = (16, 32, 64, 128, 256)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _BODY_NAMES = ("fma", "mma")   # the C source's enum Body, by value
@@ -198,24 +199,20 @@ def _row_aligned(t):
 
 
 def _compiled_d(entry, d):
-    """The compiled head dim that takes ``d``; a ``d`` past 256 raises
-    before anything reaches the card."""
-    if d not in _KERNEL_HEAD_DIMS:
-        raise ValueError(
-            f"{entry}: head_dim {d} not compiled (1 <= D <= 256)"
-        )
-    return next(c for c in _COMPILED_DIMS if c >= d)
+    """The head dim the kernels run ``d`` at: the next compiled one up to
+    256, past it the next multiple of 256 (``d // 256`` column chunks of
+    the D = 256 bodies)."""
+    if d < 1:
+        raise ValueError(f"{entry}: head_dim {d} must be at least 1")
+    return next((c for c in _COMPILED_DIMS if c >= d), -(-d // 256) * 256)
 
 
-def _body(entry, dtype, dc):
-    """The body a call of compiled head dim ``dc`` runs (a mirror of the
-    C source's ``flash_body``, which decides on the card): tensor cores
-    for B5 and B7 in bf16 at ``dc <= 128``, the CUDA cores otherwise
-    (f32, ``dc = 256``, every B6 call)."""
-    if (entry != "mlapi_flash_backward_dq" and dtype == torch.bfloat16
-            and dc <= 128):
-        return "mma"
-    return "fma"
+def _body(dtype, dc):
+    """The body a call of padded head dim ``dc`` runs, at every entry
+    point (a mirror of the C source's ``flash_body``, which decides on
+    the card): tensor cores in bf16 at ``dc <= 128``, the CUDA cores
+    otherwise (f32, ``dc >= 256``)."""
+    return "mma" if dtype == torch.bfloat16 and dc <= 128 else "fma"
 
 
 def _pad(t, dc):
@@ -240,10 +237,11 @@ def _launch(entry, q, k, v, mask, causal, scale, window, ptrs, dout=None):
     body that ran, as the C entry point reports it."""
     b, lq, h, d = q.shape
     lk, kvh = k.shape[1], k.shape[2]
-    if d not in _COMPILED_DIMS:
+    if d not in _COMPILED_DIMS[:-1] and (d < 256 or d % 256):
         raise ValueError(
-            f"{entry}: head_dim {d} not compiled (one of {_COMPILED_DIMS}; "
-            "the wrappers pad 1 <= D <= 256 to them)"
+            f"{entry}: head_dim {d} not compiled (one of "
+            f"{_COMPILED_DIMS[:-1]} or a multiple of 256; the wrappers pad "
+            "every other D to one)"
         )
     if q.dtype not in _DTYPE_CODES:
         raise ValueError(f"{entry}: unsupported dtype {q.dtype}")

@@ -5,18 +5,21 @@ change, and timings with the two trees alternated.
     git archive PARENT_COMMIT | tar -x -C build/parent
     python3 -m mlapi_tpu_torch.tools.parent_ab --parent build/parent
 
-Both trees build their kernels at once, each into its own ``build/``;
+Both trees build their kernels at once, each into its own ``build/``
+(one line per tree names the kernels that ptxas says spill);
 then every measurement runs in a process of its own that imports one
 tree's ``mlapi_tpu_torch`` (the inputs and timers are this checkout's
 ``chip_smoke.py`` helpers, so both trees get the same ones):
 
-1. same bits -- B1-B4 (every body, head dims 12-128, bf16, int8 and f32
-   caches), B6 and the f32 B5/B7 bodies on seeded inputs; the outputs of
-   the two trees must be equal bit for bit;
+1. same bits -- B1-B4 (every body, head dims 12-256, bf16, int8 and f32
+   caches), B5 and B7 (out, lse, dk, dv) at every chip_smoke flash shape
+   up to head dim 256, and B6 where its body is the CUDA-core one (f32,
+   head dims past 128) on seeded inputs; the outputs of the two trees
+   must be equal bit for bit;
 2. kernels -- B1 and B3 at the serving decode shapes (B = 8, bf16, L =
-   48 and 1024), and B5 and B7 at chip_smoke's flash shapes (a)
+   48 and 1024), and B5, B6 and B7 at chip_smoke's flash shapes (a)
    sst2-bert, (b) GPT-2 causal and (e) Llama-class: CUDA-graph ms and
-   profiler device ms (B5/B7: the flash kernels alone), in the order
+   profiler device ms (B5-B7: the flash kernels alone), in the order
    parent, change, change, parent;
 3. training -- one sst2-bert step (``chip_smoke.profile_train_step``):
    wall ms per step over ``--steps`` steps, device ms and kernels per
@@ -51,7 +54,8 @@ def _smoke():
 def _same_bits(cs, kern, torch, out_path):
     outs = {}
     cases = []
-    for d, h, kvh in ((64, 12, 12), (128, 32, 8), (12, 8, 2), (32, 4, 4)):
+    for d, h, kvh in ((64, 12, 12), (128, 32, 8), (12, 8, 2), (32, 4, 4),
+                      (160, 8, 4), (256, 8, 4)):
         for name in cs.SERVING:
             decode = name.endswith("decode_attention")
             u, pos = (1, 1023) if decode else (128, 768)
@@ -66,22 +70,22 @@ def _same_bits(cs, kern, torch, out_path):
         outs[f"{name} {fmt} D={d} H={h}/{kvh}"] = got.cpu()
     for shape in cs.flash_shapes(cs.sst2_first_batch()[2]):
         name, _, _, _, _, dtype, causal, window, _, d = shape
-        if d > 128:
-            continue
+        if d > 256:
+            continue          # past the parent's head dims
         cfg = dict(causal=causal, scale=d ** -0.5, window=window)
         q, k, v, mask, dout = cs.flash_inputs(shape, seed=5)
         out_p, lse_p = kern.flash_forward_plain(q, k, v, mask, **cfg)
         delta = (dout.float() * out_p.float()).sum(-1).transpose(1, 2)
         delta = delta.contiguous()
-        outs[f"B6 {name}"] = kern.flash_backward_dq(
-            q, k, v, mask, dout, lse_p, delta, **cfg).cpu()
-        if dtype == "float32":
-            out, lse = kern.flash_forward(q, k, v, mask, **cfg)
-            dk, dv = kern.flash_backward_dkv(q, k, v, mask, dout, lse_p,
-                                             delta, **cfg)
-            outs.update({f"B5 out {name}": out.cpu(),
-                         f"B5 lse {name}": lse.cpu(),
-                         f"B7 dk {name}": dk.cpu(), f"B7 dv {name}": dv.cpu()})
+        if dtype == "float32" or d > 128:
+            # B6's CUDA-core body (bf16 at D <= 128 is the new mma body).
+            outs[f"B6 {name}"] = kern.flash_backward_dq(
+                q, k, v, mask, dout, lse_p, delta, **cfg).cpu()
+        out, lse = kern.flash_forward(q, k, v, mask, **cfg)
+        dk, dv = kern.flash_backward_dkv(q, k, v, mask, dout, lse_p, delta,
+                                         **cfg)
+        outs.update({f"B5 out {name}": out.cpu(), f"B5 lse {name}": lse.cpu(),
+                     f"B7 dk {name}": dk.cpu(), f"B7 dv {name}": dv.cpu()})
     torch.save(outs, out_path)
 
 
@@ -115,6 +119,8 @@ def _kernels(cs, kern, label):
             sets.append((q, k, v, mask, dout, lse, delta.contiguous()))
         calls = {
             "flash_forward": lambda a: kern.flash_forward(*a[:4], **cfg),
+            "flash_backward_dq":
+                lambda a: kern.flash_backward_dq(*a, **cfg),
             "flash_backward_dkv":
                 lambda a: kern.flash_backward_dkv(*a, **cfg),
         }
@@ -157,7 +163,13 @@ def worker(tree: str, label: str, task: str, arg: str) -> None:
     if task == "build":
         from mlapi_tpu_torch.ops.cuda import build
 
-        build.build()
+        spills = {}
+        for name, built in build.build().items():
+            for kernel, ptx in cs.ptxas_summary(built.log).items():
+                if ptx.get("spill_store_bytes") or ptx.get("spill_load_bytes"):
+                    spills[f"{name} {kernel}"] = ptx
+        print(json.dumps({"case": "build", "tree": label,
+                          "spilling_kernels": spills}), flush=True)
     elif task == "bits":
         _same_bits(cs, kern, torch, arg)
     elif task == "kernels":

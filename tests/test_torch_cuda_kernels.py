@@ -185,12 +185,13 @@ def test_strided_query_from_the_fused_projection(card):
 
 
 def test_unsupported_head_dim_raises_not_falls_back(card):
+    """D = 288 is taken on the card: one launch of the CUDA-core split-K
+    body (two 256-wide column chunks), within tolerance of the plain
+    version; nothing falls back."""
     q, k, v, mask = _case(card, 2, 1, 4, 4, 64, 288, torch.bfloat16,
                           "none", seed=2)
-    n0 = kern.decode_attention.launches
-    with pytest.raises(ValueError, match="head_dim"):
-        kern.decode_attention(q, k, v, mask)
-    assert kern.decode_attention.launches == n0
+    _check_body(kern.decode_attention, "fma", (q, k, v, mask),
+                kern.decode_attention_plain, torch.bfloat16)
 
 
 def test_model_streams_equal_through_kernels_and_einsum(card):
@@ -438,11 +439,20 @@ def test_flash_reads_strided_views_of_a_fused_projection(card):
 
 
 def test_flash_head_dim_other_than_64_raises(card):
-    q = torch.zeros(2, 32, 4, 288, device=card, dtype=torch.bfloat16)
-    n0 = kern.flash_forward.launches
-    with pytest.raises(ValueError, match="head_dim 288 not compiled"):
-        kern.flash_attention(q, q, q)
-    assert kern.flash_forward.launches == n0
+    """D = 288 is taken on the card: the wrapper pads it to 512, and one
+    B5 launch on the CUDA-core body gives the plain version's output."""
+    rng = np.random.default_rng(288)
+    q = torch.as_tensor(rng.standard_normal((2, 32, 4, 288)),
+                        dtype=torch.float32).to(card, torch.bfloat16)
+    n0, b0 = kern.flash_forward.launches, kern.flash_forward.bodies["fma"]
+    out = kern.flash_attention(q, q, q)
+    torch.cuda.synchronize()
+    assert kern.flash_forward.launches == n0 + 1
+    assert kern.flash_forward.bodies["fma"] == b0 + 1
+    mask = torch.ones(2, 32, device=card)
+    want, _ = kern.flash_forward_plain(q, q, q, mask, scale=288 ** -0.5)
+    assert out.shape == want.shape
+    assert (out.float() - want.float()).abs().max().item() <= 2e-2
 
 
 # -- every head dim up to 128; the decode body (B1/B3) ----------------------
@@ -566,11 +576,11 @@ def test_extend_mma_head_dims(card, d, fmt):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("d", [12, 48, 160, 256])
+@pytest.mark.parametrize("d", [12, 48, 160, 256, 320, 512])
 def test_extend_uncompiled_head_dim_runs_the_fma_body(card, d, dtype):
     """A head dim outside {16, 32, 64, 128} runs the CUDA-core body at the
-    next compiled dim (256 included) over the cache as it is, contiguous
-    and paged."""
+    next compiled dim (256 included; past 256 in 256-wide column chunks)
+    over the cache as it is, contiguous and paged."""
     q, k, v, mask = _span_case_d(card, 2, 9, 8, 2, 200, 60, d, dtype,
                                  "none", seed=d)
     got = _check_body(kern.extend_attention, "fma", (q, k, v, mask),
@@ -584,11 +594,12 @@ def test_extend_uncompiled_head_dim_runs_the_fma_body(card, d, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("d", [12, 16, 32, 128, 160, 256])
+@pytest.mark.parametrize("d", [12, 16, 32, 128, 160, 256, 320, 512])
 def test_flash_kernels_head_dims(card, d, dtype):
-    """B5-B7 at head dims other than 64 (12 and 160 through the wrappers'
-    zero padding): against the plain versions, GQA, causal, a dead batch
-    row; the autograd Function's gradients too."""
+    """B5-B7 at head dims other than 64 (12, 160 and 320 through the
+    wrappers' zero padding; 320 and 512 in two 256-wide column chunks):
+    against the plain versions, GQA, causal, a dead batch row; the
+    autograd Function's gradients too."""
     from mlapi_tpu_torch.ops.cuda.flash_attention import _keep
 
     rng = np.random.default_rng(d)
@@ -646,7 +657,7 @@ def test_flash_kernels_head_dims(card, d, dtype):
         assert err <= 2e-2 * max(w.float().abs().max().item(), 1e-3), err
 
 
-# -- B5 and B7 on the tensor cores (bf16, D <= 128) ------------------------
+# -- B5, B6 and B7 on the tensor cores (bf16, D <= 128) --------------------
 
 FLASH = ("flash_forward", "flash_backward_dq", "flash_backward_dkv")
 
@@ -719,23 +730,24 @@ def _flash_run(q, k, v, mask, dout, cfg, bodies):
 @pytest.mark.parametrize("group", [1, 4])
 @pytest.mark.parametrize("length", [100, 128, 1000])
 def test_flash_mma_bodies_match_plain(card, length, group, causal, window):
-    """B5 and B7 in bf16 at D = 64 on the tensor-core bodies (B6 on the
-    CUDA cores): ragged key lengths, a batch row with no valid key, GQA
-    group 1 and 4, causal with and without a sliding window."""
+    """B5, B6 and B7 in bf16 at D = 64 on the tensor-core bodies: ragged
+    key lengths, a batch row with no valid key, GQA group 1 and 4, causal
+    with and without a sliding window."""
     h = 8
     args = _flash_bf16_case(card, 2, length, h, h // group, 64,
                             seed=length + group)
     cfg = dict(causal=causal, scale=0.125, window=window)
-    _flash_run(*args, cfg, ("mma", "fma", "mma"))
+    _flash_run(*args, cfg, ("mma", "mma", "mma"))
 
 
 @pytest.mark.parametrize("d", [16, 64, 128])
 def test_flash_mma_bodies_head_dims(card, d):
     """The tensor-core bodies at D = 16, 64 and 128 (B7 holds K and V as
-    fragments up to 64, reads them per product at 128), causal GQA."""
+    fragments up to 64 and reads them per product at 128; B6 reads Q and
+    dO per product at every D), causal GQA."""
     args = _flash_bf16_case(card, 3, 300, 8, 2, d, seed=d)
     cfg = dict(causal=True, scale=d ** -0.5, window=None)
-    _flash_run(*args, cfg, ("mma", "fma", "mma"))
+    _flash_run(*args, cfg, ("mma", "mma", "mma"))
 
 
 def test_flash_mma_reads_strided_views(card):
@@ -783,3 +795,98 @@ def test_flash_f32_and_d256_keep_the_cuda_core_bodies(card, d):
     if d == 64:
         q, k, v, dout = (x.float() for x in (q, k, v, dout))
     _flash_run(q, k, v, mask, dout, cfg, ("fma", "fma", "fma"))
+
+
+# -- B6 on the tensor cores (bf16, D <= 128) ------------------------------
+
+def _dq_case(card, b, lq, lk, h, kvh, d, seed):
+    """bf16 q [B, Lq, H, D], k/v [B, Lk, KVH, D], dO 0.1 * N(0, 1), key
+    lengths drawn per batch row and the last row fully masked; lse from
+    the plain forward, delta = rowsum(dO * out)."""
+    rng = np.random.default_rng(seed)
+
+    def t(*shape, s=1.0):
+        return torch.as_tensor(s * rng.standard_normal(shape),
+                               dtype=torch.float32).to(card, torch.bfloat16)
+
+    q, k, v = t(b, lq, h, d), t(b, lk, kvh, d), t(b, lk, kvh, d)
+    lens = rng.integers(lk // 2, lk + 1, b)
+    mask = (torch.arange(lk)[None] < torch.as_tensor(lens)[:, None])
+    mask[-1] = False
+    return q, k, v, mask.to(card), t(b, lq, h, d, s=0.1)
+
+
+def _dq_check(q, k, v, mask, dout, cfg, views=None):
+    """One B6 launch on the tensor-core body against the plain version:
+    within 2e-2 (absolute and relative to the largest value) on rows that
+    attend a key, exact zeros on the others. ``views``: (q, dO) passed as
+    strided views instead, which must give the same bits."""
+    from mlapi_tpu_torch.ops.cuda.flash_attention import _keep
+
+    b, lq = q.shape[:2]
+    lk = k.shape[1]
+    out, lse = kern.flash_forward_plain(q, k, v, mask, **cfg)
+    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2)
+    delta = delta.contiguous()
+    fn = kern.flash_backward_dq
+    n0, b0 = fn.launches, fn.bodies["mma"]
+    dq = fn(q, k, v, mask, dout, lse, delta, **cfg)
+    torch.cuda.synchronize()
+    assert fn.launches == n0 + 1 and fn.bodies["mma"] == b0 + 1
+    want = kern.flash_backward_plain(q, k, v, mask, dout, lse, delta,
+                                     **cfg)[0]
+    keep = _keep(mask, cfg["causal"], cfg["window"], lq, lk)[:, 0]
+    live = keep.expand(b, lq, lk).any(-1)
+    assert dq.shape == want.shape and torch.isfinite(dq).all()
+    err = (dq.float() - want.float()).abs()[live].max().item()
+    ref = want.float().abs()[live].max().item()
+    assert err <= 2e-2 and err <= 2e-2 * ref, (err, ref)
+    assert not dq[~live].any()
+    if views is not None:
+        again = fn(views[0], k, v, mask, views[1], lse, delta, **cfg)
+        assert torch.equal(again, dq)
+
+
+DQ_CASES = [  # b, lq, lk, h, kvh, causal, window
+    (2, 128, 128, 12, 12, False, None),    # sst2-bert widths
+    (2, 300, 300, 8, 2, True, None),       # causal GQA 8/2, Lq % 64 != 0
+    (2, 200, 200, 8, 2, True, 48),         # a sliding window
+    (3, 100, 257, 8, 2, False, None),      # Lq != Lk
+]
+
+
+@pytest.mark.parametrize("case", DQ_CASES, ids=lambda c: "-".join(map(str, c)))
+@pytest.mark.parametrize("d", [16, 32, 48, 64, 128])
+def test_flash_dq_mma_matches_plain(card, d, case):
+    """B6 on the tensor-core body at D = 16, 32, 64, 128 and the padded
+    48: causal, a window, GQA 8/2, Lq not a multiple of 64, Lq != Lk, a
+    batch row with no valid key (exact zeros); Q and dO also as strided
+    views of fused projections (same bits)."""
+    b, lq, lk, h, kvh, causal, window = case
+    q, k, v, mask, dout = _dq_case(card, b, lq, lk, h, kvh, d, seed=d + lq)
+    cfg = dict(causal=causal, scale=d ** -0.5, window=window)
+    q_view = torch.cat([q, q, q], dim=2)[:, :, h:2 * h]
+    g_view = torch.cat([dout, dout], dim=2)[:, :, :h]
+    assert not q_view.is_contiguous() and not g_view.is_contiguous()
+    _dq_check(q, k, v, mask, dout, cfg, views=(q_view, g_view))
+
+
+# -- head dims past 256: the D = 256 CUDA-core bodies in column chunks -----
+
+@pytest.mark.parametrize("fmt", ["bf16", "int8", "f32"])
+@pytest.mark.parametrize("d", [320, 512])
+def test_head_dims_past_256_match_plain(card, d, fmt):
+    """B1 and B3 at D = 320 and 512 run the CUDA-core split-K body in two
+    column chunks, not the decode body: within tolerance of their plain
+    versions, exact zeros on a dead batch row, paged bit for bit equal to
+    contiguous (B2/B4: test_extend_uncompiled_head_dim_runs_the_fma_body)."""
+    dtype = DECODE_FORMATS[fmt][0]
+    q, k, v, mask = _decode_case(card, 3, 8, 2, 448, d, fmt, seed=d)
+    got = _check_body(kern.decode_attention, "fma", (q, k, v, mask),
+                      kern.decode_attention_plain, dtype)
+    pk, table = _paged(card, k, 8, mask, seed=4)
+    pv, _ = _paged(card, v, 8, mask, seed=4)
+    paged = _check_body(kern.paged_decode_attention, "fma",
+                        (q, pk, pv, table, mask),
+                        kern.paged_decode_attention_plain, dtype)
+    assert torch.equal(got, paged)

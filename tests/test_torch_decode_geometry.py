@@ -5,7 +5,9 @@ runs and how the call is cut into blocks; the kernels cannot run here, so
 these tests hold the cut to what the kernels index: every query row and
 every key tile covered exactly once, no empty split, partials exactly as
 large as the kernel writes, the decode body's splits one cluster of at
-most 8 blocks, and every head dim up to 128 on the next compiled one.
+most 8 blocks, every head dim up to 256 on the next compiled one, and
+every head dim past 256 on the CUDA-core split-K body at 256 in 256-wide
+column chunks, its grid within the card's limits.
 Pure Python; nothing is compiled.
 """
 
@@ -112,8 +114,8 @@ def test_bf16_extend_takes_the_tensor_core_body(entry):
 
 @pytest.mark.parametrize("entry", DECODE)
 def test_decode_keeps_the_fma_body(entry):
-    """Every decode call runs the decode body (a CUDA-core memory
-    pipeline), whatever the dtype, format and head dim."""
+    """Every decode call up to head dim 256 runs the decode body (a
+    CUDA-core memory pipeline), whatever the dtype and format."""
     for dtype in (torch.bfloat16, torch.float32):
         for d in (12, 64, 128):
             for quant in (False, True):
@@ -154,7 +156,10 @@ def test_python_geometry_matches_the_cuda_source():
     assert "if (!extend) return kBodyDecode;" in src
     assert re.search(
         r"return d <= 16\s+\? 16\s+: d <= 32\s+\? 32\s+: d <= 64\s+\? 64"
-        r"\s+: d <= 128 \? 128\s+: d <= 256 \? 256\s+: 0;", src)
+        r"\s+: d <= 128 \? 128\s+: 256;", src)
+    assert "constexpr int d_chunks(int d) { return (d + 255) / 256; }" in src
+    assert "if (D > 256) return kBodyFma;" in src
+    assert "dim3 grid(p.S * p.nd, p.KVH * p.row_chunks, p.B);" in src
     assert "return f32_cache && d_c <= 128 ? 4 : 8;" in src
     assert "return kDecTileBytes / (d_c * itemsize);" in src
     assert "dec_tile_keys(compiled_d(D), quant ? 1 : dtype == 0 ? 4 : 2)" in src
@@ -233,11 +238,51 @@ def test_decode_cluster_covers_every_tile_and_head_once(entry, dtype, quant,
 
 def test_every_head_dim_maps_to_the_next_compiled_one():
     """1 <= D <= 256 run: the CUDA-core bodies at the next of 16, 32, 64,
-    128, 256; the tensor-core body only at the first four."""
-    for d in range(1, 257):
+    128, 256; the tensor-core body only at the first four. Past 256 every
+    entry point runs the CUDA-core split-K body at 256 in ceil(D / 256)
+    column chunks."""
+    for d in range(1, 1025):
         dc = geo_mod._compiled_d(d)
-        assert dc == min(c for c in (16, 32, 64, 128, 256) if c >= d)
+        assert dc == min([c for c in (16, 32, 64, 128, 256) if c >= d]
+                         + [256])
+        assert geo_mod._d_chunks(d) == -(-d // 256)
         body = _geometry(EXTEND[0], torch.bfloat16, 2, 40, 8, 2, 456, d,
                          132).body
         assert body == ("mma" if d == dc and d <= 128 else "fma")
-    assert list(geo_mod._KERNEL_HEAD_DIMS) == list(range(1, 257))
+        if d > 256:
+            for entry in DECODE:
+                assert _geometry(entry, torch.bfloat16, 2, 1, 8, 2, 456, d,
+                                 132).body == "fma"
+
+
+WIDE_SHAPES = [  # entry, b, u, h, kvh, lk
+    ("mlapi_decode_attention", 8, 1, 12, 12, 1024),
+    ("mlapi_paged_decode_attention", 2, 1, 8, 4, 512),
+    ("mlapi_extend_attention", 2, 64, 8, 4, 512),
+    ("mlapi_paged_extend_attention", 1, 128, 12, 12, 416),
+    ("mlapi_decode_attention", 1, 1, 4, 1, 1),
+]
+
+
+@pytest.mark.parametrize("d", [257, 320, 512, 1000])
+@pytest.mark.parametrize("entry,b,u,h,kvh,lk", WIDE_SHAPES)
+def test_head_dims_past_256_cut_into_column_chunks(entry, b, u, h, kvh, lk,
+                                                   d):
+    """A head dim past 256: the CUDA-core split-K body, every row and key
+    tile covered exactly once per column chunk, grid x = splits * chunks
+    (within 2^31 - 1), y = KVH * row chunks (within 65535), partials of
+    the full d (acc [n, d], then m, l)."""
+    for dtype, quant in ((torch.bfloat16, False), (torch.float32, False),
+                         (torch.bfloat16, True)):
+        g = _geometry(entry, dtype, b, u, h, kvh, lk, d, 132, quant)
+        assert g.body == "fma" and g.d_chunks == -(-d // 256)
+        assert (g.tile_keys, g.rows_per_block) == (32, 32)
+        rows = u * (h // kvh)
+        assert g.row_chunks == -(-rows // 32)
+        n_tiles = -(-lk // 32)
+        assert 1 <= g.splits <= n_tiles
+        assert (g.splits - 1) * g.tiles_per_split < n_tiles
+        assert g.splits * g.tiles_per_split >= n_tiles
+        grid = (g.splits * g.d_chunks, kvh * g.row_chunks, b)
+        assert grid[0] < 2**31 and grid[1] <= 65535 and grid[2] <= 65535
+        assert g.partial_floats == b * g.splits * kvh * rows * (d + 2)

@@ -126,12 +126,24 @@ def test_kv_head_mismatch_and_head_dim_refused():
     k = torch.zeros(B, L, 4, D)
     with pytest.raises(ValueError, match="head counts disagree"):
         port.flash_attention(q, k, torch.zeros(B, L, 2, D))
-    # The card's wrappers take head dims up to 256, and refuse a larger
-    # one before anything reaches the card.
-    wide = torch.zeros(B, L, 4, 288)
-    with pytest.raises(ValueError, match="head_dim 288 not compiled"):
-        port._launch("mlapi_flash_forward", wide, wide, wide,
-                      torch.ones(B, L), False, 0.25, None, [])
+    # Every head dim is taken: D = 288 is zero-padded to 512, which the
+    # card's launcher accepts (two column chunks of the D = 256 bodies;
+    # here it stops only at the device check), and on the CPU the padded
+    # plain version gives the unpadded one's output.
+    rng = np.random.default_rng(288)
+    wide = [torch.tensor(rng.standard_normal((B, L, 4, 288)),
+                         dtype=torch.float32) for _ in range(3)]
+    assert port._compiled_d("mlapi_flash_forward", 288) == 512
+    padded = [port._pad(x, 512) for x in wide]
+    with pytest.raises(ValueError, match="every operand must be on the card"):
+        port._launch("mlapi_flash_forward", *padded, torch.ones(B, L), False,
+                     288 ** -0.5, None, [])
+    out = port.flash_attention(*wide, causal=True)
+    want, _ = port.flash_forward_plain(*padded, torch.ones(B, L), causal=True,
+                                       scale=288 ** -0.5)
+    assert out.shape == (B, L, 4, 288)
+    torch.testing.assert_close(out, want[..., :288], rtol=0, atol=1e-6)
+    assert not want[..., 288:].any()
 
 
 def test_int8_kv_dequantizes_at_entry():

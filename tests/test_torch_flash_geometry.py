@@ -4,8 +4,10 @@ The wrapper's ``_body`` mirrors which body of ``csrc/flash_attention.cu``
 a call runs (on the card the C source decides and reports it), and ``key_tiles`` / ``query_tiles`` below mirror which
 tiles a block of the C source walks; the kernels cannot run here, so
 these tests hold the dispatch to the rule
-(tensor cores for B5 and B7 in bf16 up to head dim 128, CUDA cores for
-f32, head dim 256 and every B6 call) and the tile ranges to a brute-force
+(tensor cores for B5, B6 and B7 in bf16 up to head dim 128, CUDA cores
+for f32 and head dims from 256 on, a head dim past 256 zero-padded to a
+multiple of 256 and run in 256-wide column chunks whose grid stays
+within its limits) and the tile ranges to a brute-force
 keep-mask: every attendable (query, key) pair is walked by the block that
 owns it, and every tile a block walks holds one (so a causal or windowed
 call skips nothing it needs and walks nothing it could skip). Grouped-
@@ -35,6 +37,7 @@ SRC = (Path(flash.__file__).resolve().parents[2] / "csrc"
 TILES = {
     ("mlapi_flash_forward", "mma"): (64, 64),
     ("mlapi_flash_forward", "fma"): (64, 32),
+    ("mlapi_flash_backward_dq", "mma"): (64, 64),
     ("mlapi_flash_backward_dq", "fma"): (32, 32),
     ("mlapi_flash_backward_dkv", "mma"): (64, None),
     ("mlapi_flash_backward_dkv", "fma"): (32, 32),
@@ -75,20 +78,44 @@ def query_tiles(k0, nk, bq, lq, causal, window):
 
 
 def test_body_dispatch():
-    """bf16 B5/B7 at a head dim up to 128 (padded to 16, 32, 64 or 128)
-    run the tensor-core body; f32, head dims in (128, 256] and B6 run the
-    CUDA-core body."""
+    """bf16 B5, B6 and B7 at a head dim up to 128 (padded to 16, 32, 64
+    or 128) run the tensor-core body; f32 and head dims past 128 (padded
+    to 256, or past 256 to a multiple of 256) the CUDA-core body."""
     for entry in ENTRIES:
-        for d in range(1, 257):
+        for d in range(1, 1025):
             dc = flash._compiled_d(entry, d)
-            assert dc == min(c for c in (16, 32, 64, 128, 256) if c >= d)
+            if d <= 256:
+                assert dc == min(c for c in (16, 32, 64, 128, 256) if c >= d)
+            else:
+                assert dc % 256 == 0 and dc - 256 < d <= dc
             for dtype in (torch.bfloat16, torch.float32):
-                mma = (entry != "mlapi_flash_backward_dq"
-                       and dtype == torch.bfloat16 and d <= 128)
-                assert flash._body(entry, dtype, dc) == (
+                mma = dtype == torch.bfloat16 and d <= 128
+                assert flash._body(dtype, dc) == (
                     "mma" if mma else "fma"), (entry, d, dtype)
-    with pytest.raises(ValueError, match="head_dim 257 not compiled"):
-        flash._compiled_d("mlapi_flash_forward", 257)
+    with pytest.raises(ValueError, match="head_dim 0 must be at least 1"):
+        flash._compiled_d("mlapi_flash_forward", 0)
+
+
+@pytest.mark.parametrize("d", [257, 288, 320, 512, 513, 4096])
+def test_head_dims_past_256_run_in_chunks_within_the_grid(d):
+    """A head dim past 256 runs the CUDA-core bodies at 256 in nd = dc / 256
+    column chunks: grid x is the tile count times nd (B5: 64-row tiles,
+    B6: 32-row, B7: 32-key), and stays within 2^31 - 1 at any length the
+    launcher takes, while y (heads) and z (batch) keep their 65535."""
+    dc = flash._compiled_d("mlapi_flash_forward", d)
+    nd = dc // 256
+    assert nd == -(-d // 256)
+    for entry in ENTRIES:
+        body = flash._body(torch.bfloat16, dc)
+        assert body == "fma"
+        rows, _ = tiles(entry, body, 256)
+        for length in (1, 128, 1000, 65536):
+            assert -(-length // rows) * nd < 2**31
+    assert ("(static_cast<long long>(Lq) + 31) / 32 * nd > 0x7fffffff"
+            in SRC)
+    assert "dim3((p.Lq + 63) / 64 * p.nd, p.H, p.B)" in SRC
+    assert "dim3((p.Lq + 31) / 32 * p.nd, p.H, p.B)" in SRC
+    assert "dim3((p.Lk + 31) / 32 * p.nd, p.KVH," in SRC
 
 
 def _keep(lq, lk, causal, window):
@@ -111,7 +138,7 @@ CASES = [  # lq, lk, causal, window
 
 
 def _bodies(entry):
-    return ("mma", "fma") if entry != "mlapi_flash_backward_dq" else ("fma",)
+    return ("mma", "fma")
 
 
 @pytest.mark.parametrize("lq,lk,causal,window", CASES)
@@ -154,6 +181,8 @@ def test_tile_constants_and_dispatch_match_the_cuda_source():
 
     assert TILES[("mlapi_flash_forward", "mma")] == (
         const("kFwdRows"), const("kFwdKeys"))
+    assert TILES[("mlapi_flash_backward_dq", "mma")] == (
+        const("kDqRows"), const("kDqKeys"))
     assert TILES[("mlapi_flash_backward_dkv", "mma")][0] == const(
         "kDkvKeys")
     assert ("constexpr int dkv_q_rows(int d) { return d <= 64 ? 64 : 32; }"
@@ -166,8 +195,7 @@ def test_tile_constants_and_dispatch_match_the_cuda_source():
     assert TILES[("mlapi_flash_backward_dq", "fma")] == (32, 32)
     assert TILES[("mlapi_flash_backward_dkv", "fma")] == (32, 32)
     # The dispatch and the tile walks that key_tiles / query_tiles mirror.
-    assert ("return which != kDq && dtype == 1 && D <= 128 ? kBodyMma : "
-            "kBodyFma;") in SRC
+    assert "return dtype == 1 && D <= 128 ? kBodyMma : kBodyFma;" in SRC
     assert "if (p.window > 0) k_lo = max(0, q0 - p.window + 1);" in SRC
     assert "k_hi = min(p.Lk, q0 + nq);" in SRC
     assert "q_lo = min(k0, p.Lq);" in SRC
@@ -176,4 +204,4 @@ def test_tile_constants_and_dispatch_match_the_cuda_source():
     assert flash._BODY_NAMES == ("fma", "mma")
     assert "enum Body { kBodyFma = 0, kBodyMma = 1 };" in SRC
     assert flash._COMPILED_DIMS == (16, 32, 64, 128, 256)
-    assert "D != 128 && D != 256" in SRC
+    assert "D != 128 && D % 256 != 0" in SRC

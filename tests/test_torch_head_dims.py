@@ -1,20 +1,22 @@
-"""Head dims other than GPT-2's 64: the port's plain versions of B1, B3
-and B5-B7 against the JAX package's Pallas kernels (CPU).
+"""Head dims other than GPT-2's 64: the port's plain versions of B1, B2,
+B3 and B5-B7 against the JAX package's Pallas kernels (CPU).
 
-The CUDA kernels take every head dim up to 256 (compiled for 16, 32, 64,
-128 and 256; others run at the next compiled dim, or -- B5-B7 -- are
-zero-padded to it by the wrappers). On the card they are held against
-these plain versions (``tests/test_torch_cuda_kernels.py``,
+The CUDA kernels take every head dim (compiled for 16, 32, 64, 128 and
+256; others up to 256 run at the next compiled dim, or -- B5-B7 -- are
+zero-padded to it by the wrappers; past 256 they run the D = 256
+CUDA-core bodies in 256-wide column chunks). On the card they are held
+against these plain versions (``tests/test_torch_cuda_kernels.py``,
 ``chip_smoke.py``); here the plain versions are held against the
 reference at D = 12 (docs-gpt-draft), 16 (docsclf-bert), 32 (docs-gpt,
-docs-llama), 128 (Llama-class), 160 (padded to 256) and 256 (the widest
-public decoder heads), the Pallas kernels in interpret mode as the JAX
-package's own tests run them on the CPU. Each interpret-mode
-compile costs about a second, so the grid is sparse: each head dim runs
-once per kernel, B1 and B3 with opposite groups (1 and 4) and the
-formats rotating, so that each kernel meets both groups and all three
-formats and each head dim both groups. D = 16 at every group and format,
-and B5-B7 at D = 16, are the grids of ``test_torch_decode_attention.py``,
+docs-llama), 128 (Llama-class), 160 (padded to 256), 256 (the widest
+public decoder heads), and 320 and 512 (two 256-wide column chunks
+each, past every published head), the Pallas kernels in interpret mode as the JAX package's own tests run them on the CPU.
+Each interpret-mode compile costs about a second, so the grid is sparse:
+each head dim runs once per kernel, B1 and B3 with opposite groups (1
+and 4) and the formats rotating, so that each kernel meets both groups
+and all three formats and each head dim both groups; B2 runs once, at
+D = 320. D = 16 at every group and format, and B5-B7 at D = 16, are the
+grids of ``test_torch_decode_attention.py``,
 ``test_torch_paged_attention.py`` and ``test_torch_flash_attention.py``.
 Bounds: 1e-5 at f32, 2e-2 at bf16 and int8 (bf16 compute), the
 reference's own; rows with no valid key are exact zeros.
@@ -29,6 +31,7 @@ import pytest
 import torch
 
 from mlapi_tpu.ops.pallas import decode_attention as jax_decode
+from mlapi_tpu.ops.pallas import extend_attention as jax_extend
 from mlapi_tpu.ops.pallas import flash_attention_with_lse as jax_flash
 from mlapi_tpu.ops.pallas import paged_decode_attention as jax_paged_decode
 from mlapi_tpu_torch.ops import cuda as kern
@@ -40,17 +43,20 @@ B, L, H, PAGE = 3, 32, 4, 8
 TOL = {"f32": 1e-5, "bf16": 2e-2, "int8": 2e-2}
 CDT = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": torch.bfloat16}
 FORMATS = ("f32", "bf16", "int8")
-# (D, KV heads: group 1 or 4, format) for B1; B3 takes the other group
-# and the next format.
-DIMS = (12, 16, 32, 128, 160, 256)
-CELLS = [(d, H if i % 2 == 0 else H // 4, FORMATS[i % 3])
-         for i, d in enumerate(DIMS)]
+# (D, KV heads: group 1 or 4, format, span) for B1 (span 1); B3 takes the
+# other group and the next format. B2 (span U) runs once past 256.
+DIMS = (12, 16, 32, 128, 160, 256, 320, 512)
+U = 4
+CELLS = [(d, H if i % 2 == 0 else H // 4, FORMATS[i % 3], 1)
+         for i, d in enumerate(DIMS)] + [(320, H // 4, "int8", U)]
 PAGED_CELLS = [(d, H // 4 if i % 2 == 0 else H, FORMATS[(i + 1) % 3])
                for i, d in enumerate(DIMS)]
 
 
 def _ids(cells):
-    return [f"d{d}-group{H // kvh}-{fmt}" for d, kvh, fmt in cells]
+    return [f"d{c[0]}-group{H // c[1]}-{c[2]}"
+            + (f"-span{c[3]}" if len(c) > 3 and c[3] > 1 else "")
+            for c in cells]
 
 
 def _mask():
@@ -88,17 +94,27 @@ def _compare(got, want, mask, fmt):
     assert not got[~live].any()
 
 
-@pytest.mark.parametrize("d,kvh,fmt", CELLS, ids=_ids(CELLS))
-def test_decode_plain_matches_pallas_at_head_dim(d, kvh, fmt):
+@pytest.mark.parametrize("d,kvh,fmt,u", CELLS, ids=_ids(CELLS))
+def test_decode_plain_matches_pallas_at_head_dim(d, kvh, fmt, u):
+    """B1 (span 1) or B2 (a span of U positions at the end of the window,
+    the causal span structure in its [B, U, L] mask)."""
     rng = np.random.default_rng(d + kvh)
-    q = torch.as_tensor(rng.standard_normal((B, 1, H, d)).astype(
+    q = torch.as_tensor(rng.standard_normal((B, u, H, d)).astype(
         np.float32)).to(CDT[fmt])
     k, v = (_cache(rng, (B, L, kvh, d), fmt) for _ in range(2))
     mask = _mask()
-    want = jax_decode(_to_jax(q), _to_jax(k), _to_jax(v), jnp.asarray(mask),
+    if u == 1:
+        want = jax_decode(_to_jax(q), _to_jax(k), _to_jax(v),
+                          jnp.asarray(mask), block_k=16, interpret=True)
+        got = kern.decode_attention(q, k, v, torch.as_tensor(mask))
+        _compare(got[:, 0], want[:, 0], mask, fmt)
+        return
+    span = np.arange(L)[None, None] <= (L - u + np.arange(u))[None, :, None]
+    mask3 = mask[:, None, :] & span
+    want = jax_extend(_to_jax(q), _to_jax(k), _to_jax(v), jnp.asarray(mask3),
                       block_k=16, interpret=True)
-    got = kern.decode_attention(q, k, v, torch.as_tensor(mask))
-    _compare(got[:, 0], want[:, 0], mask, fmt)
+    got = kern.extend_attention(q, k, v, torch.as_tensor(mask3))
+    _compare(got, want, mask3, fmt)
 
 
 @pytest.mark.parametrize("d,kvh,fmt", PAGED_CELLS, ids=_ids(PAGED_CELLS))
@@ -122,7 +138,8 @@ def test_paged_decode_plain_matches_pallas_at_head_dim(d, kvh, fmt):
 
 
 FLASH_CELLS = [(12, "float32"), (32, "float32"), (128, "bfloat16"),
-               (160, "float32"), (256, "bfloat16")]
+               (160, "float32"), (256, "bfloat16"), (320, "float32"),
+               (512, "bfloat16")]
 FLASH_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 
 
@@ -198,12 +215,24 @@ def test_flash_zero_padding_is_exact(d):
 
 
 def test_head_dims_past_128_are_refused():
-    with pytest.raises(ValueError, match="head_dim 288 not compiled"):
-        flash._compiled_d("mlapi_flash_forward", 288)
-    q = torch.empty((2, 1, 4, 288), dtype=torch.bfloat16, device="meta")
-    mask = torch.empty((2, 64), dtype=torch.bool, device="meta")
+    """No head dim is refused any more: D = 288 is taken. The flash
+    wrappers pad it to 512 (two column chunks of the D = 256 bodies),
+    the decode geometry runs it on the CUDA-core split-K body at 256 in
+    two chunks, and on the CPU B1 computes it through its plain version
+    (no launch)."""
+    assert flash._compiled_d("mlapi_flash_forward", 288) == 512
+    geo = importlib.import_module(
+        "mlapi_tpu_torch.ops.cuda.decode_attention")._geometry(
+            "mlapi_decode_attention", torch.bfloat16, 2, 1, 4, 4, 64, 288,
+            132)
+    assert (geo.body, geo.d_chunks) == ("fma", 2)
+    rng = np.random.default_rng(288)
+    q = torch.as_tensor(rng.standard_normal((2, 1, 4, 288)),
+                        dtype=torch.float32)
+    k, v = (torch.as_tensor(rng.standard_normal((2, 64, 4, 288)),
+                            dtype=torch.float32) for _ in range(2))
+    mask = torch.ones((2, 64), dtype=torch.bool)
     n0 = kern.decode_attention.launches
-    with pytest.raises(ValueError, match="head_dim 288 not compiled"):
-        kern.decode_attention(q, q.new_empty((2, 64, 4, 288)),
-                              q.new_empty((2, 64, 4, 288)), mask)
+    out = kern.decode_attention(q, k, v, mask)
     assert kern.decode_attention.launches == n0
+    assert out.shape == (2, 1, 4, 288) and bool(torch.isfinite(out).all())
