@@ -20,10 +20,12 @@ the JAX package. Phases, each fatal on failure:
    for B2/B4 a GQA row (16 query heads on 4 KV heads) and a ragged one
    (U = 100, L = 1000, 8-token pages), for B1/B3 a GQA row, and B1-B4
    rows at Llama-class widths (32 query heads on 8 KV heads of 128),
-   docs-gpt's (4 heads of 32; B1/B3 in f32 too) and head dims 160,
+   docs-gpt's (4 heads of 32; B1/B3 in f32 too), head dims 160,
    256, 320 and 512 (8 query heads on 4 KV heads; B1/B3 at 256 in f32
    too; past 256 every B1-B4 call runs the CUDA-core split-K body in
-   256-wide column chunks): each wrapper against
+   256-wide column chunks) and TinyLlama-1.1B's geometry (32 query heads
+   on 4 KV heads of 64, a group of 8: B1/B3 at B = 8, L = 2048; B2/B4
+   at B = 8, U = 128, L = 2048): each wrapper against
    its plain PyTorch version (max abs error on live rows <= 2e-2, 1e-5
    in f32, exact zeros on rows with no valid key), each paged kernel
    against its contiguous twin over the same bytes (bit for bit); each
@@ -35,9 +37,11 @@ the JAX package. Phases, each fatal on failure:
    mask with the last row fully masked), (b) GPT-2 small causal (B = 8,
    L = 1024, bf16), (c) a GQA sliding window in float32, (d) docs-gpt's
    batch (head dim 32, float32, causal), (e) Llama-class causal GQA
-   (head dim 128, bf16) and causal bf16 rows at head dims 256 and 512
+   (head dim 128, bf16), causal bf16 rows at head dims 256 and 512
    (8 heads) and 160 and 320 (8 on 4 KV heads; 320 and 512 in two
-   256-wide column chunks): each against its plain version
+   256-wide column chunks) and (f) TinyLlama-1.1B's geometry (32 query
+   heads on 4 KV heads of 64, causal, B = 4, L = 2048): each against
+   its plain version
    (<= 2e-2 bf16, <= 1e-4 f32 on live rows, exact zeros where nothing
    is attended), each row naming the body that ran (``mma``: tensor
    cores, every bf16 call at D <= 128; ``fma``) as the C entry
@@ -79,7 +83,8 @@ the JAX package. Phases, each fatal on failure:
    batch of seven 128-token chunks at B = 8, each request's time to its
    first NDJSON line reported. Launch counters are zeroed just before
    the requests and read just after: flash-extend exactly 12 per chunk
-   (one per layer), all on the tensor-core body; a paged run (its pool
+   (one per layer), all on the tensor-core body, and flash-decode exactly
+   12 per decode step; a paged run (its pool
    sized for 8 full windows) must launch B3 and B4 and never B1 or B2
    (and never B5-B7), and end with every page back in the pool. Then
    one 896-token prefill at B = 8 through the engine's layout (wall ms,
@@ -99,10 +104,29 @@ the JAX package. Phases, each fatal on failure:
    joiner admitted into the row of a request that just finished streams
    what its prompt streams alone, on both layouts; and the
    teacher-forced top-1 agreement of flash with einsum at GPT-2 small
-   is reported (floor 0.9).
+   is reported (floor 0.9);
+7. Llama — a TinyLlama-1.1B-width checkpoint (22 layers, 32 query
+   heads on 4 KV heads of 64, bf16, weights from seed 0; the seconds of
+   the host draw, of the write and of each read reported) served as in
+   phase 5 in two runs, contiguous bf16 and paged 16 int8: flash-extend
+   exactly 22 launches per prefill chunk, all ``mma``, flash-decode 22
+   per decode step; ``/metrics``
+   cache bytes equal to the shapes' (4 KV heads: a 16-token int8 page
+   is 191,488 B); the ``profile`` and ``prefill_profile`` rows of each
+   engine and flash's top-1 agreement with einsum on the contiguous one
+   (floor 0.9). Then one docs_text batch (B = 2, L = 1024) at that
+   width: the LM loss and gradients with flash against full attention
+   (phase 4's bounds), every B5-B7 launch on ``mma``; small f32 Llamas'
+   greedy streams through paged flash, contiguous flash and einsum
+   (docs-llama's 4 heads on 2 KV heads of 32, and 8 heads on 1 KV head
+   of 64); and ``--preset docs-llama`` through the train CLI's ``run``
+   with flash attention, 30 steps and its test evaluation, with exact
+   B5-B7 launch counts, its checkpoint read back and served (greedy
+   streams through flash equal einsum's).
 
 Stdout: one JSON line per kernel case, per training and serving run,
-then the ``{"kernels": [...]}`` summary (B1-B7), the ``nvidia-smi``
+then the ``{"kernels": [...]}`` summary (B1-B7; each kernel's
+``launches_per_path`` holds the GPT and Llama paths), the ``nvidia-smi``
 line, and last ``{"ok": true, "device": {...}}``. Without a card, or
 outside the repo, it exits non-zero and prints no result.
 """
@@ -128,6 +152,11 @@ GPT2_SMALL = dict(                # openai-community/gpt2
     vocab_size=50257, hidden_size=768, num_layers=12, num_heads=12,
     max_positions=1024, compute_dtype="bfloat16",
 )
+TINYLLAMA = dict(                 # TinyLlama/TinyLlama-1.1B-intermediate-
+    vocab_size=32000, hidden_size=2048, num_layers=22,  # step-1431k-3T,
+    num_heads=32, num_kv_heads=4, intermediate_size=5632,  # config.json
+    max_positions=2048, rope_theta=10000.0, compute_dtype="bfloat16",
+)
 F32_FLOPS_PER_S = 67e12         # float32 outside the tensor cores
 # B5-B7 on live rows: absolute, and relative to the largest reference
 # value, so that small gradients cannot pass by being small.
@@ -150,6 +179,7 @@ SOURCES = {
     **{k: "mlapi_tpu_torch/csrc/flash_attention.cu" for k in FLASH},
 }
 SST2_STEPS = 30                 # training steps of the sst2-bert run
+DOCS_LLAMA_STEPS = 30           # ... and of the docs-llama run
 
 
 def emit(obj) -> None:
@@ -397,6 +427,14 @@ def check_kernels(power):
         if decode:
             shapes.append((name, 2, 1, 512, 511,
                            dict(h=8, kvh=4, d=256, f32=True)))
+    # TinyLlama-1.1B's geometry, a group of 8 at D = 64 (32 query heads on
+    # 4 KV heads): B1/B3 at B = 8 over its 2048-token window, B2/B4 at
+    # B = 8, U = 128, the window's last chunk.
+    tiny = dict(h=32, kvh=4, d=64)
+    for name in SERVING:
+        decode = name.endswith("decode_attention")
+        shapes.append((name, 8, 1 if decode else 128, 2048,
+                       2047 if decode else 1920, tiny))
     results = []
     for i, (name, b, u, length, pos, *extra) in enumerate(shapes):
         shape = dict(extra[0]) if extra else {}
@@ -638,9 +676,21 @@ def admission_leg(port: int):
     return streamed, lines[-1], outs
 
 
-def serve_run(ckpt: Path, kv_quant, page):
-    """One serving run (``page``: the KV page size, None for the
-    contiguous cache): returns its summary row and the engine."""
+def kv_bytes(cfg, tokens: int, kv_quant) -> int:
+    """Bytes of ``tokens`` cached tokens across every layer from the
+    configuration's shapes alone: K and V of each KV head, in the
+    compute dtype or as int8 payload plus one f32 scale."""
+    kvh = cfg.get("num_kv_heads") or cfg["num_heads"]
+    d = cfg["hidden_size"] // cfg["num_heads"]
+    item = 2 if cfg["compute_dtype"] == "bfloat16" else 4
+    per_head = d + 4 if kv_quant == "int8" else d * item
+    return cfg["num_layers"] * 2 * tokens * kvh * per_head
+
+
+def serve_run(ckpt: Path, kv_quant, page, cfg=GPT2_SMALL, model="gpt2-small"):
+    """One serving run of the checkpoint of ``cfg`` (``page``: the KV
+    page size, None for the contiguous cache): returns its summary row
+    and the engine."""
     import statistics
 
     from mlapi_tpu_torch.ops import cuda as kern
@@ -653,23 +703,36 @@ def serve_run(ckpt: Path, kv_quant, page):
     # [--kv-page-size 16]); a wider batch window so 8 concurrent arrivals
     # form one batch.
     # The paged runs size the pool for the prefill-heavy leg: 8 rows of a
-    # full 1024-token window (the leg's 928 need 8 * 58 + 1 = 465 pages),
-    # where the default covers the largest short bucket only.
+    # full window (GPT-2's 1024 tokens; the leg's 928 need 8 * 58 + 1 =
+    # 465 pages), where the default covers the largest short bucket only.
     kv_pages = None
     if page:
-        kv_pages = 8 * -(-GPT2_SMALL["max_positions"] // page) + 1
+        kv_pages = 8 * -(-cfg["max_positions"] // page) + 1
+    t0 = time.perf_counter()
     engine = build_engine(ckpt, kv_quant=kv_quant, decode_attn_impl="flash",
                           kv_page_size=page, kv_pages=kv_pages,
                           max_wait_ms=50.0)
+    load_s = time.perf_counter() - t0
     window = engine._cache_len(LONG_LEG_BUCKET, LONG_LEG_NEW)
     if page and kv_pages < 8 * -(-window // page) + 1:
         raise SystemExit(f"{kv_pages} pages cannot hold 8 x {window} tokens")
     n_new = 32
+    # Decode steps of the run, counted where the engine's decode chunks
+    # take them (one launch of flash-decode per layer per step).
+    steps = [0]
+    decode_step = engine.model.decode_step
+
+    def counted_step(*args, **kwargs):
+        steps[0] += 1
+        return decode_step(*args, **kwargs)
+
+    engine.model.decode_step = counted_step
     with BackgroundServer(build_app(engine)) as srv:
         for name in KERNELS:
             getattr(kern, name).launches = 0
         for name in SERVING:
             getattr(kern, name).bodies = {"mma": 0, "fma": 0, "decode": 0}
+        steps[0] = 0
         all_chunks0 = engine.prefill_chunks
         batches0 = engine.batch_calls
         t0 = time.perf_counter()
@@ -716,14 +779,16 @@ def serve_run(ckpt: Path, kv_quant, page):
         all_chunks = engine.prefill_chunks - all_chunks0
         launches = {name: getattr(kern, name).launches for name in KERNELS}
         bodies = {name: dict(getattr(kern, name).bodies) for name in SERVING}
+        decode_steps = steps[0]
         # Pages go back on the device thread after the terminal frames.
         deadline = time.monotonic() + 60.0
         while engine.kv_pages_in_use and time.monotonic() < deadline:
             time.sleep(0.01)
         metrics = get(srv.port, "/metrics")
         health = get(srv.port, "/healthz")
+    del engine.model.decode_step            # the class's method again
 
-    vocab = GPT2_SMALL["vocab_size"]
+    vocab = cfg["vocab_size"]
     for o in outs + [long_out] + joined:
         ids = o["token_ids"]
         if not all(0 <= t < vocab for t in ids):
@@ -762,7 +827,7 @@ def serve_run(ckpt: Path, kv_quant, page):
     # Flash-extend: exactly one launch per layer per 128-token prefill
     # chunk (the long prompt's 3, the prefill-heavy leg's 7), every one on
     # the tensor-core body.
-    layers = GPT2_SMALL["num_layers"]
+    layers = cfg["num_layers"]
     extend = mine[1]
     if (leg_chunks != LONG_LEG_BUCKET // 128 or all_chunks != 3 + leg_chunks
             or launches[extend] != layers * all_chunks):
@@ -773,7 +838,12 @@ def serve_run(ckpt: Path, kv_quant, page):
         )
     if bodies[extend]["mma"] != launches[extend]:
         raise SystemExit(f"{extend}: bodies {bodies[extend]}, want all mma")
-    # Flash-decode: every launch on the decode body (one launch a call).
+    # Flash-decode: exactly one launch per layer per decode step, every
+    # one on the decode body (one launch a call).
+    if launches[mine[0]] != layers * decode_steps:
+        raise SystemExit(
+            f"{mine[0]}: {launches[mine[0]]} launches for {decode_steps} "
+            f"decode steps, want {layers} a step")
     if bodies[mine[0]]["decode"] != launches[mine[0]]:
         raise SystemExit(
             f"{mine[0]}: bodies {bodies[mine[0]]}, want all decode")
@@ -786,8 +856,21 @@ def serve_run(ckpt: Path, kv_quant, page):
     g = metrics["gauges"]
     if g["generate.kv_pages_in_use"] != 0:
         raise SystemExit(f"{g['generate.kv_pages_in_use']} pages leaked")
+    # The cache's sizes on /metrics against the shape arithmetic of the
+    # configuration (a GQA model's KV heads): a page, and a slot at the
+    # default tier.
+    slot = engine._cache_len(engine.prompt_buckets[-1],
+                             engine.default_max_new_tokens)
+    want_bytes = {"generate.kv_cache_bytes_per_slot":
+                  kv_bytes(cfg, slot, kv_quant),
+                  "generate.kv_page_bytes": kv_bytes(cfg, page or 0, kv_quant)}
+    if {k: g[k] for k in want_bytes} != want_bytes:
+        raise SystemExit(
+            f"/metrics cache bytes {[g[k] for k in want_bytes]}, the shapes "
+            f"give {list(want_bytes.values())}")
     row = {
-        "case": "serving", "kv_quant": kv_quant or "none",
+        "case": "serving", "model": model, "load_s": load_s,
+        "kv_quant": kv_quant or "none",
         "kv_page_size": health["kv_page_size"], "kv_pages": health["kv_pages"],
         "decode_attn_impl": "flash", "device": health["device"],
         "short_batch_s": batch_s, "short_batches": short_batches,
@@ -801,11 +884,13 @@ def serve_run(ckpt: Path, kv_quant, page):
             "ttft_ms_p50": statistics.median(leg_ttft),
             "ttft_ms_max": max(leg_ttft),
         },
-        "prefill_chunks": all_chunks, "bodies": bodies,
+        "prefill_chunks": all_chunks, "decode_steps": decode_steps,
+        "bodies": bodies,
         "growths": metrics["counters"]["generate.growths"],
         "compactions": metrics["counters"]["generate.compactions"],
         "kv_pages_in_use_at_end": g["generate.kv_pages_in_use"],
         "kv_page_bytes": g["generate.kv_page_bytes"],
+        "kv_cache_bytes_per_slot": g["generate.kv_cache_bytes_per_slot"],
         "launches": launches,
         "decode_bytes_per_step": g["generate.decode_bytes_per_step"],
     }
@@ -841,23 +926,27 @@ def paged_generate(model, ids, pads, n_new):
     return torch.cat([first[:, None], rest], dim=1)
 
 
-def check_small_f32(num_heads: int):
+def check_small_f32(num_heads: int, family: str = "gpt_lm",
+                    kv_heads=None, hidden: int = 128):
     """A small float32 model: greedy streams through the flash kernels,
     contiguous and paged, equal the einsum oracle's, for both cache
-    formats. Two heads of 64; four heads of 32 are docs-gpt's widths
-    (``mlapi_tpu/config.py``: hidden 128, 4 heads, 256 positions). The
-    two-head model also drives the admission check."""
+    formats. GPT: two heads of 64; four heads of 32 are docs-gpt's widths
+    (``mlapi_tpu/config.py``: hidden 128, 4 heads, 256 positions). Llama:
+    docs-llama's widths (4 heads on 2 KV heads of 32) and a group of 8
+    (8 heads on 1 KV head of 64). The two-head GPT also drives the
+    admission check."""
     import torch
 
-    from mlapi_tpu_torch.models.gpt import GptLM
+    from mlapi_tpu_torch.models import get_model
 
-    model = GptLM(vocab_size=260, hidden_size=128, num_layers=2,
-                  num_heads=num_heads, max_positions=256,
-                  compute_dtype="float32", seed=1, device="cuda")
+    kw = {} if kv_heads is None else {"num_kv_heads": kv_heads}
+    model = get_model(family, vocab_size=260, hidden_size=hidden,
+                      num_layers=2, num_heads=num_heads, max_positions=256,
+                      compute_dtype="float32", seed=1, device="cuda", **kw)
     with torch.no_grad():   # sharper logits than the 0.02 init
         for p in model.parameters():
             if p.ndim == 2:
-                p.mul_(10.0)
+                p.mul_(10.0 * math.sqrt(128 / hidden))
     g = torch.Generator().manual_seed(2)
     ids = torch.randint(4, 260, (4, 40), generator=g).cuda()
     pads = [0, 3, 11, 25]
@@ -877,12 +966,13 @@ def check_small_f32(num_heads: int):
         f"{kvq}, {impl}": streams[(kvq, "einsum")] == streams[(kvq, impl)]
         for kvq in ("none", "int8") for impl in ("flash", "paged flash")
     }
-    emit({"case": "f32_greedy_identity", "num_heads": num_heads,
+    emit({"case": "f32_greedy_identity", "model": family,
+          "num_heads": num_heads, "kv_heads": model.kv_heads,
           "head_dim": model.head_dim, "equals_einsum": same})
     if not all(same.values()):
-        raise SystemExit(f"greedy streams differ from einsum at "
-                         f"{num_heads} heads: {same}")
-    if num_heads == 2:
+        raise SystemExit(f"{family}: greedy streams differ from einsum at "
+                         f"{num_heads} heads on {model.kv_heads}: {same}")
+    if family == "gpt_lm" and num_heads == 2:
         check_admission_f32(model)
 
 
@@ -953,7 +1043,8 @@ def agreement(engine, kv_quant):
         quant_overrides={"kv_quant": kv_quant or "none",
                          "decode_attn_impl": "flash"},
     )
-    emit({"case": "agreement", "kv_quant": kv_quant or "none",
+    emit({"case": "agreement", "model": type(model).__name__,
+          "kv_quant": kv_quant or "none",
           "vs": "einsum, kv none", "tokens": 64, "rows": len(rows),
           "top1_agreement": agr})
     if agr < 0.9:
@@ -1048,7 +1139,7 @@ def profile_decode(engine, runs: int = 5) -> None:
         # shape (slot 40, inside the tier): the time to issue the call,
         # no device sync inside the loop, mean of 48 calls; and the page
         # coordinates, which a step computes once for all layers.
-        kv = torch.zeros(b, 1, model.num_heads, model.head_dim,
+        kv = torch.zeros(b, 1, model.kv_heads, model.head_dim,
                          dtype=model.cdt, device=engine.device)
         layer, slot, reps = cache["layer_0"], 16 + 3 * steps, 48
         coords = kv_cache_coords(cache, slot, 1)
@@ -1081,7 +1172,8 @@ def profile_decode(engine, runs: int = 5) -> None:
     beside.sort()
     dev_ms = dev_us / 1e3 / steps
     emit({
-        "case": "profile", "B": b, "L": total, "steps": steps,
+        "case": "profile", "model": type(model).__name__, "B": b,
+        "L": total, "steps": steps,
         "kv_quant": engine.kv_quant, "decode_attn_impl": "flash",
         "kv_page_size": pool.page if pool is not None else None,
         "wall_ms_per_step": {"min": walls[0], "median": walls[runs // 2],
@@ -1164,7 +1256,8 @@ def profile_prefill(engine, runs: int = 5) -> None:
                  if "extend_mma" in e.name or "splitk" in e.name)
     chunks = bucket // cp
     emit({
-        "case": "prefill_profile", "B": b, "bucket": bucket, "L": total,
+        "case": "prefill_profile", "model": type(model).__name__, "B": b,
+        "bucket": bucket, "L": total,
         "chunks": chunks, "kv_quant": engine.kv_quant,
         "kv_page_size": pool.page if pool is not None else None,
         "through": "extend_chunk_fn" if pool is None else "paged_extend_fn",
@@ -1202,9 +1295,10 @@ def flash_shapes(sst2_x):
     GQA sliding window in float32 with ragged key lengths, (d) docs-gpt's
     training batch (64 x 128 tokens, 4 heads of 32, float32, causal),
     (e) Llama-class causal GQA (32 query heads on 8 KV heads of 128, bf16,
-    L = 1024), and causal bf16 at head dims 256 and 512 (8 heads) and 160
+    L = 1024), causal bf16 at head dims 256 and 512 (8 heads) and 160
     and 320 (8 on 4 KV heads, zero-padded to 256 and 512 by the
-    wrappers), B = 2, L = 256."""
+    wrappers), B = 2, L = 256, and (f) TinyLlama-1.1B's geometry, causal,
+    32 query heads on 4 KV heads of 64 (a group of 8), B = 4, L = 2048."""
     import numpy as np
 
     lengths = (sst2_x != 0).sum(axis=1)
@@ -1220,6 +1314,8 @@ def flash_shapes(sst2_x):
         ("d160-gqa", 2, 256, 8, 4, "bfloat16", True, None, None, 160),
         ("d320-gqa", 2, 256, 8, 4, "bfloat16", True, None, None, 320),
         ("d512-causal", 2, 256, 8, 8, "bfloat16", True, None, None, 512),
+        ("tinyllama-causal", 4, 2048, 32, 4, "bfloat16", True, None, None,
+         64),
     ]
 
 
@@ -1664,6 +1760,244 @@ def profile_train_step(cfg, splits, runs: int = 5):
     return row
 
 
+# -- Llama (the docstring's item 7) ------------------------------------
+
+def make_llama_checkpoint(path: Path) -> dict:
+    """A TinyLlama-1.1B-width checkpoint with weights drawn from seed 0 on
+    the host and written straight to disk; returns its row (the seconds
+    of the draw and of the write)."""
+    from mlapi_tpu_torch.checkpoint import save_checkpoint
+    from mlapi_tpu_torch.models.llama import LlamaLM
+    from mlapi_tpu_torch.text import ByteTokenizer
+
+    t0 = time.perf_counter()
+    model = LlamaLM(**TINYLLAMA, seed=0, device="cpu")
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    t0 = time.perf_counter()
+    save_checkpoint(path, model, config={
+        "model": "llama_lm", "model_kwargs": TINYLLAMA,
+        "tokenizer": ByteTokenizer().fingerprint(),
+    })
+    row = {"case": "llama_checkpoint", "params": n_params,
+           "init_s": init_s, "write_s": time.perf_counter() - t0,
+           "params_npz_bytes": (path / "params.npz").stat().st_size}
+    emit(row)
+    return row
+
+
+def llama_flash_vs_full(ckpt: Path):
+    """One docs_text batch (B = 2, L = 1024) through the TinyLlama-width
+    checkpoint: the LM loss and every gradient with flash against full
+    attention, from the same weights on the same batch, at
+    :func:`flash_vs_full`'s bounds; every B5-B7 launch of the flash pass
+    on the tensor-core body, one per layer."""
+    import torch
+    import torch.nn.functional as F
+
+    from mlapi_tpu_torch.checkpoint import load_checkpoint
+    from mlapi_tpu_torch.datasets import get_dataset
+    from mlapi_tpu_torch.models import get_model
+    from mlapi_tpu_torch.ops import cuda as kern
+
+    t0 = time.perf_counter()
+    model = get_model("llama_lm", **TINYLLAMA, seed=None, device="cpu")
+    state, _ = load_checkpoint(ckpt, model)
+    model.load_state_dict(state)
+    del state
+    model.to("cuda")
+    for p in model.parameters():
+        p.requires_grad_(True)
+    x = torch.as_tensor(get_dataset("docs_text", seq_len=1024).x_train[:2])
+    x = x.long().cuda()
+    targets = x[:, 1:]
+    keep = (targets != 0).float()
+    losses, grads = {}, {}
+    for impl in ("flash", "full"):
+        model.attention_impl = impl
+        for name in KERNELS:
+            getattr(kern, name).launches = 0
+        for name in FLASH:
+            getattr(kern, name).bodies = {"mma": 0, "fma": 0}
+        logits = model.apply(x)
+        ce = F.cross_entropy(logits[:, :-1].transpose(1, 2), targets,
+                             reduction="none")
+        loss = (ce * keep).sum() / keep.sum().clamp_min(1.0)
+        loss.backward()
+        del logits, ce
+        losses[impl] = loss.item()
+        grads[impl] = {k: p.grad for k, p in model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+        if impl == "flash":
+            launches = {name: getattr(kern, name).launches for name in KERNELS}
+            bodies = {name: dict(getattr(kern, name).bodies) for name in FLASH}
+    rel = {
+        k: float((grads["flash"][k] - g).norm() / g.norm().clamp_min(1e-30))
+        for k, g in grads["full"].items()
+    }
+    worst = max(rel, key=rel.get)
+    layers = TINYLLAMA["num_layers"]
+    want = {name: layers if name in FLASH else 0 for name in KERNELS}
+    row = {"case": "llama_flash_vs_full", "B": 2, "L": 1024,
+           "model": "tinyllama-1.1b", "loss_flash": losses["flash"],
+           "loss_full": losses["full"],
+           "loss_abs_diff": abs(losses["flash"] - losses["full"]),
+           "grad_rel_l2_max": rel[worst], "grad_rel_l2_worst_leaf": worst,
+           "launches": launches, "bodies": bodies,
+           "seconds": time.perf_counter() - t0}
+    emit(row)
+    del model, grads
+    torch.cuda.empty_cache()
+    if row["loss_abs_diff"] > 1e-2 or rel[worst] > 5e-2:
+        raise SystemExit(f"TinyLlama: flash and full disagree: {row}")
+    if launches != want or any(b != {"mma": layers, "fma": 0}
+                               for b in bodies.values()):
+        raise SystemExit(f"TinyLlama flash pass: launches {launches}, bodies "
+                         f"{bodies}, want {layers} a kernel, all mma")
+
+
+def llama_train_run():
+    """The docs-llama preset through the train CLI's ``run`` with
+    ``attention_impl="flash"`` for DOCS_LLAMA_STEPS steps and its test
+    evaluation, the launch counters zeroed just before and read just
+    after: B5 exactly one launch per layer per step and per eval batch,
+    B6 and B7 per step, each on the body the wrapper's mirror names for
+    f32 at head dim 32. The checkpoint reads back (tree signature,
+    tokenizer), and served through the CLI's engine factory its greedy
+    streams through flash equal einsum's."""
+    import dataclasses
+    import importlib
+    import statistics
+
+    import torch
+
+    from mlapi_tpu_torch.checkpoint import load_checkpoint, tree_signature
+    from mlapi_tpu_torch.config import get_preset
+    from mlapi_tpu_torch.datasets import get_dataset
+    from mlapi_tpu_torch.models import get_model
+    from mlapi_tpu_torch.ops import cuda as kern
+    from mlapi_tpu_torch.serving.__main__ import build_engine
+    from mlapi_tpu_torch.text import ByteTokenizer
+    from mlapi_tpu_torch.train.__main__ import run
+
+    wrappers = importlib.import_module(
+        "mlapi_tpu_torch.ops.cuda.flash_attention")
+    cfg = get_preset("docs-llama")
+    cfg = dataclasses.replace(
+        cfg, steps=DOCS_LLAMA_STEPS,
+        model_kwargs={**cfg.model_kwargs, "attention_impl": "flash"})
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        out = Path(tmp) / "docs-llama"
+        for name in KERNELS:
+            getattr(kern, name).launches = 0
+        for name in FLASH:
+            getattr(kern, name).bodies = {"mma": 0, "fma": 0}
+        t0 = time.perf_counter()
+        summary = run(cfg, str(out))
+        run_s = time.perf_counter() - t0
+        launches = {name: getattr(kern, name).launches for name in KERNELS}
+        bodies = {name: dict(getattr(kern, name).bodies) for name in FLASH}
+        model = get_model(cfg.model, **cfg.model_kwargs, seed=None,
+                          device="cpu")
+        _, meta = load_checkpoint(out, model)     # checks the signature
+        ckpt_ok = (meta.tree_signature == tree_signature(model)
+                   and meta.step == DOCS_LLAMA_STEPS
+                   and meta.config["tokenizer"]
+                   == ByteTokenizer().fingerprint())
+        engine = build_engine(out, decode_attn_impl="flash")
+        streams = {}
+        for impl in ("flash", "einsum"):
+            engine.model.configure(decode_attn_impl=impl)
+            streams[impl] = [
+                engine.generate_text(p, max_new_tokens=32)["token_ids"]
+                for p in SHORT_PROMPTS[:4]
+            ]
+        del engine
+    layers = model.num_layers
+    del model
+    torch.cuda.empty_cache()
+    splits = get_dataset(cfg.dataset, **cfg.dataset_kwargs)
+    eval_batches = math.ceil(len(splits.x_test) / 256)  # evaluate_lm's
+    want = {name: 0 for name in SERVING}
+    want.update(flash_forward=layers * (DOCS_LLAMA_STEPS + eval_batches),
+                flash_backward_dq=layers * DOCS_LLAMA_STEPS,
+                flash_backward_dkv=layers * DOCS_LLAMA_STEPS)
+    body = wrappers._body(torch.float32, wrappers._compiled_d("flash", 32))
+    want_bodies = {name: {"mma": 0, "fma": 0, body: want[name]}
+                   for name in FLASH}
+    row = {
+        "case": "train", "preset": cfg.name, "steps": DOCS_LLAMA_STEPS,
+        "batch": cfg.batch_size, "max_len": splits.x_train.shape[1],
+        "model": cfg.model_kwargs, "device": summary["device"],
+        "dataset_source": summary["dataset_source"],
+        "first_loss": summary["first_loss"],
+        "final_loss": summary["final_loss"],
+        "test_next_token_accuracy": summary["test_accuracy"],
+        "wall_ms_per_step_median": statistics.median(summary["step_ms"]),
+        "run_seconds": run_s, "launches": launches,
+        "launches_expected": want, "bodies": bodies,
+        "checkpoint_round_trip": ckpt_ok,
+        "served_flash_equals_einsum": streams["flash"] == streams["einsum"],
+    }
+    emit(row)
+    if not (math.isfinite(row["first_loss"])
+            and math.isfinite(row["final_loss"])
+            and row["final_loss"] < row["first_loss"]):
+        raise SystemExit(f"docs-llama: the loss did not fall: {row}")
+    if launches != want or bodies != want_bodies:
+        raise SystemExit(f"docs-llama: launches {launches}, bodies {bodies}; "
+                         f"want {want}, {want_bodies}")
+    if not ckpt_ok or not row["served_flash_equals_einsum"]:
+        raise SystemExit(f"docs-llama: the checkpoint did not round-trip or "
+                         f"serve: {row}, {streams}")
+    return row
+
+
+def llama_phases(scratch: Path, launches: dict) -> dict:
+    """Item 7 of the docstring: the Llama family. A seeded TinyLlama-1.1B-width
+    checkpoint served in two runs (contiguous bf16, paged 16 int8) with
+    their profiles and, on the contiguous engine, flash's top-1 agreement
+    with einsum; flash against full attention at its width; small f32
+    Llamas' greedy streams; the docs-llama training run. Adds each
+    serving run's launches to ``launches``; returns the training row."""
+    import torch
+
+    seconds = {}
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        ckpt = Path(tmp) / "tinyllama_seed0"
+        made = make_llama_checkpoint(ckpt)
+        seconds.update(init=made["init_s"], write=made["write_s"])
+        for kv_quant, page in ((None, None), ("int8", PAGE)):
+            t0 = time.perf_counter()
+            row, engine = serve_run(ckpt, kv_quant, page, TINYLLAMA,
+                                    "tinyllama-1.1b")
+            emit(row)
+            path = "llama " + row["kv_quant"] + (f", page {page}" if page
+                                                 else "")
+            for k in launches:
+                launches[k][path] = row["launches"][k]
+            profile_decode(engine)
+            profile_prefill(engine)
+            if page is None:
+                agreement(engine, kv_quant)
+            del engine
+            torch.cuda.empty_cache()
+            seconds[f"serve {path}"] = time.perf_counter() - t0
+            seconds[f"read {path}"] = row["load_s"]
+        t0 = time.perf_counter()
+        llama_flash_vs_full(ckpt)
+        seconds["flash_vs_full"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    check_small_f32(4, "llama_lm", kv_heads=2)            # docs-llama
+    check_small_f32(8, "llama_lm", kv_heads=1, hidden=512)  # a group of 8
+    seconds["f32_streams"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    train_row = llama_train_run()
+    seconds["train docs-llama"] = time.perf_counter() - t0
+    emit({"case": "llama_seconds", **seconds})
+    return train_row
+
+
 def kernel_label(mangled: str) -> str:
     """``extend_mma_kernel<true, false>`` from the mangled name ptxas
     prints (the template arguments these sources use: bool, int, float,
@@ -1764,7 +2098,7 @@ def main() -> int:
     # 5. serving, 6. correctness
     # Launches per serving path, each path's counts zeroed just before
     # its requests: {kernel: {"none": N, "int8": N, "none, page 16": N,
-    # "int8, page 16": N}}.
+    # "int8, page 16": N, "llama none": N, "llama int8, page 16": N}}.
     launches = {name: {} for name in SERVING}
     with tempfile.TemporaryDirectory(dir=scratch) as tmp:
         ckpt = make_checkpoint(Path(tmp) / "gpt2_small_seed0")
@@ -1783,6 +2117,10 @@ def main() -> int:
                 torch.cuda.empty_cache()
     check_small_f32(2)
     check_small_f32(4)     # docs-gpt: head dim 32
+
+    # 7. Llama: TinyLlama-1.1B-width serving, flash against full, small
+    # f32 streams, the docs-llama training run
+    llama_train = llama_phases(scratch, launches)
 
     summary = []
     for name in SERVING:
@@ -1814,7 +2152,9 @@ def main() -> int:
             "launches": train_row["launches"][name],
             "launches_per_path": {
                 f"train sst2-bert, {SST2_STEPS} steps + test eval":
-                train_row["launches"][name]},
+                train_row["launches"][name],
+                f"train docs-llama, {DOCS_LLAMA_STEPS} steps + test eval":
+                llama_train["launches"][name]},
             "bodies": train_row["bodies"][name],
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],

@@ -2,7 +2,8 @@
 training paths.
 
 The port mirrors the JAX package's layout (``models/gpt.py``,
-``models/bert.py``, ``ops/quant.py``, ``serving/engine.py``,
+``models/llama.py``, ``models/bert.py``, ``ops/quant.py``,
+``serving/engine.py``,
 ``train/loop.py``, ...) so each module has an obvious counterpart, and
 it imports neither JAX nor anything of ``mlapi_tpu``: it carries its own
 copies of what it needs. The attention kernels that the JAX package

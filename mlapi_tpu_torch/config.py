@@ -4,7 +4,9 @@ as data).
 
 A preset shows up (``preset_names``, ``get_preset``) only once both its
 model and its dataset are ported (:func:`preset_available`), as in the
-JAX package: in this port that is ``sst2-bert``.
+JAX package: in this port ``sst2-bert`` and the ``docs_text`` decoder
+presets (``docs-gpt``, ``docs-gpt-draft``, ``docs-llama``; the CLI
+refuses ``docs-gpt-draft-distilled``, which needs distillation).
 """
 
 from __future__ import annotations
@@ -34,12 +36,12 @@ class TrainConfig:
     eval_every: int = 0
 
     # Device mesh over (data, model) or (data, fsdp, model); None = one
-    # device. The port runs unsharded (ROADMAP Queue A8).
+    # device. The port runs unsharded (ROADMAP Queue A item 9).
     mesh_shape: tuple[int, ...] | None = None
 
     checkpoint_dir: str | None = None
 
-    # Knowledge distillation (not ported: ROADMAP Queue A4).
+    # Knowledge distillation (not ported: ROADMAP Queue A item 5).
     distill_from: str | None = None
     distill_temperature: float = 2.0
     distill_alpha: float = 0.5

@@ -1,8 +1,9 @@
 """Dataset loaders for training (counterpart of ``mlapi_tpu/datasets``).
 
 Loaders return a :class:`SupervisedSplits` of host-side numpy arrays
-plus the string-label vocab, and never touch the network. Only ``sst2``
-is ported; the other loaders of the JAX package wait in ROADMAP Queue A.
+plus the string-label vocab, and never touch the network. ``sst2`` and
+``docs_text`` are ported; the other loaders of the JAX package wait in
+ROADMAP Queue A item 3.
 """
 
 from __future__ import annotations
@@ -45,7 +46,7 @@ register_dataset = _LOADERS.register
 
 
 def get_dataset(name: str, **kwargs) -> SupervisedSplits:
-    """Load a dataset by registry name (``sst2``)."""
+    """Load a dataset by registry name (``sst2``, ``docs_text``)."""
     return _LOADERS.get(name)(**kwargs)
 
 
@@ -54,3 +55,6 @@ def dataset_registered(name: str) -> bool:
 
 
 from mlapi_tpu_torch.datasets.sst2 import load_sst2  # noqa: E402,F401
+from mlapi_tpu_torch.datasets.textlm import (  # noqa: E402,F401
+    load_docs_text,
+)

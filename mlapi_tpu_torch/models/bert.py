@@ -104,7 +104,7 @@ class BertClassifier(nn.Module):
         if attention_impl == "ring":
             raise NotImplementedError(
                 'attention_impl="ring" is not ported (sequence-parallel '
-                "ring attention waits for ROADMAP Queue A8)"
+                "ring attention waits for ROADMAP Queue A item 9)"
             )
         if attention_impl not in ("full", "flash"):
             raise ValueError(f"unknown attention_impl {attention_impl!r}")

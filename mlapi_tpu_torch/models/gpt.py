@@ -93,8 +93,94 @@ class _Block(nn.Module):
         self.ln2_bias = _param(h)
 
 
+class DecoderLM(nn.Module):
+    """What the decoder families (``GptLM``, ``LlamaLM``) share: the
+    cache format and cache-read switches, the dtype and device views,
+    layer lookup, the KV cache's shapes, and :meth:`generate` over the
+    shared programs below.
+    A family supplies ``prefill_core``, ``decode_step`` and
+    ``extend_core`` (and ``kv_heads`` when it groups its queries)."""
+
+    input_kind = "text"
+
+    def configure(self, *, kv_quant=None, decode_attn_impl=None) -> None:
+        """Set the KV-cache format and the cache-read attention, both
+        validated (the JAX package's ``dataclasses.replace`` of the two
+        fields)."""
+        if kv_quant is not None:
+            if kv_quant not in KV_FORMATS:
+                raise ValueError(
+                    f"unknown kv_quant {kv_quant!r}; one of {KV_FORMATS}"
+                )
+            self.kv_quant = kv_quant
+        if decode_attn_impl is not None:
+            if decode_attn_impl not in ("einsum", "flash"):
+                raise ValueError(
+                    f"unknown decode_attn_impl {decode_attn_impl!r}; "
+                    'one of ("einsum", "flash")'
+                )
+            self.decode_attn_impl = decode_attn_impl
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_heads
+
+    @property
+    def kv_heads(self) -> int:
+        """Heads of the KV cache (a GQA family has fewer than
+        ``num_heads``)."""
+        return self.num_heads
+
+    @property
+    def cdt(self) -> torch.dtype:
+        return _DTYPES[self.compute_dtype]
+
+    @property
+    def device(self) -> torch.device:
+        return self.wte.device
+
+    def layer(self, n: int):
+        return getattr(self, f"layer_{n}")
+
+    def init_cache(self, batch: int, max_len: int, device=None) -> dict:
+        """Zeroed KV cache ``[B, max_len, KVH, D]`` per layer, in the
+        compute dtype or the int8 layout (``ops/quant``), on ``device``
+        (default: the model's; ``"meta"`` gives shapes alone, as the
+        byte accounting of ``ops/quant`` and the engine reads them)."""
+        return {
+            f"layer_{n}": init_kv_cache(
+                batch, max_len, self.kv_heads, self.head_dim, self.cdt,
+                self.kv_quant, device=device or self.device,
+            )
+            for n in range(self.num_layers)
+        }
+
+    def load_state_dict(self, state_dict, strict: bool = True,
+                        assign: bool = False):
+        """``nn.Module.load_state_dict``, refusing a per-layer ``lora``
+        sub-dict (the JAX package's serving adapters) by name."""
+        if any(".lora." in k or k.endswith(".lora") for k in state_dict):
+            raise NotImplementedError(
+                "LoRA adapter weights are not ported (ROADMAP Queue A "
+                "item 6)"
+            )
+        return super().load_state_dict(state_dict, strict=strict,
+                                       assign=assign)
+
+    def generate(self, prompt_ids, *, max_new_tokens: int,
+                 temperature=0.0, seed: int = 0, pad_lens=None, top_k=0,
+                 top_p=1.0):
+        """Greedy (``temperature=0``) or sampled generation; see
+        :func:`run_generate`."""
+        return run_generate(
+            self, prompt_ids, max_new_tokens=max_new_tokens,
+            temperature=temperature, seed=seed, pad_lens=pad_lens,
+            top_k=top_k, top_p=top_p,
+        )
+
+
 @register_model("gpt_lm")
-class GptLM(nn.Module):
+class GptLM(DecoderLM):
     """Decoder-only causal language model with weight-tied head.
 
     The constructor takes the JAX dataclass's fields. Parameters are
@@ -107,11 +193,10 @@ class GptLM(nn.Module):
     loaded.
     ``attention_impl`` is ``"full"`` or ``"flash"`` (the full-sequence
     ``apply`` through the B5-B7 kernels, ``ops/cuda/flash_attention``);
-    ``"ring"`` waits for the parallel slice (ROADMAP Queue A8). The
-    cache paths attend as ``decode_attn_impl`` says, whatever this is.
+    ``"ring"`` waits for the parallel slice (ROADMAP Queue A item 9).
+    The cache paths attend as ``decode_attn_impl`` says, whatever this
+    is.
     """
-
-    input_kind = "text"
 
     def __init__(
         self,
@@ -133,7 +218,7 @@ class GptLM(nn.Module):
         if attention_impl == "ring":
             raise NotImplementedError(
                 'attention_impl="ring" is not ported (sequence-parallel '
-                "ring attention waits for ROADMAP Queue A8)"
+                "ring attention waits for ROADMAP Queue A item 9)"
             )
         if attention_impl not in ("full", "flash"):
             raise ValueError(f"unknown attention_impl {attention_impl!r}")
@@ -172,24 +257,6 @@ class GptLM(nn.Module):
                               layer.ffn_down):
                     dense.kernel.normal_(0.0, 0.02, generator=gen)
 
-    def configure(self, *, kv_quant=None, decode_attn_impl=None) -> None:
-        """Set the KV-cache format and the cache-read attention, both
-        validated (the JAX package's ``dataclasses.replace`` of the two
-        fields)."""
-        if kv_quant is not None:
-            if kv_quant not in KV_FORMATS:
-                raise ValueError(
-                    f"unknown kv_quant {kv_quant!r}; one of {KV_FORMATS}"
-                )
-            self.kv_quant = kv_quant
-        if decode_attn_impl is not None:
-            if decode_attn_impl not in ("einsum", "flash"):
-                raise ValueError(
-                    f"unknown decode_attn_impl {decode_attn_impl!r}; "
-                    'one of ("einsum", "flash")'
-                )
-            self.decode_attn_impl = decode_attn_impl
-
     def cast_dense_(self) -> "GptLM":
         """Store every dense kernel and bias in the compute dtype, IN
         PLACE. The forward casts them to that dtype at each use anyway
@@ -202,21 +269,6 @@ class GptLM(nn.Module):
                 dense.kernel.data = dense.kernel.data.to(self.cdt)
                 dense.bias.data = dense.bias.data.to(self.cdt)
         return self
-
-    @property
-    def head_dim(self) -> int:
-        return self.hidden_size // self.num_heads
-
-    @property
-    def cdt(self) -> torch.dtype:
-        return _DTYPES[self.compute_dtype]
-
-    @property
-    def device(self) -> torch.device:
-        return self.wte.device
-
-    def layer(self, n: int) -> _Block:
-        return getattr(self, f"layer_{n}")
 
     # ------------------------------------------------------------------
     def _block(self, layer: _Block, x, attend):
@@ -259,17 +311,6 @@ class GptLM(nn.Module):
     forward = apply
 
     # ------------------------------------------------------------------
-    def init_cache(self, batch: int, max_len: int) -> dict:
-        """Zeroed KV cache ``[B, max_len, H, D]`` per layer, in the
-        compute dtype or the int8 layout (``ops/quant``)."""
-        return {
-            f"layer_{n}": init_kv_cache(
-                batch, max_len, self.num_heads, self.head_dim, self.cdt,
-                self.kv_quant, device=self.device,
-            )
-            for n in range(self.num_layers)
-        }
-
     def prefill_core(self, prompt_ids, n_pad, total_len: int,
                      cache=None, pos0=0):
         """Full causal forward over a left-padded ``[B, P]`` prompt,
@@ -356,17 +397,6 @@ class GptLM(nn.Module):
             x = x[:, -1]
         return cache, self._logits(x)
 
-    def generate(self, prompt_ids, *, max_new_tokens: int,
-                 temperature=0.0, seed: int = 0, pad_lens=None, top_k=0,
-                 top_p=1.0):
-        """Greedy (``temperature=0``) or sampled generation; see
-        :func:`run_generate`."""
-        return run_generate(
-            self, prompt_ids, max_new_tokens=max_new_tokens,
-            temperature=temperature, seed=seed, pad_lens=pad_lens,
-            top_k=top_k, top_p=top_p,
-        )
-
 
 def decode_valid_and_shift(max_len, pos, n_pad, prefix_len=None,
                            prefix_lo=None):
@@ -417,7 +447,7 @@ def _is_vector(x) -> bool:
 
 
 def cached_attend(cache_layer, q, k_new, v_new, pos, valid, cdt, head_dim,
-                  impl: str = "einsum", coords=None):
+                  impl: str = "einsum", coords=None, expand=None):
     """Attention against a fixed-shape KV cache, shared by decode steps
     and extend spans: append the new K/V at ``pos`` (in place, BEFORE
     the read; a paged layer's pool ``coords`` come from the caller,
@@ -431,8 +461,9 @@ def cached_attend(cache_layer, q, k_new, v_new, pos, valid, cdt, head_dim,
     payload + scales, or the compute-dtype tensors) to the CUDA
     kernels: flash-decode for ``U == 1``, flash-extend for multi-token
     spans; a paged layer's pools and table go to their paged twins,
-    which read the pages in place. (The JAX function's ``expand`` for
-    GQA families arrives with Llama.)"""
+    which read the pages in place. ``expand`` broadcasts the einsum
+    path's KV heads to the query heads (a GQA family passes its
+    ``repeat_interleave``; the kernels group query heads themselves)."""
     from mlapi_tpu_torch.ops.cuda import (
         decode_attention, extend_attention, paged_decode_attention,
         paged_extend_attention,
@@ -456,6 +487,8 @@ def cached_attend(cache_layer, q, k_new, v_new, pos, valid, cdt, head_dim,
             ctx = fn(q, k, v, mask, scale=scale)
         return ctx, layer
     ck, cv = kv_cache_kv(layer, cdt)
+    if expand is not None:
+        ck, cv = expand(ck), expand(cv)
     scores = torch.einsum(
         "bqhd,bkhd->bhqk", q.float(), ck.float()
     ) / head_dim**0.5

@@ -132,15 +132,10 @@ def paged_pools_of(cache: dict) -> dict:
 
 
 def kv_page_bytes(model, page_size: int) -> int:
-    """Exact device bytes of one page across every layer, from dtype
-    and shape arithmetic alone (no memory is allocated)."""
-    return kv_tree_bytes({
-        f"layer_{n}": init_kv_cache(
-            1, page_size, model.num_heads, model.head_dim, model.cdt,
-            model.kv_quant, device="meta",
-        )
-        for n in range(model.num_layers)
-    })
+    """Exact device bytes of one page across every layer: the model's
+    own ``init_cache(1, page_size)`` on the meta device (shapes and
+    dtypes, no memory), so a GQA model counts its KV heads."""
+    return kv_tree_bytes(model.init_cache(1, page_size, device="meta"))
 
 
 def kv_tree_bytes(tree) -> int:

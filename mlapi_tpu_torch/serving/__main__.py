@@ -1,4 +1,5 @@
-"""``python -m mlapi_tpu_torch.serving``: serve a ``gpt_lm`` checkpoint.
+"""``python -m mlapi_tpu_torch.serving``: serve a ``gpt_lm`` or
+``llama_lm`` checkpoint.
 
 The generative subset of ``mlapi_tpu/serving/__main__.py``::
 
@@ -43,7 +44,8 @@ def build_engine(checkpoint, *, device=None, kv_quant=None,
 def parse_args(argv=None):
     parser = argparse.ArgumentParser("mlapi_tpu_torch.serving")
     parser.add_argument("--checkpoint", required=True,
-                        help="checkpoint dir (MANIFEST.json + params.npz)")
+                        help="a gpt_lm or llama_lm checkpoint dir "
+                             "(MANIFEST.json + params.npz)")
     parser.add_argument("--host", default="127.0.0.1")
     parser.add_argument("--port", type=int, default=8000)
     parser.add_argument("--max-batch", type=int, default=None)

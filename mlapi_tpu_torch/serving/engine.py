@@ -31,7 +31,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from mlapi_tpu_torch.ops.quant import init_kv_cache, kv_tree_bytes
+from mlapi_tpu_torch.ops.quant import kv_tree_bytes
 from mlapi_tpu_torch.serving import faults
 from mlapi_tpu_torch.serving.requests import (
     DrainCancelled,
@@ -53,8 +53,12 @@ class OverloadedError(RuntimeError):
         self.retry_after_s = retry_after_s
 
 
+# The decoder families a checkpoint may name (``models/gpt.DecoderLM``).
+GENERATIVE_MODELS = ("gpt_lm", "llama_lm")
+
+
 class TextGenerationEngine:
-    """Serving engine for generative LMs (``gpt_lm``)."""
+    """Serving engine for generative LMs (``gpt_lm``, ``llama_lm``)."""
 
     def __init__(
         self,
@@ -77,7 +81,8 @@ class TextGenerationEngine:
                 f"the model's embedding table has {model.vocab_size} rows"
             )
         # Dense weights stored in the compute dtype once, instead of a
-        # cast per use (outputs are unchanged; see GptLM.cast_dense_).
+        # cast per use (outputs are unchanged; see each family's
+        # cast_dense_).
         self.model = model.cast_dense_()
         self.device = model.device
         self.tokenizer = tokenizer
@@ -147,13 +152,13 @@ class TextGenerationEngine:
         dev = resolve_device(device)
         meta = read_manifest(path)
         cfg = meta.config
-        if cfg.get("model") != "gpt_lm":
+        if cfg.get("model") not in GENERATIVE_MODELS:
             raise ValueError(
                 f"{path}: model {cfg.get('model')!r} is not served by the "
-                "port (gpt_lm only)"
+                f"port (one of {GENERATIVE_MODELS})"
             )
         # Staged on the host, where the archive is read, then moved.
-        model = get_model("gpt_lm", seed=None, device="cpu",
+        model = get_model(cfg["model"], seed=None, device="cpu",
                           **cfg.get("model_kwargs", {}))
         state, meta = load_checkpoint(path, model)
         model.load_state_dict(state)
@@ -210,19 +215,13 @@ class TextGenerationEngine:
         return min(self.model.max_positions, bucket + tier)
 
     def _slot_cache(self) -> dict:
-        """Shapes of one batch-1 cache at the default tier (on the meta
-        device: no memory)."""
-        m = self.model
+        """Shapes of one batch-1 cache at the default tier: the model's
+        own ``init_cache`` on the meta device (no memory; a GQA model's
+        KV heads)."""
         total = self._cache_len(
             self.prompt_buckets[-1], self.default_max_new_tokens
         )
-        return {
-            f"layer_{n}": init_kv_cache(
-                1, total, m.num_heads, m.head_dim, m.cdt, m.kv_quant,
-                device="meta",
-            )
-            for n in range(m.num_layers)
-        }
+        return self.model.init_cache(1, total, device="meta")
 
     def kv_cache_slot_bytes(self) -> int:
         """Per-slot KV-cache storage bytes at the default bucket/tier,

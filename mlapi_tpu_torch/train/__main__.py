@@ -2,12 +2,15 @@
 
     python -m mlapi_tpu_torch.train --preset sst2-bert [--steps N] \\
         [--out DIR]
+    python -m mlapi_tpu_torch.train --preset docs-llama --out DIR
     python -m mlapi_tpu_torch.train --config run.yaml --out DIR
 
 Counterpart of ``python -m mlapi_tpu.train``. Runs on the CUDA device
 unless ``MLAPI_TPU_PLATFORM=cpu`` (``utils/platform``). The checkpoint
 holds the parameters, the model config, the tokenizer fingerprint, the
-sequence length and the label vocab, as the JAX package writes them.
+sequence length and the label vocab, as the JAX package writes them;
+a ``docs-gpt`` / ``docs-llama`` checkpoint serves ``/generate``
+(``python -m mlapi_tpu_torch.serving --checkpoint DIR``).
 """
 
 from __future__ import annotations
@@ -59,7 +62,7 @@ def run(cfg: TrainConfig, out: str | None, *, device=None) -> dict:
         if math.prod(cfg.mesh_shape) <= visible:
             raise NotImplementedError(
                 f"config wants mesh {cfg.mesh_shape}: sharded training is "
-                "not ported (ROADMAP Queue A8)"
+                "not ported (ROADMAP Queue A item 9)"
             )
         _log.warning(
             "config wants mesh %s but only %d device(s) visible; running "
@@ -130,7 +133,7 @@ def main(argv=None) -> None:
     if cfg.distill_required and cfg.distill_from is None:
         parser.error(
             f"preset {cfg.name!r} is a distillation config; distillation "
-            "is not ported (ROADMAP Queue A4)"
+            "is not ported (ROADMAP Queue A item 5)"
         )
     summary = run(cfg, args.out)
     summary.pop("step_ms")

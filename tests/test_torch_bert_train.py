@@ -217,10 +217,12 @@ def test_yaml_config_without_pyyaml_says_so(tmp_path, monkeypatch):
 
 
 def test_presets_are_the_jax_table_filtered_to_what_is_ported():
-    assert preset_names() == ["sst2-bert"]
-    assert "docs-gpt" in preset_names(only_available=False)
+    assert preset_names() == ["docs-gpt", "docs-gpt-draft",
+                              "docs-gpt-draft-distilled", "docs-llama",
+                              "sst2-bert"]
+    assert "docsclf-bert" in preset_names(only_available=False)
     with pytest.raises(ValueError, match="not both ported"):
-        get_preset("docs-gpt")
+        get_preset("docsclf-bert")       # its docs_clf dataset is not
     cfg = get_preset("sst2-bert")
     assert cfg.model_kwargs["attention_impl"] == "flash"
     assert (cfg.batch_size, cfg.optimizer, cfg.learning_rate) == (
@@ -228,13 +230,13 @@ def test_presets_are_the_jax_table_filtered_to_what_is_ported():
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(mesh=object()), "Queue A8"),
-    (dict(save_every=10), "Queue A4"),
-    (dict(checkpoint_dir="x"), "Queue A4"),
-    (dict(profile_dir="x"), "Queue A4"),
-    (dict(debug_checks=True), "Queue A4"),
-    (dict(distill_from="x"), "Queue A4"),
-    (dict(optimizer="recsys-adamw"), "Queue A4"),
+    (dict(mesh=object()), "Queue A item 9"),
+    (dict(save_every=10), "Queue A item 5"),
+    (dict(checkpoint_dir="x"), "Queue A item 5"),
+    (dict(profile_dir="x"), "Queue A item 5"),
+    (dict(debug_checks=True), "Queue A item 5"),
+    (dict(distill_from="x"), "Queue A item 5"),
+    (dict(optimizer="recsys-adamw"), "Queue A item 5"),
 ])
 def test_unported_training_features_refuse(kwargs, match):
     model = get_model("bert_classifier", **BERT, seed=0, device="cpu")

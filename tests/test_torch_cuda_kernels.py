@@ -890,3 +890,52 @@ def test_head_dims_past_256_match_plain(card, d, fmt):
                         (q, pk, pv, table, mask),
                         kern.paged_decode_attention_plain, dtype)
     assert torch.equal(got, paged)
+
+
+# -- TinyLlama-1.1B's geometry: 32 query heads on 4 KV heads of 64 --------
+# A group of 8 at D = 64: B1/B3 serve 8 query heads a block, B2/B4's
+# tensor-core body tiles U x 8 rows a KV head, B5-B7 read one KV head for
+# eight query heads.
+
+@pytest.mark.parametrize("fmt", ["bf16", "int8"])
+@pytest.mark.parametrize("length", [96, 2048])
+def test_group8_decode_matches_plain_and_paged_equals_contiguous(card,
+                                                                 length,
+                                                                 fmt):
+    dtype = DECODE_FORMATS[fmt][0]
+    q, k, v, mask = _decode_case(card, 4, 32, 4, length, 64, fmt,
+                                 seed=length)
+    got = _check_body(kern.decode_attention, "decode", (q, k, v, mask),
+                      kern.decode_attention_plain, dtype)
+    pk, table = _paged(card, k, 16, mask, seed=5)
+    pv, _ = _paged(card, v, 16, mask, seed=5)
+    paged = _check_body(kern.paged_decode_attention, "decode",
+                        (q, pk, pv, table, mask),
+                        kern.paged_decode_attention_plain, dtype)
+    assert torch.equal(got, paged)
+
+
+@pytest.mark.parametrize("fmt", ["none", "int8"])
+@pytest.mark.parametrize("b,u,length,slot", [(2, 128, 2048, 1024),
+                                              (3, 17, 304, 100)])
+def test_group8_extend_mma_matches_plain_and_paged_equals_contiguous(
+        card, b, u, length, slot, fmt):
+    q, k, v, mask = _span_case(card, b, u, 32, 4, length, slot,
+                               torch.bfloat16, fmt, seed=u + length)
+    got = _check_body(kern.extend_attention, "mma", (q, k, v, mask),
+                      kern.extend_attention_plain, torch.bfloat16)
+    pk, table = _paged(card, k, 16, mask, seed=6)
+    pv, _ = _paged(card, v, 16, mask, seed=6)
+    paged = _check_body(kern.paged_extend_attention, "mma",
+                        (q, pk, pv, table, mask),
+                        kern.paged_extend_attention_plain, torch.bfloat16)
+    assert torch.equal(got, paged)
+
+
+@pytest.mark.parametrize("length", [300, 1024])
+def test_group8_flash_mma_bodies_match_plain(card, length):
+    """B5, B6 and B7 on the tensor-core bodies, causal, 32 query heads on
+    4 KV heads of 64 (B7 sums dk/dv over the group of 8)."""
+    args = _flash_bf16_case(card, 2, length, 32, 4, 64, seed=length)
+    cfg = dict(causal=True, scale=0.125, window=None)
+    _flash_run(*args, cfg, ("mma", "mma", "mma"))

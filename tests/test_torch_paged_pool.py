@@ -11,6 +11,7 @@
   the JAX seams' bytes exactly: int8 payloads and scales bit for bit.
 """
 
+import functools
 import types
 
 import jax.numpy as jnp
@@ -96,8 +97,11 @@ def test_page_bytes_equal_the_jax_package(model, fmt):
                                                                     page)
     # GPT-2 small, 16-token page: 12 layers x 2 x 16 x 12 heads x 64 x 2 B
     # (bf16) = 589,824 B; int8 payload + f32 scales = 313,344 B.
-    big = types.SimpleNamespace(num_layers=12, num_heads=12, head_dim=64,
+    # A stand-in with GPT-2 small's cache fields and GptLM's own
+    # init_cache (the page bytes come from the model's cache shapes).
+    big = types.SimpleNamespace(num_layers=12, kv_heads=12, head_dim=64,
                                 cdt=torch.bfloat16, kv_quant=fmt)
+    big.init_cache = functools.partial(GptLM.init_cache, big)
     want = {"none": 589_824, "int8": 313_344}[fmt]
     assert tq.kv_page_bytes(big, 16) == want
     assert jq.kv_page_bytes(JaxGpt(**GPT2_SMALL, kv_quant=fmt), 16) == want

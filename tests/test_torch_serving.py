@@ -230,6 +230,9 @@ TRAINING_SLICE = (
     "mlapi_tpu_torch/text/tokenizer.py", "mlapi_tpu_torch/train/__init__.py",
     "mlapi_tpu_torch/train/__main__.py", "mlapi_tpu_torch/train/loop.py",
     "mlapi_tpu_torch/utils/vocab.py",
+    # The Llama slice.
+    "mlapi_tpu_torch/models/llama.py", "mlapi_tpu_torch/datasets/_corpus.py",
+    "mlapi_tpu_torch/datasets/textlm.py",
 )
 
 
@@ -253,14 +256,34 @@ def test_no_module_imports_jax_or_the_jax_package():
 
 
 def test_serving_stack_imports_without_jax():
+    """Every module imports, and the docs_text loader and a Llama's
+    greedy stream run, without loading JAX or the JAX package or opening
+    any file under ``mlapi_tpu/``."""
     code = (
-        "import importlib, pkgutil, sys\n"
+        "import importlib, os, pkgutil, sys\n"
+        f"jax_pkg = os.path.join({str(ROOT)!r}, 'mlapi_tpu') + os.sep\n"
+        "opened = []\n"
+        "def hook(event, args):\n"
+        "    if event == 'open' and isinstance(args[0], str) and "
+        "os.path.abspath(args[0]).startswith(jax_pkg):\n"
+        "        opened.append(args[0])\n"
+        "sys.addaudithook(hook)\n"
         "import mlapi_tpu_torch\n"
         "for m in pkgutil.walk_packages(mlapi_tpu_torch.__path__, "
         "'mlapi_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "import torch\n"
+        "from mlapi_tpu_torch.datasets import get_dataset\n"
+        "from mlapi_tpu_torch.models import get_model\n"
+        "splits = get_dataset('docs_text', seq_len=64)\n"
+        "assert splits.extras['corpus'].startswith('frozen@')\n"
+        "m = get_model('llama_lm', vocab_size=260, hidden_size=32, "
+        "num_layers=1, num_heads=4, num_kv_heads=2, device='cpu')\n"
+        "ids = torch.as_tensor(splits.x_test[:2, :8]).long()\n"
+        "assert m.generate(ids, max_new_tokens=3).shape == (2, 3)\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "assert 'mlapi_tpu' not in sys.modules\n"
+        "assert not opened, opened\n"
         "print('ok')\n"
     )
     env = {**os.environ, "PYTHONPATH": str(ROOT)}
