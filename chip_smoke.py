@@ -122,7 +122,31 @@ the JAX package. Phases, each fatal on failure:
    of 64); and ``--preset docs-llama`` through the train CLI's ``run``
    with flash attention, 30 steps and its test evaluation, with exact
    B5-B7 launch counts, its checkpoint read back and served (greedy
-   streams through flash equal einsum's).
+   streams through flash equal einsum's);
+8. shared prefixes (``"prefix"`` on ``/generate``), on the GPT-2
+   contiguous bf16 and paged 16 int8 engines of phase 5 and both
+   TinyLlama engines of phase 7: a cold round of 8 concurrent streams
+   naming a 768-byte system prompt (one build, the rest wait for it), a
+   warm round (8 hits), a 500-byte prompt's build, and a cross-prefix
+   round of 4 rows of each in one batch; launch counters zeroed just
+   before and read just after (one flash-extend a layer per formation,
+   on ``mma``, one flash-decode a layer per decode step, no other
+   kernel); the prefix counters as the JAX engine counts the trace,
+   shared pages while a paged batch runs, pages settling at the entries'
+   pages, adopted bytes equal to the entries' cache bytes; TTFT p50 of
+   each round; one warm formation's wall and device ms next to the same
+   prompts as plain ``prefix + text``; flash's teacher-forced top-1
+   agreement with einsum through the prefix path, both over the
+   engine's cache format (floor 0.98 in bf16, 0.9 in int8). Small f32
+   models (GPT 2 heads of 64, Llama 4 on 2 KV heads of 32): every prefix
+   stream equals its ``prefix + text`` stream on both layouts, a
+   window-edge entry copying its group-end page on write (2 COW copies)
+   and a cross-prefix batch on the copy fallback, whose private pages
+   evict the other entry's idle page set. Phase 3 holds B1-B4 at
+   the masks this phase sends (a prefix region, its left pad and each
+   row's pad hole, a scalar ``lo`` with shared pages and a per-row one
+   with a dummy row, GPT-2 and TinyLlama geometries, B2/B4 at U = 128
+   and 256) within 7.8e-3 of their plain versions.
 
 Stdout: one JSON line per kernel case, per training and serving run,
 then the ``{"kernels": [...]}`` summary (B1-B7; each kernel's
@@ -322,11 +346,14 @@ def to_pages(cache, mask, seed, page=PAGE):
     return (pools if isinstance(cache, dict) else pools["t"]), table
 
 
-def case_bytes_flops(q, k, v, mask):
+def case_bytes_flops(q, k, v, mask, table=None, page=PAGE):
     """The least the function must move and compute on THESE inputs:
     q, the K/V rows of keys some query of the batch row attends (with
     their scales for int8), the mask and the output, each once; 4*D
-    FLOPs per (query head, attended key)."""
+    FLOPs per (query head, attended key). With a page ``table`` (a
+    paged case), a key is its pool slot: rows whose tables share pages
+    read those slots once, so keys count once per distinct (page,
+    offset) that some live query reads, and the table is read once."""
     b, u, h, d = q.shape
     if isinstance(k, dict):
         kvh = k["q"].shape[2]
@@ -335,10 +362,19 @@ def case_bytes_flops(q, k, v, mask):
         kvh = k.shape[2]
         per_key = 2 * kvh * d * k.element_size()
     m3 = mask.reshape(b, -1, mask.shape[-1])
-    live_keys = int(m3.any(dim=1).sum())
+    attended = m3.any(dim=1)                        # [B, L]
+    if table is None:
+        live_keys = int(attended.sum())
+        table_bytes = 0
+    else:
+        slot = attended.nonzero()
+        tile, off = slot[:, 1] // page, slot[:, 1] % page
+        pool_slot = table[slot[:, 0], tile].long() * page + off
+        live_keys = int(pool_slot.unique().numel())
+        table_bytes = table.numel() * table.element_size()
     pairs = int(m3.sum())
     nbytes = (2 * q.numel() * q.element_size() + live_keys * per_key
-              + mask.numel() * mask.element_size())
+              + mask.numel() * mask.element_size() + table_bytes)
     flops = 4 * d * h * pairs
     return nbytes, flops
 
@@ -360,17 +396,6 @@ def sdpa_fn(q, k, v, mask):
 
 
 def check_kernels(power):
-    import importlib
-
-    import torch
-
-    from mlapi_tpu_torch.ops import cuda as kern
-
-    wrappers = importlib.import_module(
-        "mlapi_tpu_torch.ops.cuda.decode_attention")
-    plain = {name: getattr(kern, name + "_plain") for name in SERVING}
-    twin = {"paged_decode_attention": kern.decode_attention,
-            "paged_extend_attention": kern.extend_attention}
     # (kernel, B, U, L, slot of the first query token): every shape the
     # serving phase gives a kernel, and the full window at B = 8. Short
     # prompts decode at B = 8 in tier 48 (bucket 16 + 32 tokens); the
@@ -439,99 +464,227 @@ def check_kernels(power):
     for i, (name, b, u, length, pos, *extra) in enumerate(shapes):
         shape = dict(extra[0]) if extra else {}
         fmts = ("f32",) if shape.pop("f32", False) else ("bf16", "int8")
-        h, kvh = shape.get("h", 12), shape.get("kvh", 12)
-        d = shape.get("d", 64)
         for fmt in fmts:
-            args = kernel_case(name, fmt, b, u, length, pos, seed=i, **shape)
-            fn = getattr(kern, name)
-            paged = name.startswith("paged_")
-            dtype = torch.float32 if fmt == "f32" else torch.bfloat16
-            geo = wrappers._geometry(
-                "mlapi_" + name, dtype, b, u, h, kvh, length, d,
-                wrappers._sm_count(0), fmt == "int8")
-            q, mask = args[0], args[-3 if paged else -1]
-            contiguous = (q, *args[-2:], mask) if paged else args
-            before = dict(fn.bodies)
-            out = fn(*args[:5] if paged else args)
-            torch.cuda.synchronize()
-            ran = [k for k in fn.bodies if fn.bodies[k] != before[k]]
-            ref = plain[name](*args[:5] if paged else args)
-            same = None
-            if paged:
-                # The same bytes in a contiguous cache: bit for bit.
-                same = bool(torch.equal(out, twin[name](*contiguous)))
-            live = mask.reshape(b, -1, length).any(dim=-1)   # [B, U]
-            err = float(
-                (out.float() - ref.float()).abs()[live].max()
-            )
-            finite = bool(torch.isfinite(out).all())
-            dead_zero = not bool(out[~live].any())
-            nbytes, flops = case_bytes_flops(*contiguous)
-            if paged:
-                nbytes += args[3].numel() * args[3].element_size()
-            # Rotate through copies of the inputs so that a launch does
-            # not find the previous one's cache in the 50 MB L2 (in
-            # serving each layer reads its own cache); at most 8 sets,
-            # so the smallest tier's cases stay partly L2-resident.
-            sets = [args]
-            for s in range(1, min(8, max(2, math.ceil(160e6 / nbytes)))):
-                sets.append(kernel_case(name, fmt, b, u, length, pos,
-                                        seed=1000 + 10 * i + s, **shape))
-            ops = [a[:5] if paged else a for a in sets]
-            calls = [(lambda a=a: fn(*a)) for a in ops]
-            kernel_ms = graph_ms(calls)
-            device_ms = profiled_ms(calls)
-            eager_ms = cuda_ms(calls)
-            plain_ms = graph_ms([(lambda a=a: plain[name](*a)) for a in ops])
-            library_ms = None
-            if fmt != "int8":
-                # SDPA on the (gathered) contiguous cache: a yardstick.
-                library_ms = graph_ms([
-                    sdpa_fn(a[0], *a[-2:], a[-3]) if paged else sdpa_fn(*a)
-                    for a in sets
-                ])
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = flops / BF16_FLOPS_PER_S * 1e3
-            bound = max(t_bytes, t_ops)
-            row = {
-                "case": "kernel", "kernel": name, "format": fmt,
-                "B": b, "U": u, "L": length, "pos": pos,
-                "H": h, "KVH": kvh, "D": d,
-                "page": shape.get("page", PAGE) if paged else None,
-                "body": ran[0] if len(ran) == 1 else ran,
-                "splits": geo.splits, "tiles_per_split": geo.tiles_per_split,
-                "equals_contiguous": same,
-                "max_abs_err": err, "finite": finite,
-                "dead_rows_exact_zero": dead_zero,
-                "ms": kernel_ms, "device_ms": device_ms, "eager_ms": eager_ms,
-                "plain_ms": plain_ms, "library_ms": library_ms,
-                "bound_ms": bound, "bound_share": bound / kernel_ms,
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "bytes": nbytes, "flops": flops, "card": power,
-            }
-            emit(row)
-            if ran != [geo.body] or (u == 1 and d <= 256
-                                     and ran != ["decode"]):
-                raise SystemExit(
-                    f"{name} {fmt} B={b} U={u} L={length} D={d}: ran the "
-                    f"bodies {ran}, the geometry says {geo.body}"
-                )
-            if not finite or err > TOLERANCE[fmt] or not dead_zero:
-                raise SystemExit(
-                    f"{name} {fmt} B={b} U={u} L={length} D={d}: kernel "
-                    f"disagrees with its plain version (max abs err {err}, "
-                    f"finite {finite}, tolerance {TOLERANCE[fmt]}, exact "
-                    f"zeros on dead rows {dead_zero})"
-                )
-            if same is False:
-                raise SystemExit(
-                    f"{name} {fmt} B={b} U={u} L={length}: the paged kernel "
-                    "differs from its contiguous twin on the same bytes"
-                )
-            results.append(row)
-            del sets
-            torch.cuda.empty_cache()
+            def make(seed, name=name, fmt=fmt, b=b, u=u, length=length,
+                     pos=pos, shape=shape):
+                return kernel_case(name, fmt, b, u, length, pos, seed=seed,
+                                   **shape)
+
+            results.append(kernel_row(name, fmt, b, u, length, pos, shape,
+                                      make, i, power, TOLERANCE[fmt]))
     return results
+
+
+def kernel_row(name, fmt, b, u, length, pos, shape, make, i, power, tol,
+               extra=None):
+    """One kernel case: the wrapper against its plain version (max abs
+    error on live rows within ``tol``, exact zeros on rows with no valid
+    key, the body the geometry names), a paged wrapper against its
+    contiguous twin on the same bytes (bit for bit), and its times beside
+    the plain version's, SDPA's and the card's bound. ``make(seed)``
+    builds the inputs (``kernel_case``'s layout); fatal on a failure."""
+    import importlib
+
+    import torch
+
+    from mlapi_tpu_torch.ops import cuda as kern
+
+    wrappers = importlib.import_module(
+        "mlapi_tpu_torch.ops.cuda.decode_attention")
+    plain = getattr(kern, name + "_plain")
+    twin = {"paged_decode_attention": kern.decode_attention,
+            "paged_extend_attention": kern.extend_attention}
+    h, kvh = shape.get("h", 12), shape.get("kvh", 12)
+    d = shape.get("d", 64)
+    args = make(i)
+    fn = getattr(kern, name)
+    paged = name.startswith("paged_")
+    dtype = torch.float32 if fmt == "f32" else torch.bfloat16
+    geo = wrappers._geometry(
+        "mlapi_" + name, dtype, b, u, h, kvh, length, d,
+        wrappers._sm_count(0), fmt == "int8")
+    q, mask = args[0], args[-3 if paged else -1]
+    contiguous = (q, *args[-2:], mask) if paged else args
+    before = dict(fn.bodies)
+    out = fn(*args[:5] if paged else args)
+    torch.cuda.synchronize()
+    ran = [k for k in fn.bodies if fn.bodies[k] != before[k]]
+    ref = plain(*args[:5] if paged else args)
+    same = None
+    if paged:
+        # The same bytes in a contiguous cache: bit for bit.
+        same = bool(torch.equal(out, twin[name](*contiguous)))
+    live = mask.reshape(b, -1, length).any(dim=-1)   # [B, U]
+    err = float(
+        (out.float() - ref.float()).abs()[live].max()
+    )
+    finite = bool(torch.isfinite(out).all())
+    dead_zero = not bool(out[~live].any())
+    nbytes, flops = case_bytes_flops(
+        *contiguous, *((args[3], shape.get("page", PAGE)) if paged else ()))
+    # Rotate through copies of the inputs so that a launch does not find
+    # the previous one's cache in the 50 MB L2 (in serving each layer
+    # reads its own cache); at most 8 sets, so the smallest tier's cases
+    # stay partly L2-resident.
+    sets = [args]
+    for s in range(1, min(8, max(2, math.ceil(160e6 / nbytes)))):
+        sets.append(make(1000 + 10 * i + s))
+    ops = [a[:5] if paged else a for a in sets]
+    calls = [(lambda a=a: fn(*a)) for a in ops]
+    kernel_ms = graph_ms(calls)
+    device_ms = profiled_ms(calls)
+    eager_ms = cuda_ms(calls)
+    plain_ms = graph_ms([(lambda a=a: plain(*a)) for a in ops])
+    library_ms = None
+    if fmt != "int8":
+        # SDPA on the (gathered) contiguous cache: a yardstick.
+        library_ms = graph_ms([
+            sdpa_fn(a[0], *a[-2:], a[-3]) if paged else sdpa_fn(*a)
+            for a in sets
+        ])
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    bound = max(t_bytes, t_ops)
+    row = {
+        "case": "kernel", "kernel": name, "format": fmt,
+        "B": b, "U": u, "L": length, "pos": pos,
+        "H": h, "KVH": kvh, "D": d,
+        "page": shape.get("page", PAGE) if paged else None,
+        **(extra or {}),
+        "body": ran[0] if len(ran) == 1 else ran,
+        "splits": geo.splits, "tiles_per_split": geo.tiles_per_split,
+        "equals_contiguous": same,
+        "max_abs_err": err, "tolerance": tol, "finite": finite,
+        "dead_rows_exact_zero": dead_zero,
+        "ms": kernel_ms, "device_ms": device_ms, "eager_ms": eager_ms,
+        "plain_ms": plain_ms, "library_ms": library_ms,
+        "bound_ms": bound, "bound_share": bound / kernel_ms,
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bytes": nbytes, "flops": flops, "card": power,
+    }
+    emit(row)
+    if ran != [geo.body] or (u == 1 and d <= 256 and ran != ["decode"]):
+        raise SystemExit(
+            f"{name} {fmt} B={b} U={u} L={length} D={d}: ran the "
+            f"bodies {ran}, the geometry says {geo.body}"
+        )
+    if not finite or err > tol or not dead_zero:
+        raise SystemExit(
+            f"{name} {fmt} B={b} U={u} L={length} D={d}: kernel "
+            f"disagrees with its plain version (max abs err {err}, "
+            f"finite {finite}, tolerance {tol}, exact "
+            f"zeros on dead rows {dead_zero})"
+        )
+    if same is False:
+        raise SystemExit(
+            f"{name} {fmt} B={b} U={u} L={length}: the paged kernel "
+            "differs from its contiguous twin on the same bytes"
+        )
+    del sets
+    torch.cuda.empty_cache()
+    return row
+
+
+# -- the prefix phase's kernel rows ------------------------------------
+
+PREFIX_TOLERANCE = 2 ** -7      # 7.8e-3: B1-B4 at prefix masks, bf16 cache
+
+
+def prefix_kernel_case(kernel, fmt, b, u, p, bucket, per_row, seed, h=12,
+                       kvh=12, d=64):
+    """Inputs behind a ``p``-slot shared-prefix region, as a prefix batch
+    gives them: slots ``[lo, p)`` the prefix, ``[p, p + n_pad)`` each
+    row's suffix pad hole, then the suffix block of ``bucket`` slots and
+    room to decode; masks from the model's own helpers with ``prefix_len
+    = p``. A scalar ``lo``: the same prefix bytes in every row, and a
+    paged case points every row's prefix tiles at the same pages (a
+    shared entry). A per-row ``lo`` (a cross-prefix batch): each row its
+    own prefix, and the last row a dummy with an empty region and a hole
+    over everything (no valid key). Extend: the suffix block at slot
+    ``p`` (U = ``bucket``); decode: the token after it. Returns
+    :func:`kernel_case`'s layout."""
+    import torch
+
+    from mlapi_tpu_torch.models.gpt import (
+        decode_valid_and_shift, extend_positions_and_mask,
+    )
+    from mlapi_tpu_torch.ops.quant import kv_quantize
+
+    length = p + bucket + 32
+    g = torch.Generator().manual_seed(seed)
+    dev, dt = "cuda", (torch.float32 if fmt == "f32" else torch.bfloat16)
+    q = torch.randn(b, u, h, d, generator=g).to(dev, dt)
+    k = torch.randn(b, length, kvh, d, generator=g).to(dev, dt)
+    v = torch.randn(b, length, kvh, d, generator=g).to(dev, dt)
+    n_pad = torch.randint(0, bucket, (b,), generator=g).to(dev)
+    if per_row:
+        lo = torch.randint(0, p, (b,), generator=g).to(dev)
+        lo[-1], n_pad[-1] = p, length
+    else:
+        lo = int(torch.randint(1, p // 2, (1,), generator=g))
+        k[:, :p], v[:, :p] = k[:1, :p], v[:1, :p]
+    if kernel.endswith("decode_attention"):
+        valid, _ = decode_valid_and_shift(length, p + bucket + 7, n_pad, p,
+                                          lo)
+        mask = valid[:, 0, 0, :]
+    else:
+        _, valid = extend_positions_and_mask(length, u, p, n_pad, p, lo)
+        mask = valid[:, 0]
+    if fmt == "int8":
+        kq, ks = kv_quantize(k)
+        vq, vs = kv_quantize(v)
+        k, v = {"q": kq, "scale": ks}, {"q": vq, "scale": vs}
+    if not kernel.startswith("paged_"):
+        return q, k, v, mask
+    pk, table = to_pages(k, mask, seed)
+    pv, _ = to_pages(v, mask, seed)
+    if not per_row:
+        tiles = p // PAGE
+        head = table[:, :tiles]
+        table[:, :tiles] = torch.where(head != 0, head[:1], head)
+    return q, pk, pv, table, mask, k, v
+
+
+def check_prefix_kernels(power):
+    """B1-B4 at the masks the prefix phase sends them: a 768-slot prefix
+    region behind its own left pad, each row's suffix pad hole, the
+    128-slot suffix block (B2/B4) and the decode token after it (B1/B3),
+    with a scalar ``lo`` (one entry, its pages shared by every row) and a
+    per-row ``lo`` (a cross-prefix batch with a dummy row), at GPT-2
+    small's heads and TinyLlama-1.1B's group of 8, bf16 and int8 caches;
+    and B2/B4 over a 256-slot suffix block (a suffix past the largest
+    bucket runs as one block) behind a 512-slot prefix. Tolerance
+    ``PREFIX_TOLERANCE`` on live rows, exact zeros on the dummy row,
+    paged equal to contiguous bit for bit."""
+    geometries = (("gpt2-small", dict(h=12, kvh=12)),
+                  ("tinyllama-1.1b", dict(h=32, kvh=4)))
+    cases = []
+    for label, geo in geometries:
+        for name in SERVING:
+            decode = name.endswith("decode_attention")
+            cases.append((name, label, geo, 8, 768, 128))
+            if not decode:
+                cases.append((name, label, geo, 4, 512, 256))
+    rows = []
+    for i, (name, label, geo, b, p, bucket) in enumerate(cases):
+        u = 1 if name.endswith("decode_attention") else bucket
+        length = p + bucket + 32
+        for per_row in (False, True):
+            for fmt in ("bf16", "int8"):
+                def make(seed, name=name, fmt=fmt, b=b, u=u, p=p,
+                         bucket=bucket, per_row=per_row, geo=geo):
+                    return prefix_kernel_case(name, fmt, b, u, p, bucket,
+                                              per_row, seed, **geo)
+
+                rows.append(kernel_row(
+                    name, fmt, b, u, length, p, geo, make,
+                    500 + 4 * i + 2 * per_row + (fmt == "int8"), power,
+                    PREFIX_TOLERANCE,
+                    {"masks": "prefix", "model": label, "prefix_len": p,
+                     "suffix_bucket": bucket,
+                     "lo": "per-row" if per_row else "scalar"},
+                ))
+    return rows
 
 
 # -- phase 4: serving ---------------------------------------------------
@@ -601,18 +754,26 @@ def long_leg(port: int):
     """The 8 long prompts as concurrent NDJSON streams: per request the
     wall ms to its first line (TTFT) and its done line."""
     prompts = long_leg_prompts()
-    ttft: list = [None] * len(prompts)
-    done: list = [None] * len(prompts)
+    ttft, done = concurrent_streams(
+        port, [{"text": p, "max_new_tokens": LONG_LEG_NEW} for p in prompts],
+        "prefill-heavy leg")
+    return [len(p) for p in prompts], ttft, done
+
+
+def concurrent_streams(port: int, bodies: list, what: str):
+    """The request bodies sent at once as NDJSON streams: per request the
+    wall ms to its first line (TTFT) and its done line."""
+    ttft: list = [None] * len(bodies)
+    done: list = [None] * len(bodies)
     errors: list = []
-    barrier = threading.Barrier(len(prompts))
+    barrier = threading.Barrier(len(bodies))
 
     def one(i):
         try:
             req = urllib.request.Request(
-                f"http://127.0.0.1:{port}/generate", data=json.dumps({
-                    "text": prompts[i], "stream": True,
-                    "max_new_tokens": LONG_LEG_NEW,
-                }).encode(), headers={"content-type": "application/json"},
+                f"http://127.0.0.1:{port}/generate",
+                data=json.dumps({**bodies[i], "stream": True}).encode(),
+                headers={"content-type": "application/json"},
             )
             barrier.wait()
             t0 = time.perf_counter()
@@ -629,14 +790,14 @@ def long_leg(port: int):
             errors.append(repr(e))
 
     threads = [threading.Thread(target=one, args=(i,))
-               for i in range(len(prompts))]
+               for i in range(len(bodies))]
     for t in threads:
         t.start()
     for t in threads:
         t.join(600)
     if errors or any(d is None for d in done):
-        raise SystemExit(f"prefill-heavy leg: requests failed: {errors}")
-    return [len(p) for p in prompts], ttft, done
+        raise SystemExit(f"{what}: requests failed: {errors}")
+    return ttft, done
 
 
 def admission_leg(port: int):
@@ -1037,12 +1198,17 @@ def agreement(engine, kv_quant):
         pads.append(width - len(ids))
     prompt = torch.as_tensor(rows, device=engine.device)
     model = engine.model
+    served = model.decode_attn_impl
     model.configure(decode_attn_impl="einsum")
-    agr = kv_greedy_agreement(
-        model, prompt, 65, pad_lens=pads,
-        quant_overrides={"kv_quant": kv_quant or "none",
-                         "decode_attn_impl": "flash"},
-    )
+    try:
+        agr = kv_greedy_agreement(
+            model, prompt, 65, pad_lens=pads,
+            quant_overrides={"kv_quant": kv_quant or "none",
+                             "decode_attn_impl": "flash"},
+        )
+    finally:
+        # The engine serves on after this (the prefix phase).
+        model.configure(decode_attn_impl=served)
     emit({"case": "agreement", "model": type(model).__name__,
           "kv_quant": kv_quant or "none",
           "vs": "einsum, kv none", "tokens": 64, "rows": len(rows),
@@ -1269,6 +1435,399 @@ def profile_prefill(engine, runs: int = 5) -> None:
         else "not measured",
         "kernels_per_chunk": len(kernels) / chunks,
     })
+
+
+# -- phase 8: shared-prefix serving --------------------------------------
+
+# A system prompt of 768 bytes (one token a byte: the entry's bucket is the
+# page-aligned 768) and a second of 500 (bucket 500, 512 page-aligned),
+# 8 suffixes of 16-120 bytes drawn from seed 0, 32 new tokens, greedy.
+PREFIX_A = ("You answer questions about the serving engine from its "
+            "documentation, quote what you can, and say so when you "
+            "cannot. " * 8)[:768]
+PREFIX_B = ("Summarize the request in one line, then answer it in the "
+            "fewest words that are still correct. " * 8)[:500]
+PREFIX_NEW = 32
+
+
+def prefix_suffixes() -> list:
+    import numpy as np
+
+    sizes = np.random.default_rng(0).integers(16, 121, 8)
+    text = ("how does the engine batch requests that share a system "
+            "prompt, and what does each of them pay for it? ") * 3
+    return [f"{i} " + text[7 * i:7 * i + int(n) - 2]
+            for i, n in enumerate(sizes)]
+
+
+def prefix_leg(engine, cfg, model: str, power) -> dict:
+    """The prefix phase on a served engine (the CLI's factory, flash):
+    a cold round of 8 concurrent streams naming ``PREFIX_A`` (one build,
+    the other 7 wait for it), a warm round of the same (8 hits), one
+    request naming ``PREFIX_B`` (its build), and a cross-prefix round, 4
+    rows of each prefix in one batch (right-aligned to the 768-slot
+    region: shifts of 268 slots, 16 pages in a paged pool). Launch
+    counters zeroed just before and read just after: one flash-extend
+    launch per layer per formation (the suffix block), all on the
+    tensor-core body, one flash-decode per layer per decode step, no
+    other kernel. Counters as the JAX engine counts this trace, shared
+    pages while a paged batch runs, pages settling at the entries'
+    pages, adopted bytes equal to the entries' cache bytes from
+    ``init_cache`` shapes. Then one warm formation against the same
+    prompts as plain ``prefix + text`` (wall and device ms), and flash's
+    top-1 agreement with einsum over the cold round's prompts."""
+    import statistics
+
+    from mlapi_tpu_torch.ops import cuda as kern
+    from mlapi_tpu_torch.ops.quant import kv_tree_bytes
+    from mlapi_tpu_torch.serving.app import build_app
+    from mlapi_tpu_torch.serving.server import BackgroundServer
+
+    page = engine.kv_page_size or None
+    layers = cfg["num_layers"]
+    mine = (("paged_decode_attention", "paged_extend_attention") if page
+            else ("decode_attention", "extend_attention"))
+    suffixes = prefix_suffixes()
+    steps, shared = [0], [0]
+    decode_step = engine.model.decode_step
+
+    def counted_step(*args, **kwargs):
+        steps[0] += 1
+        shared[0] = max(shared[0], engine.kv_pages_shared)
+        return decode_step(*args, **kwargs)
+
+    def bodies(prefixes):
+        return [{"text": t, "prefix": p, "max_new_tokens": PREFIX_NEW}
+                for t, p in zip(suffixes, prefixes)]
+
+    want_pages = 0
+    want_adopt = 0
+    if page:
+        for text in (PREFIX_A, PREFIX_B):
+            bucket = -(-len(text) // page) * page
+            want_pages += bucket // page
+            want_adopt += kv_tree_bytes(
+                engine.model.init_cache(1, bucket, device="meta"))
+    engine.model.decode_step = counted_step
+    t_leg = time.perf_counter()
+    with BackgroundServer(build_app(engine)) as srv:
+        for name in KERNELS:
+            getattr(kern, name).launches = 0
+        for name in SERVING:
+            getattr(kern, name).bodies = {"mma": 0, "fma": 0, "decode": 0}
+        steps[0] = 0
+        b0 = engine.batch_calls
+        cold_ttft, cold = concurrent_streams(
+            srv.port, bodies([PREFIX_A] * 8), "prefix cold round")
+        b1 = engine.batch_calls
+        warm_ttft, warm = concurrent_streams(
+            srv.port, bodies([PREFIX_A] * 8), "prefix warm round")
+        b2 = engine.batch_calls
+        solo = json.loads(post(srv.port, {
+            "text": suffixes[0], "prefix": PREFIX_B,
+            "max_new_tokens": PREFIX_NEW}))
+        b3 = engine.batch_calls
+        cross_ttft, cross = concurrent_streams(
+            srv.port, bodies([PREFIX_A, PREFIX_B] * 4), "cross-prefix round")
+        formations = engine.batch_calls - b0
+        launches = {name: getattr(kern, name).launches for name in KERNELS}
+        bodies_ran = {name: dict(getattr(kern, name).bodies)
+                      for name in SERVING}
+        decode_steps, shared_max = steps[0], shared[0]
+        # Rows drop their holds on the device thread after the terminal
+        # frames; the entries keep theirs.
+        deadline = time.monotonic() + 60.0
+        while (engine.kv_pages_in_use != want_pages
+               and time.monotonic() < deadline):
+            time.sleep(0.01)
+        metrics = get(srv.port, "/metrics")
+    del engine.model.decode_step            # the class's method again
+    leg_s = time.perf_counter() - t_leg
+    c, g = metrics["counters"], metrics["gauges"]
+    counters = {k: c[f"generate.{k}"] for k in (
+        "prefix_builds", "prefix_misses", "prefix_hits", "prefix_fallbacks",
+        "prefix_adopt_bytes", "kv_prefix_copy_fallback")}
+    batches = {"cold": b1 - b0, "warm": b2 - b1, "solo": b3 - b2,
+               "cross": engine.batch_calls - b3}
+    row = {
+        "case": "prefix_serving", "model": model,
+        "kv_quant": engine.kv_quant, "kv_page_size": page,
+        "prefix_bytes": [len(PREFIX_A), len(PREFIX_B)],
+        "suffix_bytes": [len(t) for t in suffixes],
+        "max_new_tokens": PREFIX_NEW, "batches": batches,
+        "ttft_ms_p50": {"cold": statistics.median(cold_ttft),
+                        "warm": statistics.median(warm_ttft),
+                        "cross": statistics.median(cross_ttft)},
+        "ttft_ms": {"cold": cold_ttft, "warm": warm_ttft,
+                    "cross": cross_ttft},
+        "counters": counters, "kv_pages_shared_max": shared_max,
+        "kv_pages_in_use_at_end": g["generate.kv_pages_in_use"],
+        "want_kv_pages_in_use": want_pages,
+        "cow_copies": engine.pool.cow_copies if page else 0,
+        "formations": formations, "decode_steps": decode_steps,
+        "launches": launches, "bodies": bodies_ran, "seconds": leg_s,
+        "card": power,
+    }
+    outs = cold + warm + [solo] + cross
+    vocab = cfg["vocab_size"]
+    if any(len(o["token_ids"]) != PREFIX_NEW
+           or not all(0 <= t < vocab for t in o["token_ids"]) for o in outs):
+        emit(row)
+        raise SystemExit(f"{model} prefix leg: a request missed its tokens")
+    if [o["prompt_tokens"] for o in cold] != [
+            len(PREFIX_A) + len(t) for t in suffixes]:
+        emit(row)
+        raise SystemExit(f"{model} prefix leg: prompt_tokens disagree")
+    # The JAX engine's counts for this trace: the cold round's first
+    # request builds (a miss) and the other 7 wait for it (hits); the warm
+    # round hits 8 times; PREFIX_B's request builds; the cross round hits
+    # 8 times. Paged pools adopt each entry once; every shift is a page
+    # multiple, so nothing is copied.
+    want = {"prefix_builds": 2, "prefix_misses": 2, "prefix_hits": 23,
+            "prefix_fallbacks": 0, "prefix_adopt_bytes": want_adopt,
+            "kv_prefix_copy_fallback": 0}
+    extend, decode = mine[1], mine[0]
+    row["checks"] = checks = {
+        "counters": counters == want,
+        "one_batch_warm_cross": batches["warm"] == batches["cross"] == 1,
+        "extend_one_per_layer_per_formation":
+            launches[extend] == layers * formations
+            and bodies_ran[extend]["mma"] == launches[extend],
+        "decode_one_per_layer_per_step":
+            launches[decode] == layers * decode_steps
+            and bodies_ran[decode]["decode"] == launches[decode],
+        "no_other_kernel": not any(launches[k] for k in KERNELS
+                                   if k not in mine),
+        "pages_shared_while_running": (shared_max > 0) == bool(page),
+        "pages_settle_at_entries":
+            g["generate.kv_pages_in_use"] == want_pages,
+        "no_cow_when_aligned": row["cow_copies"] == 0,
+    }
+    row["want_counters"] = want
+    emit(row)
+    if not all(checks.values()):
+        raise SystemExit(f"{model} prefix leg failed: {checks}")
+    prefix_formation_profile(engine, suffixes, power)
+    prefix_agreement(engine, suffixes)
+    return row
+
+
+def prefix_formation_profile(engine, suffixes, power, runs: int = 5):
+    """One warm prefix formation (8 rows of ``PREFIX_A`` and the
+    suffixes: the entry's KV into the batch's cache or its pages shared,
+    one suffix block, the first token) next to the same prompts as plain
+    ``prefix + text`` (a 7-chunk prefill at bucket 896): wall ms per
+    formation (``runs``, each with a device sync; median) and device ms
+    under ``torch.profiler``, with the kernels each launched."""
+    import statistics
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from mlapi_tpu_torch.serving.requests import _SyncSink
+
+    out = {}
+    for label, encode in (
+        ("prefix", lambda t: engine._encode(t, PREFIX_NEW, 0.0, 0, None,
+                                            prefix=PREFIX_A)),
+        ("plain", lambda t: engine._encode(PREFIX_A + t, PREFIX_NEW, 0.0, 0,
+                                           None)),
+    ):
+        sinks = [_SyncSink(encode(t), []) for t in suffixes]
+
+        def form():
+            run = engine._form_batch(list(sinks))
+            torch.cuda.synchronize()
+            run._paged_cleanup()
+            return run
+
+        def timed() -> float:
+            t0 = time.perf_counter()
+            form()
+            return (time.perf_counter() - t0) * 1e3
+
+        with torch.inference_mode():
+            run = form()                                # warm
+            walls = sorted(timed() for _ in range(runs))
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                form()
+        kernels = device_kernels(prof)
+        dev_us = sum(e.device_time_total for e in kernels)
+        out[label] = {
+            "bucket": run.bucket, "prefix_len": run.p_len, "B": run.b,
+            "wall_ms": {"median": statistics.median(walls), "min": walls[0],
+                        "max": walls[-1], "runs": runs},
+            "device_ms": dev_us / 1e3 if dev_us else "not measured",
+            "kernels": len(kernels),
+        }
+    emit({"case": "prefix_formation_profile",
+          "model": type(engine.model).__name__,
+          "kv_quant": engine.kv_quant, "kv_page_size": engine.kv_page_size,
+          **out, "card": power})
+
+
+# The int8 floor's margin under the plain path's own reading: three
+# standard errors of the difference of two 512-token readings near 0.98,
+# 3 * sqrt(2 * 0.98 * 0.02 / 512) (on an H100, readings at TinyLlama's
+# width scatter 0.973-0.984 on either path, in either format).
+AGREEMENT_MARGIN = 0.026
+
+
+def forced_agreement(engine, prompts, n: int = 64) -> float:
+    """Teacher-forced top-1 agreement of flash with einsum through the
+    engine's own formation (``_form_batch``: on a paged engine the entry's
+    shared pages, a COW where the entry is unaligned, the suffix block
+    through B4; on a contiguous one the entry's KV in every row through
+    B2), then ``n - 1`` decode steps on the formation's cache (B1/B3
+    under flash), over the engine's cache format on both sides: the
+    kernels against the oracle, with the cache's own rounding on both.
+    ``prompts`` are ``(text, prefix or None)``. The first token is
+    compared too."""
+    import torch
+
+    from mlapi_tpu_torch.models.gpt import _pick_token
+    from mlapi_tpu_torch.serving.requests import _SyncSink
+
+    model = engine.model
+    served = model.decode_attn_impl
+
+    def run(forced=None):
+        sinks = [_SyncSink(engine._encode(t, n, 0.0, 0, None, prefix=p), [])
+                 for t, p in prompts]
+        batch = engine._form_batch(sinks)
+        b = batch.b
+        try:
+            tok = batch._first
+            toks = [tok[:b]]
+            for t in range(n - 1):
+                if batch.pool is not None:
+                    batch._ensure_pages(1, list(range(b)))
+                if forced is not None:
+                    tok = tok.clone()
+                    tok[:b] = forced[:, t]
+                logits, batch.cache = model.decode_step(
+                    batch.cache, tok[:, None], batch.pos, batch._n_pad_dev(),
+                    batch.p_len, batch._lo_arg())
+                tok = _pick_token(batch.temps, logits, batch.seeds,
+                                  batch.step)
+                batch.pos += 1
+                toks.append(tok[:b])
+        finally:
+            batch._paged_cleanup()
+        return torch.stack(toks, dim=1)
+
+    try:
+        with torch.inference_mode():
+            model.configure(decode_attn_impl="einsum")
+            ref = run()
+            model.configure(decode_attn_impl="flash")
+            got = run(forced=ref)
+    finally:
+        model.configure(decode_attn_impl=served)
+    return float((got == ref).float().mean())
+
+
+def prefix_agreement(engine, suffixes, n: int = 64) -> float:
+    """:func:`forced_agreement` over the cold round's prompts through the
+    prefix path, beside the same prompts as plain ``prefix + text`` (the
+    witness: a 7-chunk prefill, then decode, on the same engine). Floor
+    0.98 over a bf16 cache; over int8, 0.98 or the witness's reading
+    less ``AGREEMENT_MARGIN``, whichever is lower (the prefix path no
+    worse than the plain one within the readings' noise), with the
+    witness itself held at 0.9 (:func:`agreement`'s floor)."""
+    agr = forced_agreement(engine, [(t, PREFIX_A) for t in suffixes], n)
+    plain = forced_agreement(engine, [(PREFIX_A + t, None) for t in suffixes],
+                             n)
+    int8 = engine.kv_quant != "none"
+    floor = min(0.98, plain - AGREEMENT_MARGIN) if int8 else 0.98
+    emit({"case": "prefix_agreement", "model": type(engine.model).__name__,
+          "kv_quant": engine.kv_quant, "kv_page_size": engine.kv_page_size,
+          "path": "engine formation", "floor": floor,
+          "vs": f"einsum, kv {engine.kv_quant}",
+          "prefix_len": len(PREFIX_A), "tokens": n, "rows": len(suffixes),
+          "top1_agreement": agr, "plain_top1_agreement": plain,
+          "margin": AGREEMENT_MARGIN if int8 else None})
+    if agr < floor or (int8 and plain < 0.9):
+        raise SystemExit(f"prefix path: flash top-1 agreement {agr} (plain "
+                         f"path {plain}), floor {floor}")
+    return agr
+
+
+# Exact f32 streams: an aligned prefix (100 bytes: bucket 100, 112 in
+# 16-token pages) and one at the window edge (230 bytes of a 256-position
+# model: 240 aligned would leave no room, so it stays unaligned and every
+# row copies its group-end page on write), as same-prefix batches and as
+# one cross-prefix batch (in pages: a 118-slot shift, the copy fallback).
+PREFIX_F32 = (("the shared system prompt of the small model is exactly one "
+               "hundred bytes long, give or take none at all")[:100],
+              ("b" * 230))
+
+
+def check_prefix_f32(family: str, num_heads: int, kv_heads=None):
+    """A small float32 model (the widths :func:`check_small_f32` uses)
+    through the flash kernels on both layouts: every prefix stream equals
+    the stream of ``prefix + text`` served without a prefix (the
+    reference's pinned equivalence), with the window-edge entry's COW
+    copies (2) and the copy fallback (1) counted in a paged engine of the
+    default pool (48 pages): the fallback's 32 private pages evict the
+    first entry's idle set (7 pages), and pages settle at the window-edge
+    entry's 15."""
+    import torch
+
+    from mlapi_tpu_torch.models import get_model
+    from mlapi_tpu_torch.serving.engine import TextGenerationEngine
+    from mlapi_tpu_torch.serving.requests import _SyncSink
+    from mlapi_tpu_torch.text import ByteTokenizer
+
+    kw = {} if kv_heads is None else {"num_kv_heads": kv_heads}
+    model = get_model(family, vocab_size=260, hidden_size=128, num_layers=2,
+                      num_heads=num_heads, max_positions=256,
+                      compute_dtype="float32", seed=1, device="cuda", **kw)
+    with torch.no_grad():
+        for p in model.parameters():
+            if p.ndim == 2:
+                p.mul_(10.0)
+    model.configure(kv_quant="none", decode_attn_impl="flash")
+    p1, p2 = PREFIX_F32
+    batches = [
+        [("one", p1, 12), ("a second suffix", p1, 12),
+         ("the third and longest suffix", p1, 10)],
+        [("ij", p2, 8), ("kl", p2, 6)],
+        [("mn", p1, 8), ("op", p2, 8)],
+    ]
+    for page in (None, PAGE):
+        eng = TextGenerationEngine(model, tokenizer=ByteTokenizer(),
+                                   prompt_buckets=(16, 32, 64),
+                                   kv_page_size=page)
+        equal = []
+        for specs in batches:
+            outs = [[] for _ in specs]
+            sinks = [_SyncSink(eng._encode(t, n, 0.0, 0, None, prefix=p), o)
+                     for (t, p, n), o in zip(specs, outs)]
+            eng._run_batch(sinks)
+            errors = [repr(s.error) for s in sinks if s.error]
+            if errors:
+                raise SystemExit(f"{family} f32 prefix batch: {errors}")
+            equal.append([
+                o == eng.generate_text(p + t, max_new_tokens=n)["token_ids"]
+                for (t, p, n), o in zip(specs, outs)])
+        row = {"case": "f32_prefix_streams", "model": family,
+               "num_heads": num_heads, "kv_heads": model.kv_heads,
+               "kv_page_size": page, "equals_prefix_plus_text": equal,
+               "cow_copies": eng.pool.cow_copies if page else 0,
+               "kv_prefix_copy_fallback": eng.kv_prefix_copy_fallback,
+               "entry_evictions": eng.pool.entry_evictions if page else 0,
+               "kv_pages_in_use": eng.kv_pages_in_use,
+               "prefix_counters": [eng.prefix_builds, eng.prefix_misses,
+                                   eng.prefix_hits]}
+        emit(row)
+        want_pool = (2, 1, 1, 15) if page else (0, 0, 0, 0)
+        got_pool = (row["cow_copies"], row["kv_prefix_copy_fallback"],
+                    row["entry_evictions"], row["kv_pages_in_use"])
+        if not all(map(all, equal)) or got_pool != want_pool or (
+                row["prefix_counters"] != [2, 2, 5]):
+            raise SystemExit(f"{family} f32 prefix streams failed: {row}")
 
 
 # -- phase 6: flash attention kernels (B5, B6, B7) -----------------------
@@ -1953,12 +2512,13 @@ def llama_train_run():
     return row
 
 
-def llama_phases(scratch: Path, launches: dict) -> dict:
+def llama_phases(scratch: Path, launches: dict, power) -> dict:
     """Item 7 of the docstring: the Llama family. A seeded TinyLlama-1.1B-width
     checkpoint served in two runs (contiguous bf16, paged 16 int8) with
     their profiles and, on the contiguous engine, flash's top-1 agreement
     with einsum; flash against full attention at its width; small f32
-    Llamas' greedy streams; the docs-llama training run. Adds each
+    Llamas' greedy streams; the docs-llama training run. Each serving
+    engine then runs the prefix phase (:func:`prefix_leg`). Adds each
     serving run's launches to ``launches``; returns the training row."""
     import torch
 
@@ -1980,9 +2540,14 @@ def llama_phases(scratch: Path, launches: dict) -> dict:
             profile_prefill(engine)
             if page is None:
                 agreement(engine, kv_quant)
+            seconds[f"serve {path}"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            prow = prefix_leg(engine, TINYLLAMA, "tinyllama-1.1b", power)
+            for k in launches:
+                launches[k]["llama prefix " + path[6:]] = prow["launches"][k]
+            seconds[f"prefix {path}"] = time.perf_counter() - t0
             del engine
             torch.cuda.empty_cache()
-            seconds[f"serve {path}"] = time.perf_counter() - t0
             seconds[f"read {path}"] = row["load_s"]
         t0 = time.perf_counter()
         llama_flash_vs_full(ckpt)
@@ -1990,6 +2555,7 @@ def llama_phases(scratch: Path, launches: dict) -> dict:
     t0 = time.perf_counter()
     check_small_f32(4, "llama_lm", kv_heads=2)            # docs-llama
     check_small_f32(8, "llama_lm", kv_heads=1, hidden=512)  # a group of 8
+    check_prefix_f32("llama_lm", 4, kv_heads=2)
     seconds["f32_streams"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     train_row = llama_train_run()
@@ -2080,8 +2646,10 @@ def main() -> int:
           "kernels": {name: ptxas_summary(b.log)
                       for name, b in built.items()}})
 
-    # 3. kernels against their plain versions
+    # 3. kernels against their plain versions (and, for the prefix phase,
+    # B1-B4 at its masks)
     rows = check_kernels(power)
+    rows += check_prefix_kernels(power)
     cfg, splits, x0, y0 = sst2_first_batch()
     flash_rows = check_flash_kernels(power, x0)
 
@@ -2098,7 +2666,9 @@ def main() -> int:
     # 5. serving, 6. correctness
     # Launches per serving path, each path's counts zeroed just before
     # its requests: {kernel: {"none": N, "int8": N, "none, page 16": N,
-    # "int8, page 16": N, "llama none": N, "llama int8, page 16": N}}.
+    # "int8, page 16": N, "prefix none": N, "prefix int8, page 16": N,
+    # "llama none": N, "llama int8, page 16": N, "llama prefix none": N,
+    # "llama prefix int8, page 16": N}}.
     launches = {name: {} for name in SERVING}
     with tempfile.TemporaryDirectory(dir=scratch) as tmp:
         ckpt = make_checkpoint(Path(tmp) / "gpt2_small_seed0")
@@ -2113,14 +2683,22 @@ def main() -> int:
                 profile_prefill(engine)
                 if page is None:
                     agreement(engine, kv_quant)
+                if (page is None) == (kv_quant is None):
+                    # 8. shared-prefix serving on contiguous bf16 and
+                    # paged 16 int8, the Llama phase's layouts
+                    prow = prefix_leg(engine, GPT2_SMALL, "gpt2-small",
+                                      power)
+                    for k in launches:
+                        launches[k]["prefix " + path] = prow["launches"][k]
                 del engine
                 torch.cuda.empty_cache()
     check_small_f32(2)
     check_small_f32(4)     # docs-gpt: head dim 32
+    check_prefix_f32("gpt_lm", 2)
 
     # 7. Llama: TinyLlama-1.1B-width serving, flash against full, small
     # f32 streams, the docs-llama training run
-    llama_train = llama_phases(scratch, launches)
+    llama_train = llama_phases(scratch, launches, power)
 
     summary = []
     for name in SERVING:

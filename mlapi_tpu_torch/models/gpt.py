@@ -23,7 +23,10 @@ through flash-decode, multi-token spans through flash-extend, each in
 its contiguous or paged form after the cache's layout. The paged
 serving lifecycle uses :func:`paged_prefill_fn` and
 :func:`paged_extend_fn`, which write through the page table into the
-pool tensors in place.
+pool tensors in place. Shared-prefix serving adds
+:func:`prefix_prefill_fn` (a cached prefix's KV under a suffix block),
+and for the pool :func:`paged_scatter_fn` (a contiguous cache copied
+into pages) and :func:`paged_cow_fn` (copy-on-write of whole pages).
 """
 
 from __future__ import annotations
@@ -673,6 +676,69 @@ def paged_extend_fn(model, cache, chunk_ids, pos0: int, n_pad,
     Returns ``(cache, last_logits)``; callers sample the final block's
     logits with :func:`sample_fn`."""
     return model.extend_core(cache, chunk_ids, pos0, n_pad, prefix_len, lo)
+
+
+@torch.no_grad()
+def prefix_prefill_fn(model, prefix_kv, suffix_ids, hole, lo, seeds, temps,
+                      top_k, top_p, *, total: int):
+    """Shared-prefix prefill + first token: a cached prefix's KV
+    (``prefix_kv``, a ``[1, P]``-shaped cache from the prefix's own
+    prefill) is written into slots ``[0, P)`` of EVERY row of a fresh
+    ``[B, total]`` cache, then the left-padded ``[B, U]`` suffix runs as
+    ONE ``extend_core`` block at slots ``[P, P+U)``: the prefix's
+    forward is never recomputed. ``hole [B]`` is each row's suffix pad
+    count (the pad hole of the mask helpers) and ``lo`` the prefix's own
+    left pad. A cross-prefix batch passes a per-row ``[B, P]`` stack
+    (each row's prefix right-aligned to the common region end ``P``)
+    and a per-row ``[B]`` ``lo``. Sampling draws at stream index 0, so
+    the stream is the one the same prompt gets without a prefix.
+    Returns ``(first_tok [B], cache)``."""
+    b = suffix_ids.shape[0]
+    p_len = next(iter(prefix_kv["layer_0"].values())).shape[1]
+    cache = model.init_cache(b, total)
+    for ln, layer in cache.items():
+        for name, leaf in layer.items():
+            leaf[:, :p_len] = prefix_kv[ln][name]
+    cache, logits = model.extend_core(cache, suffix_ids, p_len, hole, p_len,
+                                      lo)
+    return _pick_token(temps, logits, seeds, 0, top_k, top_p), cache
+
+
+@torch.no_grad()
+def paged_scatter_fn(cache, mini, table, off: int):
+    """Paged ADOPT: copy a contiguous ``[R, W]``-shaped cache ``mini``
+    (a prefix entry's KV, a widened prefix stack) into pool pages at
+    virtual slots ``[off, off + W)`` of the ``[R, NP]`` page-table rows
+    ``table``, IN PLACE: one ``index_put_`` per pool leaf, at the
+    coordinates of the paged append (``ops/quant._paged_coords``).
+    Returns ``cache``."""
+    from mlapi_tpu_torch.ops.quant import _paged_coords
+
+    layer0 = cache["layer_0"]
+    w = next(iter(mini["layer_0"].values())).shape[1]
+    tab = torch.as_tensor(np.asarray(table, np.int32),
+                          device=layer0["table"].device)
+    pids, offs = _paged_coords({**layer0, "table": tab}, off, w)
+    for ln, layer in cache.items():
+        for name, upd in mini[ln].items():
+            layer[name].index_put_((pids, offs), upd.to(layer[name].dtype))
+    return cache
+
+
+@torch.no_grad()
+def paged_cow_fn(cache, src, dst):
+    """Copy-on-write, the device half: duplicate pool pages ``src`` into
+    pages ``dst`` (``[R]`` ids each, disjoint) across every layer's
+    pools, IN PLACE. R pages move, whatever the sequence length or the
+    batch; the caller rewrites the host page table. Returns ``cache``."""
+    dev = next(iter(cache["layer_0"].values())).device
+    src = torch.as_tensor(np.asarray(src, np.int64), device=dev)
+    dst = torch.as_tensor(np.asarray(dst, np.int64), device=dev)
+    for layer in cache.values():
+        for name, pool in layer.items():
+            if name != "table":
+                pool.index_copy_(0, dst, pool.index_select(0, src))
+    return cache
 
 
 def sample_fn(logits, seeds, temps, top_k, top_p):

@@ -3,11 +3,14 @@
 Counterpart of ``mlapi_tpu/serving/app.py`` for a generative engine:
 
 - ``POST /generate`` takes ``text``, ``max_new_tokens``, ``temperature``,
-  ``top_k``, ``top_p``, ``seed``, ``stream`` and ``stop``. Concurrent
-  requests coalesce into one batch. ``"stream": true`` answers NDJSON:
-  one ``{"token_ids": [...]}`` line per decoded chunk, then a
-  ``{"done": true, "text", "token_ids", "prompt_tokens"}`` line whose
-  ``token_ids`` is the FULL list. The JAX package's ``prefix``,
+  ``top_k``, ``top_p``, ``seed``, ``stream``, ``stop`` and ``prefix``.
+  Concurrent requests coalesce into one batch. ``"stream": true``
+  answers NDJSON: one ``{"token_ids": [...]}`` line per decoded chunk,
+  then a ``{"done": true, "text", "token_ids", "prompt_tokens"}`` line
+  whose ``token_ids`` is the FULL list. ``prefix`` makes the prompt
+  ``prefix + text`` with the prefix's KV computed once and cached
+  (``serving/prefix.py``); an invalid one (empty after tokenizing, too
+  long for the window) is a 422 at ``["prefix"]``. The JAX package's
   ``adapter``, ``tenant`` and ``deadline_ms`` fields are refused with a
   422, since the port does not serve them yet.
 - ``GET /healthz``: liveness, queue depth, model, checkpoint, device,
@@ -56,10 +59,13 @@ GENERATE_SCHEMA = Schema(
     seed=Field(int, 0),
     stream=Field(bool, False),
     stop=Field("str|list[str]", None, nullable=True),
+    # Shared-prefix KV caching: the prompt is prefix + text, and the
+    # prefix's forward runs once for every request that names it.
+    prefix=Field(str, None, nullable=True),
 )
 # Fields of the JAX package's /generate that change the answer and that
 # the port does not implement: refused rather than silently ignored.
-_NOT_PORTED = ("prefix", "adapter", "tenant", "deadline_ms")
+_NOT_PORTED = ("adapter", "tenant", "deadline_ms")
 
 
 def _value_error(loc: str, msg: str, value) -> HTTPError:
@@ -142,7 +148,7 @@ def _install_generate(app: App, engine) -> None:
             gen = await engine.submit(
                 req.text, max_new_tokens=n_new,
                 temperature=req.temperature, seed=req.seed,
-                top_k=req.top_k, top_p=req.top_p,
+                top_k=req.top_k, top_p=req.top_p, prefix=req.prefix,
                 # Incremental consumers need tokens per chunk.
                 stream=bool(req.stream) or bool(stops),
             )
@@ -151,6 +157,11 @@ def _install_generate(app: App, engine) -> None:
                 503, str(e),
                 headers={"retry-after": str(int(max(1, e.retry_after_s)))},
             ) from None
+        except ValueError as e:
+            # An invalid prefix (too long for the window, empty after
+            # tokenizing, no room left for the suffix) is the
+            # requester's error.
+            raise _value_error("prefix", str(e), req.prefix) from None
 
         if req.stream:
             async def ndjson():
@@ -339,6 +350,14 @@ def _install_common(app: App, engine, registry: MetricsRegistry) -> None:
         c["generate.admitted"] = engine.admitted
         c["generate.growths"] = engine.growths
         c["generate.compactions"] = engine.compactions
+        c["generate.prefix_hits"] = engine.prefix_hits
+        c["generate.prefix_misses"] = engine.prefix_misses
+        c["generate.prefix_fallbacks"] = engine.prefix_fallbacks
+        c["generate.prefix_builds"] = engine.prefix_builds
+        c["generate.prefix_adopt_bytes"] = engine.prefix_adopt_bytes
+        c["generate.kv_prefix_copy_fallback"] = (
+            engine.kv_prefix_copy_fallback
+        )
         c["generate.faults_injected"] = faults.injected_count()
         g = snap.setdefault("gauges", {})
         g["generate.queue_depth"] = engine.queue_depth
@@ -351,6 +370,7 @@ def _install_common(app: App, engine, registry: MetricsRegistry) -> None:
         )
         g["generate.kv_pages_total"] = engine.kv_pages_total
         g["generate.kv_pages_in_use"] = engine.kv_pages_in_use
+        g["generate.kv_pages_shared"] = engine.kv_pages_shared
         g["generate.kv_page_utilization"] = engine.kv_page_utilization
         g["generate.kv_page_bytes"] = engine.kv_page_bytes()
         snap["kernels"] = {

@@ -5,11 +5,16 @@ Counterpart of ``mlapi_tpu/serving/batch_run.py::BatchRun``, cut to
 what this port serves:
 
 ======================  ================================================
-``__init__``            formation: bucket/cache tier, host mirrors
-                        (``_pack_rows``), batch padding to a power of 2
-``_prefill``            plain prefill, or chunked prefill of a prompt
+``__init__``            formation: bucket/cache tier, the prefix region,
+                        host mirrors (``_pack_rows``), batch padding to
+                        a power of 2
+``_prefill``            shared-prefix prefill (the suffix as one
+                        flash-extend block behind the cached prefix),
+                        plain prefill, or chunked prefill of a prompt
                         past the largest bucket (flash-extend reads);
-                        ``_prefill_paged`` for a paged engine
+                        ``_prefill_paged`` for a paged engine, whose
+                        prefix rows share the entry's pages
+                        (``_prefill_paged_prefix``)
 ``_alloc_rows`` et al.  the page lifecycle of a paged engine: rows map
                         only the pages of slots they reached, released
                         eagerly when a row finishes
@@ -22,7 +27,7 @@ what this port serves:
 ======================  ================================================
 
 Host mirrors (``n_pad``, ``temps``, ``topk``, ``topp``, ``seeds``,
-``tok``, ``step``, and a paged engine's page table ``tab``) are the
+``tok``, ``step``, ``lo``, and a paged engine's page table ``tab``) are the
 source of truth, rebound together on every resize; the device holds
 the KV cache and the chained feedback token. Anything that mutates
 batch state first ``chain.invalidate()``s. Caches are written in place:
@@ -30,9 +35,11 @@ a contiguous batch owns its ``[B, total]`` cache, a paged batch writes
 the engine pool's tensors through its own table (re-uploaded whenever
 the host table changes).
 
-Not ported: the prefix cache, speculation, adapters, disaggregation,
-deadlines, and the interleaved chunked prefill of long-prompt joiners
-(a joiner past the largest bucket is handed to the next batch).
+Prefix rows batch at formation only, never by admission (the running
+batch's prefix region is a batch-wide layout). Not ported: speculation,
+adapters, disaggregation, deadlines, and the interleaved chunked
+prefill of long-prompt joiners (a joiner past the largest bucket is
+handed to the next batch).
 """
 
 from __future__ import annotations
@@ -67,8 +74,20 @@ class BatchRun:
         self.admit = admit
         self.bucket = max(len(r.row) for r in reqs)
         n_new_max = max(r.n_new for r in reqs)
-        self.total = eng._cache_len(self.bucket, n_new_max)
-        self.n_new_max = min(n_new_max, self.total - self.bucket)
+        # The prefix region spans slots [0, p_len) of every row. A
+        # same-prefix batch shares one entry's KV (scalar lo); a
+        # cross-prefix batch right-aligns each row's own prefix to the
+        # common region end p_len, masked by a per-row lo (lo == p_len:
+        # an empty region, the dummy rows').
+        self.p_len = max(r.prefix_len for r in reqs)
+        self.p_lo = reqs[0].prefix_lo
+        self.mixed_prefix = bool(self.p_len) and any(
+            r.prefix_fp != reqs[0].prefix_fp or r.prefix_len != self.p_len
+            for r in reqs
+        )
+        self.total = eng._cache_len(self.p_len + self.bucket, n_new_max)
+        self.n_new_max = min(n_new_max,
+                             self.total - self.p_len - self.bucket)
         b = len(reqs)
         # Pad the batch to a power of two, as the JAX engine does to
         # bound its compiled shapes; dummy rows are fully masked. It
@@ -76,6 +95,9 @@ class BatchRun:
         self.b, self.b_pad, self.b_max = b, _pow2(b), _pow2(eng.max_batch)
         (self.prompt, self.n_pad, self.temps, self.topk, self.topp,
          self.seeds) = eng._pack_rows(reqs, self.bucket, self.b_pad)
+        self.lo = np.full((self.b_pad,), self.p_len, np.int64)
+        for i, r in enumerate(reqs):
+            self.lo[i] = self.p_len - r.prefix_len + r.prefix_lo
         self.device = eng.device
         # Paged: tab[row, i] maps virtual tile i of device row ``row``
         # to a pool page (0 = the null page).
@@ -91,7 +113,7 @@ class BatchRun:
         self.cache = None
         try:
             first = self._prefill()
-            self.pos = self.bucket
+            self.pos = self.p_len + self.bucket
             self._first_token(first)
             self.chain = DispatchChain(self._deliver)
         except BaseException:
@@ -106,7 +128,7 @@ class BatchRun:
         """Run the batch's prefill into ``self.cache``; returns the
         ``[B]`` device tensor of first sampled tokens."""
         from mlapi_tpu_torch.models.gpt import (
-            extend_chunk_fn, prefill_fn, sample_fn,
+            extend_chunk_fn, prefill_fn, prefix_prefill_fn, sample_fn,
         )
 
         if self.pool is not None:
@@ -115,6 +137,17 @@ class BatchRun:
         bucket, total = self.bucket, self.total
         prompt = self._prompt_dev()
         cp = eng.prompt_buckets[-1]
+        if self.p_len:
+            # Shared-prefix batch: the prefix KV goes into every row and
+            # only the suffix block is computed. A cross-prefix batch
+            # passes the per-row right-aligned stack and lo vector.
+            kv = (eng.prefix.stacked(self.reqs, self.p_len, self.b_pad)
+                  if self.mixed_prefix else self.reqs[0].prefix_kv)
+            first, self.cache = prefix_prefill_fn(
+                eng.model, kv, prompt, self._n_pad_dev(), self._lo_arg(),
+                self.seeds, self.temps, self.topk, self.topp, total=total,
+            )
+            return first
         if bucket > cp and bucket % cp == 0:
             # Chunked prefill: the long prompt runs as cp-wide
             # extend_core blocks, each reading the cache written so far
@@ -149,6 +182,8 @@ class BatchRun:
         from mlapi_tpu_torch.ops.quant import paged_cache_tree
 
         eng, bucket = self.eng, self.bucket
+        if self.p_len:
+            return self._prefill_paged_prefix()
         # Host phase first: an exhausted pool raises before device work.
         for i in range(self.b):
             self._alloc_rows([i], int(self.n_pad[i]), bucket)
@@ -173,6 +208,108 @@ class BatchRun:
             self.topk, self.topp,
         )
         return first
+
+    def _prefill_paged_prefix(self):
+        """Paged shared-prefix formation. Every live row's table points
+        at its entry's pool pages (one reference per row) and only the
+        suffix block is computed. A same-prefix batch shares one page
+        set. A cross-prefix batch shares each row's own set at a tile
+        shift when every right-alignment shift ``P - prefix_len`` is a
+        page multiple (entries page-align their buckets, so this is the
+        norm); otherwise it copies widened stacks into private pages,
+        counted in ``kv_prefix_copy_fallback``. When ``P`` is not a page
+        multiple the suffix's first slots fall in the group-end page, so
+        each row copies that page first (COW). Dummy rows keep null
+        tables.
+
+        The host phase makes every allocation that can raise before any
+        device work; the device phase then adopts (an entry's first
+        residency), copies, COWs, and runs one suffix extend."""
+        from mlapi_tpu_torch.models.gpt import (
+            paged_cow_fn, paged_extend_fn, paged_scatter_fn, sample_fn,
+        )
+        from mlapi_tpu_torch.ops.quant import kv_tree_bytes, paged_cache_tree
+
+        eng, reqs, pool = self.eng, self.reqs, self.pool
+        P, page = self.p_len, self.page
+        npp = -(-P // page)
+        adopts: list = []   # (fp, kv, pages) to scatter, first use only
+        shared: list = []   # (row, entry pages) to COW
+        srcs, dsts = [], []
+        mixed_copy = False
+        try:
+            if not self.mixed_prefix:
+                # holds=b: every live row's reference is taken with the
+                # lookup, so an eviction can drop only the entry's own.
+                r0 = reqs[0]
+                pages, need = eng.prefix.paged_entry(
+                    r0.prefix_fp, r0.prefix_kv, holds=self.b)
+                if need:
+                    adopts.append((r0.prefix_fp, r0.prefix_kv, pages))
+                for i in range(self.b):
+                    self.tab[i, :len(pages)] = pages
+                    shared.append((i, pages))
+            elif all((P - r.prefix_len) % page == 0 for r in reqs):
+                # Aligned cross-prefix group: each row shares its own
+                # entry's pages, starting at its shift's tile.
+                for i, r in enumerate(reqs):
+                    pages, need = eng.prefix.paged_entry(
+                        r.prefix_fp, r.prefix_kv, holds=1)
+                    if need:
+                        adopts.append((r.prefix_fp, r.prefix_kv, pages))
+                    t0 = (P - r.prefix_len) // page
+                    self.tab[i, t0:t0 + len(pages)] = pages
+                    shared.append((i, pages))
+            else:
+                # Sub-page shifts, which page identity cannot express:
+                # widened per-row stacks in private pages.
+                eng.kv_prefix_copy_fallback += 1
+                mixed_copy = True
+                self._alloc_rows(range(self.b), 0, npp * page)
+            if P % page:
+                # The group-end page is partly prefix and the suffix
+                # writes into it: each sharing row gets its own copy.
+                for i, pages in shared:
+                    own = int(pool.alloc(1)[0])
+                    srcs.append(int(pages[-1]))
+                    dsts.append(own)
+                    pool.release([pages[-1]])
+                    self.tab[i, npp - 1] = own
+            # Suffix pages behind the prefix region.
+            self._alloc_rows(range(self.b), npp * page, P + self.bucket)
+        except BaseException:
+            # An entry registered in this phase holds no bytes yet: it
+            # must not outlive the failed formation.
+            for fp, _, _ in adopts:
+                pool.drop_entry(fp)
+            raise
+        self.cache = paged_cache_tree(pool.layers, self.tab)
+        self._tab_dirty = False
+        if mixed_copy:
+            stack = eng.prefix.stacked(reqs, P, self.b_pad)
+            paged_scatter_fn(self.cache, stack, self.tab[:, :npp], 0)
+        for _, kv, pages in adopts:
+            # Once per residency: the entry's contiguous KV becomes
+            # pool-resident (counted apart from any per-batch copy).
+            eng.prefix_adopt_bytes += kv_tree_bytes(kv)
+            paged_scatter_fn(self.cache, kv, np.asarray(pages)[None], 0)
+        if srcs:
+            with pool.lock:
+                pool.cow_copies += len(srcs)
+            paged_cow_fn(self.cache, srcs, dsts)
+        self.cache, logits = paged_extend_fn(
+            eng.model, self.cache, self._prompt_dev(), P, self._n_pad_dev(),
+            P, self._lo_arg(),
+        )
+        return sample_fn(logits, self.seeds, self.temps, self.topk, self.topp)
+
+    def _lo_arg(self):
+        """The prefix region's start: a per-row upload of the ``lo``
+        mirror for a cross-prefix batch, else the shared scalar."""
+        if self.mixed_prefix:
+            return torch.as_tensor(self.lo, dtype=torch.long,
+                                   device=self.device)
+        return self.p_lo
 
     def _prompt_dev(self):
         return torch.as_tensor(self.prompt, dtype=torch.long,
@@ -278,8 +415,8 @@ class BatchRun:
             self.n_pad[sel], self.temps[sel], self.topk[sel],
             self.topp[sel],
         )
-        self.seeds, self.tok, self.step = (
-            self.seeds[sel], self.tok[sel], self.step[sel],
+        self.seeds, self.tok, self.step, self.lo = (
+            self.seeds[sel], self.tok[sel], self.step[sel], self.lo[sel],
         )
 
     def _deliver(self, toks_host, got, plive):
@@ -364,9 +501,12 @@ class BatchRun:
             if cand.cancelled:
                 self._unstage(cand)
                 continue
-            if len(cand.row) > cp or self._never_admissible(cand):
+            if (len(cand.row) > cp or self._never_admissible(cand)
+                    or self.p_len or cand.prefix_fp is not None):
                 # A long prompt (its interleaved chunked prefill is not
-                # ported) or a budget past this cache: the next batch.
+                # ported), a budget past this cache, or a prefix on
+                # either side (prefix rows batch at formation only):
+                # the next batch.
                 if self._unstage(cand):
                     eng._defer(cand)
                 continue
@@ -549,7 +689,7 @@ class BatchRun:
         toks, self.cache, last_tok = decode_chunk_fn(
             eng.model, self.cache, tok, self.pos, self._n_pad_dev(),
             self.temps, self.seeds, self.step, self.topk, self.topp,
-            chunk=size,
+            chunk=size, prefix_len=self.p_len, prefix_lo=self._lo_arg(),
         )
         self.chain.push(toks, size, live)
         for i in live:

@@ -14,8 +14,11 @@ Scope of the port: batches run one at a time through
 ``--sched-max-batches 1``, in-lane admission included: while a batch
 runs, the collector keeps pulling and stages every arrival the batch
 can take (``_admit``), which joins at the next chunk boundary; the
-rest wait for the next batch (``_carry``). The unit scheduler, prefix
-cache, speculation, adapters and tenants are not ported. ``chunk`` is
+rest wait for the next batch (``_carry``). A request naming a
+``prefix`` reuses the prefix's cached KV (``serving/prefix.py``) and
+computes only its suffix; prefix requests batch with each other, also
+across different prefixes, never with plain ones. The unit scheduler,
+speculation, adapters and tenants are not ported. ``chunk`` is
 a fixed 8 (the JAX engine probes the device round trip to choose 8 or
 16; a local card is the 8 case).
 """
@@ -33,6 +36,7 @@ import torch
 
 from mlapi_tpu_torch.ops.quant import kv_tree_bytes
 from mlapi_tpu_torch.serving import faults
+from mlapi_tpu_torch.serving.prefix import PrefixCache
 from mlapi_tpu_torch.serving.requests import (
     DrainCancelled,
     GenRequest,
@@ -125,6 +129,9 @@ class TextGenerationEngine:
         self._admit: list = []
         self._deferred: list = []
         self._alock = threading.Lock()
+        # Shared-prefix KV caching: every piece of prefix state lives in
+        # the PrefixCache; the engine routes calls to it.
+        self.prefix = PrefixCache(self)
         # Stats (read by /metrics and the tests).
         self.requests = 0
         self.batch_calls = 0
@@ -135,6 +142,11 @@ class TextGenerationEngine:
         self.admitted = 0
         self.growths = 0
         self.compactions = 0
+        # Bytes of prefix KV adopted into pool pages (once per entry
+        # residency), and cross-prefix paged batches that copied their
+        # prefixes because a shift was not a page multiple.
+        self.prefix_adopt_bytes = 0
+        self.kv_prefix_copy_fallback = 0
         self.latency = LatencyStats()
 
     @classmethod
@@ -190,6 +202,10 @@ class TextGenerationEngine:
         return self.pool.pages_in_use if self.pool is not None else 0
 
     @property
+    def kv_pages_shared(self) -> int:
+        return self.pool.pages_shared if self.pool is not None else 0
+
+    @property
     def kv_page_utilization(self) -> float:
         return self.pool.utilization if self.pool is not None else 0.0
 
@@ -198,6 +214,24 @@ class TextGenerationEngine:
         shape arithmetic): a sequence of ``t`` cached tokens holds
         ``ceil(t / page)`` pages."""
         return self.pool.page_bytes if self.pool is not None else 0
+
+    # -- prefix-cache counters (state lives in serving/prefix.py) ---------
+    @property
+    def prefix_hits(self) -> int:
+        return self.prefix.hits
+
+    @property
+    def prefix_misses(self) -> int:
+        return self.prefix.misses
+
+    @property
+    def prefix_fallbacks(self) -> int:
+        return self.prefix.fallbacks
+
+    @property
+    def prefix_builds(self) -> int:
+        """Cold prefills of a prefix (``_build`` ran)."""
+        return self.prefix.builds
 
     # -- shapes ------------------------------------------------------------
     def _bucket(self, n: int) -> int:
@@ -258,14 +292,42 @@ class TextGenerationEngine:
     # -- encoding and packing -----------------------------------------------
     def _encode(self, text: str, n_new: int, temperature: float, seed: int,
                 loop, top_k: int = 0, top_p: float = 1.0,
+                prefix: str | None = None,
                 stream: bool = False) -> GenRequest:
-        limit = self.model.max_positions - n_new
+        entry = None
+        raw = None
+        if prefix:
+            raw = self.tokenizer.token_ids(text)
+            if not raw:
+                # An empty suffix would condition on a pad placeholder
+                # behind the prefix: serve prefix + text on the plain
+                # path (the same stream), counted as a fallback.
+                self.prefix.count_fallback()
+                text = prefix + text
+                raw = None
+            else:
+                # The suffix runs as one block against the cached KV,
+                # so every nonempty prefix takes the KV path.
+                entry = self.prefix.entry(prefix)
+        p_len = entry.bucket if entry else 0
+        limit = self.model.max_positions - n_new - p_len
         if limit <= 0:
             raise ValueError(
-                f"max_new_tokens={n_new} leaves no room for a prompt "
-                f"(max_positions={self.model.max_positions})"
+                f"max_new_tokens={n_new}"
+                + (f" plus a {p_len}-slot prefix" if p_len else "")
+                + f" leaves no room for a prompt "
+                  f"(max_positions={self.model.max_positions})"
             )
-        raw = self.tokenizer.token_ids(text)
+        if raw is None:
+            raw = self.tokenizer.token_ids(text)
+        if entry is not None and len(raw) > limit:
+            # Left-truncating the suffix would keep the whole prefix and
+            # condition on other tokens than prefix + text: refuse.
+            raise ValueError(
+                f"prefix + text + max_new_tokens exceed the model window "
+                f"(suffix is {len(raw)} tokens, {limit} fit behind the "
+                f"{p_len}-slot prefix)"
+            )
         raw = raw[-limit:] if raw else [self.tokenizer.pad_id]
         # Left-pad to a bucket; a prompt past the largest bucket rounds
         # up to a multiple of it and prefills in fixed-width chunks (or
@@ -283,7 +345,7 @@ class TextGenerationEngine:
         row[-used:] = raw[-used:]
         return GenRequest(
             row, used, n_new, temperature, seed, loop, top_k, top_p,
-            stream=stream, stats=self.latency,
+            prefix=entry, stream=stream, stats=self.latency,
         )
 
     def _pack_rows(self, reqs, bucket: int, b_pad: int):
@@ -329,11 +391,19 @@ class TextGenerationEngine:
                     pass
 
     def _compatible(self, group: list, r) -> bool:
-        """Can ``r`` join ``group`` without clamping anyone: the widest
-        bucket plus the largest budget must fit the window."""
+        """Can ``r`` join ``group`` without clamping anyone: the prefix
+        region, the widest bucket and the largest budget together must
+        fit the window. Prefix requests batch with each other, also
+        across different prefixes (each row's prefix right-aligned to
+        the common region end ``max(prefix_len)``); prefix and plain
+        requests never mix (a plain row would pay the whole region in
+        dead cache slots)."""
+        if (r.prefix_fp is None) != (group[0].prefix_fp is None):
+            return False
+        p_len = max(r.prefix_len, *(g.prefix_len for g in group))
         bucket = max(len(r.row), *(len(g.row) for g in group))
         n_new = max(r.n_new, *(g.n_new for g in group))
-        return bucket + n_new <= self.model.max_positions
+        return p_len + bucket + n_new <= self.model.max_positions
 
     def _defer(self, cand) -> None:
         """Hand a staged joiner the running batch cannot take back to
@@ -512,24 +582,41 @@ class TextGenerationEngine:
                     pass
             self._carry = []
 
-    async def submit(self, text: str, *, max_new_tokens: int | None = None,
-                     temperature: float = 0.0, seed: int = 0,
-                     top_k: int = 0, top_p: float = 1.0,
-                     stream: bool = False) -> GenRequest:
-        """Queue one prompt for batched decode; consume ``req.queue``
-        for ``{"token_ids": [...]}`` chunks until the ``None`` sentinel
-        (exceptions are delivered in-band)."""
+    def _check_collector(self) -> None:
         if self._task is None:
             raise RuntimeError("generation engine not started")
         if self._task.done():
             exc = None if self._task.cancelled() else self._task.exception()
             raise RuntimeError(f"generation collector died: {exc!r}") from exc
+
+    async def submit(self, text: str, *, max_new_tokens: int | None = None,
+                     temperature: float = 0.0, seed: int = 0,
+                     top_k: int = 0, top_p: float = 1.0,
+                     prefix: str | None = None,
+                     stream: bool = False) -> GenRequest:
+        """Queue one prompt for batched decode; consume ``req.queue``
+        for ``{"token_ids": [...]}`` chunks until the ``None`` sentinel
+        (exceptions are delivered in-band). With ``prefix`` the prompt
+        is ``prefix + text`` and the prefix's KV comes from the prefix
+        cache; an invalid prefix raises ``ValueError``."""
+        self._check_collector()
         n_new = int(max_new_tokens or self.default_max_new_tokens)
-        req = self._encode(
-            text, n_new, float(temperature), int(seed),
-            asyncio.get_running_loop(), int(top_k), float(top_p),
-            stream=bool(stream),
-        )
+        loop = asyncio.get_running_loop()
+
+        def encode():
+            return self._encode(
+                text, n_new, float(temperature), int(seed), loop,
+                int(top_k), float(top_p), prefix=prefix,
+                stream=bool(stream),
+            )
+
+        if prefix:
+            # Off the event loop: a prefix's first use runs its prefill.
+            req = await loop.run_in_executor(None, encode)
+            # The collector may have stopped during the await.
+            self._check_collector()
+        else:
+            req = encode()
         try:
             self._queue.put_nowait(req)
         except asyncio.QueueFull:
@@ -541,14 +628,15 @@ class TextGenerationEngine:
     # -- synchronous single-shot (tests, CLI) ------------------------------
     def generate_text(self, text: str, *, max_new_tokens: int | None = None,
                       temperature: float = 0.0, seed: int = 0,
-                      top_k: int = 0, top_p: float = 1.0) -> dict:
+                      top_k: int = 0, top_p: float = 1.0,
+                      prefix: str | None = None) -> dict:
         """One prompt → generated continuation (text + ids), through the
         same ``_run_batch`` the collector uses, on the caller's
         thread."""
         n_new = int(max_new_tokens or self.default_max_new_tokens)
         req = self._encode(
             text, n_new, float(temperature), int(seed), None,
-            int(top_k), float(top_p),
+            int(top_k), float(top_p), prefix=prefix,
         )
         out_ids: list[int] = []
         sink = _SyncSink(req, out_ids)

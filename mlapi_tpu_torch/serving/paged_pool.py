@@ -1,33 +1,43 @@
 """Block-granular KV page pool for generative serving.
 
-Counterpart of the page-lifecycle subset of
-``mlapi_tpu/serving/paged_pool.py::PagePool``. The device holds one
-pool of fixed-size KV pages per cache leaf per layer (``layers``); a
-batch maps each of its rows' virtual tiles to pool pages through a
-host page table. Everything that moved cache bytes in the contiguous
-layout (admission rows, growth, compaction) becomes page-table
-bookkeeping here, in plain numpy, under one lock.
+Counterpart of ``mlapi_tpu/serving/paged_pool.py::PagePool`` without
+its host tier. The device holds one pool of fixed-size KV pages per
+cache leaf per layer (``layers``); a batch maps each of its rows'
+virtual tiles to pool pages through a host page table. Everything that
+moved cache bytes in the contiguous layout (admission rows, growth,
+compaction, a shared prefix in every row) becomes page-table
+bookkeeping here, in plain numpy, under one lock: the free list,
+per-page reference counts, and the page sets of prefix entries, which
+rows share by reference.
 
 Invariants:
 
 - Page id 0 is the NULL page: never allocated, pinned at one
   reference. Unallocated table entries point at it; dummy and finished
   rows write their dead tokens into it; no row reads it unmasked.
+- A page with one reference is privately owned and writable; more
+  than one means shared (prefix pages), and a writer copies it first
+  (``models/gpt.paged_cow_fn`` and a table rewrite).
 - ``alloc`` fires the ``pool_alloc`` fault seam BEFORE it touches the
-  free list and raises :class:`PagePoolExhausted` when the free list is
-  short, so a reject leaves the pool consistent.
+  free list. When the free list is short it evicts prefix-entry page
+  sets that no row references, least recently used first, and raises
+  :class:`PagePoolExhausted` only when that is not enough, so a reject
+  leaves the pool consistent.
 - A release below zero references fails loudly: the page may already
   belong to someone else.
 
 Unlike the JAX package, whose programs donate the pool arrays and get
 new ones back, the port's pools are written in place and never change
 identity, so a failed launch cannot consume them (there is no
-``PagePoolPoisoned``). Prefix-entry page sets, eviction and the host
-tier are not ported.
+``PagePoolPoisoned``). The host tier (an evicted page set spilled to
+host memory and restored from it) is not ported: eviction releases the
+pages, and the entry's contiguous KV adopts into fresh pages on its
+next use.
 """
 
 from __future__ import annotations
 
+import collections
 import threading
 
 import numpy as np
@@ -64,7 +74,14 @@ class PagePool:
         self.ref = np.zeros((self.num_pages,), np.int64)
         self.ref[NULL_PAGE] = 1  # pinned forever
         self._free: list[int] = list(range(self.num_pages - 1, 0, -1))
+        # Prefix fingerprint -> the entry's page ids, LRU order. Each
+        # page of a set holds one reference for the entry itself.
+        self._entries: collections.OrderedDict = collections.OrderedDict()
         self.exhaustions = 0
+        # Counted under the lock: the device thread moves them while
+        # /metrics reads them from the event loop.
+        self.cow_copies = 0
+        self.entry_evictions = 0
 
     # -- accounting (read by /metrics) ---------------------------------
     @property
@@ -90,8 +107,9 @@ class PagePool:
 
     # -- allocation ----------------------------------------------------
     def alloc(self, n: int) -> np.ndarray:
-        """Pop ``n`` free pages (one reference each), or raise
-        :class:`PagePoolExhausted` with the free list untouched."""
+        """Pop ``n`` free pages (one reference each). Under pressure,
+        evict prefix-entry page sets that no row references, LRU first;
+        still short: raise :class:`PagePoolExhausted`."""
         if n == 0:
             return np.zeros((0,), np.int32)
         # Injection point, before any free-list change: an armed test
@@ -105,6 +123,8 @@ class PagePool:
                 ),
             )
         with self.lock:
+            while len(self._free) < n and self._evict_one_locked():
+                pass
             if len(self._free) < n:
                 self.exhaustions += 1
                 raise PagePoolExhausted(
@@ -116,6 +136,31 @@ class PagePool:
             out = np.asarray([self._free.pop() for _ in range(n)], np.int32)
             self.ref[out] = 1
             return out
+
+    def _evict_one_locked(self) -> bool:
+        """Release the least recently used prefix-entry page set whose
+        pages only the entry holds (one reference each); False if there
+        is none."""
+        victim = next(
+            (fp for fp, pages in self._entries.items()
+             if np.all(self.ref[pages] == 1)),
+            None,
+        )
+        if victim is None:
+            return False
+        self._release_locked(self._entries.pop(victim))
+        self.entry_evictions += 1
+        return True
+
+    def evict_idle(self, n: int = 1) -> int:
+        """Drop up to ``n`` idle (unreferenced, LRU-first) prefix-entry
+        page sets, the eviction ``alloc`` runs under pressure; returns
+        how many went."""
+        dropped = 0
+        with self.lock:
+            while dropped < n and self._evict_one_locked():
+                dropped += 1
+        return dropped
 
     def retain(self, pages) -> None:
         """One more holder of each page (null entries ignored)."""
@@ -131,20 +176,56 @@ class PagePool:
         whole table rows."""
         pages = np.asarray(pages).ravel()
         pages = pages[pages != NULL_PAGE]
-        if not len(pages):
-            return
-        with self.lock:
-            np.subtract.at(self.ref, pages, 1)
-            if np.any(self.ref[pages] < 0):
-                bad = pages[self.ref[pages] < 0]
-                self.ref[bad] = 0
-                raise AssertionError(
-                    f"KV page(s) {sorted(set(int(p) for p in bad))} "
-                    "released below zero references"
-                )
-            freed = np.unique(pages[self.ref[pages] == 0])
-            self._free.extend(int(p) for p in freed)
+        if len(pages):
+            with self.lock:
+                self._release_locked(pages)
+
+    def _release_locked(self, pages) -> None:
+        np.subtract.at(self.ref, pages, 1)
+        if np.any(self.ref[pages] < 0):
+            bad = pages[self.ref[pages] < 0]
+            self.ref[bad] = 0
+            raise AssertionError(
+                f"KV page(s) {sorted(set(int(p) for p in bad))} "
+                "released below zero references"
+            )
+        freed = np.unique(pages[self.ref[pages] == 0])
+        self._free.extend(int(p) for p in freed)
 
     def is_shared(self, page: int) -> bool:
         with self.lock:
             return bool(self.ref[page] > 1)
+
+    # -- prefix-entry page sets ----------------------------------------
+    def entry_pages(self, fp, holds: int = 0) -> np.ndarray | None:
+        """The pool-resident page set of a prefix entry, if any (marked
+        most recently used), with ``holds`` row references taken in the
+        same critical section, so an eviction cannot free the set
+        between the lookup and its use."""
+        with self.lock:
+            pages = self._entries.get(fp)
+            if pages is not None:
+                self._entries.move_to_end(fp)
+                if holds:
+                    np.add.at(self.ref, pages, holds)
+            return pages
+
+    def put_entry_pages(self, fp, pages, holds: int = 0) -> None:
+        """Register an entry's freshly allocated page set (each page's
+        one reference is the entry's own hold) with ``holds`` row
+        references added under the same lock, so the set is never seen
+        evictable while a batch is about to use it."""
+        with self.lock:
+            pages = np.asarray(pages, np.int32)
+            if holds:
+                np.add.at(self.ref, pages, holds)
+            self._entries[fp] = pages
+
+    def drop_entry(self, fp) -> None:
+        """Release a prefix entry's page set (no-op if it was never
+        paged in or was evicted already); rows sharing the pages keep
+        their holds, and the pages free when the last one goes."""
+        with self.lock:
+            pages = self._entries.pop(fp, None)
+            if pages is not None:
+                self._release_locked(pages)

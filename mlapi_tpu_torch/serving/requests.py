@@ -4,8 +4,9 @@ Counterpart of ``mlapi_tpu/serving/requests.py``: one
 :class:`GenRequest` per in-flight generation (the handoff between the
 asyncio front and the device thread), :class:`_SyncSink` adapting the
 synchronous ``generate_text`` path onto the same batch machinery, the
-engine's :class:`LatencyStats` reservoirs, and :class:`DrainCancelled`,
-the terminal frame of a stream the server stopped under.
+engine's :class:`LatencyStats` reservoirs, :class:`DrainCancelled`,
+the terminal frame of a stream the server stopped under, and
+:class:`_PrefixEntry`, one cached shared-prompt prefix.
 """
 
 from __future__ import annotations
@@ -89,11 +90,12 @@ class GenRequest:
     __slots__ = (
         "row", "used", "n_new", "temperature", "seed", "queue", "loop",
         "cancelled", "top_k", "top_p", "stream", "prompt_tokens", "stats",
-        "t0", "t_last",
+        "t0", "t_last", "prefix_fp", "prefix_kv", "prefix_len",
+        "prefix_lo",
     )
 
     def __init__(self, row, used, n_new, temperature, seed, loop,
-                 top_k=0, top_p=1.0, stream=False,
+                 top_k=0, top_p=1.0, prefix=None, stream=False,
                  stats: LatencyStats | None = None):
         self.row = row            # [bucket] int32 ids, left-padded
         self.used = used          # real prompt tokens in the row
@@ -107,6 +109,21 @@ class GenRequest:
         # the decode loop keeps at most one chunk in flight for it.
         self.stream = stream
         self.prompt_tokens = used
+        # Shared-prefix KV entry (the engine's prefix cache): the row's
+        # cache holds the entry's KV in slots [0, prefix_len), its own
+        # left pads below prefix_lo.
+        if prefix is not None:
+            self.prefix_fp = prefix.fp
+            self.prefix_kv = prefix.kv
+            self.prefix_len = prefix.bucket
+            self.prefix_lo = prefix.lo
+            # Tokens that conditioned the output: prefix and suffix.
+            self.prompt_tokens = prefix.used + used
+        else:
+            self.prefix_fp = None
+            self.prefix_kv = None
+            self.prefix_len = 0
+            self.prefix_lo = 0
         self.queue: asyncio.Queue = asyncio.Queue()
         self.cancelled = False    # set when the consumer disconnects
         self.stats = stats
@@ -126,6 +143,21 @@ class GenRequest:
         self.cancelled = True
 
 
+class _PrefixEntry:
+    """One cached shared-prompt prefix: its device-resident KV (a
+    ``[1, bucket]``-shaped cache dict), the bucket it was padded to, its
+    own left-pad count ``lo``, and its real token count."""
+
+    __slots__ = ("fp", "kv", "bucket", "lo", "used")
+
+    def __init__(self, fp, kv, bucket, lo, used):
+        self.fp = fp
+        self.kv = kv
+        self.bucket = bucket
+        self.lo = lo
+        self.used = used
+
+
 class _SyncSink:
     """Adapter so the synchronous ``generate_text`` path reuses
     ``_run_batch`` verbatim: collects token chunks into a list."""
@@ -134,6 +166,8 @@ class _SyncSink:
         self.row, self.used, self.n_new = req.row, req.used, req.n_new
         self.temperature, self.seed = req.temperature, req.seed
         self.top_k, self.top_p = req.top_k, req.top_p
+        self.prefix_fp, self.prefix_kv = req.prefix_fp, req.prefix_kv
+        self.prefix_len, self.prefix_lo = req.prefix_len, req.prefix_lo
         self.stream = req.stream
         self.stats, self.t0, self.t_last = req.stats, req.t0, None
         self._out = out_ids

@@ -939,3 +939,107 @@ def test_group8_flash_mma_bodies_match_plain(card, length):
     args = _flash_bf16_case(card, 2, length, 32, 4, 64, seed=length)
     cfg = dict(causal=True, scale=0.125, window=None)
     _flash_run(*args, cfg, ("mma", "mma", "mma"))
+
+
+# -- shared-prefix masks (B1-B4 behind a prefix region and a pad hole) -----
+
+PREFIX_TOL = 2 ** -7   # 7.8e-3 on live rows in bf16
+
+
+def _prefix_case(card, decode, b, u, h, kvh, p, bucket, fmt, per_row, seed):
+    """A batch behind a ``p``-slot prefix region: slots ``[lo, p)`` are
+    the prefix (the same bytes in every row for a scalar ``lo``, each
+    row's own with a per-row ``lo``), ``[p, p + n_pad)`` the row's
+    suffix pad hole, then the suffix block of ``bucket`` slots and room
+    to decode. Masks from the model's own helpers; the extend call is
+    the suffix block at slot ``p`` (U = bucket), the decode call the
+    token after it. With a per-row ``lo`` the last row is a dummy: an
+    empty region and a hole over everything, so no valid key."""
+    from mlapi_tpu_torch.models.gpt import (
+        decode_valid_and_shift, extend_positions_and_mask,
+    )
+
+    length = p + bucket + 16
+    rng = np.random.default_rng(seed)
+
+    def t(*shape):
+        return torch.as_tensor(rng.standard_normal(shape),
+                               dtype=torch.float32).to(card, torch.bfloat16)
+
+    q, k, v = t(b, u, h, 64), t(b, length, kvh, 64), t(b, length, kvh, 64)
+    n_pad = torch.as_tensor(rng.integers(0, bucket, b), device=card)
+    if per_row:
+        lo = torch.as_tensor(rng.integers(0, p, b), device=card)
+        lo[-1], n_pad[-1] = p, length
+    else:
+        lo = int(rng.integers(1, p // 2))
+        k[:, :p], v[:, :p] = k[:1, :p], v[:1, :p]   # one shared prefix
+    if decode:
+        valid, _ = decode_valid_and_shift(length, p + bucket, n_pad, p, lo)
+        mask = valid[:, 0, 0]
+    else:
+        _, valid = extend_positions_and_mask(length, u, p, n_pad, p, lo)
+        mask = valid[:, 0]
+    if fmt == "int8":
+        k = dict(zip(("q", "scale"), kv_quantize(k)))
+        v = dict(zip(("q", "scale"), kv_quantize(v)))
+    return q, k, v, mask
+
+
+def _share_prefix_pages(table, p, page):
+    """Point every row's prefix tiles at row 0's pages, as rows sharing
+    one prefix entry do (the bytes are the same)."""
+    tiles = p // page
+    shared = table[0, :tiles]
+    table[:, :tiles] = torch.where(table[:, :tiles] != 0, shared,
+                                   table[:, :tiles])
+    return table
+
+
+@pytest.mark.parametrize("per_row", [False, True], ids=["lo", "lo_per_row"])
+@pytest.mark.parametrize("fmt", ["none", "int8"])
+@pytest.mark.parametrize(
+    "decode,b,h,kvh,p,bucket",
+    [(True, 8, 12, 12, 768, 128),     # GPT-2 small, a 768-slot prefix
+     (False, 8, 12, 12, 768, 128),
+     (True, 8, 32, 4, 768, 128),      # TinyLlama's group of 8
+     (False, 8, 32, 4, 768, 128),
+     (False, 4, 12, 12, 512, 256),    # a suffix past the largest bucket
+     (False, 4, 32, 4, 512, 256)],
+)
+def test_prefix_masks_match_plain_and_paged_equals_contiguous(
+        card, decode, b, h, kvh, p, bucket, fmt, per_row):
+    """B1/B2 against their plain versions, and B3/B4 over 16-token pages
+    (a scalar ``lo``: every row's prefix tiles on the same pages) against
+    theirs and against B1/B2 on the same bytes, bit for bit."""
+    u = 1 if decode else bucket
+    q, k, v, mask = _prefix_case(card, decode, b, u, h, kvh, p, bucket, fmt,
+                                 per_row, seed=p + bucket + h)
+    fns = ((kern.decode_attention, kern.decode_attention_plain,
+            kern.paged_decode_attention, kern.paged_decode_attention_plain)
+           if decode else
+           (kern.extend_attention, kern.extend_attention_plain,
+            kern.paged_extend_attention, kern.paged_extend_attention_plain))
+    fn, plain, paged, paged_plain = fns
+    live = mask.reshape(b, -1, mask.shape[-1]).any(-1)
+    if per_row:
+        assert not live[-1].any()       # the dummy row attends nothing
+    n0 = fn.launches
+    got = fn(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert fn.launches == n0 + 1
+    err = (got.float() - plain(q, k, v, mask).float()).abs()[live].max()
+    assert torch.isfinite(got).all() and err.item() <= PREFIX_TOL, err
+    assert not got[~live].any()
+    pk, table = _paged(card, k, 16, mask, seed=1)
+    pv, _ = _paged(card, v, 16, mask, seed=1)
+    if not per_row:
+        table = _share_prefix_pages(table, p, 16)
+    n0 = paged.launches
+    pgot = paged(q, pk, pv, table, mask)
+    torch.cuda.synchronize()
+    assert paged.launches == n0 + 1
+    err = (pgot.float()
+           - paged_plain(q, pk, pv, table, mask).float()).abs()[live].max()
+    assert err.item() <= PREFIX_TOL, err
+    assert torch.equal(pgot, got)

@@ -138,7 +138,11 @@ def test_http_generate_stream_healthz_metrics(ckpt):
         }   # the CPU ran the plain versions
         for bad, field in (({"max_new_tokens": 5}, "text"),
                            ({"text": "x", "top_k": "many"}, "top_k"),
-                           ({"text": "x", "prefix": "p"}, "prefix")):
+                           # A prefix too long for the window (the
+                           # field is served since the prefix slice);
+                           # a field the port does not serve yet.
+                           ({"text": "x", "prefix": "p" * 4096}, "prefix"),
+                           ({"text": "x", "adapter": "a"}, "adapter")):
             with pytest.raises(urllib.error.HTTPError) as e:
                 _post(srv.port, bad)
             assert e.value.code == 422
