@@ -146,11 +146,36 @@ the JAX package. Phases, each fatal on failure:
    the masks this phase sends (a prefix region, its left pad and each
    row's pad hole, a scalar ``lo`` with shared pages and a per-row one
    with a dummy row, GPT-2 and TinyLlama geometries, B2/B4 at U = 128
-   and 256) within 7.8e-3 of their plain versions.
+   and 256) within 7.8e-3 of their plain versions. Each disagreeing
+   position of the agreement readings is listed with the einsum logits'
+   top-1 - top-2 margin and the largest flash - einsum logit difference
+   there (``all_ties``: every margin below its difference);
+9. sampled tokens and the unit scheduler, at ``--sched-max-batches 2``
+   (the default). On the GPT-2 contiguous bf16 and paged 16 int8
+   engines, sampled requests (``temperature``, ``top_k``, ``top_p``):
+   the same seed gives the same stream, a row's stream is the same in
+   another batch slot and beside other batch mates, and a ``stop``
+   string ends unary and NDJSON answers where the text says. Then, on
+   those two engines and the TinyLlama paged 16 int8 one, launch
+   counters zeroed just before and read just after: two window-
+   incompatible groups (8 short rows, one sampled, and one prompt of
+   ``max_positions - 128`` bytes) live at once, their units interleaved,
+   every stream the same as at ``--sched-max-batches 1``; a long joiner
+   prefilled in 2 chunks between another lane's decode chunks (paged;
+   a contiguous batch admits it in one prefill); 8 rows whose worst
+   case holds the whole pool expire at ``deadline_ms`` with
+   ``deadline_exceeded`` frames while a group the page budget defers
+   waits and then completes; a drain with two lanes live ends every
+   stream; flash-decode exactly one launch per layer per decode step
+   and flash-extend one per layer per prefill chunk, summed over lanes;
+   pages settle at the prefix entries' pages. An informational row per
+   engine gives the two-group load's TTFT p50 of the short group,
+   inter-token p50 and device-busy share at 1 and at 2.
 
 Stdout: one JSON line per kernel case, per training and serving run,
-then the ``{"kernels": [...]}`` summary (B1-B7; each kernel's
-``launches_per_path`` holds the GPT and Llama paths), the ``nvidia-smi``
+then the run's seconds, the ``{"kernels": [...]}`` summary (B1-B7; each
+kernel's ``launches_per_path`` holds the GPT and Llama paths, the
+scheduler phase's included), the ``nvidia-smi``
 line, and last ``{"ok": true, "device": {...}}``. Without a card, or
 outside the repo, it exits non-zero and prints no result.
 """
@@ -1612,6 +1637,514 @@ def prefix_leg(engine, cfg, model: str, power) -> dict:
     return row
 
 
+# -- 9. the unit scheduler and sampled tokens ---------------------------
+
+# Sampled requests (fault C4): every filter on, a temperature near 1.
+SAMPLING = {"temperature": 0.9, "top_k": 40, "top_p": 0.95}
+SAMPLE_TEXT, SAMPLE_NEW = "sample a stream", 32
+SAMPLE_MATES = (("mate one", 3), ("mate two", 4), ("mate three", 5))
+OTHER_MATES = (("other mate a", 6), ("other mate b", 7), ("other mate c", 8))
+# The two-group load: the 8 short prompts (one of them sampled) with 136
+# new tokens, and one prompt of max_positions - 128 bytes (chunked
+# prefill) with 16: together past the window, so two lanes.
+SCHED_SHORT_NEW, SCHED_LONG_NEW = 136, 16
+# The long-joiner leg: a 200-byte lane (bucket 256, 2 prefill chunks)
+# with 80 new tokens, then a 200-byte joiner with 16, prefilled in 2
+# chunks between the lane's decode chunks.
+JOIN_LANE_NEW, JOIN_NEW = 80, 16
+SCHED_DEADLINE_MS = 1000.0      # well inside the deadline rows' budgets
+# The profiled window of the two-group load: decode steps 9-24 (after
+# the first lane's first chunk), started and stopped on the dispatch
+# thread, the one thread that runs the model's ops (stopping
+# torch.profiler while another thread runs ops can crash the process).
+PROFILE_FROM, PROFILE_STEPS = 9, 16
+
+
+def engine_run(engine, sched: int, body):
+    """Start the engine (collector and unit scheduler at ``sched``
+    lanes), await ``body(loop)``, stop the engine; returns the body's
+    result."""
+    import asyncio
+
+    async def main():
+        engine.sched_max_batches = sched
+        await engine.start()
+        try:
+            return await body(asyncio.get_running_loop())
+        finally:
+            await engine.stop()
+
+    return asyncio.run(main())
+
+
+def enqueue(engine, loop, specs, deadline_ms=None):
+    """Encode and queue ``(text, n_new, sampling or None)`` requests with
+    no await between them: the collector's first pop sees them all, and
+    each group's rows follow the queue's order."""
+    reqs = []
+    for text, n, samp in specs:
+        samp = samp or {}
+        reqs.append(engine._encode(
+            text, n, samp.get("temperature", 0.0), samp.get("seed", 0), loop,
+            samp.get("top_k", 0), samp.get("top_p", 1.0), stream=True,
+            deadline_ms=deadline_ms))
+    for r in reqs:
+        engine._queue.put_nowait(r)
+    return reqs
+
+
+async def collect_timed(req, t0):
+    """(tokens, terminal error or None, ms to the first chunk, ms to the
+    last)."""
+    out, first, last = [], None, None
+    while True:
+        item = await req.queue.get()
+        if item is None or isinstance(item, Exception):
+            return out, item, first, last
+        now = (time.perf_counter() - t0) * 1e3
+        first = now if first is None else first
+        last = now
+        out.extend(item["token_ids"])
+
+
+async def wait_until(pred, timeout_s: float = 120.0):
+    import asyncio
+
+    t_end = time.monotonic() + timeout_s
+    while not pred():
+        if time.monotonic() > t_end:
+            raise SystemExit("scheduler phase: a wait timed out")
+        await asyncio.sleep(0.001)
+
+
+def text_of(n: int, salt: str) -> str:
+    """``n`` bytes of prose, distinct per ``salt``."""
+    base = (f"{salt}: a long prompt pays its prefill in chunks, and a "
+            f"scheduler interleaves them with decode. ")
+    return (base * (n // len(base) + 1))[:n]
+
+
+# Stop strings need text: GPT-2's random ids rarely fall in the byte
+# range the tokenizer decodes, so they run on a byte-vocabulary GPT of
+# the engine's format and layout.
+STOP_CFG = dict(vocab_size=260, hidden_size=128, num_layers=2, num_heads=2,
+                max_positions=256, compute_dtype="bfloat16")
+
+
+def sampling_leg(engine, model: str, power) -> dict:
+    """Fault C4: sampled tokens on the card (``temperature``, ``top_k``,
+    ``top_p``). Through the engine, rows in queue order: the same seed
+    gives the same stream, another seed another; a row's stream is the
+    same in slot 0 and slot 3 of a batch of 4, and beside other batch
+    mates (the same shapes); over HTTP the unary stream equals the
+    engine's. A stop string, on ``STOP_CFG``'s model served with the
+    engine's cache format and layout, ends unary and NDJSON answers
+    where the text says (the text up to the stop's first match,
+    ``stopped``, ids a prefix of the full stream's). A batch of 1
+    beside a batch of 4 is reported, not held (other GEMM shapes)."""
+    from mlapi_tpu_torch.models.gpt import GptLM
+    from mlapi_tpu_torch.serving.app import build_app
+    from mlapi_tpu_torch.serving.engine import TextGenerationEngine
+    from mlapi_tpu_torch.serving.server import BackgroundServer
+    from mlapi_tpu_torch.text import ByteTokenizer
+
+    def batch(rows):
+        async def body(loop):
+            reqs = enqueue(engine, loop, [
+                (t, SAMPLE_NEW, {**SAMPLING, "seed": seed})
+                for t, seed in rows])
+            outs = [await collect_timed(r, time.perf_counter())
+                    for r in reqs]
+            if any(e is not None for _, e, _, _ in outs):
+                raise SystemExit(f"sampling leg: {[e for _, e, _, _ in outs]}")
+            return [t for t, _, _, _ in outs]
+
+        return engine_run(engine, 2, body)
+
+    me = (SAMPLE_TEXT, 11)
+    alone, again = batch([me])[0], batch([me])[0]
+    other_seed = batch([(SAMPLE_TEXT, 12)])[0]
+    first = batch([me, *SAMPLE_MATES])[0]
+    last = batch([*SAMPLE_MATES, me])[3]
+    mates = batch([me, *OTHER_MATES])[0]
+    body = {"text": SAMPLE_TEXT, "seed": 11, "max_new_tokens": SAMPLE_NEW,
+            **SAMPLING}
+    with BackgroundServer(build_app(engine)) as srv:
+        served = json.loads(post(srv.port, body))["token_ids"]
+    small = GptLM(**STOP_CFG, seed=0, device=engine.device)
+    small.configure(kv_quant=engine.kv_quant,
+                    decode_attn_impl=engine.decode_attn_impl)
+    stop_engine = TextGenerationEngine(
+        small, tokenizer=ByteTokenizer(),
+        kv_page_size=engine.kv_page_size or None)
+    with BackgroundServer(build_app(stop_engine)) as srv:
+        full = json.loads(post(srv.port, body))
+        again_full = json.loads(post(srv.port, body))
+        text = full["text"]
+        # A printable ASCII character of the text, past its start.
+        i = next((i for i in range(4, len(text))
+                  if text[i].isascii() and text[i].isalnum()), None)
+        stop = text[i] if i is not None else None
+        cut = text.find(stop) if stop else -1
+        unary = (json.loads(post(srv.port, {**body, "stop": stop}))
+                 if stop else None)
+        lines = ([json.loads(x) for x in post(srv.port, {
+            **body, "stop": [stop], "stream": True}).decode().splitlines()
+            if x.strip()] if stop else [])
+    streamed = [t for x in lines[:-1] for t in x.get("token_ids", [])]
+    ids = full["token_ids"]
+    row = {
+        "case": "sampling", "model": model, "kv_quant": engine.kv_quant,
+        "kv_page_size": engine.kv_page_size or None, **SAMPLING,
+        "max_new_tokens": SAMPLE_NEW, "stream": alone,
+        "stop_model": STOP_CFG, "stop_text": text, "stop": stop,
+        "batch_of_1_equals_batch_of_4": alone == first, "card": power,
+    }
+    row["checks"] = checks = {
+        "same_seed_same_stream": alone == again,
+        "other_seed_other_stream": alone != other_seed,
+        "slot_0_equals_slot_3": first == last,
+        "other_batch_mates_same_stream": first == mates,
+        "http_equals_engine": served == alone,
+        "in_vocab": all(0 <= t < engine.model.vocab_size for t in alone)
+        and len(alone) == SAMPLE_NEW,
+        "stop_model_same_seed_same_stream": ids == again_full["token_ids"],
+        "stop_cuts_unary": stop is not None
+        and unary["text"] == text[:cut] and unary.get("stopped") == stop
+        and unary["token_ids"] == ids[:len(unary["token_ids"])],
+        "stop_cuts_stream": stop is not None
+        and lines[-1].get("done") is True and lines[-1]["text"] == text[:cut]
+        and lines[-1].get("stopped") == stop
+        and lines[-1]["token_ids"][:len(streamed)] == streamed
+        and lines[-1]["token_ids"] == ids[:len(lines[-1]["token_ids"])],
+    }
+    emit(row)
+    if not all(checks.values()):
+        raise SystemExit(f"{model} sampling leg failed: {checks}")
+    return row
+
+
+def entry_pages(engine) -> int:
+    """Pages the resident prefix entries hold (0 without a pool)."""
+    pool = engine.pool
+    if pool is None:
+        return 0
+    with pool.lock:
+        return sum(len(p) for p in pool._entries.values())
+
+
+def two_group_load(engine, sched: int, profile: bool = False) -> dict:
+    """The 8 short prompts (the first sampled) and one long prompt,
+    queued together at ``sched`` lanes: per request its stream, TTFT and
+    inter-token ms (wall, from the queue). ``profile``: decode steps
+    ``PROFILE_FROM`` to ``PROFILE_FROM + PROFILE_STEPS - 1`` (whichever
+    lanes they belong to, and the units between them) under
+    ``torch.profiler``, the device synchronized at both ends; the
+    kernels' summed duration over the window's wall time."""
+    import statistics
+
+    import torch
+    from torch.profiler import ProfilerActivity
+
+    long_text = text_of(engine.model.max_positions - 128, "long")
+    specs = [(p, SCHED_SHORT_NEW, {**SAMPLING, "seed": 11} if i == 0
+              else None) for i, p in enumerate(SHORT_PROMPTS)]
+    specs.append((long_text, SCHED_LONG_NEW, None))
+    engine.sched_batches_live_max = 0
+    window = {"n": 0}
+    step = engine.model.decode_step
+
+    def profiled_step(*args, **kwargs):
+        window["n"] += 1
+        if window["n"] == PROFILE_FROM:
+            torch.cuda.synchronize()
+            window["prof"] = torch.profiler.profile(
+                activities=[ProfilerActivity.CUDA])
+            window["prof"].__enter__()
+            window["t0"] = time.perf_counter()
+        out = step(*args, **kwargs)
+        if window["n"] == PROFILE_FROM + PROFILE_STEPS - 1:
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - window["t0"]
+            window["prof"].__exit__(None, None, None)
+            kernels = device_kernels(window.pop("prof"))
+            window["busy"] = (
+                sum(e.device_time_total for e in kernels) / 1e6 / wall_s
+                if kernels else "not measured")
+        return out
+
+    async def body(loop):
+        import asyncio
+
+        t0 = time.perf_counter()
+        reqs = enqueue(engine, loop, specs)
+        outs = await asyncio.gather(*(collect_timed(r, t0) for r in reqs))
+        return outs, (time.perf_counter() - t0), list(engine.sched.trace)
+
+    if profile:
+        engine.model.decode_step = profiled_step
+    try:
+        outs, wall, trace = engine_run(engine, sched, body)
+    finally:
+        engine.model.decode_step = step
+    busy = window.get("busy")
+    errors = [repr(e) for _, e, _, _ in outs if e is not None]
+    if errors or [len(t) for t, _, _, _ in outs] != [
+            n for _, n, _ in specs]:
+        raise SystemExit(f"two-group load at {sched}: {errors}")
+    lanes = [lane for lane, _ in trace]
+    short = outs[:len(SHORT_PROMPTS)]
+    return {
+        "streams": [t for t, _, _, _ in outs],
+        "ttft_ms_p50_short": statistics.median(f for _, _, f, _ in short),
+        "itl_ms_p50": statistics.median(
+            (last - first) / max(1, len(t) - 1) for t, _, first, last in outs),
+        "device_busy_share": busy, "wall_s": wall,
+        "batches_live_max": engine.sched_batches_live_max,
+        "lane_switches": sum(a != b for a, b in zip(lanes, lanes[1:])),
+    }
+
+
+def sched_leg(engine, cfg, model: str, power) -> dict:
+    """The unit scheduler on a served engine at ``--sched-max-batches
+    2``, launch counters zeroed just before and read just after:
+
+    - deadlines: 8 rows with budgets to the window's end and
+      ``deadline_ms`` 1000 (admission control off) each end with a
+      ``deadline_exceeded`` frame;
+    - the page budget: the same 8 rows without a deadline hold the whole
+      pool's worst case; a group that cannot share their window waits
+      (a paged engine counts it in ``sched_pages_deferred``) until the
+      rows are cancelled, then completes;
+    - the two-group load (:func:`two_group_load`) at 1 and at 2 lanes,
+      unprofiled, then profiled: at 2 both groups are live at once
+      (``sched_batches_live_max == 2``) and the trace switches lanes;
+      every stream, greedy and sampled, is the same at 1 and 2 (both
+      modes form the same batches); the informational
+      ``scheduler_load`` row gives each mode's TTFT p50 of the short
+      group, inter-token p50 and device-busy share;
+    - a long joiner: a 256-bucket lane, then a 200-byte prompt once its
+      first chunk arrived; a paged engine prefills the joiner between
+      the lane's decode chunks (2 chunks, ``interleaved_prefills``; a
+      ``prefill`` unit between two of the lane's ``decode`` units), a
+      contiguous one admits it in one prefill;
+    - a drain with two lanes live and a 0.3 s budget: every stream ends
+      (done, or a ``draining`` frame) and the scheduler goes idle.
+
+    Exact launches summed over lanes: flash-decode one per layer per
+    decode step, flash-extend one per layer per prefill chunk (chunked
+    formations and interleaved joiners), all on the ``decode`` and
+    ``mma`` bodies, no other kernel; pages settle at the prefix entries'
+    pages."""
+    import asyncio
+
+    from mlapi_tpu_torch.ops import cuda as kern
+    from mlapi_tpu_torch.serving.requests import (
+        DeadlineExceeded, DrainCancelled,
+    )
+
+    page = engine.kv_page_size or None
+    layers = cfg["num_layers"]
+    mine = (("paged_decode_attention", "paged_extend_attention") if page
+            else ("decode_attention", "extend_attention"))
+    steps = [0]
+    decode_step = engine.model.decode_step
+
+    def counted_step(*args, **kwargs):
+        steps[0] += 1
+        return decode_step(*args, **kwargs)
+
+    t_leg = time.perf_counter()
+    resident = entry_pages(engine)
+    engine.model.decode_step = counted_step
+    for name in KERNELS:
+        getattr(kern, name).launches = 0
+    for name in SERVING:
+        getattr(kern, name).bodies = {"mma": 0, "fma": 0, "decode": 0}
+    chunks0 = engine.prefill_chunks
+    try:
+        # Deadlines: 8 rows whose budgets outlast the deadline.
+        d0 = (engine.deadline_expired_queued + engine.deadline_expired_prefill
+              + engine.deadline_expired_decode)
+        big = engine.model.max_positions - 16
+
+        async def deadline(loop):
+            t0 = time.perf_counter()
+            rows = enqueue(engine, loop, [(p, big, None) for p in SHORT_PROMPTS],
+                           deadline_ms=SCHED_DEADLINE_MS)
+            return await asyncio.gather(*(collect_timed(r, t0) for r in rows))
+
+        engine.admission_control = False    # deadlines still expire
+        try:
+            outs = engine_run(engine, 2, deadline)
+        finally:
+            engine.admission_control = True
+        expired = {
+            "deadline_ms": SCHED_DEADLINE_MS,
+            "frames": [getattr(e, "code", repr(e)) for _, e, _, _ in outs],
+            "ms_at_last_chunk": [last for _, _, _, last in outs],
+            "counted": (engine.deadline_expired_queued
+                        + engine.deadline_expired_prefill
+                        + engine.deadline_expired_decode) - d0,
+        }
+
+        # The page budget: the same 8 rows (no deadline) reserve the
+        # whole pool; a group that cannot share their window waits
+        # (paged) until they are cancelled, as by a client disconnect.
+        pd0 = engine.sched_pages_deferred
+
+        async def budget(loop):
+            t0 = time.perf_counter()
+            rows = enqueue(engine, loop, [(p, big, None) for p in SHORT_PROMPTS])
+            await wait_until(lambda: engine.sched_batches_live == 1)
+            (late,) = enqueue(engine, loop,
+                              [(text_of(40, "late"), SCHED_LONG_NEW, None)])
+            late_out = asyncio.ensure_future(collect_timed(late, t0))
+            await wait_until(lambda: engine.sched_pages_deferred > pd0
+                             or late_out.done())
+            for r in rows:
+                r.cancel()
+            out = await late_out
+            await wait_until(lambda: engine.sched.idle)
+            return out
+
+        late_out = engine_run(engine, 2, budget)
+        expired.update({
+            "late_group_tokens": len(late_out[0]),
+            "late_group_error": repr(late_out[1]) if late_out[1] else None,
+            "pages_deferred": engine.sched_pages_deferred - pd0,
+        })
+
+        load = {s: two_group_load(engine, s) for s in (1, 2)}
+        for s in (1, 2):
+            load[s]["device_busy_share"] = two_group_load(
+                engine, s, profile=True)["device_busy_share"]
+
+        # The long joiner.
+        lane_text, join_text = text_of(200, "lane"), text_of(200, "joiner")
+        il0, ad0, pc0 = (engine.interleaved_prefills, engine.admitted,
+                         engine.prefill_chunks)
+
+        async def joiner(loop):
+            t0 = time.perf_counter()
+            (lane,) = enqueue(engine, loop, [(lane_text, JOIN_LANE_NEW, None)])
+            first = await lane.queue.get()
+            n0 = len(engine.sched.trace)
+            (join,) = enqueue(engine, loop, [(join_text, JOIN_NEW, None)])
+            outs = await asyncio.gather(collect_timed(lane, t0),
+                                        collect_timed(join, t0))
+            return first, outs, list(engine.sched.trace)[n0:]
+
+        first, (lane_out, join_out), jtrace = engine_run(engine, 2, joiner)
+        kinds = [k for _, k in jtrace]
+        joined = {
+            "lane_tokens": len(first["token_ids"]) + len(lane_out[0]),
+            "joiner_tokens": len(join_out[0]),
+            "errors": [repr(e) for e in (lane_out[1], join_out[1]) if e],
+            "interleaved_prefills": engine.interleaved_prefills - il0,
+            "admitted": engine.admitted - ad0,
+            "prefill_chunks": engine.prefill_chunks - pc0,
+            "trace": kinds,
+            # A prefill unit with the lane's decode units on both sides.
+            "prefill_between_decodes": any(
+                kinds[i] == "prefill" and "decode" in kinds[:i]
+                and "decode" in kinds[i + 1:] for i in range(len(kinds))),
+        }
+
+        # A drain with two lanes live.
+        async def drain(loop):
+            t0 = time.perf_counter()
+            reqs = enqueue(engine, loop, [
+                (SHORT_PROMPTS[0], SCHED_SHORT_NEW, None),
+                (text_of(engine.model.max_positions - 128, "long"),
+                 SCHED_LONG_NEW, None)])
+            tasks = [asyncio.ensure_future(collect_timed(r, t0))
+                     for r in reqs]
+            await wait_until(lambda: engine.sched_batches_live == 2
+                             or all(t.done() for t in tasks))
+            await engine.drain(0.3)
+            outs = await asyncio.gather(*tasks)
+            await wait_until(lambda: engine.sched.idle)
+            return outs
+
+        outs = engine_run(engine, 2, drain)
+        drained = {
+            "ends": ["done" if e is None else getattr(e, "code", repr(e))
+                     for _, e, _, _ in outs],
+            "all_terminated": all(e is None or isinstance(e, DrainCancelled)
+                                  for _, e, _, _ in outs),
+        }
+        t_end = time.monotonic() + 60.0
+        while (engine.kv_pages_in_use != resident
+               and time.monotonic() < t_end):
+            time.sleep(0.01)
+    finally:
+        del engine.model.decode_step        # the class's method again
+    launches = {name: getattr(kern, name).launches for name in KERNELS}
+    bodies = {name: dict(getattr(kern, name).bodies) for name in SERVING}
+    decode_steps, chunks = steps[0], engine.prefill_chunks - chunks0
+    extend, decode = mine[1], mine[0]
+    info = {str(s): {k: load[s][k] for k in (
+        "ttft_ms_p50_short", "itl_ms_p50", "device_busy_share", "wall_s")}
+        for s in (1, 2)}
+    emit({"case": "scheduler_load", "model": model,
+          "kv_quant": engine.kv_quant, "kv_page_size": page,
+          "short_rows": len(SHORT_PROMPTS), "short_new": SCHED_SHORT_NEW,
+          "long_bytes": engine.model.max_positions - 128,
+          "long_new": SCHED_LONG_NEW, "profiled_decode_steps": [PROFILE_FROM,
+                                    PROFILE_FROM + PROFILE_STEPS - 1],
+          "by_sched_max_batches": info, "card": power})
+    row = {
+        "case": "scheduler", "model": model, "kv_quant": engine.kv_quant,
+        "kv_page_size": page, "sched_max_batches": 2,
+        "two_groups": {k: load[2][k] for k in (
+            "batches_live_max", "lane_switches")},
+        "serial_batches_live_max": load[1]["batches_live_max"],
+        "joiner": joined, "deadline": expired, "drain": drained,
+        "decode_steps": decode_steps, "prefill_chunks": chunks,
+        "launches": launches, "bodies": bodies,
+        "kv_pages_in_use_at_end": engine.kv_pages_in_use,
+        "entry_pages": resident,
+        "seconds": time.perf_counter() - t_leg, "card": power,
+    }
+    row["checks"] = checks = {
+        "two_lanes_live": load[2]["batches_live_max"] == 2
+        and load[1]["batches_live_max"] == 1,
+        "trace_switches_lanes": load[2]["lane_switches"] >= 2,
+        "streams_same_at_1_and_2": load[1]["streams"] == load[2]["streams"],
+        "joiner_streams": not joined["errors"]
+        and joined["lane_tokens"] == JOIN_LANE_NEW
+        and joined["joiner_tokens"] == JOIN_NEW,
+        "joiner_between_decode_chunks": (
+            joined["interleaved_prefills"] == 1 and joined["admitted"] == 1
+            and joined["prefill_chunks"] == 4
+            and joined["prefill_between_decodes"]) if page else (
+            joined["admitted"] == 1 and joined["prefill_chunks"] == 2),
+        "deadline_frames": expired["frames"]
+        == [DeadlineExceeded.code] * len(SHORT_PROMPTS)
+        and expired["counted"] == len(SHORT_PROMPTS),
+        "late_group_completes": expired["late_group_tokens"] == SCHED_LONG_NEW
+        and expired["late_group_error"] is None,
+        # A contiguous engine has no page budget: the group starts at once.
+        "tight_pool_defers": expired["pages_deferred"] >= 1 if page
+        else expired["pages_deferred"] == 0,
+        "drain_terminates_every_stream": drained["all_terminated"],
+        "extend_one_per_layer_per_chunk":
+            launches[extend] == layers * chunks
+            and bodies[extend]["mma"] == launches[extend],
+        "decode_one_per_layer_per_step":
+            launches[decode] == layers * decode_steps
+            and bodies[decode]["decode"] == launches[decode],
+        "no_other_kernel": not any(launches[k] for k in KERNELS
+                                   if k not in mine),
+        "pages_settle_at_entries": engine.kv_pages_in_use == resident,
+    }
+    emit(row)
+    if not all(checks.values()):
+        raise SystemExit(f"{model} scheduler phase failed: {checks}")
+    return row
+
+
 def prefix_formation_profile(engine, suffixes, power, runs: int = 5):
     """One warm prefix formation (8 rows of ``PREFIX_A`` and the
     suffixes: the entry's KV into the batch's cache or its pages shared,
@@ -1674,7 +2207,7 @@ def prefix_formation_profile(engine, suffixes, power, runs: int = 5):
 AGREEMENT_MARGIN = 0.026
 
 
-def forced_agreement(engine, prompts, n: int = 64) -> float:
+def forced_agreement(engine, prompts, n: int = 64):
     """Teacher-forced top-1 agreement of flash with einsum through the
     engine's own formation (``_form_batch``: on a paged engine the entry's
     shared pages, a COW where the entry is unaligned, the suffix block
@@ -1683,23 +2216,40 @@ def forced_agreement(engine, prompts, n: int = 64) -> float:
     under flash), over the engine's cache format on both sides: the
     kernels against the oracle, with the cache's own rounding on both.
     ``prompts`` are ``(text, prefix or None)``. The first token is
-    compared too."""
+    compared too.
+
+    Returns ``(agreement, ties)``: for each position where the two
+    disagree, the einsum logits' top-1 - top-2 margin and the largest
+    |flash - einsum| logit difference there (the flash run reads the
+    einsum run's tokens, so both see the same history); ``ties`` says
+    whether every margin is below its difference."""
     import torch
 
-    from mlapi_tpu_torch.models.gpt import _pick_token
+    import mlapi_tpu_torch.models.gpt as gpt
     from mlapi_tpu_torch.serving.requests import _SyncSink
 
     model = engine.model
     served = model.decode_attn_impl
+    pick = gpt._pick_token
 
     def run(forced=None):
         sinks = [_SyncSink(engine._encode(t, n, 0.0, 0, None, prefix=p), [])
                  for t, p in prompts]
-        batch = engine._form_batch(sinks)
+        firsts = []
+
+        def capture(temps, logits, *args, **kwargs):
+            firsts.append(logits.float())
+            return pick(temps, logits, *args, **kwargs)
+
+        gpt._pick_token = capture       # the formation's first logits
+        try:
+            batch = engine._form_batch(sinks)
+        finally:
+            gpt._pick_token = pick
         b = batch.b
         try:
             tok = batch._first
-            toks = [tok[:b]]
+            toks, logs = [tok[:b]], [firsts[-1][:b]]
             for t in range(n - 1):
                 if batch.pool is not None:
                     batch._ensure_pages(1, list(range(b)))
@@ -1709,23 +2259,30 @@ def forced_agreement(engine, prompts, n: int = 64) -> float:
                 logits, batch.cache = model.decode_step(
                     batch.cache, tok[:, None], batch.pos, batch._n_pad_dev(),
                     batch.p_len, batch._lo_arg())
-                tok = _pick_token(batch.temps, logits, batch.seeds,
-                                  batch.step)
+                tok = pick(batch.temps, logits, batch.seeds, batch.step)
                 batch.pos += 1
                 toks.append(tok[:b])
+                logs.append(logits[:b].float())
         finally:
             batch._paged_cleanup()
-        return torch.stack(toks, dim=1)
+        return torch.stack(toks, dim=1), torch.stack(logs, dim=1)
 
     try:
         with torch.inference_mode():
             model.configure(decode_attn_impl="einsum")
-            ref = run()
+            ref, ref_logits = run()
             model.configure(decode_attn_impl="flash")
-            got = run(forced=ref)
+            got, got_logits = run(forced=ref)
     finally:
         model.configure(decode_attn_impl=served)
-    return float((got == ref).float().mean())
+    ties = []
+    for row, pos in (got != ref).nonzero().tolist():
+        top2 = ref_logits[row, pos].topk(2).values
+        diff = (got_logits[row, pos] - ref_logits[row, pos]).abs().max()
+        ties.append({"row": row, "pos": pos,
+                     "margin": float(top2[0] - top2[1]),
+                     "max_abs_diff": float(diff)})
+    return float((got == ref).float().mean()), ties
 
 
 def prefix_agreement(engine, suffixes, n: int = 64) -> float:
@@ -1735,10 +2292,15 @@ def prefix_agreement(engine, suffixes, n: int = 64) -> float:
     0.98 over a bf16 cache; over int8, 0.98 or the witness's reading
     less ``AGREEMENT_MARGIN``, whichever is lower (the prefix path no
     worse than the plain one within the readings' noise), with the
-    witness itself held at 0.9 (:func:`agreement`'s floor)."""
-    agr = forced_agreement(engine, [(t, PREFIX_A) for t in suffixes], n)
-    plain = forced_agreement(engine, [(PREFIX_A + t, None) for t in suffixes],
-                             n)
+    witness itself held at 0.9 (:func:`agreement`'s floor). Each
+    disagreeing position of either path is listed with its einsum
+    margin and its largest flash - einsum logit difference, and
+    ``all_ties`` says whether every margin is below that difference
+    (fault C3's test)."""
+    agr, ties = forced_agreement(engine, [(t, PREFIX_A) for t in suffixes],
+                                 n)
+    plain, plain_ties = forced_agreement(
+        engine, [(PREFIX_A + t, None) for t in suffixes], n)
     int8 = engine.kv_quant != "none"
     floor = min(0.98, plain - AGREEMENT_MARGIN) if int8 else 0.98
     emit({"case": "prefix_agreement", "model": type(engine.model).__name__,
@@ -1747,7 +2309,10 @@ def prefix_agreement(engine, suffixes, n: int = 64) -> float:
           "vs": f"einsum, kv {engine.kv_quant}",
           "prefix_len": len(PREFIX_A), "tokens": n, "rows": len(suffixes),
           "top1_agreement": agr, "plain_top1_agreement": plain,
-          "margin": AGREEMENT_MARGIN if int8 else None})
+          "margin": AGREEMENT_MARGIN if int8 else None,
+          "disagreements": {"prefix": ties, "plain": plain_ties},
+          "all_ties": all(t["margin"] < t["max_abs_diff"]
+                          for t in ties + plain_ties)})
     if agr < floor or (int8 and plain < 0.9):
         raise SystemExit(f"prefix path: flash top-1 agreement {agr} (plain "
                          f"path {plain}), floor {floor}")
@@ -2518,8 +3083,9 @@ def llama_phases(scratch: Path, launches: dict, power) -> dict:
     their profiles and, on the contiguous engine, flash's top-1 agreement
     with einsum; flash against full attention at its width; small f32
     Llamas' greedy streams; the docs-llama training run. Each serving
-    engine then runs the prefix phase (:func:`prefix_leg`). Adds each
-    serving run's launches to ``launches``; returns the training row."""
+    engine then runs the prefix phase (:func:`prefix_leg`), the paged one
+    the scheduler phase (:func:`sched_leg`). Adds each serving run's
+    launches to ``launches``; returns the training row."""
     import torch
 
     seconds = {}
@@ -2546,6 +3112,14 @@ def llama_phases(scratch: Path, launches: dict, power) -> dict:
             for k in launches:
                 launches[k]["llama prefix " + path[6:]] = prow["launches"][k]
             seconds[f"prefix {path}"] = time.perf_counter() - t0
+            if page:
+                # 9. the unit scheduler on the paged int8 engine
+                t0 = time.perf_counter()
+                srow = sched_leg(engine, TINYLLAMA, "tinyllama-1.1b", power)
+                for k in launches:
+                    launches[k]["llama sched " + path[6:]] = (
+                        srow["launches"][k])
+                seconds[f"sched {path}"] = time.perf_counter() - t0
             del engine
             torch.cuda.empty_cache()
             seconds[f"read {path}"] = row["load_s"]
@@ -2618,6 +3192,7 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_run = time.perf_counter()
 
     # 1. device
     kind = torch.cuda.get_device_name(0)
@@ -2690,6 +3265,11 @@ def main() -> int:
                                       power)
                     for k in launches:
                         launches[k]["prefix " + path] = prow["launches"][k]
+                    # 9. sampled tokens, then the unit scheduler
+                    sampling_leg(engine, "gpt2-small", power)
+                    srow = sched_leg(engine, GPT2_SMALL, "gpt2-small", power)
+                    for k in launches:
+                        launches[k]["sched " + path] = srow["launches"][k]
                 del engine
                 torch.cuda.empty_cache()
     check_small_f32(2)
@@ -2741,6 +3321,7 @@ def main() -> int:
             "library_ms": main_row["library_ms"],
             "library_graph_ms": main_row["library_graph_ms"],
         })
+    emit({"case": "run_seconds", "seconds": time.perf_counter() - t_run})
     emit({"kernels": summary})
     print(power, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -5,12 +5,16 @@ The generative subset of ``mlapi_tpu/serving/__main__.py``::
 
     python -m mlapi_tpu_torch.serving --checkpoint DIR \\
         [--kv-quant int8] [--decode-attn-impl flash] \\
-        [--kv-page-size 16 [--kv-pages N]] \\
+        [--kv-page-size 16 [--kv-pages N]] [--sched-max-batches 2] \\
+        [--default-deadline-ms MS] [--no-admission-control] \\
+        [--drain-timeout-s S] \\
         [--max-batch N] [--host H] [--port P] [--device cpu]
 
 It runs on the CUDA device unless ``--device cpu`` (or
 ``MLAPI_TPU_PLATFORM=cpu``) asks for the CPU, and fails when there is
-no card and no such request. SIGTERM or SIGINT stop the server.
+no card and no such request. SIGTERM or SIGINT drain the server (new
+requests 503, ``/healthz`` draining, in-flight streams get
+``--drain-timeout-s`` to finish) and stop it.
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ from mlapi_tpu_torch.serving.server import Server
 
 def build_engine(checkpoint, *, device=None, kv_quant=None,
                  decode_attn_impl=None, max_batch=None, kv_page_size=None,
-                 kv_pages=None, **kwargs):
+                 kv_pages=None, sched_max_batches=None, **kwargs):
     """The engine the CLI serves, from a checkpoint dir and the CLI's
     options (``None`` keeps the checkpoint's / engine's default)."""
     if max_batch is not None:
@@ -35,6 +39,8 @@ def build_engine(checkpoint, *, device=None, kv_quant=None,
         kwargs["kv_page_size"] = kv_page_size
     if kv_pages is not None:
         kwargs["kv_pages"] = kv_pages
+    if sched_max_batches is not None:
+        kwargs["sched_max_batches"] = sched_max_batches
     return TextGenerationEngine.from_checkpoint(
         checkpoint, device=device, kv_quant=kv_quant,
         decode_attn_impl=decode_attn_impl, **kwargs,
@@ -73,6 +79,36 @@ def parse_args(argv=None):
              "full pool answers 503 with retry-after",
     )
     parser.add_argument(
+        "--sched-max-batches", type=int, default=2,
+        help="how many batches may be live at once (lanes of the unit "
+             "scheduler, their units interleaved); 1 runs one batch at a "
+             "time on the same machinery. A paged engine also starts a "
+             "lane only if its worst-case pages fit beside the live "
+             "lanes' (generate.sched_pages_deferred counts waits)",
+    )
+    parser.add_argument(
+        "--default-deadline-ms", type=float, default=None,
+        help="wall-clock budget of requests that name no deadline_ms: "
+             "expiry at any dispatch boundary ends the request with a "
+             "deadline_exceeded frame (504 unary). Default: none",
+    )
+    parser.add_argument(
+        "--admission-control", action=argparse.BooleanOptionalAction,
+        default=True,
+        help="shed deadlined requests the latency reservoirs say cannot "
+             "finish in time (503 + retry-after), and under queue "
+             "pressure clamp max_new_tokens and evict idle prefix pages "
+             "(brownout); --no-admission-control turns both off "
+             "(deadlines still expire)",
+    )
+    parser.add_argument(
+        "--drain-timeout-s", type=float, default=10.0,
+        help="graceful drain on SIGTERM/SIGINT: new requests shed 503 "
+             "and /healthz reads draining while in-flight streams "
+             "finish; what is still live after this many seconds ends "
+             "with a draining frame",
+    )
+    parser.add_argument(
         "--device", choices=["cuda", "cpu"], default=None,
         help="where to run (default: cuda; MLAPI_TPU_PLATFORM=cpu also "
              "selects the CPU)",
@@ -80,6 +116,8 @@ def parse_args(argv=None):
     args = parser.parse_args(argv)
     if args.kv_pages is not None and args.kv_page_size is None:
         parser.error("--kv-pages requires --kv-page-size")
+    if args.sched_max_batches < 1:
+        parser.error("--sched-max-batches must be >= 1")
     return args
 
 
@@ -89,8 +127,14 @@ def main(argv=None) -> int:
         args.checkpoint, device=args.device, kv_quant=args.kv_quant,
         decode_attn_impl=args.decode_attn_impl, max_batch=args.max_batch,
         kv_page_size=args.kv_page_size, kv_pages=args.kv_pages,
+        sched_max_batches=args.sched_max_batches,
     )
-    server = Server(build_app(engine), host=args.host, port=args.port)
+    app = build_app(
+        engine, default_deadline_ms=args.default_deadline_ms,
+        drain_timeout_s=args.drain_timeout_s,
+        admission_control=args.admission_control,
+    )
+    server = Server(app, host=args.host, port=args.port)
 
     async def _run() -> None:
         stop = asyncio.Event()

@@ -3,24 +3,32 @@
 Counterpart of ``mlapi_tpu/serving/app.py`` for a generative engine:
 
 - ``POST /generate`` takes ``text``, ``max_new_tokens``, ``temperature``,
-  ``top_k``, ``top_p``, ``seed``, ``stream``, ``stop`` and ``prefix``.
-  Concurrent requests coalesce into one batch. ``"stream": true``
-  answers NDJSON: one ``{"token_ids": [...]}`` line per decoded chunk,
-  then a ``{"done": true, "text", "token_ids", "prompt_tokens"}`` line
-  whose ``token_ids`` is the FULL list. ``prefix`` makes the prompt
+  ``top_k``, ``top_p``, ``seed``, ``stream``, ``stop``, ``prefix`` and
+  ``deadline_ms``. Concurrent requests coalesce into one batch.
+  ``"stream": true`` answers NDJSON: one ``{"token_ids": [...]}`` line
+  per decoded chunk, then a ``{"done": true, "text", "token_ids",
+  "prompt_tokens"}`` line whose ``token_ids`` is the FULL list; an error
+  ends a stream with ``{"error", "code"}``. ``prefix`` makes the prompt
   ``prefix + text`` with the prefix's KV computed once and cached
   (``serving/prefix.py``); an invalid one (empty after tokenizing, too
-  long for the window) is a 422 at ``["prefix"]``. The JAX package's
-  ``adapter``, ``tenant`` and ``deadline_ms`` fields are refused with a
-  422, since the port does not serve them yet.
-- ``GET /healthz``: liveness, queue depth, model, checkpoint, device,
-  and the KV page size and pool size (0 for a contiguous cache).
+  long for the window) is a 422 at ``["prefix"]``. ``deadline_ms`` (> 0)
+  is the request's wall-clock budget: a deadline that passes ends the
+  request with ``deadline_exceeded`` (504 unary), one the admission
+  estimate says cannot be met is shed with a 503. The JAX package's
+  ``adapter`` and ``tenant`` fields are refused with a 422, since the
+  port does not serve them yet.
+- ``GET /healthz``: liveness (``"draining"`` once shutdown began), queue
+  depth, model, checkpoint, device, and the KV page size and pool size
+  (0 for a contiguous cache).
 - ``GET /metrics``: the request counters and latency histograms, plus
-  the JAX package's ``generate.*`` names for what the port has, and the
-  CUDA kernels' launch counts under ``kernels``.
+  the JAX package's ``generate.*`` names for what the port has (the
+  scheduler's ``sched_*``, the sheds, expiries and brownout clamps
+  among them), and the CUDA kernels' launch counts under ``kernels``.
 
-An exhausted KV page pool answers 503 with ``retry-after: 1`` (a unary
-request; a stream ends in an error frame), as in the JAX package.
+Every 503 carries ``retry-after``: an exhausted KV page pool (1 s), a
+full queue, a drain or an infeasible deadline (the engine's hint); a
+stream ends in an error frame instead, as in the JAX package. Shutdown
+drains the engine (``drain_timeout_s``) before it stops.
 """
 
 from __future__ import annotations
@@ -43,7 +51,7 @@ from mlapi_tpu_torch.serving.asgi import (
 )
 from mlapi_tpu_torch.serving.engine import OverloadedError
 from mlapi_tpu_torch.serving.paged_pool import PagePoolExhausted
-from mlapi_tpu_torch.serving.requests import DrainCancelled
+from mlapi_tpu_torch.serving.requests import DeadlineExceeded, DrainCancelled
 from mlapi_tpu_torch.utils.logging import get_logger
 from mlapi_tpu_torch.utils.metrics import MetricsRegistry
 
@@ -62,10 +70,12 @@ GENERATE_SCHEMA = Schema(
     # Shared-prefix KV caching: the prompt is prefix + text, and the
     # prefix's forward runs once for every request that names it.
     prefix=Field(str, None, nullable=True),
+    # The request's end-to-end wall-clock budget.
+    deadline_ms=Field(float, None, nullable=True),
 )
 # Fields of the JAX package's /generate that change the answer and that
 # the port does not implement: refused rather than silently ignored.
-_NOT_PORTED = ("adapter", "tenant", "deadline_ms")
+_NOT_PORTED = ("adapter", "tenant")
 
 
 def _value_error(loc: str, msg: str, value) -> HTTPError:
@@ -75,11 +85,32 @@ def _value_error(loc: str, msg: str, value) -> HTTPError:
     )
 
 
-def build_app(engine) -> App:
+def _terminal_http(e: Exception) -> HTTPError | None:
+    """The HTTP shape of a terminal error frame on a unary request:
+    deadline expiry 504, drain and pool exhaustion 503 with
+    retry-after."""
+    if isinstance(e, DeadlineExceeded):
+        return HTTPError(504, str(e))
+    if isinstance(e, DrainCancelled):
+        return HTTPError(503, str(e), headers={"retry-after": "5"})
+    if isinstance(e, PagePoolExhausted):
+        return HTTPError(503, str(e), headers={"retry-after": "1"})
+    return None
+
+
+def build_app(engine, *, default_deadline_ms: float | None = None,
+              drain_timeout_s: float = 10.0,
+              admission_control: bool = True) -> App:
     """The app over one generative engine. Startup warms the engine and
-    starts its collector; shutdown stops it."""
+    starts its collector; shutdown drains it (``drain_timeout_s``) and
+    stops it. ``default_deadline_ms`` applies to requests that name no
+    ``deadline_ms``; ``admission_control`` turns the infeasible-deadline
+    shed and the brownout rungs on or off."""
     app = App(title="mlapi-tpu-torch")
     registry = MetricsRegistry()
+    engine.default_deadline_ms = default_deadline_ms
+    engine.drain_timeout_s = float(drain_timeout_s)
+    engine.admission_control = bool(admission_control)
     _install_generate(app, engine)
 
     @app.on_startup
@@ -93,6 +124,9 @@ def build_app(engine) -> App:
 
     @app.on_shutdown
     async def _stop():
+        # Drain first: new requests shed 503 and /healthz reads
+        # draining while in-flight streams finish; then the hard stop.
+        await engine.drain(engine.drain_timeout_s)
         await engine.stop()
 
     _install_common(app, engine, registry)
@@ -143,6 +177,11 @@ def _install_generate(app: App, engine) -> None:
         if not 0.0 < req.top_p <= 1.0:
             raise _value_error("top_p", "must be in (0, 1] (1.0 disables)",
                                req.top_p)
+        if req.deadline_ms is not None and req.deadline_ms <= 0:
+            # 0 would read as "no deadline"; a negative one would spend
+            # a queue slot to expire at once.
+            raise _value_error("deadline_ms", "must be > 0 (omit for no "
+                               "deadline)", req.deadline_ms)
         stops = _norm_stops(req.stop)
         try:
             gen = await engine.submit(
@@ -151,6 +190,7 @@ def _install_generate(app: App, engine) -> None:
                 top_k=req.top_k, top_p=req.top_p, prefix=req.prefix,
                 # Incremental consumers need tokens per chunk.
                 stream=bool(req.stream) or bool(stops),
+                deadline_ms=req.deadline_ms,
             )
         except OverloadedError as e:
             raise HTTPError(
@@ -220,13 +260,10 @@ def _install_generate(app: App, engine) -> None:
         try:
             while True:
                 item = await gen.queue.get()
-                if isinstance(item, DrainCancelled):
-                    raise HTTPError(503, str(item),
-                                    headers={"retry-after": "5"})
-                if isinstance(item, PagePoolExhausted):
-                    raise HTTPError(503, str(item),
-                                    headers={"retry-after": "1"})
                 if isinstance(item, Exception):
+                    http = _terminal_http(item)
+                    if http is not None:
+                        raise http from None
                     raise item
                 if item is None:
                     break
@@ -315,7 +352,9 @@ def _install_common(app: App, engine, registry: MetricsRegistry) -> None:
     async def healthz():
         dev = engine.device
         return {
-            "status": "ok",
+            # "draining" from the moment shutdown begins, so a load
+            # balancer stops routing here while streams finish.
+            "status": "draining" if engine.draining else "ok",
             "queue_depth": engine.queue_depth,
             "model": type(engine.model).__name__,
             "classes": [],
@@ -359,8 +398,31 @@ def _install_common(app: App, engine, registry: MetricsRegistry) -> None:
             engine.kv_prefix_copy_fallback
         )
         c["generate.faults_injected"] = faults.injected_count()
+        c["generate.interleaved_prefills"] = engine.interleaved_prefills
+        # Why requests failed: shed at the door, expired at a boundary,
+        # clamped by brownout rung 1.
+        for name in ("shed_queue_full", "shed_deadline_infeasible",
+                     "shed_draining", "deadline_expired_queued",
+                     "deadline_expired_prefill", "deadline_expired_decode",
+                     "brownout_tokens_clamped",
+                     # The unit scheduler's dispatches by kind,
+                     # deadline preemptions and page-budget deferrals.
+                     "sched_units_prefill", "sched_units_decode",
+                     "sched_units_admit", "sched_units_compact",
+                     "sched_deadline_preempts", "sched_pages_deferred"):
+            c[f"generate.{name}"] = getattr(engine, name)
         g = snap.setdefault("gauges", {})
         g["generate.queue_depth"] = engine.queue_depth
+        g["generate.sched_queue_depth"] = engine.sched_queue_depth
+        g["generate.sched_batches_live"] = engine.sched_batches_live
+        g["generate.sched_batches_live_max"] = engine.sched_batches_live_max
+        g["generate.sched_lane_stall_max"] = engine.sched_lane_stall_max
+        g["generate.router_queue_depth"] = engine.router_queue_depth
+        g["generate.draining"] = int(engine.draining)
+        g["generate.prefill_chunk_queue_depth"] = (
+            engine.prefill_chunk_queue_depth
+        )
+        g["generate.interleave_max_stall"] = engine.interleave_max_stall
         for k, v in engine.latency.summary().items():
             g[f"generate.{k}"] = v
         g["generate.kv_cache_bytes_per_slot"] = engine.kv_cache_slot_bytes()

@@ -20,9 +20,15 @@ what this port serves:
                         eagerly when a row finishes
 ``_admit_waiting``      mid-batch admission of staged joiners into free
                         (or grown) rows at a chunk boundary
+``_pf_step`` et al.     interleaved chunked prefill: a long-prompt
+                        joiner of a paged batch prefills one chunk per
+                        decode-chunk boundary into private pages, then
+                        joins as a page-table row assignment
 ``_maybe_shrink``       compaction along the power-of-two chain
 ``_decode_chunk``       one chained decode chunk + the drain policy
-``units``               the loop as a generator of typed units
+``units``               the loop as a generator of typed units, which
+                        the unit scheduler advances one at a time; the
+                        deadline sweeps run at its boundaries
 ``run``                 drain ``units()`` to exhaustion
 ======================  ================================================
 
@@ -36,10 +42,10 @@ the engine pool's tensors through its own table (re-uploaded whenever
 the host table changes).
 
 Prefix rows batch at formation only, never by admission (the running
-batch's prefix region is a batch-wide layout). Not ported: speculation,
-adapters, disaggregation, deadlines, and the interleaved chunked
-prefill of long-prompt joiners (a joiner past the largest bucket is
-handed to the next batch).
+batch's prefix region is a batch-wide layout). A long-prompt joiner of
+a contiguous batch is prefilled in one admission once ``pos`` reaches
+its bucket, as in the JAX package. Not ported: speculation, adapters,
+fused widths and disaggregation.
 """
 
 from __future__ import annotations
@@ -107,6 +113,10 @@ class BatchRun:
         self.tab = (np.zeros((self.b_pad, self.npv), np.int32)
                     if self.pool is not None else None)
         self._tab_dirty = False
+        # The active interleaved prefill of a long-prompt joiner (paged
+        # batches), and its run of consecutive prefill-chunk dispatches.
+        self._pf: dict | None = None
+        self._pf_consec = 0
         # rows[i]: request i's row in the (possibly resized) batch.
         self.rows: list = list(range(b))
         self.b_cur = self.b_pad
@@ -156,6 +166,8 @@ class BatchRun:
             logits = None
             for c0 in range(0, bucket, cp):
                 faults.fire("prefill_chunk")
+                for r in self.reqs:
+                    eng._expire_if_due(r, "prefill")
                 eng.prefill_chunks += 1
                 self.cache, logits = extend_chunk_fn(
                     eng.model, self.cache, prompt[:, c0:c0 + cp], c0,
@@ -196,6 +208,8 @@ class BatchRun:
             logits = None
             for c0 in range(0, bucket, cp):
                 faults.fire("prefill_chunk")
+                for r in self.reqs:
+                    eng._expire_if_due(r, "prefill")
                 eng.prefill_chunks += 1
                 self.cache, logits = paged_extend_fn(
                     eng.model, self.cache, prompt[:, c0:c0 + cp], c0, n_pad,
@@ -383,6 +397,9 @@ class BatchRun:
         the pool."""
         if self.pool is None or self.tab is None:
             return
+        if self._pf is not None:
+            # An interleaved prefill in progress holds private pages.
+            self._pf_abort()
         for row in range(len(self.tab)):
             self._release_row(row)
 
@@ -496,17 +513,31 @@ class BatchRun:
             1 for i, r in enumerate(reqs)
             if not self.done[i] and not r.cancelled
         )
+        if self._pf is not None:
+            n_live += 1  # the interleaved joiner owns its row already
         cp = eng.prompt_buckets[-1]
         for cand in candidates:
+            if eng._expire_if_due(cand, "queued"):
+                # Its deadline passed while staged: never prefilled.
+                self._unstage(cand)
+                continue
             if cand.cancelled:
                 self._unstage(cand)
                 continue
-            if (len(cand.row) > cp or self._never_admissible(cand)
-                    or self.p_len or cand.prefix_fp is not None):
-                # A long prompt (its interleaved chunked prefill is not
-                # ported), a budget past this cache, or a prefix on
-                # either side (prefix rows batch at formation only):
-                # the next batch.
+            if self.p_len or cand.prefix_fp is not None:
+                # Prefix rows batch at formation only: the next batch.
+                if self._unstage(cand):
+                    eng._defer(cand)
+                continue
+            bkt = len(cand.row)
+            if self.pool is not None and bkt > cp and bkt % cp == 0:
+                # A long-prompt joiner: its prefill chunks interleave
+                # with this batch's decode chunks (``_pf_step``).
+                if self._try_start_pf(cand, n_live):
+                    n_live += 1
+                continue
+            if self._never_admissible(cand):
+                # A budget past this cache: the next batch.
                 if self._unstage(cand):
                     eng._defer(cand)
                 continue
@@ -514,10 +545,7 @@ class BatchRun:
                 break
             if not self._admissible(cand):
                 continue
-            used_rows = {
-                self.rows[i] for i, r in enumerate(reqs)
-                if not self.done[i] and not r.cancelled
-            }
+            used_rows = self._used_rows()
             free = [j for j in range(self.b_cur) if j not in used_rows]
             grow = not free and self.b_cur < self.b_max
             if not free and not grow:
@@ -530,12 +558,7 @@ class BatchRun:
             if grow:
                 free = self._grow()
             row = free[0]
-            # The row may still belong to a request that finished or was
-            # cancelled (in the drain just above, say): detach it, so
-            # that request never again names the joiner's row.
-            for k, held in enumerate(self.rows):
-                if held == row:
-                    self.rows[k] = None
+            self._detach(row)
             if self.pool is not None:
                 from mlapi_tpu_torch.serving.paged_pool import (
                     PagePoolExhausted,
@@ -593,6 +616,25 @@ class BatchRun:
         with eng._alock:
             return len(eng._admit)
 
+    def _used_rows(self) -> set:
+        """Device rows owned by live requests or the interleaved
+        joiner."""
+        used = {
+            self.rows[i] for i, r in enumerate(self.reqs)
+            if not self.done[i] and not r.cancelled
+        }
+        if self._pf is not None:
+            used.add(self._pf["row"])
+        return used
+
+    def _detach(self, row: int) -> None:
+        """The row may still belong to a request that finished or was
+        cancelled (in a drain just before, say): detach it, so that
+        request never again names (or releases) the new owner's row."""
+        for k, held in enumerate(self.rows):
+            if held == row:
+                self.rows[k] = None
+
     def _install(self, cand, row: int) -> int:
         """The joiner's prefill into ``row``, its prompt ending at slot
         ``pos``; returns its first token. Paged: one page-native
@@ -629,6 +671,187 @@ class BatchRun:
                 for name, leaf in layer.items():
                     leaf[row, off:off + bkt] = mini[ln][name][0]
         return int(first[0])
+
+    # -- interleaved chunked prefill (paged long-prompt joiners) ------
+    #
+    # A long prompt's prefill is ceil(used / cp) extend dispatches. Run
+    # back to back they would stall every stream of the batch for the
+    # whole prompt; here ``_admit_waiting`` stages the joiner as
+    # ``self._pf``, one prefill chunk dispatches per decode-chunk
+    # boundary (``_pf_step``) into the joiner's private pages, and once
+    # the chunks are done and ``pos`` reaches the planned activation
+    # point A, ``_pf_activate`` installs the joiner by assigning its
+    # page-table row. The prompt lands at virtual slots [A - bucket, A);
+    # during the window ``pos`` advances by ``chunk`` per boundary, so
+    # compaction waits. The joiner's batch row stays a dummy (null
+    # table) until activation, and all-pad leading chunks are skipped.
+
+    def _try_start_pf(self, cand, n_live: int) -> bool:
+        """Begin the interleaved prefill of ``cand``. True only when
+        the window started (the joiner owns a row); otherwise the
+        candidate was handed back (a window that can never fit this
+        cache, an exhausted pool) or stays staged (another prefill
+        active, a full batch)."""
+        from mlapi_tpu_torch.serving.paged_pool import PagePoolExhausted
+
+        eng = self.eng
+        if self._pf is not None or n_live + 1 > eng.max_batch:
+            return False
+        cp = eng.prompt_buckets[-1]
+        bkt, used = len(cand.row), cand.used
+        bkt_eff = -(-used // cp) * cp
+        n_run = bkt_eff // cp
+        # A covers n_run boundaries, or the catch-up to the prompt's
+        # own length, whichever is later; chunks dispatch from the first
+        # boundary (their slots depend on A, not on pos).
+        m = max(n_run, -(-max(bkt_eff - self.pos, 0) // eng.chunk))
+        a = self.pos + m * eng.chunk
+        if a + (cand.n_new - 1) > self.total:
+            # Can never finish inside this cache: its own batch.
+            if self._unstage(cand):
+                eng._defer(cand)
+            return False
+        free = [j for j in range(self.b_cur) if j not in self._used_rows()]
+        if not free:
+            if self.b_cur >= self.b_max:
+                return False
+            free = self._grow()
+        row = free[0]
+        self._detach(row)
+        self._release_row(row)  # a finished request's leftover pages
+        # Private table: the prompt's pages belong to ``ptab`` until
+        # activation, so decode writes for the dummy row stay in the
+        # null page.
+        ptab = np.zeros((1, self.npv), np.int32)
+        lo_tile = (a - used) // self.page
+        hi_tile = -(-a // self.page)
+        try:
+            pages = self.pool.alloc(hi_tile - lo_tile)
+        except PagePoolExhausted:
+            # The pool is momentarily full of live sequences.
+            if self._unstage(cand):
+                eng._defer(cand)
+            return False
+        if not self._unstage(cand):
+            self.pool.release(pages)
+            return False
+        ptab[0, lo_tile:hi_tile] = pages
+        self._pf = {
+            "cand": cand, "row": row, "ptab": ptab, "A": a,
+            "off": a - bkt, "cp": cp, "skip": (bkt - bkt_eff) // cp,
+            "next": 0, "n_run": n_run, "logits": None,
+        }
+        eng.interleaved_prefills += 1
+        eng.prefill_chunk_queue_depth = n_run
+        return True
+
+    def _pf_dispatch_chunk(self) -> None:
+        """The next prefill chunk through the joiner's private table
+        (its offset is already batch-virtual: activation remaps
+        nothing)."""
+        from mlapi_tpu_torch.models.gpt import paged_extend_fn
+        from mlapi_tpu_torch.ops.quant import paged_cache_tree
+
+        eng, pf = self.eng, self._pf
+        cand, cp = pf["cand"], pf["cp"]
+        c0 = (pf["skip"] + pf["next"]) * cp
+        faults.fire("prefill_chunk")
+        eng.prefill_chunks += 1
+        cache1 = paged_cache_tree(self.cache, pf["ptab"])
+        ids = torch.as_tensor(cand.row[None, c0:c0 + cp], dtype=torch.long,
+                              device=self.device)
+        n_pad = torch.as_tensor([pf["A"] - cand.used], dtype=torch.long,
+                                device=self.device)
+        _, pf["logits"] = paged_extend_fn(
+            eng.model, cache1, ids, pf["off"] + c0, n_pad,
+        )
+        pf["next"] += 1
+        eng.prefill_chunk_queue_depth = pf["n_run"] - pf["next"]
+
+    def _pf_abort(self) -> None:
+        """Drop an interleaved prefill: its private pages go back;
+        nothing was installed, so no batch state unwinds."""
+        self.pool.release(self._pf["ptab"])
+        self._pf = None
+        self.eng.prefill_chunk_queue_depth = 0
+
+    def _pf_step(self, live: list) -> None:
+        """At most ONE prefill chunk before this boundary's decode
+        chunk (``eng.interleave_max_stall`` records the run)."""
+        eng, pf = self.eng, self._pf
+        # A joiner whose deadline passed mid-prefill aborts its window.
+        eng._expire_if_due(pf["cand"], "prefill")
+        if pf["cand"].cancelled:
+            self._pf_abort()
+            return
+        if pf["next"] >= pf["n_run"]:
+            return  # chunks done; waiting for pos to reach A
+        self._pf_dispatch_chunk()
+        if live:
+            self._pf_consec += 1
+            eng.interleave_max_stall = max(eng.interleave_max_stall,
+                                           self._pf_consec)
+
+    def _pf_activate(self) -> None:
+        """``pos`` reached A with every chunk dispatched: sample the
+        first token from the last chunk's logits (stream index 0, the
+        formation's draw) and install the joiner as a live row by
+        assigning its table row; no cache bytes move."""
+        from mlapi_tpu_torch.models.gpt import sample_fn
+
+        eng, pf = self.eng, self._pf
+        cand, row = pf["cand"], pf["row"]
+        self.chain.invalidate()  # the mirrors are about to change
+        if cand.cancelled:
+            self._pf_abort()
+            return
+        # A raise here fails the batch: ``units()`` appends the joiner
+        # so it gets its terminal frame, and the cleanup frees ptab.
+        faults.fire("table_install")
+        first = sample_fn(
+            pf["logits"], np.asarray([cand.seed], np.int64),
+            np.asarray([cand.temperature], np.float32),
+            np.asarray([cand.top_k], np.int64),
+            np.asarray([cand.top_p], np.float32),
+        )
+        ftok = int(first[0])
+        self._detach(row)
+        self._release_row(row)
+        self.tab[row] = pf["ptab"][0]
+        self._tab_dirty = True
+        self.n_pad[row] = pf["A"] - cand.used
+        self.temps[row] = cand.temperature
+        self.topk[row] = cand.top_k
+        self.topp[row] = cand.top_p
+        self.seeds[row] = cand.seed
+        self.tok[row] = ftok
+        self.step[row] = 1
+        self.reqs.append(cand)
+        self.rows.append(row)
+        self.produced.append(1)
+        self.sched.append(1)
+        cand.push({"token_ids": [ftok]})
+        fin = cand.n_new <= 1
+        if fin:
+            cand.push(None)
+        self.done.append(fin)
+        eng.admitted += 1
+        self._pf = None
+        eng.prefill_chunk_queue_depth = 0
+
+    def _pf_flush(self) -> None:
+        """No live decode row is left to stall: run the remaining
+        chunks back to back, jump ``pos`` to A (the slots between
+        belong to no one) and activate."""
+        pf = self._pf
+        self.chain.drain()
+        if pf["cand"].cancelled:
+            self._pf_abort()
+            return
+        while pf["next"] < pf["n_run"]:
+            self._pf_dispatch_chunk()
+        self.pos = pf["A"]
+        self._pf_activate()
 
     # -- resize -------------------------------------------------------
 
@@ -710,16 +933,23 @@ class BatchRun:
             pass
 
     def units(self):
-        """The lifecycle as a stream of typed units: yields ``"admit"``,
-        ``"compact"`` or ``"decode"`` after each. Every page goes back
-        to the pool when the generator ends, raises or is closed."""
+        """The lifecycle as a stream of typed units: yields
+        ``"prefill"``, ``"admit"``, ``"compact"`` or ``"decode"`` after
+        each. Every page goes back to the pool when the generator ends,
+        raises or is closed."""
         try:
             yield from self._units()
+        except BaseException:
+            if self._pf is not None:
+                # The interleaved joiner left the staging list but was
+                # never installed: the error delivery must reach it.
+                self.reqs.append(self._pf["cand"])
+            raise
         finally:
             self._paged_cleanup()
 
     def _units(self):
-        reqs, chain = self.reqs, self.chain
+        eng, reqs, chain = self.eng, self.reqs, self.chain
         # The deferred first token rides the chain as a width-1 chunk.
         all_rows = list(range(self.b))
         chain.push(self.first_chunk, 1, all_rows)
@@ -727,11 +957,22 @@ class BatchRun:
             self.sched[i] += 1
         chain.tok_dev = self._first
         while True:
+            if (self._pf is not None and self._pf["next"] >= self._pf["n_run"]
+                    and self.pos >= self._pf["A"]):
+                # The interleaved prefill is done and decode reached its
+                # activation point: install the joiner.
+                self._pf_activate()
+                yield "admit"
+            # Deadline sweep: an expired row gets its terminal frame and
+            # is cancelled like a disconnect.
+            for i, r in enumerate(reqs):
+                if not self.done[i]:
+                    eng._expire_if_due(r, "decode")
             if self.pool is not None:
                 # Before admission, so joiners can take these pages.
                 self._release_finished()
             pending_n = 0
-            if self.admit and self.eng._admit:
+            if self.admit and eng._admit:
                 pending_n = self._admit_waiting()
                 yield "admit"
             live = [
@@ -739,25 +980,39 @@ class BatchRun:
                 if not self._sdone(i) and not r.cancelled
             ]
             if not live:
+                if self._pf is not None:
+                    # Nothing left to stall: finish the interleaved
+                    # prefill back to back; the joiner becomes the
+                    # batch's only live row.
+                    self._pf_flush()
+                    yield "prefill"
+                    continue
                 chain.drain()
                 if not all(self.done):
-                    self.eng.cancelled_batches += 1
+                    eng.cancelled_batches += 1
                 break
             # The last chunk may be remainder-sized when the window
             # clamps the cache tier.
-            size = min(self.eng.chunk, self.total - self.pos)
+            size = min(eng.chunk, self.total - self.pos)
             if size <= 0:
                 chain.drain()
                 break
             b_before = self.b_cur
-            self._maybe_shrink(live, pending_n)
+            # An interleaved prefill pins the row plan: no compaction.
+            self._maybe_shrink(live, pending_n + (self._pf is not None))
             if self.b_cur != b_before:
                 yield "compact"
+            if self._pf is not None:
+                pfc = eng.prefill_chunks
+                self._pf_step(live)
+                if eng.prefill_chunks != pfc:
+                    yield "prefill"
             if self.pool is not None:
                 # Map the chunk's write range before the dispatch: an
                 # exhausted pool fails here, its metadata consistent.
                 self._ensure_pages(size, live)
             self._decode_chunk(size, live)
+            self._pf_consec = 0
             yield "decode"
         chain.drain()
         # Safety net: every waiter gets a terminator.

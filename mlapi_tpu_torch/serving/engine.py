@@ -9,26 +9,39 @@ each chunk to its requests as it lands. With ``kv_page_size`` the
 cache is a device pool of pages plus per-row page tables
 (``serving/paged_pool.py``) instead of one contiguous cache per batch.
 
-Scope of the port: batches run one at a time through
-``BatchRun.run()`` — the ordering of the JAX engine's
-``--sched-max-batches 1``, in-lane admission included: while a batch
-runs, the collector keeps pulling and stages every arrival the batch
-can take (``_admit``), which joins at the next chunk boundary; the
-rest wait for the next batch (``_carry``). A request naming a
-``prefix`` reuses the prefix's cached KV (``serving/prefix.py``) and
-computes only its suffix; prefix requests batch with each other, also
-across different prefixes, never with plain ones. The unit scheduler,
-speculation, adapters and tenants are not ported. ``chunk`` is
-a fixed 8 (the JAX engine probes the device round trip to choose 8 or
-16; a local card is the 8 case).
+Batches run as lanes of the unit scheduler (``serving/scheduler.py``):
+up to ``sched_max_batches`` (default 2) batches live at once, their
+typed units (formation prefill, interleaved prefill chunk, decode
+chunk, admission, compaction) interleaved on one dispatch thread;
+``sched_max_batches=1`` runs the same machinery one batch at a time.
+The one collector forms window-compatible groups and routes each
+(``_dispatch_group``): staged for a live lane that can take it at its
+next unit boundary (``_admit``), else handed to the scheduler as a
+pending group, else it waits. A request naming a ``prefix`` reuses the
+prefix's cached KV (``serving/prefix.py``) and computes only its
+suffix; prefix requests batch with each other, also across different
+prefixes, never with plain ones.
+
+Robustness, as in the JAX engine: a request may carry a deadline
+(``deadline_ms``, or the engine's ``default_deadline_ms``) checked at
+every dispatch boundary (``_expire_if_due``); with
+``admission_control`` a deadline the latency reservoirs say cannot be
+met sheds at the door (``admission_estimate_ms``), and queue pressure
+engages the brownout rungs (clamp token budgets; evict idle prefix
+page sets); ``drain`` stops admission and lets in-flight streams
+finish within a budget.
+
+Not ported: speculation, adapters, tenants, the fused-width policy.
+``chunk`` is a fixed 8 (the JAX engine probes the device round trip to
+choose 8 or 16; a local card is the 8 case).
 """
 
 from __future__ import annotations
 
 import asyncio
 import bisect
-import concurrent.futures
 import threading
+import time
 from typing import Sequence
 
 import numpy as np
@@ -38,6 +51,7 @@ from mlapi_tpu_torch.ops.quant import kv_tree_bytes
 from mlapi_tpu_torch.serving import faults
 from mlapi_tpu_torch.serving.prefix import PrefixCache
 from mlapi_tpu_torch.serving.requests import (
+    DeadlineExceeded,
     DrainCancelled,
     GenRequest,
     LatencyStats,
@@ -49,11 +63,13 @@ _log = get_logger("serving.engine")
 
 
 class OverloadedError(RuntimeError):
-    """The submit queue is full: shed at the door (503 + retry-after)
-    rather than queue without bound."""
+    """Shed at the door (503 + retry-after) rather than queue without
+    bound: the submit queue is full, the server drains, or a deadline
+    cannot be met."""
 
-    def __init__(self, what: str, retry_after_s: float = 2.0):
-        super().__init__(f"{what} overloaded: queue full")
+    def __init__(self, what: str, retry_after_s: float = 2.0,
+                 detail: str = "queue full"):
+        super().__init__(f"{what} overloaded: {detail}")
         self.retry_after_s = retry_after_s
 
 
@@ -78,6 +94,7 @@ class TextGenerationEngine:
         max_queue: int = 256,
         kv_page_size: int | None = None,
         kv_pages: int | None = None,
+        sched_max_batches: int = 2,
     ):
         if tokenizer.vocab_size > model.vocab_size:
             raise ValueError(
@@ -122,13 +139,34 @@ class TextGenerationEngine:
         # Collector state (started by the app's startup hook).
         self._queue: asyncio.Queue | None = None
         self._task: asyncio.Task | None = None
-        self._executor: concurrent.futures.ThreadPoolExecutor | None = None
+        # Cross-thread collector wake (a lane retired, a joiner handed
+        # back), set through ``_wake_collector``.
+        self._kick: asyncio.Event | None = None
+        self._aloop: asyncio.AbstractEventLoop | None = None
+        # Claimed off the queue, window-incompatible with the group
+        # being formed: served next.
         self._carry: list = []
-        # Staged joiners of the running batch (``_admit``) and those it
-        # handed back (``_deferred``), shared with the device thread.
+        # Joiners staged for a live lane's admission (``_admit``) and
+        # those a lane handed back (``_deferred``), shared with the
+        # dispatch thread.
         self._admit: list = []
         self._deferred: list = []
         self._alock = threading.Lock()
+        # The group the collector has claimed and not yet handed on: in
+        # flight for drain().
+        self._forming: list | None = None
+        # The unit scheduler (created by start(), stopped by stop()).
+        self.sched_max_batches = max(1, int(sched_max_batches))
+        self.sched = None
+        # Robustness: the deadline of requests that name none (None: no
+        # deadline), SLO admission and brownout, graceful drain.
+        self.default_deadline_ms: float | None = None
+        self.admission_control = True
+        self.drain_timeout_s = 10.0
+        self.draining = False
+        # The fleet backlog a router reports: 0 until the router is
+        # ported (ROADMAP Queue A item 7).
+        self.router_queue_depth = 0
         # Shared-prefix KV caching: every piece of prefix state lives in
         # the PrefixCache; the engine routes calls to it.
         self.prefix = PrefixCache(self)
@@ -142,6 +180,33 @@ class TextGenerationEngine:
         self.admitted = 0
         self.growths = 0
         self.compactions = 0
+        # Interleaved prefills of long joiners, the longest run of
+        # prefill chunks live decode rows waited behind, and the chunks
+        # the active one still has to dispatch.
+        self.interleaved_prefills = 0
+        self.interleave_max_stall = 0
+        self.prefill_chunk_queue_depth = 0
+        # What was shed at the door, what expired at which boundary,
+        # and the brownout rung 1 clamps.
+        self.shed_queue_full = 0
+        self.shed_deadline_infeasible = 0
+        self.shed_draining = 0
+        self.deadline_expired_queued = 0
+        self.deadline_expired_prefill = 0
+        self.deadline_expired_decode = 0
+        self.brownout_tokens_clamped = 0
+        # The scheduler's units by kind, deadline preemptions, groups
+        # held back by the page budget, the most lanes live at once,
+        # and the longest run of units one lane got while another was
+        # live.
+        self.sched_units_prefill = 0
+        self.sched_units_decode = 0
+        self.sched_units_admit = 0
+        self.sched_units_compact = 0
+        self.sched_deadline_preempts = 0
+        self.sched_pages_deferred = 0
+        self.sched_batches_live_max = 0
+        self.sched_lane_stall_max = 0
         # Bytes of prefix KV adopted into pool pages (once per entry
         # residency), and cross-prefix paged batches that copied their
         # prefixes because a shift was not a page multiple.
@@ -183,10 +248,122 @@ class TextGenerationEngine:
 
     @property
     def queue_depth(self) -> int:
+        """Requests waiting: the submit queue, the carry, the staged and
+        handed-back joiners, and the groups the scheduler has not yet
+        laned."""
         base = self._queue.qsize() if self._queue is not None else 0
+        sched = self.sched.backlog if self.sched is not None else 0
         with self._alock:
             staged = len(self._admit) + len(self._deferred)
-        return base + len(self._carry) + staged
+        return base + len(self._carry) + staged + sched
+
+    @property
+    def sched_queue_depth(self) -> int:
+        """Runnable units: one per live lane and per pending group."""
+        return self.sched.queue_depth if self.sched is not None else 0
+
+    @property
+    def sched_batches_live(self) -> int:
+        return self.sched.batches_live if self.sched is not None else 0
+
+    # -- deadlines, admission control, brownout, drain ----------------------
+    def _expire_if_due(self, r, stage: str) -> bool:
+        """The deadline check at a dispatch boundary (``stage``:
+        queued, prefill or decode). An expired request gets its
+        terminal :class:`DeadlineExceeded` frame and is cancelled like
+        a disconnect, which frees its row and pages. True when this
+        call expired it."""
+        d = getattr(r, "deadline", None)
+        if d is None or r.cancelled or time.perf_counter() < d:
+            return False
+        counter = f"deadline_expired_{stage}"
+        setattr(self, counter, getattr(self, counter) + 1)
+        try:
+            r.push(DeadlineExceeded(stage))
+        except Exception:  # noqa: BLE001 — a dead consumer loop
+            pass
+        r.cancel()
+        return True
+
+    def admission_estimate_ms(self) -> float:
+        """Queue wait + TTFT for a request submitted now, from the p95
+        TTFT and p50 inter-token reservoirs: each ``max_batch`` of
+        backlog ahead costs one batch turnaround (TTFT plus the default
+        budget at the inter-token rate), then the request pays its own
+        TTFT. 0 until traffic fills the reservoirs: a cold server never
+        sheds on a guess."""
+        s = self.latency.summary()
+        ttft = s["ttft_p95_ms"] or 0.0
+        itl = s["intertoken_p50_ms"] or 0.0
+        batch_ms = ttft + self.default_max_new_tokens * itl
+        backlog = (self.queue_depth + self.prefill_chunk_queue_depth
+                   + self.router_queue_depth) / max(1, self.max_batch)
+        return backlog * batch_ms + ttft
+
+    def _brownout_level(self) -> int:
+        """Queue pressure → brownout rung: 0 normal, 1 at >= 50 % of
+        ``max_queue`` (clamp token budgets), 2 at >= 75 % (also evict
+        an idle prefix page set). Speculation suppression waits for
+        speculation (ROADMAP Queue A item 6)."""
+        if not self.admission_control:
+            return 0
+        q = self.queue_depth + min(self.router_queue_depth, self.max_queue)
+        if q * 4 >= self.max_queue * 3:
+            return 2
+        if q * 2 >= self.max_queue:
+            return 1
+        return 0
+
+    async def drain(self, timeout_s: float | None = None) -> None:
+        """Graceful drain: stop admitting (submit sheds 503, /healthz
+        reads draining), let in-flight streams finish within
+        ``timeout_s``, then end whatever remains with
+        :class:`DrainCancelled` frames. Idempotent; ``stop()`` stays the
+        caller's job."""
+        self.draining = True
+        if timeout_s is None:
+            timeout_s = self.drain_timeout_s
+        loop = asyncio.get_running_loop()
+        deadline = loop.time() + max(0.0, float(timeout_s))
+        while loop.time() < deadline:
+            with self._alock:
+                staged = len(self._admit) + len(self._deferred)
+            queued = self._queue is not None and not self._queue.empty()
+            if (not queued and not staged and not self._carry
+                    and self._forming is None
+                    and (self.sched is None or self.sched.idle)):
+                return
+            await asyncio.sleep(0.05)
+        # Budget spent: terminal frames for everything queued or in
+        # flight, then cancel the rows (pages come back through the
+        # cancellation path).
+        leftovers: list = []
+        if self._queue is not None:
+            while not self._queue.empty():
+                leftovers.append(self._queue.get_nowait())
+        with self._alock:
+            leftovers += self._admit + self._deferred
+            self._admit.clear()
+            self._deferred.clear()
+        # Cancel-only: the collector owns its carry and forming lists.
+        leftovers += list(self._carry)
+        if self.sched is not None:
+            leftovers += self.sched.sweep_requests()
+        if self._forming is not None:
+            leftovers += list(self._forming)
+        for r in leftovers:
+            if getattr(r, "cancelled", False):
+                continue
+            try:
+                r.push(DrainCancelled())
+            except Exception:  # noqa: BLE001 — a dead loop
+                pass
+            r.cancel()
+        # A bounded moment for the lanes to notice the cancels.
+        grace = loop.time() + 2.0
+        while (self.sched is not None and not self.sched.idle
+               and loop.time() < grace):
+            await asyncio.sleep(0.05)
 
     # -- paged-pool accounting (state lives in serving/paged_pool.py) -----
     @property
@@ -292,8 +469,8 @@ class TextGenerationEngine:
     # -- encoding and packing -----------------------------------------------
     def _encode(self, text: str, n_new: int, temperature: float, seed: int,
                 loop, top_k: int = 0, top_p: float = 1.0,
-                prefix: str | None = None,
-                stream: bool = False) -> GenRequest:
+                prefix: str | None = None, stream: bool = False,
+                deadline_ms: float | None = None) -> GenRequest:
         entry = None
         raw = None
         if prefix:
@@ -346,6 +523,7 @@ class TextGenerationEngine:
         return GenRequest(
             row, used, n_new, temperature, seed, loop, top_k, top_p,
             prefix=entry, stream=stream, stats=self.latency,
+            deadline_ms=deadline_ms,
         )
 
     def _pack_rows(self, reqs, bucket: int, b_pad: int):
@@ -367,21 +545,32 @@ class TextGenerationEngine:
             seeds[i] = r.seed
         return prompt, n_pad, temps, topk, topp, seeds
 
-    # -- the batched decode (runs on the device thread) ---------------------
+    # -- the batched decode (runs on the dispatch thread) -------------------
     def _form_batch(self, reqs: list, admit: bool = False):
+        """The formation preamble shared by ``_run_batch`` and the
+        scheduler's lane start: requests whose deadline passed in the
+        queue get their terminal frame and never reach the device (the
+        sweep edits ``reqs`` in place: admission appends to it and error
+        delivery iterates it). Returns the formed :class:`BatchRun`, or
+        ``None`` when every request expired."""
         from mlapi_tpu_torch.serving.batch_run import BatchRun
 
+        alive = [r for r in reqs if not self._expire_if_due(r, "queued")]
+        if not alive:
+            return None
+        reqs[:] = alive
         self.batch_calls += 1
         return BatchRun(self, reqs, admit)
 
     def _run_batch(self, reqs: list, admit: bool = False) -> None:
-        """Serve one coalesced batch (``admit``: joiners staged while it
-        runs join it); a failure is delivered to every waiter as its
-        terminal frame, joiners included (they are appended to
-        ``reqs``)."""
+        """Serve one batch on the caller's thread (the synchronous path:
+        ``generate_text``, warmup); a failure is delivered to every
+        waiter as its terminal frame."""
         try:
             with torch.inference_mode():
-                self._form_batch(reqs, admit).run()
+                run = self._form_batch(reqs, admit)
+                if run is not None:
+                    run.run()
         except Exception as e:  # noqa: BLE001 — delivered to every waiter
             _log.error("generation batch of %d failed: %s", len(reqs), e)
             for r in reqs:
@@ -406,38 +595,41 @@ class TextGenerationEngine:
         return p_len + bucket + n_new <= self.model.max_positions
 
     def _defer(self, cand) -> None:
-        """Hand a staged joiner the running batch cannot take back to
-        the collector, for the next batch."""
+        """Hand a staged joiner a lane cannot take back to the collector
+        and wake it."""
         with self._alock:
             self._deferred.append(cand)
-
-    def _place(self, r, running) -> None:
-        """An arrival while ``running`` (the live batch's request list,
-        or ``None``): staged for admission when the batch could take
-        it, else carried to the next batch. Only arrivals are staged:
-        a joiner the batch hands back waits in the carry for the next
-        batch, so nothing goes back and forth."""
-        if (
-            running is not None
-            and len(r.row) <= self.prompt_buckets[-1]
-            and self._compatible(list(running), r)
-        ):
-            with self._alock:
-                self._admit.append(r)
-            return
-        self._carry.append(r)
+        self._wake_collector()
 
     # -- asyncio collector ---------------------------------------------------
     async def start(self) -> None:
         if self._task is None:
+            from mlapi_tpu_torch.serving.scheduler import UnitScheduler
+
+            # A (re)started engine admits again after an earlier drain.
+            self.draining = False
             self._queue = asyncio.Queue(maxsize=self.max_queue)
-            # ONE device thread: batches run serially, in order.
-            self._executor = concurrent.futures.ThreadPoolExecutor(
-                max_workers=1, thread_name_prefix="mlapi-device"
-            )
+            self._kick = asyncio.Event()
+            self._aloop = asyncio.get_running_loop()
+            if self.sched is None:
+                self.sched = UnitScheduler(
+                    self, max_batches=self.sched_max_batches
+                )
             self._task = asyncio.create_task(
                 self._collect_loop(), name="genbatcher"
             )
+
+    def _wake_collector(self) -> None:
+        """Wake the collector out of its waits from any thread (a lane
+        retired, a joiner handed back). A no-op before start() and once
+        the loop is closed."""
+        loop, ev = self._aloop, self._kick
+        if loop is None or ev is None:
+            return
+        try:
+            loop.call_soon_threadsafe(ev.set)
+        except RuntimeError:
+            pass  # the loop is closed: stop() delivered everything
 
     async def stop(self) -> None:
         if self._task is not None:
@@ -449,76 +641,63 @@ class TextGenerationEngine:
             except Exception as e:  # noqa: BLE001
                 _log.warning("collector had died: %r", e)
             self._task = None
-        if self._executor is not None:
-            executor, self._executor = self._executor, None
-            # Off the loop: waits out a batch mid-flight on the card.
+        if self.sched is not None:
+            # Off the loop: joins the dispatch thread, which may be
+            # mid-unit on the card.
+            sched, self.sched = self.sched, None
             await asyncio.get_running_loop().run_in_executor(
-                None, executor.shutdown
+                None, sched.stop
             )
-        # A batch that ran on past the collector may have handed
-        # joiners back after the collector's last sweep.
+        # A lane that ran on past the collector may have handed joiners
+        # back after the collector's last sweep.
+        err = RuntimeError("generation engine stopped")
         with self._alock:
             left = self._admit + self._deferred
             self._admit.clear()
             self._deferred.clear()
+        if self._queue is not None:
+            while not self._queue.empty():
+                left.append(self._queue.get_nowait())
         for r in left:
             try:
-                r.push(DrainCancelled())
+                r.push(err)
             except Exception:  # noqa: BLE001 — a dead loop
                 pass
 
     async def _collect_loop(self) -> None:
-        """Form window-compatible groups of up to ``max_batch`` queued
-        requests (waiting up to ``max_wait_ms`` for stragglers) and run
-        each on the device thread. While a batch runs, keep pulling:
-        an arrival it could take is staged for admission at its next
-        chunk boundary, any other is carried to the next group. Pulling
-        pauses while the staging list or the carry is full, so a
-        backlog fills the bounded queue and sheds at the door."""
+        """The one collector: forms window-compatible groups of up to
+        ``max_batch`` (waiting up to ``max_wait_ms`` for stragglers; the
+        carry is served first, seeded by the earliest deadline) and
+        routes each through ``_dispatch_group``. Dispatch blocks while
+        the staging list and the scheduler's backlog are full, which
+        stops the pop below: a backlog then fills the bounded queue and
+        sheds at the door."""
         loop = asyncio.get_running_loop()
         reqs: list = []
-        get = None      # an in-flight queue pop (the finally must see it)
-        batch = None    # the running batch's future
-        running = None  # ... and its request list (admission appends)
+        get = None   # an in-flight queue pop (the finally must see it)
+        kick = None  # an in-flight kick wait
         try:
             while True:
+                # Clear, then sweep: a wake that lands after the clear
+                # sets the event again, one before it is seen here.
+                self._kick.clear()
                 with self._alock:
                     self._carry = self._deferred + self._carry
                     self._deferred.clear()
-                    if batch is None:
-                        # No batch to join: staged requests form the next.
+                    if self.sched is not None and self.sched.batches_live == 0:
+                        # No lane to join: staged requests form groups.
                         self._carry = self._admit + self._carry
                         self._admit.clear()
-                if batch is not None:
-                    with self._alock:
-                        room = (len(self._admit) + len(self._deferred)
-                                < self.max_batch)
-                    if not (room and len(self._carry) < self.max_batch):
-                        await asyncio.wait({batch}, timeout=0.05)
-                    else:
-                        get = asyncio.ensure_future(self._queue.get())
-                        await asyncio.wait(
-                            {batch, get}, return_when=asyncio.FIRST_COMPLETED
-                        )
-                        if not get.done():
-                            # The batch ended first: retract the pop
-                            # without losing an item it claims meanwhile.
-                            get.cancel()
-                            await asyncio.wait({get})
-                        if not get.cancelled():
-                            # Claimed: the finally must see it if the
-                            # fault point kills the collector here.
-                            reqs, get = [get.result()], None
-                            faults.fire("collector_pop")
-                            self._place(reqs.pop(), None if batch.done()
-                                        else running)
-                        get = None
-                    if batch.done():
-                        batch.result()  # _run_batch delivers its errors
-                        batch = running = None
-                    continue
                 if self._carry:
-                    reqs = [self._carry.pop(0)]
+                    # The earliest deadline seeds the group; deadline-
+                    # less carries keep FIFO order behind the deadlined.
+                    seed_i = min(
+                        range(len(self._carry)),
+                        key=lambda i: (self._carry[i].deadline is None,
+                                       self._carry[i].deadline or 0.0, i),
+                    )
+                    reqs = [self._carry.pop(seed_i)]
+                    self._forming = reqs
                     rest: list = []
                     for r in self._carry:
                         if (len(reqs) < self.max_batch
@@ -528,7 +707,26 @@ class TextGenerationEngine:
                             rest.append(r)
                     self._carry = rest
                 else:
-                    reqs = [await self._queue.get()]
+                    # A blocking pop, multiplexed with the kick: a wake
+                    # while the queue is idle re-runs the sweep above.
+                    get = asyncio.ensure_future(self._queue.get())
+                    kick = asyncio.ensure_future(self._kick.wait())
+                    await asyncio.wait({get, kick},
+                                       return_when=asyncio.FIRST_COMPLETED)
+                    kick.cancel()
+                    await asyncio.wait({kick})
+                    kick = None
+                    if not get.done():
+                        # The kick won: retract the pop without losing
+                        # an item it claims meanwhile.
+                        get.cancel()
+                        await asyncio.wait({get})
+                        if get.cancelled():
+                            get = None
+                            continue
+                    reqs = [get.result()]
+                    self._forming = reqs
+                    get = None
                     faults.fire("collector_pop")
                 deadline = loop.time() + self.max_wait_s
                 while len(reqs) < self.max_batch:
@@ -554,20 +752,20 @@ class TextGenerationEngine:
                     else:
                         self._carry.append(nxt)
                         break
-                # From here the batch owns its requests' terminal
-                # frames, even if this task is cancelled mid-run.
-                running, reqs = reqs, []
-                batch = loop.run_in_executor(
-                    self._executor, self._run_batch, running, True
-                )
+                await self._dispatch_group(reqs)
+                reqs = []
+                self._forming = None
         finally:
-            # Cancellation or a crash must not strand any waiter.
+            self._forming = None
+            # Cancellation or a crash strands no waiter: what was handed
+            # to the scheduler is its own to deliver (its stop()).
+            for fut in (kick, get):
+                if fut is not None and not fut.done():
+                    fut.cancel()
+            err = RuntimeError("generation engine stopped")
             queued = []
-            if get is not None:
-                if get.done() and not get.cancelled():
-                    queued.append(get.result())
-                else:
-                    get.cancel()
+            if get is not None and get.done() and not get.cancelled():
+                queued.append(get.result())
             if self._queue is not None:
                 while not self._queue.empty():
                     queued.append(self._queue.get_nowait())
@@ -577,10 +775,49 @@ class TextGenerationEngine:
                 self._deferred.clear()
             for r in (*reqs, *self._carry, *queued):
                 try:
-                    r.push(DrainCancelled())
+                    r.push(err)
                 except Exception:  # noqa: BLE001 — a dead loop
                     pass
             self._carry = []
+
+    async def _dispatch_group(self, reqs: list) -> None:
+        """Route one formed group to the cheapest seat:
+
+        1. a live lane whose window fits every request takes the group
+           at its next unit boundary (staged once: a joiner the lane
+           hands back comes here again and takes a lane of its own);
+        2. else the scheduler takes it as a pending group (at most one
+           ``max_batch`` of pending requests, so ``max_queue`` keeps
+           its meaning), laned in urgency order when a slot and the
+           page budget allow;
+        3. else wait for a kick (a lane retired, a joiner came back),
+           polling every 50 ms. The group stays in ``_forming`` all the
+           while, so drain() and the terminal sweep see it."""
+        while True:
+            sched = self.sched
+            if sched is None:
+                raise RuntimeError("scheduler stopped")
+            self._kick.clear()
+            with self._alock:
+                room = (self.max_batch - len(self._admit)
+                        - len(self._deferred) >= len(reqs))
+            if room and all(not r.staged for r in reqs):
+                for lane_reqs in sched.lane_groups():
+                    if lane_reqs and all(self._compatible(lane_reqs, r)
+                                         for r in reqs):
+                        for r in reqs:
+                            r.staged = True
+                        with self._alock:
+                            self._admit.extend(reqs)
+                        return
+            if sched.backlog < self.max_batch:
+                sched.submit(reqs)
+                return
+            waiter = asyncio.ensure_future(self._kick.wait())
+            try:
+                await asyncio.wait({waiter}, timeout=0.05)
+            finally:
+                waiter.cancel()
 
     def _check_collector(self) -> None:
         if self._task is None:
@@ -589,38 +826,85 @@ class TextGenerationEngine:
             exc = None if self._task.cancelled() else self._task.exception()
             raise RuntimeError(f"generation collector died: {exc!r}") from exc
 
+    def _shed_draining(self) -> OverloadedError:
+        self.shed_draining += 1
+        self.rejected += 1
+        return OverloadedError(
+            "generate", retry_after_s=self.drain_timeout_s,
+            detail="server draining: retry against another replica",
+        )
+
     async def submit(self, text: str, *, max_new_tokens: int | None = None,
                      temperature: float = 0.0, seed: int = 0,
                      top_k: int = 0, top_p: float = 1.0,
-                     prefix: str | None = None,
-                     stream: bool = False) -> GenRequest:
+                     prefix: str | None = None, stream: bool = False,
+                     deadline_ms: float | None = None) -> GenRequest:
         """Queue one prompt for batched decode; consume ``req.queue``
         for ``{"token_ids": [...]}`` chunks until the ``None`` sentinel
         (exceptions are delivered in-band). With ``prefix`` the prompt
         is ``prefix + text`` and the prefix's KV comes from the prefix
-        cache; an invalid prefix raises ``ValueError``."""
+        cache; an invalid prefix raises ``ValueError``.
+
+        ``deadline_ms`` is the request's wall-clock budget (the engine's
+        ``default_deadline_ms`` when None). The front door sheds with
+        :class:`OverloadedError` while draining, and a deadline the
+        admission estimate says cannot be met; queue pressure clamps
+        budgets (brownout rung 1) and evicts an idle prefix page set
+        (rung 2)."""
         self._check_collector()
+        if self.draining:
+            raise self._shed_draining()
         n_new = int(max_new_tokens or self.default_max_new_tokens)
+        if deadline_ms is None:
+            deadline_ms = self.default_deadline_ms
+        level = self._brownout_level()
+        if level >= 1 and n_new > self.default_max_new_tokens:
+            # Rung 1: bounded work per admitted request under pressure.
+            n_new = self.default_max_new_tokens
+            self.brownout_tokens_clamped += 1
         loop = asyncio.get_running_loop()
+        if level >= 2 and self.pool is not None:
+            # Rung 2: evict an idle (unreferenced) prefix page set, so
+            # live sequences keep allocating; off the event loop.
+            await loop.run_in_executor(None, self.pool.evict_idle, 1)
+        if self.admission_control and deadline_ms is not None \
+                and deadline_ms > 0:
+            est = self.admission_estimate_ms()
+            if est > deadline_ms:
+                # It would expire in the queue: shed now, and say when
+                # the backlog should have cleared.
+                self.shed_deadline_infeasible += 1
+                self.rejected += 1
+                raise OverloadedError(
+                    "generate",
+                    retry_after_s=max(1.0, (est - deadline_ms) / 1e3),
+                    detail=(f"deadline infeasible: estimated queue wait + "
+                            f"TTFT {est:.0f} ms exceeds the "
+                            f"{deadline_ms:.0f} ms budget"),
+                )
 
         def encode():
             return self._encode(
                 text, n_new, float(temperature), int(seed), loop,
                 int(top_k), float(top_p), prefix=prefix,
-                stream=bool(stream),
+                stream=bool(stream), deadline_ms=deadline_ms,
             )
 
         if prefix:
             # Off the event loop: a prefix's first use runs its prefill.
             req = await loop.run_in_executor(None, encode)
-            # The collector may have stopped during the await.
+            # The collector may have stopped, or a drain finished,
+            # during the await: no collector would pop this request.
             self._check_collector()
+            if self.draining:
+                raise self._shed_draining()
         else:
             req = encode()
         try:
             self._queue.put_nowait(req)
         except asyncio.QueueFull:
             self.rejected += 1
+            self.shed_queue_full += 1
             raise OverloadedError("generate") from None
         self.requests += 1
         return req

@@ -2,8 +2,9 @@
 
 A copy of ``mlapi_tpu/serving/faults.py`` restricted to the seams the
 port has: the page pool's allocation, an admission's table install,
-prefill-chunk dispatch, decode-chunk dispatch, the collector's queue
-pop and the per-request stream push. Tests and chaos
+prefill-chunk dispatch, decode-chunk dispatch, the unit scheduler's
+dispatch of each unit, the collector's queue pop and the per-request
+stream push. Tests and chaos
 drills force failures there and check that every stream still ends in
 a well-formed terminal frame and that the engine serves fresh work.
 
@@ -34,6 +35,8 @@ POINTS = (
     "table_install",   # a joiner's admission, after its page alloc
     "prefill_chunk",   # each chunked-prefill chunk dispatch
     "decode",          # each decode-chunk dispatch
+    "sched_unit",      # the unit scheduler, before each unit (formation
+                       # included): a raise kills that lane only
     "collector_pop",   # the collector claiming a queued request
     "stream_push",     # a token chunk entering a request's queue
 )

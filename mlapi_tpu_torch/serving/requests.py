@@ -4,8 +4,9 @@ Counterpart of ``mlapi_tpu/serving/requests.py``: one
 :class:`GenRequest` per in-flight generation (the handoff between the
 asyncio front and the device thread), :class:`_SyncSink` adapting the
 synchronous ``generate_text`` path onto the same batch machinery, the
-engine's :class:`LatencyStats` reservoirs, :class:`DrainCancelled`,
-the terminal frame of a stream the server stopped under, and
+engine's :class:`LatencyStats` reservoirs, the terminal frames
+:class:`DeadlineExceeded` (a request's deadline passed) and
+:class:`DrainCancelled` (the server stopped under a stream), and
 :class:`_PrefixEntry`, one cached shared-prompt prefix.
 """
 
@@ -17,6 +18,21 @@ import threading
 import time
 
 from mlapi_tpu_torch.serving import faults
+
+
+class DeadlineExceeded(Exception):
+    """A request's wall-clock deadline passed before its generation
+    finished: the stream's terminal frame (``"code":
+    "deadline_exceeded"``), a 504 on a unary request. ``stage`` names
+    the boundary that noticed: ``queued`` (never dispatched),
+    ``prefill`` or ``decode``, as the ``deadline_expired_{stage}``
+    counters split it."""
+
+    code = "deadline_exceeded"
+
+    def __init__(self, stage: str):
+        super().__init__(f"deadline exceeded while {stage}")
+        self.stage = stage
 
 
 class DrainCancelled(Exception):
@@ -91,12 +107,13 @@ class GenRequest:
         "row", "used", "n_new", "temperature", "seed", "queue", "loop",
         "cancelled", "top_k", "top_p", "stream", "prompt_tokens", "stats",
         "t0", "t_last", "prefix_fp", "prefix_kv", "prefix_len",
-        "prefix_lo",
+        "prefix_lo", "deadline", "staged",
     )
 
     def __init__(self, row, used, n_new, temperature, seed, loop,
                  top_k=0, top_p=1.0, prefix=None, stream=False,
-                 stats: LatencyStats | None = None):
+                 stats: LatencyStats | None = None,
+                 deadline_ms: float | None = None):
         self.row = row            # [bucket] int32 ids, left-padded
         self.used = used          # real prompt tokens in the row
         self.n_new = n_new
@@ -126,9 +143,17 @@ class GenRequest:
             self.prefix_lo = 0
         self.queue: asyncio.Queue = asyncio.Queue()
         self.cancelled = False    # set when the consumer disconnects
+        # Staged for a live lane's admission at most once: a joiner the
+        # lane hands back forms a group of its own instead.
+        self.staged = False
         self.stats = stats
         self.t0 = time.perf_counter()
         self.t_last: float | None = None
+        # Absolute expiry on the perf_counter clock, checked at every
+        # dispatch boundary (``engine._expire_if_due``); None: none.
+        self.deadline = (
+            self.t0 + deadline_ms / 1e3 if deadline_ms else None
+        )
 
     def push(self, item) -> None:
         """Thread-safe enqueue from the device thread."""

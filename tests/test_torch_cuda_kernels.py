@@ -1043,3 +1043,143 @@ def test_prefix_masks_match_plain_and_paged_equals_contiguous(
            - paged_plain(q, pk, pv, table, mask).float()).abs()[live].max()
     assert err.item() <= PREFIX_TOL, err
     assert torch.equal(pgot, got)
+
+
+# -- sampled tokens and the unit scheduler on the card (fault C4) --------
+
+SERVE_CFG = dict(vocab_size=260, hidden_size=128, num_layers=2, num_heads=4,
+                 max_positions=384, compute_dtype="bfloat16")
+SAMPLING = dict(temperature=0.9, top_k=40, top_p=0.95)
+# With a 256-byte prompt (2 chunks) a 136-token budget overruns the window.
+SHORT_NEW, LONG_TEXT = 136, ("a long prompt in two chunks. " * 9)[:256]
+
+
+def _serving_engine(card, page, kv_quant, sched=2):
+    from mlapi_tpu_torch.models.gpt import GptLM
+    from mlapi_tpu_torch.serving.engine import TextGenerationEngine
+    from mlapi_tpu_torch.text import ByteTokenizer
+
+    model = GptLM(**SERVE_CFG, seed=0, device=card)
+    model.configure(kv_quant=kv_quant, decode_attn_impl="flash")
+    # A pool of 8 full windows: the page budget never holds a lane back.
+    pages = 8 * -(-SERVE_CFG["max_positions"] // page) + 1 if page else None
+    return TextGenerationEngine(model, tokenizer=ByteTokenizer(),
+                                max_wait_ms=0.0, kv_page_size=page,
+                                kv_pages=pages, sched_max_batches=sched)
+
+
+def _serve(eng, specs, sched=2):
+    """Queue ``(text, n_new, sampling seed or None)`` requests together
+    (one group per window-compatible run, rows in order) on a started
+    engine; returns each stream and the scheduler's trace."""
+    import asyncio
+
+    async def run():
+        eng.sched_max_batches = sched
+        await eng.start()
+        try:
+            loop = asyncio.get_running_loop()
+            reqs = []
+            for text, n, seed in specs:
+                samp = SAMPLING if seed is not None else {}
+                reqs.append(eng._encode(
+                    text, n, samp.get("temperature", 0.0), seed or 0, loop,
+                    samp.get("top_k", 0), samp.get("top_p", 1.0),
+                    stream=True))
+            for r in reqs:
+                eng._queue.put_nowait(r)
+            outs = []
+            for r in reqs:
+                toks = []
+                while (item := await r.queue.get()) is not None:
+                    assert not isinstance(item, Exception), item
+                    toks += item["token_ids"]
+                outs.append(toks)
+            return outs, list(eng.sched.trace)
+        finally:
+            await eng.stop()
+
+    return asyncio.run(run())
+
+
+@pytest.mark.parametrize("page,kv_quant", [(None, "none"), (16, "int8")])
+def test_sampled_streams_keep_their_contract_on_the_card(card, page,
+                                                         kv_quant):
+    """``_pick_token``'s contract on the card: the same seed gives the
+    same stream; a row's stream is the same in slot 0 and slot 3 and
+    beside other batch mates (same shapes), and the same at
+    ``--sched-max-batches`` 1 and 2 (the same batches); a stop string
+    ends the answer where the text says."""
+    import json
+    import urllib.request
+
+    from mlapi_tpu_torch.serving.app import build_app
+    from mlapi_tpu_torch.serving.server import BackgroundServer
+
+    eng = _serving_engine(card, page, kv_quant)
+    me = ("sample a stream", 32, 11)
+    mates = [("mate one", 32, 3), ("mate two", 32, 4), ("mate three", 32, 5)]
+    others = [("other a", 32, 6), ("other b", 32, 7), ("other c", 32, 8)]
+    alone = _serve(eng, [me])[0][0]
+    assert alone == _serve(eng, [me])[0][0]
+    assert alone != _serve(eng, [(me[0], 32, 12)])[0][0]
+    first = _serve(eng, [me] + mates)[0][0]
+    assert first == _serve(eng, mates + [me])[0][3]
+    assert first == _serve(eng, [me] + others)[0][0]
+    pair = [("sample a stream", SHORT_NEW, 11), (LONG_TEXT, 8, None)]
+    (serial, _), (two, trace) = (_serve(eng, pair, 1), _serve(eng, pair, 2))
+    assert serial == two and eng.sched_batches_live_max == 2
+    body = {"text": me[0], "seed": 11, "max_new_tokens": 32, **SAMPLING}
+
+    def post(b):
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{srv.port}/generate",
+            data=json.dumps(b).encode(),
+            headers={"content-type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return json.loads(r.read())
+
+    with BackgroundServer(build_app(eng)) as srv:
+        full = post(body)
+        assert full["token_ids"] == alone
+        text = full["text"]
+        stop = next(c for c in text[4:] if c.isalnum())
+        out = post({**body, "stop": stop})
+    assert out["text"] == text[:text.find(stop)] and out["stopped"] == stop
+    assert out["token_ids"] == alone[:len(out["token_ids"])]
+
+
+@pytest.mark.parametrize("page,kv_quant", [(None, "none"), (16, "int8")])
+def test_launches_are_exact_summed_over_lanes(card, page, kv_quant):
+    """Two window-incompatible groups live at once (a long prompt's 2
+    chunks through B2/B4): flash-decode exactly one launch per layer per
+    decode step summed over both lanes, flash-extend one per layer per
+    prefill chunk, no other kernel."""
+    eng = _serving_engine(card, page, kv_quant)
+    decode, extend = ((kern.paged_decode_attention,
+                       kern.paged_extend_attention) if page else
+                      (kern.decode_attention, kern.extend_attention))
+    steps = [0]
+    step = eng.model.decode_step
+
+    def counted(*args, **kwargs):
+        steps[0] += 1
+        return step(*args, **kwargs)
+
+    eng.model.decode_step = counted
+    fns = (kern.decode_attention, kern.extend_attention,
+           kern.paged_decode_attention, kern.paged_extend_attention)
+    n0 = [f.launches for f in fns]
+    chunks0 = eng.prefill_chunks
+    outs, trace = _serve(eng, [(f"short {i}", SHORT_NEW, None)
+                               for i in range(4)] + [(LONG_TEXT, 8, None)])
+    assert [len(o) for o in outs] == [SHORT_NEW] * 4 + [8]
+    assert eng.sched_batches_live_max == 2
+    lanes = [lane for lane, _ in trace]
+    assert sum(a != b for a, b in zip(lanes, lanes[1:])) >= 2
+    layers = SERVE_CFG["num_layers"]
+    launched = [f.launches - n for f, n in zip(fns, n0)]
+    want = {decode: layers * steps[0],
+            extend: layers * (eng.prefill_chunks - chunks0)}
+    assert eng.prefill_chunks - chunks0 == 2
+    assert launched == [want.get(f, 0) for f in fns]

@@ -140,14 +140,19 @@ def test_http_generate_stream_healthz_metrics(ckpt):
                            ({"text": "x", "top_k": "many"}, "top_k"),
                            # A prefix too long for the window (the
                            # field is served since the prefix slice);
-                           # a field the port does not serve yet.
+                           # fields the port does not serve yet.
                            ({"text": "x", "prefix": "p" * 4096}, "prefix"),
-                           ({"text": "x", "adapter": "a"}, "adapter")):
+                           ({"text": "x", "adapter": "a"}, "adapter"),
+                           ({"text": "x", "tenant": "t"}, "tenant")):
             with pytest.raises(urllib.error.HTTPError) as e:
                 _post(srv.port, bad)
             assert e.value.code == 422
             detail = json.loads(e.value.read())["detail"]
             assert detail[0]["loc"] == [field]
+        # deadline_ms is a served field since the scheduler slice.
+        status, body = _post(srv.port, {"text": "over http", "max_new_tokens":
+                                        10, "deadline_ms": 60000})
+        assert status == 200 and json.loads(body)["token_ids"] == want
 
 
 def test_stop_strings_and_window_incompatible_requests(ckpt):
@@ -237,6 +242,8 @@ TRAINING_SLICE = (
     # The Llama slice.
     "mlapi_tpu_torch/models/llama.py", "mlapi_tpu_torch/datasets/_corpus.py",
     "mlapi_tpu_torch/datasets/textlm.py",
+    # The scheduler slice.
+    "mlapi_tpu_torch/serving/scheduler.py",
 )
 
 
