@@ -170,12 +170,40 @@ the JAX package. Phases, each fatal on failure:
    and flash-extend one per layer per prefill chunk, summed over lanes;
    pages settle at the prefix entries' pages. An informational row per
    engine gives the two-group load's TTFT p50 of the short group,
-   inter-token p50 and device-busy share at 1 and at 2.
+   inter-token p50 and device-busy share at 1 and at 2;
+10. the scoring path (``/predict``, ``/files/``), run inside phase 5's
+    checkpoint directory: ``iris-linear`` trained on the card through
+    the train CLI's ``run`` (test accuracy >= 0.9667, the reference's)
+    and served by ``python -m mlapi_tpu_torch.serving --checkpoint`` as
+    a subprocess (``--max-wait-ms 20``): the 30 test rows one at a time
+    and all at once, labels equal to the checkpoint's plain forward on
+    the CPU and probabilities within 1e-5, the burst in at most
+    ceil(30 / 512) + 1 device calls, a ``/files/`` round trip,
+    ``/healthz`` and a 422; then a closed-loop ``/predict`` load at
+    batch 1 (16 clients, 2000 requests, req/s, p50/p99) on a server at
+    the default window. Phase 4's sst2-bert checkpoint served through
+    a TextClassificationEngine and the HTTP app: 64 concurrent texts,
+    B5 exactly 12 launches per device call, all ``mma``, no other
+    attention kernel; labels equal to the same weights with full
+    attention on the card (near ties reported), max-probabilities
+    within 2e-2; one 64-row batch's wall and profiled device time. A
+    Wide&Deep checkpoint at the criteo-widedeep preset's widths (seed
+    0): 256 criteo rows through ``/predict``, held to the plain forward
+    on the card (probabilities within 2e-2). One server process with
+    GPT-2 small (flash, paged 16) as the default and sst2-bert as
+    ``--model clf=...``: 8 greedy streams alone, then with 64
+    ``/models/clf/predict`` texts at once: the same streams, and
+    ``generate.sched_units_score`` > 0 and equal to the classifier's
+    ``sched_dispatches`` and ``device_calls``, 12 B5 launches per
+    scoring batch. B5 at the serving shapes (B = 1, 64, 512, L = 128,
+    12 heads of 64, bf16, sst2 key masks, a quarter of bucket-padding
+    rows dead): kernel, device, plain and SDPA ms beside the bound, max
+    error on live rows, exact zeros on dead ones.
 
 Stdout: one JSON line per kernel case, per training and serving run,
 then the run's seconds, the ``{"kernels": [...]}`` summary (B1-B7; each
 kernel's ``launches_per_path`` holds the GPT and Llama paths, the
-scheduler phase's included), the ``nvidia-smi``
+scheduler phase's included, and B5's the scoring legs'), the ``nvidia-smi``
 line, and last ``{"ok": true, "device": {...}}``. Without a card, or
 outside the repo, it exits non-zero and prints no result.
 """
@@ -185,6 +213,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -281,12 +310,32 @@ def graph_ms(calls, iters: int = 30) -> float:
     return _events_ms(lambda i: graphs[i % len(graphs)].replay(), iters)
 
 
-def profiled_ms(calls, iters: int = 12, only: str = "") -> float:
-    """Device time per call: the calls (in turn, after a warm-up) under
-    ``torch.profiler``, the durations of the CUDA kernels they launched
-    (those whose name holds ``only``) summed and divided by the calls --
-    the kernels alone, without the gap that separates two graph
-    replays."""
+def zero_counters() -> None:
+    """Every wrapper's launch count and per-body counts to 0."""
+    from mlapi_tpu_torch.ops import cuda as kern
+
+    for name in KERNELS:
+        getattr(kern, name).launches = 0
+    for name in FLASH:
+        getattr(kern, name).bodies = {"mma": 0, "fma": 0}
+    for name in SERVING:
+        getattr(kern, name).bodies = {"mma": 0, "fma": 0, "decode": 0}
+
+
+def read_counters(group=None) -> tuple[dict, dict]:
+    """(launches of every kernel, per-body counts of ``group``'s
+    kernels; FLASH by default)."""
+    from mlapi_tpu_torch.ops import cuda as kern
+
+    return ({name: getattr(kern, name).launches for name in KERNELS},
+            {name: dict(getattr(kern, name).bodies)
+             for name in (group or FLASH)})
+
+
+def profiled_kernels(calls, iters: int = 12) -> dict:
+    """The calls (in turn, after a warm-up) under ``torch.profiler``:
+    ``{kernel name: [events, device us]}`` of the CUDA kernels and copies
+    they launched."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -297,8 +346,20 @@ def profiled_ms(calls, iters: int = 12, only: str = "") -> float:
         for i in range(iters):
             calls[i % len(calls)]()
         torch.cuda.synchronize()
-    us = sum(e.device_time_total for e in device_kernels(prof)
-             if only in e.name)
+    out: dict = {}
+    for e in device_kernels(prof):
+        n, us = out.setdefault(e.name, [0, 0.0])
+        out[e.name] = [n + 1, us + e.device_time_total]
+    return out
+
+
+def profiled_ms(calls, iters: int = 12, only: str = "") -> float:
+    """Device time per call: the durations of the kernels the calls
+    launched under :func:`profiled_kernels` (those whose name holds
+    ``only``) summed and divided by the calls -- the kernels alone,
+    without the gap that separates two graph replays."""
+    us = sum(t for name, (_, t) in profiled_kernels(calls, iters).items()
+             if only in name)
     return us / 1e3 / iters
 
 
@@ -730,21 +791,64 @@ def make_checkpoint(path: Path) -> Path:
 
 
 def post(port: int, body: dict, timeout: float = 300.0) -> bytes:
-    req = urllib.request.Request(
-        f"http://127.0.0.1:{port}/generate", data=json.dumps(body).encode(),
-        headers={"content-type": "application/json"},
-    )
-    with urllib.request.urlopen(req, timeout=timeout) as r:
-        if r.status != 200:
-            raise SystemExit(f"/generate answered {r.status}")
-        return r.read()
+    status, out = http(port, "POST", "/generate", json.dumps(body).encode(),
+                       timeout=timeout)
+    if status != 200:
+        raise SystemExit(f"/generate answered {status}: {out[:300]!r}")
+    return out
 
 
 def get(port: int, path: str) -> dict:
-    with urllib.request.urlopen(
-        f"http://127.0.0.1:{port}{path}", timeout=60
-    ) as r:
-        return json.loads(r.read())
+    status, out = http(port, "GET", path, timeout=60)
+    if status != 200:   # an OSError, as urllib raised it: spawn_server waits
+        raise OSError(f"GET {path} answered {status}")
+    return json.loads(out)
+
+
+def http(port: int, method: str, path: str, body: bytes | None = None,
+         ctype: str = "application/json",
+         timeout: float = 300.0) -> tuple[int, bytes]:
+    """(status, body) of one request; an HTTP error status is returned,
+    not raised."""
+    import urllib.error
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=body, method=method,
+        headers={"content-type": ctype} if body is not None else {})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def at_once(fn, items, workers: int | None = None,
+            what: str = "concurrent requests") -> list:
+    """``fn(item)`` for every item, all released together by a barrier
+    (``workers`` threads at most, each taking items in turn)."""
+    n = len(items)
+    workers = min(workers or n, n)
+    outs: list = [None] * n
+    errors: list = []
+    barrier = threading.Barrier(workers)
+
+    def run(w):
+        barrier.wait()
+        for i in range(w, n, workers):
+            try:
+                outs[i] = fn(items[i])
+            except BaseException as e:  # reported below
+                errors.append(repr(e))
+
+    threads = [threading.Thread(target=run, args=(w,))
+               for w in range(workers)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    if errors or any(t.is_alive() for t in threads):
+        raise SystemExit(f"{what} failed: {errors[:3]}")
+    return outs
 
 
 SHORT_PROMPTS = [
@@ -788,41 +892,26 @@ def long_leg(port: int):
 def concurrent_streams(port: int, bodies: list, what: str):
     """The request bodies sent at once as NDJSON streams: per request the
     wall ms to its first line (TTFT) and its done line."""
-    ttft: list = [None] * len(bodies)
-    done: list = [None] * len(bodies)
-    errors: list = []
-    barrier = threading.Barrier(len(bodies))
 
-    def one(i):
-        try:
-            req = urllib.request.Request(
-                f"http://127.0.0.1:{port}/generate",
-                data=json.dumps({**bodies[i], "stream": True}).encode(),
-                headers={"content-type": "application/json"},
-            )
-            barrier.wait()
-            t0 = time.perf_counter()
-            with urllib.request.urlopen(req, timeout=300) as r:
-                lines = [json.loads(r.readline())]
-                ttft[i] = (time.perf_counter() - t0) * 1e3
-                lines += [json.loads(x) for x in r.read().decode().splitlines()
-                          if x.strip()]
-            streamed = [t for x in lines[:-1] for t in x["token_ids"]]
-            if not lines[-1].get("done") or streamed != lines[-1]["token_ids"]:
-                raise ValueError("NDJSON chunks disagree with the done line")
-            done[i] = lines[-1]
-        except BaseException as e:  # reported below
-            errors.append(repr(e))
+    def one(body):
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/generate",
+            data=json.dumps({**body, "stream": True}).encode(),
+            headers={"content-type": "application/json"},
+        )
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=300) as r:
+            lines = [json.loads(r.readline())]
+            ttft = (time.perf_counter() - t0) * 1e3
+            lines += [json.loads(x) for x in r.read().decode().splitlines()
+                      if x.strip()]
+        streamed = [t for x in lines[:-1] for t in x["token_ids"]]
+        if not lines[-1].get("done") or streamed != lines[-1]["token_ids"]:
+            raise ValueError("NDJSON chunks disagree with the done line")
+        return ttft, lines[-1]
 
-    threads = [threading.Thread(target=one, args=(i,))
-               for i in range(len(bodies))]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join(600)
-    if errors or any(d is None for d in done):
-        raise SystemExit(f"{what}: requests failed: {errors}")
-    return ttft, done
+    outs = at_once(one, bodies, what=what)
+    return [o[0] for o in outs], [o[1] for o in outs]
 
 
 def admission_leg(port: int):
@@ -879,7 +968,6 @@ def serve_run(ckpt: Path, kv_quant, page, cfg=GPT2_SMALL, model="gpt2-small"):
     and the engine."""
     import statistics
 
-    from mlapi_tpu_torch.ops import cuda as kern
     from mlapi_tpu_torch.serving.__main__ import build_engine
     from mlapi_tpu_torch.serving.app import build_app
     from mlapi_tpu_torch.serving.server import BackgroundServer
@@ -914,36 +1002,14 @@ def serve_run(ckpt: Path, kv_quant, page, cfg=GPT2_SMALL, model="gpt2-small"):
 
     engine.model.decode_step = counted_step
     with BackgroundServer(build_app(engine)) as srv:
-        for name in KERNELS:
-            getattr(kern, name).launches = 0
-        for name in SERVING:
-            getattr(kern, name).bodies = {"mma": 0, "fma": 0, "decode": 0}
+        zero_counters()
         steps[0] = 0
         all_chunks0 = engine.prefill_chunks
         batches0 = engine.batch_calls
         t0 = time.perf_counter()
-        outs: list = [None] * len(SHORT_PROMPTS)
-        errors: list = []
-        barrier = threading.Barrier(len(SHORT_PROMPTS))
-
-        def one(i):
-            try:
-                barrier.wait()
-                outs[i] = json.loads(post(srv.port, {
-                    "text": SHORT_PROMPTS[i], "max_new_tokens": n_new,
-                }))
-            except BaseException as e:  # reported below
-                errors.append(repr(e))
-
-        threads = [threading.Thread(target=one, args=(i,))
-                   for i in range(len(SHORT_PROMPTS))]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(600)
+        outs = at_once(lambda text: json.loads(post(srv.port, {
+            "text": text, "max_new_tokens": n_new})), SHORT_PROMPTS)
         batch_s = time.perf_counter() - t0
-        if errors or any(o is None for o in outs):
-            raise SystemExit(f"concurrent requests failed: {errors}")
         short_batches = engine.batch_calls - batches0
         stream = post(srv.port, {"text": "stream this", "stream": True,
                                  "max_new_tokens": n_new}).decode()
@@ -963,8 +1029,7 @@ def serve_run(ckpt: Path, kv_quant, page, cfg=GPT2_SMALL, model="gpt2-small"):
         leg_chunks = engine.prefill_chunks - chunks0
         leg_batches = engine.batch_calls - batches0
         all_chunks = engine.prefill_chunks - all_chunks0
-        launches = {name: getattr(kern, name).launches for name in KERNELS}
-        bodies = {name: dict(getattr(kern, name).bodies) for name in SERVING}
+        launches, bodies = read_counters(SERVING)
         decode_steps = steps[0]
         # Pages go back on the device thread after the terminal frames.
         deadline = time.monotonic() + 60.0
@@ -1503,7 +1568,6 @@ def prefix_leg(engine, cfg, model: str, power) -> dict:
     top-1 agreement with einsum over the cold round's prompts."""
     import statistics
 
-    from mlapi_tpu_torch.ops import cuda as kern
     from mlapi_tpu_torch.ops.quant import kv_tree_bytes
     from mlapi_tpu_torch.serving.app import build_app
     from mlapi_tpu_torch.serving.server import BackgroundServer
@@ -1536,10 +1600,7 @@ def prefix_leg(engine, cfg, model: str, power) -> dict:
     engine.model.decode_step = counted_step
     t_leg = time.perf_counter()
     with BackgroundServer(build_app(engine)) as srv:
-        for name in KERNELS:
-            getattr(kern, name).launches = 0
-        for name in SERVING:
-            getattr(kern, name).bodies = {"mma": 0, "fma": 0, "decode": 0}
+        zero_counters()
         steps[0] = 0
         b0 = engine.batch_calls
         cold_ttft, cold = concurrent_streams(
@@ -1555,9 +1616,7 @@ def prefix_leg(engine, cfg, model: str, power) -> dict:
         cross_ttft, cross = concurrent_streams(
             srv.port, bodies([PREFIX_A, PREFIX_B] * 4), "cross-prefix round")
         formations = engine.batch_calls - b0
-        launches = {name: getattr(kern, name).launches for name in KERNELS}
-        bodies_ran = {name: dict(getattr(kern, name).bodies)
-                      for name in SERVING}
+        launches, bodies_ran = read_counters(SERVING)
         decode_steps, shared_max = steps[0], shared[0]
         # Rows drop their holds on the device thread after the terminal
         # frames; the entries keep theirs.
@@ -1938,7 +1997,6 @@ def sched_leg(engine, cfg, model: str, power) -> dict:
     pages."""
     import asyncio
 
-    from mlapi_tpu_torch.ops import cuda as kern
     from mlapi_tpu_torch.serving.requests import (
         DeadlineExceeded, DrainCancelled,
     )
@@ -1957,10 +2015,7 @@ def sched_leg(engine, cfg, model: str, power) -> dict:
     t_leg = time.perf_counter()
     resident = entry_pages(engine)
     engine.model.decode_step = counted_step
-    for name in KERNELS:
-        getattr(kern, name).launches = 0
-    for name in SERVING:
-        getattr(kern, name).bodies = {"mma": 0, "fma": 0, "decode": 0}
+    zero_counters()
     chunks0 = engine.prefill_chunks
     try:
         # Deadlines: 8 rows whose budgets outlast the deadline.
@@ -2080,8 +2135,7 @@ def sched_leg(engine, cfg, model: str, power) -> dict:
             time.sleep(0.01)
     finally:
         del engine.model.decode_step        # the class's method again
-    launches = {name: getattr(kern, name).launches for name in KERNELS}
-    bodies = {name: dict(getattr(kern, name).bodies) for name in SERVING}
+    launches, bodies = read_counters(SERVING)
     decode_steps, chunks = steps[0], engine.prefill_chunks - chunks0
     extend, decode = mine[1], mine[0]
     info = {str(s): {k: load[s][k] for k in (
@@ -2694,39 +2748,32 @@ def batch_tensors(x, y):
             torch.as_tensor(y).long().to("cuda"))
 
 
-def train_run(cfg, splits):
+def train_run(cfg, splits, out: Path):
     """The sst2-bert preset through the train CLI's ``run`` at full width
     for SST2_STEPS steps, then its test-set evaluation; the launch
     counters zeroed just before and read just after. The checkpoint it
-    writes is read back."""
+    writes at ``out`` is read back (and served in phase 10)."""
     import dataclasses
     import statistics
 
     from mlapi_tpu_torch.checkpoint import load_checkpoint, tree_signature
     from mlapi_tpu_torch.models import get_model
-    from mlapi_tpu_torch.ops import cuda as kern
     from mlapi_tpu_torch.train.__main__ import run
 
     cfg = dataclasses.replace(cfg, steps=SST2_STEPS)
-    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
-        out = Path(tmp) / "sst2-bert"
-        for name in KERNELS:
-            getattr(kern, name).launches = 0
-        for name in FLASH:
-            getattr(kern, name).bodies = {"mma": 0, "fma": 0}
-        t0 = time.perf_counter()
-        summary = run(cfg, str(out))
-        run_s = time.perf_counter() - t0
-        launches = {name: getattr(kern, name).launches for name in KERNELS}
-        bodies = {name: dict(getattr(kern, name).bodies) for name in FLASH}
-        model = get_model(cfg.model, **cfg.model_kwargs, seed=None,
-                          device="cpu")
-        state, meta = load_checkpoint(out, model)   # checks the signature
-        model.load_state_dict(state)
-        ckpt_ok = (meta.vocab is not None
-                   and meta.vocab.labels == splits.vocab.labels
-                   and meta.tree_signature == tree_signature(model)
-                   and meta.step == SST2_STEPS)
+    zero_counters()
+    t0 = time.perf_counter()
+    summary = run(cfg, str(out))
+    run_s = time.perf_counter() - t0
+    launches, bodies = read_counters()
+    model = get_model(cfg.model, **cfg.model_kwargs, seed=None,
+                      device="cpu")
+    state, meta = load_checkpoint(out, model)   # checks the signature
+    model.load_state_dict(state)
+    ckpt_ok = (meta.vocab is not None
+               and meta.vocab.labels == splits.vocab.labels
+               and meta.tree_signature == tree_signature(model)
+               and meta.step == SST2_STEPS)
     layers = model.num_layers
     eval_batches = math.ceil(len(splits.x_test) / 4096)
     want = {name: 0 for name in SERVING}
@@ -2922,7 +2969,6 @@ def llama_flash_vs_full(ckpt: Path):
     from mlapi_tpu_torch.checkpoint import load_checkpoint
     from mlapi_tpu_torch.datasets import get_dataset
     from mlapi_tpu_torch.models import get_model
-    from mlapi_tpu_torch.ops import cuda as kern
 
     t0 = time.perf_counter()
     model = get_model("llama_lm", **TINYLLAMA, seed=None, device="cpu")
@@ -2939,10 +2985,7 @@ def llama_flash_vs_full(ckpt: Path):
     losses, grads = {}, {}
     for impl in ("flash", "full"):
         model.attention_impl = impl
-        for name in KERNELS:
-            getattr(kern, name).launches = 0
-        for name in FLASH:
-            getattr(kern, name).bodies = {"mma": 0, "fma": 0}
+        zero_counters()
         logits = model.apply(x)
         ce = F.cross_entropy(logits[:, :-1].transpose(1, 2), targets,
                              reduction="none")
@@ -2953,8 +2996,7 @@ def llama_flash_vs_full(ckpt: Path):
         grads[impl] = {k: p.grad for k, p in model.named_parameters()}
         model.zero_grad(set_to_none=True)
         if impl == "flash":
-            launches = {name: getattr(kern, name).launches for name in KERNELS}
-            bodies = {name: dict(getattr(kern, name).bodies) for name in FLASH}
+            launches, bodies = read_counters()
     rel = {
         k: float((grads["flash"][k] - g).norm() / g.norm().clamp_min(1e-30))
         for k, g in grads["full"].items()
@@ -2999,7 +3041,6 @@ def llama_train_run():
     from mlapi_tpu_torch.config import get_preset
     from mlapi_tpu_torch.datasets import get_dataset
     from mlapi_tpu_torch.models import get_model
-    from mlapi_tpu_torch.ops import cuda as kern
     from mlapi_tpu_torch.serving.__main__ import build_engine
     from mlapi_tpu_torch.text import ByteTokenizer
     from mlapi_tpu_torch.train.__main__ import run
@@ -3012,15 +3053,11 @@ def llama_train_run():
         model_kwargs={**cfg.model_kwargs, "attention_impl": "flash"})
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         out = Path(tmp) / "docs-llama"
-        for name in KERNELS:
-            getattr(kern, name).launches = 0
-        for name in FLASH:
-            getattr(kern, name).bodies = {"mma": 0, "fma": 0}
+        zero_counters()
         t0 = time.perf_counter()
         summary = run(cfg, str(out))
         run_s = time.perf_counter() - t0
-        launches = {name: getattr(kern, name).launches for name in KERNELS}
-        bodies = {name: dict(getattr(kern, name).bodies) for name in FLASH}
+        launches, bodies = read_counters()
         model = get_model(cfg.model, **cfg.model_kwargs, seed=None,
                           device="cpu")
         _, meta = load_checkpoint(out, model)     # checks the signature
@@ -3138,6 +3175,637 @@ def llama_phases(scratch: Path, launches: dict, power) -> dict:
     return train_row
 
 
+# -- 10. the scoring path --------------------------------------------------
+
+# The reference's held-out Iris accuracy (tests/test_linear_iris.py:4).
+IRIS_MIN_ACCURACY = 0.9666666666666667
+CLOSED_LOOP_CLIENTS, CLOSED_LOOP_REQUESTS = 16, 2000
+# The criteo-widedeep preset's widths (mlapi_tpu_torch/config.py).
+CRITEO_WIDE_DEEP = dict(num_dense=13, vocab_sizes=[100_000] * 26,
+                        embed_dim=16, hidden_dims=[256, 128], num_classes=2)
+SCORE_TEXTS = 64                 # concurrent sst2-bert /predict texts
+B5_SERVING_BATCHES = (1, 64, 512)
+B5_PROFILED_CALLS = 12
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def spawn_server(args: list, log: Path):
+    """``python -m mlapi_tpu_torch.serving ARGS`` on a free port, its
+    output in ``log``; returns (process, port) once ``/healthz`` answers
+    ok. The caller stops it with :func:`stop_server`."""
+    port = free_port()
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    out = open(log, "wb")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "mlapi_tpu_torch.serving", *args,
+         "--port", str(port)], cwd=ROOT, env=env, stdout=out,
+        stderr=subprocess.STDOUT,
+    )
+    out.close()
+    deadline = time.monotonic() + 600
+    while time.monotonic() < deadline:
+        if proc.poll() is not None:
+            raise SystemExit(f"server {args} exited {proc.returncode}: "
+                             f"{log.read_text()[-3000:]}")
+        try:
+            if get(port, "/healthz")["status"] == "ok":
+                return proc, port
+        except OSError:
+            pass
+        time.sleep(0.2)
+    stop_server(proc)
+    raise SystemExit(f"server {args} did not come up: "
+                     f"{log.read_text()[-3000:]}")
+
+
+def stop_server(proc) -> None:
+    import signal
+
+    if proc.poll() is None:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            proc.wait(60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(30)
+
+
+def predict(port: int, body: dict, path: str = "/predict") -> dict:
+    status, out = http(port, "POST", path, json.dumps(body).encode())
+    if status != 200:
+        raise SystemExit(f"{path} answered {status}: {out[:300]!r}")
+    return json.loads(out)
+
+
+def closed_loop(port: int, bodies: list, clients: int, total: int) -> dict:
+    """A closed-loop load: ``clients`` threads, each on its own
+    keep-alive connection, sending ``/predict`` bodies in turn until
+    ``total`` requests have answered; each request's latency from its
+    send to its answer."""
+    import http.client
+
+    lock = threading.Lock()
+    sent = [0]
+    lat: list = []
+    errors: list = []
+    barrier = threading.Barrier(clients + 1)
+
+    def client():
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        barrier.wait()
+        while True:
+            with lock:
+                i = sent[0]
+                sent[0] += 1
+            if i >= total:
+                break
+            t0 = time.perf_counter()
+            conn.request("POST", "/predict", body=bodies[i % len(bodies)],
+                         headers={"content-type": "application/json"})
+            r = conn.getresponse()
+            r.read()
+            ms = (time.perf_counter() - t0) * 1e3
+            with lock:
+                lat.append(ms)
+                if r.status != 200:
+                    errors.append(r.status)
+        conn.close()
+
+    threads = [threading.Thread(target=client) for _ in range(clients)]
+    for t in threads:
+        t.start()
+    barrier.wait()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join(600)
+    wall = time.perf_counter() - t0
+    if errors or len(lat) != total:
+        raise SystemExit(f"closed loop: {len(lat)} answers, errors "
+                         f"{errors[:5]}")
+    lat.sort()
+    return {"clients": clients, "requests": total, "seconds": wall,
+            "req_per_s": total / wall, "p50_ms": lat[total // 2],
+            "p99_ms": lat[int(total * 0.99) - 1]}
+
+
+def multipart_body(fields: dict, files: dict) -> tuple[bytes, str]:
+    boundary = "mlapi-chip-smoke-boundary"
+    parts = []
+    for name, value in fields.items():
+        parts.append(f'--{boundary}\r\ncontent-disposition: form-data; '
+                     f'name="{name}"\r\n\r\n{value}\r\n'.encode())
+    for name, (filename, data) in files.items():
+        parts.append(f'--{boundary}\r\ncontent-disposition: form-data; '
+                     f'name="{name}"; filename="{filename}"\r\n'
+                     f'content-type: text/csv\r\n\r\n'.encode()
+                     + data + b"\r\n")
+    return (b"".join(parts) + f"--{boundary}--\r\n".encode(),
+            f"multipart/form-data; boundary={boundary}")
+
+
+def iris_leg(scratch: Path, power) -> dict:
+    """``iris-linear`` trained on the card through the train CLI's
+    ``run``, then served by ``python -m mlapi_tpu_torch.serving`` as a
+    subprocess: the 30 test rows one at a time and all at once (labels
+    equal to the checkpoint's plain forward on the CPU, probabilities
+    within 1e-5; the burst in at most ceil(30 / max_batch) + 1 device
+    calls), a ``/files/`` round trip, ``/healthz`` and a 422; then a
+    closed-loop ``/predict`` load at batch 1 on a server at the default
+    batch window (informational)."""
+    import numpy as np
+    import torch
+
+    from mlapi_tpu_torch.checkpoint import load_checkpoint
+    from mlapi_tpu_torch.config import get_preset
+    from mlapi_tpu_torch.datasets import get_dataset
+    from mlapi_tpu_torch.models import get_model
+    from mlapi_tpu_torch.train.__main__ import run
+
+    ckpt = scratch / "iris-linear"
+    t0 = time.perf_counter()
+    summary = run(get_preset("iris-linear"), str(ckpt))
+    train_s = time.perf_counter() - t0
+    if summary["device"] != "cuda:0" or not (
+            summary["test_accuracy"] >= IRIS_MIN_ACCURACY):
+        raise SystemExit(f"iris-linear: {summary['test_accuracy']} on "
+                         f"{summary['device']}, want >= "
+                         f"{IRIS_MIN_ACCURACY} on the card")
+    splits = get_dataset("iris")
+    names = splits.feature_names
+    rows = splits.x_test
+    model = get_model("linear", num_features=4, num_classes=3, seed=None,
+                      device="cpu")
+    state, meta = load_checkpoint(ckpt, model)
+    model.load_state_dict(state)
+    with torch.no_grad():
+        probs = torch.softmax(model.apply(torch.as_tensor(rows)), -1)
+    want = [(meta.vocab.labels[int(i)], float(p))
+            for i, p in zip(probs.argmax(-1), probs.max(-1).values)]
+    bodies = [{n: float(v) for n, v in zip(names, r)} for r in rows]
+
+    proc, port = spawn_server(["--checkpoint", str(ckpt),
+                               "--max-wait-ms", "20"],
+                              scratch / "iris_server.log")
+    try:
+        single = [predict(port, b) for b in bodies]
+        calls0 = get(port, "/metrics")["counters"]["batcher.device_calls"]
+        burst = at_once(lambda b: predict(port, b), bodies)
+        calls = (get(port, "/metrics")["counters"]["batcher.device_calls"]
+                 - calls0)
+        csv = ("sepal_length,sepal_width,petal_length,petal_width,species\n"
+               + "".join(",".join(f"{v:g}" for v in r)
+                         + f",{meta.vocab.labels[int(y)]}\n"
+                         for r, y in zip(rows, splits.y_test))).encode()
+        body, ctype = multipart_body({"token": "tok"},
+                                     {"file": ("iris.csv", csv)})
+        files_status, files_out = http(port, "POST", "/files/", body, ctype)
+        health = get(port, "/healthz")
+        bad_status, bad_out = http(port, "POST", "/predict", json.dumps(
+            {k: v for k, v in bodies[0].items() if k != "petal_width"}
+        ).encode())
+    finally:
+        stop_server(proc)
+    max_batch = 512
+    err = max(abs(g["probability"] - p)
+              for got in (single, burst) for g, (_, p) in zip(got, want))
+    labels_ok = all([g["prediction"] for g in got] == [w for w, _ in want]
+                    for got in (single, burst))
+    files = json.loads(files_out) if files_status == 200 else {}
+    fecho = files.get("file", {})
+    files_ok = (files.get("token") == "tok" and fecho.get("rows") == 30
+                and fecho.get("columns") == [*names, "species"]
+                and fecho["records"][0]["species"]
+                == meta.vocab.labels[int(splits.y_test[0])]
+                and fecho["truncated"] is False)
+    bad = json.loads(bad_out)["detail"] if bad_status == 422 else None
+
+    proc, port = spawn_server(["--checkpoint", str(ckpt)],
+                              scratch / "iris_server_default.log")
+    try:
+        raw = [json.dumps(b).encode() for b in bodies]
+        load = closed_loop(port, raw, CLOSED_LOOP_CLIENTS,
+                           CLOSED_LOOP_REQUESTS)
+        load["device_calls"] = get(port, "/metrics")["counters"][
+            "batcher.device_calls"]
+    finally:
+        stop_server(proc)
+    row = {
+        "case": "scoring_iris", "train_seconds": train_s,
+        "test_accuracy": summary["test_accuracy"],
+        "final_loss": summary["final_loss"],
+        "max_prob_err": err, "labels_equal_plain_cpu": labels_ok,
+        "burst_device_calls": calls,
+        "burst_device_calls_max": math.ceil(len(rows) / max_batch) + 1,
+        "files_ok": files_ok, "healthz": {k: health[k] for k in (
+            "status", "model", "classes", "backend", "device")},
+        "missing_field_422": bad,
+        "closed_loop_batch_1": {**load, "max_wait_ms": 0.2},
+        "card": power,
+    }
+    emit(row)
+    if not labels_ok or err > 1e-5:
+        raise SystemExit(f"iris /predict disagrees with the plain forward: "
+                         f"labels {labels_ok}, max prob err {err}")
+    if calls > row["burst_device_calls_max"]:
+        raise SystemExit(f"30 concurrent rows took {calls} device calls")
+    if not files_ok:
+        raise SystemExit(f"/files/ answered {files_status}: {files}")
+    if (health["status"] != "ok" or health["backend"] != "cuda"
+            or health["classes"] != list(meta.vocab.labels)):
+        raise SystemExit(f"/healthz: {health}")
+    if not bad or bad[0]["loc"] != ["petal_width"]:
+        raise SystemExit(f"a missing field answered {bad_status}: {bad}")
+    if not np.isfinite(load["p99_ms"]):
+        raise SystemExit(f"closed loop: {load}")
+    return row
+
+
+def sst2_texts(n: int, seed: int = 0) -> list:
+    """``n`` sentences of the synthetic sst2 corpus's words (filler and
+    planted polarity words, 6-60 words each, drawn from ``seed``)."""
+    import numpy as np
+
+    from mlapi_tpu_torch.datasets import sst2
+
+    rng = np.random.default_rng(seed)
+    words = sst2._FILLER + sst2._POSITIVE + sst2._NEGATIVE
+    return [" ".join(rng.choice(words, size=int(rng.integers(6, 61))))
+            for _ in range(n)]
+
+
+def sst2_serving_leg(ckpt: Path, power) -> dict:
+    """The sst2-bert run's checkpoint served through the CLI's engine
+    factory (a TextClassificationEngine, flash attention: B5) and the
+    HTTP app: 64 concurrent texts, the launch counters zeroed just
+    before and read just after (B5 exactly 12 per device call, all on
+    ``mma``, no other attention kernel); labels equal to the same
+    weights with ``attention_impl="full"`` on the card (ties reported),
+    max-probabilities within 2e-2; and one 64-row batch's wall and
+    device time (profiled)."""
+    import statistics
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from mlapi_tpu_torch.checkpoint import load_checkpoint
+    from mlapi_tpu_torch.models import get_model
+    from mlapi_tpu_torch.serving.__main__ import build_engine
+    from mlapi_tpu_torch.serving.app import build_app
+    from mlapi_tpu_torch.serving.engine import TextClassificationEngine
+    from mlapi_tpu_torch.serving.server import BackgroundServer
+
+    engine = build_engine(ckpt)
+    if not isinstance(engine, TextClassificationEngine):
+        raise SystemExit(f"sst2-bert served by {type(engine).__name__}")
+    texts = sst2_texts(SCORE_TEXTS)
+    app = build_app(engine)
+    with BackgroundServer(app) as srv:
+        sp = app.state["batcher"]
+        calls0 = sp.device_calls
+        zero_counters()
+        answers = at_once(lambda t: predict(srv.port, {"text": t}), texts)
+        launches, bodies = read_counters()
+        calls = sp.device_calls - calls0
+    cfg = json.loads((ckpt / "MANIFEST.json").read_text())["config"]
+    full = get_model(cfg["model"], **{**cfg["model_kwargs"],
+                                      "attention_impl": "full"},
+                     seed=None, device="cpu")
+    state, meta = load_checkpoint(ckpt, full)
+    full.load_state_dict(state)
+    full.requires_grad_(False)
+    ref = TextClassificationEngine(full.to("cuda"), meta.vocab,
+                                   tokenizer=engine.tokenizer,
+                                   max_len=engine.max_len)
+    rows = np.stack([engine.encode(t) for t in texts])
+    want_ids, want_p = ref.predict(rows)
+    got = [meta.vocab.labels.index(a["prediction"]) for a in answers]
+    got_p = np.asarray([a["probability"] for a in answers])
+    differ = [i for i in range(len(texts)) if got[i] != want_ids[i]]
+    # Two classes: full attention's top-1 - top-2 margin is 2 p - 1.
+    ties = [{"row": i, "full_max_prob": float(want_p[i]),
+             "margin": float(2 * want_p[i] - 1)} for i in differ]
+    p_err = float(np.abs(got_p - want_p).max())
+    # One 64-row batch through the engine (no HTTP): wall ms, median of
+    # five, and device ms of one profiled call.
+    walls = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.predict(rows)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        engine.predict(rows)
+        torch.cuda.synchronize()
+    kernels = device_kernels(prof)
+    device = sum(e.device_time_total for e in kernels) / 1e3
+    b5 = sum(e.device_time_total for e in kernels
+             if "flash_" in e.name) / 1e3
+    by_name: dict = {}
+    for e in kernels:
+        key = e.name[:90]
+        by_name[key] = by_name.get(key, 0.0) + e.device_time_total / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    wall = statistics.median(walls[1:])
+    want = {name: 0 for name in KERNELS}
+    want["flash_forward"] = 12 * calls
+    row = {
+        "case": "scoring_sst2_bert", "texts": len(texts),
+        "device_calls": calls, "launches": launches,
+        "launches_expected": want, "bodies": bodies,
+        "labels_equal_full": not differ, "ties": ties,
+        "max_prob_err": p_err,
+        "batch_64": {"wall_ms": wall, "device_ms": device,
+                     "b5_device_ms": b5, "busy": device / wall,
+                     "kernels": len(kernels),
+                     "top_kernels_ms": dict(top)},
+        "card": power,
+    }
+    emit(row)
+    if launches != want or bodies["flash_forward"] != {
+            "mma": want["flash_forward"], "fma": 0}:
+        raise SystemExit(f"sst2-bert /predict: launches {launches}, bodies "
+                         f"{bodies}, want {want} all on mma")
+    # A label may differ only where full attention's answer is a near
+    # tie: its top-1 - top-2 margin within 2e-2.
+    if p_err > 2e-2 or any(t["margin"] > 2e-2 for t in ties):
+        raise SystemExit(f"sst2-bert flash vs full: max prob err {p_err}, "
+                         f"label changes {ties}")
+    del engine, ref, full
+    torch.cuda.empty_cache()
+    return row
+
+
+def wide_deep_numpy(state: dict, x, cfg: dict):
+    """The plain Wide&Deep forward in float32 numpy from a checkpoint's
+    tensors (no module of the port): ids truncated toward zero, each
+    feature's vocab remainder (numpy's takes the divisor's sign), the
+    wide sum and the ReLU MLP over the dense features and the deep
+    embeddings."""
+    import numpy as np
+
+    w = {k: v.numpy() for k, v in state.items()}
+    nd, f = cfg["num_dense"], len(cfg["vocab_sizes"])
+    dense = x[:, :nd]
+    ids = np.remainder(x[:, nd:].astype(np.int32),
+                       np.asarray(cfg["vocab_sizes"], np.int32))
+    feat = np.arange(f)[None, :]
+    wide = (dense @ w["wide_dense"] + w["wide_bias"]
+            + w["wide_tables"][feat, ids].sum(1))
+    h = np.concatenate([dense, w["deep_tables"][feat, ids].reshape(
+        len(x), -1)], axis=1)
+    n = len(cfg["hidden_dims"])
+    for i in range(n):
+        h = np.maximum(h @ w[f"deep_{i}.kernel"] + w[f"deep_{i}.bias"], 0)
+    return wide + h @ w[f"deep_{n}.kernel"] + w[f"deep_{n}.bias"]
+
+
+def wide_deep_leg(scratch: Path, power) -> dict:
+    """A Wide&Deep checkpoint at the criteo-widedeep preset's widths
+    (26 tables of 100,000 rows, 16 + 2 wide; weights from seed 0,
+    written by ``save_checkpoint``) served through the CLI's engine
+    factory and the HTTP app: 256 criteo rows through ``/predict``,
+    held to :func:`wide_deep_numpy` on the tensors read back from the
+    checkpoint file (probabilities within 2e-2, labels equal where its
+    top-1 - top-2 margin exceeds 2e-2). So the leg checks the port's
+    model on the card (bf16 hidden layers) as well as the checkpoint
+    round trip, HTTP and batching."""
+    import numpy as np
+    import torch
+
+    from mlapi_tpu_torch.checkpoint import load_checkpoint, save_checkpoint
+    from mlapi_tpu_torch.datasets import get_dataset
+    from mlapi_tpu_torch.models import get_model
+    from mlapi_tpu_torch.serving.__main__ import build_engine
+    from mlapi_tpu_torch.serving.app import build_app
+    from mlapi_tpu_torch.serving.server import BackgroundServer
+
+    splits = get_dataset("criteo", n_train=256, n_test=256)
+    t0 = time.perf_counter()
+    model = get_model("wide_deep", **CRITEO_WIDE_DEEP, seed=0, device="cpu")
+    path = save_checkpoint(scratch / "criteo-widedeep", model, config={
+        "model": "wide_deep", "model_kwargs": CRITEO_WIDE_DEEP,
+        "feature_names": list(splits.feature_names)}, vocab=splits.vocab)
+    write_s = time.perf_counter() - t0
+    del model
+    engine = build_engine(path)
+    names = splits.feature_names
+    rows = splits.x_test[:256]
+    app = build_app(engine)
+    with BackgroundServer(app) as srv:
+        sp = app.state["batcher"]
+        calls0 = sp.device_calls
+        answers = at_once(
+            lambda r: predict(srv.port, dict(zip(names, map(float, r)))),
+            list(rows), workers=64)
+        calls = sp.device_calls - calls0
+    del engine
+    torch.cuda.empty_cache()
+    state, _ = load_checkpoint(path)
+    logits = wide_deep_numpy(state, rows, CRITEO_WIDE_DEEP)
+    z = np.exp(logits - logits.max(-1, keepdims=True))
+    probs = z / z.sum(-1, keepdims=True)
+    labels = splits.vocab.labels
+    got = np.asarray([labels.index(a["prediction"]) for a in answers])
+    got_p = np.asarray([a["probability"] for a in answers])
+    top2 = np.sort(probs, -1)
+    margin = top2[:, -1] - top2[:, -2]
+    differ = got != probs.argmax(-1)
+    p_err = float(np.abs(got_p - probs.max(-1)).max())
+    row = {
+        "case": "scoring_wide_deep", "rows": len(rows),
+        "reference": "float32 numpy forward of the checkpoint's tensors",
+        "tables": [len(CRITEO_WIDE_DEEP["vocab_sizes"]),
+                   max(CRITEO_WIDE_DEEP["vocab_sizes"]),
+                   CRITEO_WIDE_DEEP["embed_dim"]
+                   + CRITEO_WIDE_DEEP["num_classes"]],
+        "checkpoint_write_s": write_s,
+        "device_calls": calls, "max_prob_err": p_err,
+        "labels": [int((probs.argmax(-1) == c).sum())
+                   for c in range(len(labels))],
+        "margin_min": float(margin.min()),
+        "labels_differ": int(differ.sum()),
+        "labels_differ_past_margin": int((differ & (margin > 2e-2)).sum()),
+        "card": power,
+    }
+    emit(row)
+    if p_err > 2e-2 or row["labels_differ_past_margin"]:
+        raise SystemExit(f"Wide&Deep /predict disagrees with its plain "
+                         f"forward: {row}")
+    return row
+
+
+def coresident_leg(gpt_ckpt: Path, sst2_ckpt: Path, scratch: Path,
+                   power) -> dict:
+    """One ``python -m mlapi_tpu_torch.serving`` process serving GPT-2
+    small (flash, paged 16) as the default model and sst2-bert as
+    ``--model clf=...``: 8 greedy streams alone, then the same 8 with 64
+    ``/models/clf/predict`` texts at once. The streams must equal the
+    ones served alone, every scoring batch must run as a score unit on
+    the GPT engine's scheduler (``generate.sched_units_score`` > 0 and
+    equal to ``model.clf.sched_dispatches`` and
+    ``model.clf.device_calls``), with 12 B5 launches per scoring batch
+    (``/metrics`` ``kernels``)."""
+    proc, port = spawn_server(
+        ["--checkpoint", str(gpt_ckpt), "--decode-attn-impl", "flash",
+         "--kv-page-size", "16", "--model", f"clf={sst2_ckpt}"],
+        scratch / "coresident_server.log")
+    gen_bodies = [{"text": t, "max_new_tokens": 32}
+                  for t in SHORT_PROMPTS]
+    texts = sst2_texts(SCORE_TEXTS, seed=1)
+    try:
+        health = get(port, "/healthz")
+        alone = at_once(lambda b: json.loads(post(port, b))["token_ids"],
+                        gen_bodies)
+        m0 = get(port, "/metrics")
+        items = ([("g", b) for b in gen_bodies]
+                 + [("s", {"text": t}) for t in texts])
+        t0 = time.perf_counter()
+        outs = at_once(
+            lambda it: (json.loads(post(port, it[1]))["token_ids"]
+                        if it[0] == "g"
+                        else predict(port, it[1], "/models/clf/predict")),
+            items)
+        mixed_s = time.perf_counter() - t0
+        m1 = get(port, "/metrics")
+    finally:
+        stop_server(proc)
+
+    def delta(key, group="counters"):
+        return m1[group][key] - m0[group][key]
+
+    together = outs[:len(gen_bodies)]
+    row = {
+        "case": "scoring_coresident", "streams": len(gen_bodies),
+        "predicts": len(texts), "seconds": mixed_s,
+        "models": health.get("models"),
+        "streams_equal_alone": together == alone,
+        "sched_units_score": delta("generate.sched_units_score"),
+        "sched_dispatches": delta("model.clf.sched_dispatches"),
+        "device_calls": delta("model.clf.device_calls"),
+        "b5_launches": m1["kernels"]["flash_forward"]
+        - m0["kernels"]["flash_forward"],
+        "generate_batches": delta("generate.batch_calls"),
+        "card": power,
+    }
+    emit(row)
+    if not row["streams_equal_alone"]:
+        raise SystemExit("co-resident: the streams changed beside scoring")
+    if not (row["sched_units_score"] > 0 and row["sched_units_score"]
+            == row["sched_dispatches"] == row["device_calls"]):
+        raise SystemExit(f"co-resident: score units {row}")
+    if row["b5_launches"] != 12 * row["device_calls"]:
+        raise SystemExit(f"co-resident: {row['b5_launches']} B5 launches "
+                         f"for {row['device_calls']} scoring batches")
+    if any(a.get("prediction") not in ("negative", "positive")
+           for a in outs[len(gen_bodies):]):
+        raise SystemExit("co-resident: a /predict answer lost its label")
+    return row
+
+
+def check_b5_serving(power, sst2_x) -> list:
+    """B5 at the serving shapes of the sst2-bert classifier: B in
+    B5_SERVING_BATCHES, L = 128, 12 heads of 64, bf16, key masks from
+    sst2 rows; the last quarter of the rows of B = 64 and 512 are bucket
+    padding (all keys masked, dead). Each row: kernel
+    ms (graph replays), device ms (profiled, per B5 event, with every
+    kernel's event count), the bound, SDPA's and the plain version's ms,
+    the max error on live rows, exact zeros on dead ones, the body."""
+    import torch
+
+    from mlapi_tpu_torch.ops import cuda as kern
+
+    rows = []
+    for b in B5_SERVING_BATCHES:
+        live = b if b == 1 else b - b // 4
+        row_len = (sst2_x != 0).sum(axis=1).tolist()
+        lengths = [row_len[i % len(row_len)] for i in range(live)]
+        lengths += [0] * (b - live)
+        shape = (f"serve-b{b}", b, 128, 12, 12, "bfloat16", False, None,
+                 lengths, 64)
+        cfg = dict(causal=False, scale=64 ** -0.5, window=None)
+        q, k, v, mask, _ = flash_inputs(shape, seed=500 + b)
+        before = dict(kern.flash_forward.bodies)
+        out, _ = kern.flash_forward(q, k, v, mask, **cfg)
+        want, _ = kern.flash_forward_plain(q, k, v, mask, **cfg)
+        torch.cuda.synchronize()
+        body = [x for x, n in kern.flash_forward.bodies.items()
+                if n != before[x]]
+        live_q = mask.bool().any(-1)
+        err = float((out.float() - want.float()).abs()[live_q].max())
+        dead_zero = not bool(out[~live_q].any())
+        nbytes0 = 4 * q.numel() * q.element_size()
+        sets = [flash_inputs(shape, seed=600 + b + s)[:4]
+                for s in range(min(8, max(2, math.ceil(160e6 / nbytes0))))]
+        fn = [(lambda a=a: kern.flash_forward(*a, **cfg)) for a in sets]
+        sdpa = [sdpa_flash_fns(*a, False, None, a[0])[0] for a in sets]
+        nbytes, flops, _ = flash_bytes_flops("flash_forward", q, k, mask,
+                                             False, None)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / BF16_FLOPS_PER_S * 1e3
+        kernel_ms = graph_ms(fn)
+        # Every kernel the profiled calls launched, with its event count:
+        # one B5 event a call is expected; device_ms is per B5 event, so
+        # an event the profiler drops does not shrink it.
+        events = profiled_kernels(fn, iters=B5_PROFILED_CALLS)
+        b5_events = sum(n for name, (n, _) in events.items()
+                        if "flash_" in name)
+        b5_us = sum(t for name, (_, t) in events.items() if "flash_" in name)
+        row = {
+            "case": "flash_kernel_serving", "kernel": "flash_forward",
+            "shape": shape[0], "B": b, "L": 128, "H": 12, "D": 64,
+            "dtype": "bfloat16", "live_rows": live, "body": body,
+            "max_abs_err": err, "dead_rows_exact_zero": dead_zero,
+            "ms": kernel_ms,
+            "device_ms": b5_us / 1e3 / max(b5_events, 1),
+            "device_events": {name[:80]: n for name, (n, _) in
+                              events.items()},
+            "profiled_calls": B5_PROFILED_CALLS,
+            "plain_ms": graph_ms(
+                [(lambda a=a: kern.flash_forward_plain(*a, **cfg))
+                 for a in sets[:2]], iters=6),
+            "library_ms": graph_ms(sdpa), "library": "sdpa forward",
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_share": max(t_bytes, t_ops) / kernel_ms,
+            "bytes": nbytes, "flops": flops, "card": power,
+        }
+        emit(row)
+        if body != ["mma"] or not dead_zero or err > FLASH_TOLERANCE[
+                "bfloat16"]:
+            raise SystemExit(f"B5 at serving shape B={b}: {row}")
+        rows.append(row)
+        del sets, fn, sdpa
+        torch.cuda.empty_cache()
+    return rows
+
+
+def scoring_phase(gpt_ckpt: Path, sst2_ckpt: Path, sst2_x, scratch: Path,
+                  power) -> dict:
+    """Phase 10: Iris, sst2-bert, Wide&Deep, co-resident, B5 rows.
+    Returns B5's launches per scoring path."""
+    iris_leg(scratch, power)
+    srow = sst2_serving_leg(sst2_ckpt, power)
+    wide_deep_leg(scratch, power)
+    crow = coresident_leg(gpt_ckpt, sst2_ckpt, scratch, power)
+    b5_rows = check_b5_serving(power, sst2_x)
+    return {
+        "launches": {
+            f"serve sst2-bert /predict, {SCORE_TEXTS} texts":
+            srow["launches"]["flash_forward"],
+            f"co-resident clf /predict beside GPT-2, {SCORE_TEXTS} texts":
+            crow["b5_launches"]},
+        "b5_rows": b5_rows,
+    }
+
+
 def kernel_label(mangled: str) -> str:
     """``extend_mma_kernel<true, false>`` from the mangled name ptxas
     prints (the template arguments these sources use: bool, int, float,
@@ -3232,7 +3900,11 @@ def main() -> int:
     # flash-vs-full check, one profiled step
     scratch = ROOT / "build"
     scratch.mkdir(exist_ok=True)
-    train_row = train_run(cfg, splits)
+    # What phase 10 serves again: the sst2-bert checkpoint, the servers'
+    # logs, the Iris and Wide&Deep checkpoints; removed at the end.
+    work = Path(tempfile.mkdtemp(dir=scratch, prefix="smoke_"))
+    sst2_ckpt = work / "sst2-bert"
+    train_row = train_run(cfg, splits, sst2_ckpt)
     flash_vs_full(cfg, x0, y0)
     profile_train_step(cfg, splits)
     del splits
@@ -3272,6 +3944,9 @@ def main() -> int:
                         launches[k]["sched " + path] = srow["launches"][k]
                 del engine
                 torch.cuda.empty_cache()
+        # 10. the scoring path (the GPT-2 checkpoint is the co-resident
+        # leg's default model)
+        scoring = scoring_phase(ckpt, sst2_ckpt, x0, work, power)
     check_small_f32(2)
     check_small_f32(4)     # docs-gpt: head dim 32
     check_prefix_f32("gpt_lm", 2)
@@ -3312,7 +3987,9 @@ def main() -> int:
                 f"train sst2-bert, {SST2_STEPS} steps + test eval":
                 train_row["launches"][name],
                 f"train docs-llama, {DOCS_LLAMA_STEPS} steps + test eval":
-                llama_train["launches"][name]},
+                llama_train["launches"][name],
+                **(scoring["launches"] if name == "flash_forward"
+                   else {})},
             "bodies": train_row["bodies"][name],
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
@@ -3321,6 +3998,7 @@ def main() -> int:
             "library_ms": main_row["library_ms"],
             "library_graph_ms": main_row["library_graph_ms"],
         })
+    shutil.rmtree(work, ignore_errors=True)
     emit({"case": "run_seconds", "seconds": time.perf_counter() - t_run})
     emit({"kernels": summary})
     print(power, flush=True)

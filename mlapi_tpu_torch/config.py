@@ -36,12 +36,12 @@ class TrainConfig:
     eval_every: int = 0
 
     # Device mesh over (data, model) or (data, fsdp, model); None = one
-    # device. The port runs unsharded (ROADMAP Queue A item 9).
+    # device. The port runs unsharded (ROADMAP Queue A item 8).
     mesh_shape: tuple[int, ...] | None = None
 
     checkpoint_dir: str | None = None
 
-    # Knowledge distillation (not ported: ROADMAP Queue A item 5).
+    # Knowledge distillation (not ported: ROADMAP Queue A item 4).
     distill_from: str | None = None
     distill_temperature: float = 2.0
     distill_alpha: float = 0.5

@@ -1,9 +1,12 @@
 """Dataset loaders for training (counterpart of ``mlapi_tpu/datasets``).
 
 Loaders return a :class:`SupervisedSplits` of host-side numpy arrays
-plus the string-label vocab, and never touch the network. ``sst2`` and
-``docs_text`` are ported; the other loaders of the JAX package wait in
-ROADMAP Queue A item 3.
+plus the string-label vocab, and never touch the network. Every loader
+of the JAX package is ported: ``iris`` and ``digits`` read copies of
+scikit-learn's bundled files (``data/``), ``mnist``, ``fashion_mnist``,
+``criteo`` and ``sst2`` fall back to the JAX package's seeded synthetic
+stand-ins when their files are absent, and ``docs_text`` and
+``docs_clf`` read the repository's documentation.
 """
 
 from __future__ import annotations
@@ -46,7 +49,7 @@ register_dataset = _LOADERS.register
 
 
 def get_dataset(name: str, **kwargs) -> SupervisedSplits:
-    """Load a dataset by registry name (``sst2``, ``docs_text``)."""
+    """Load a dataset by registry name (``iris``, ``sst2``, …)."""
     return _LOADERS.get(name)(**kwargs)
 
 
@@ -54,6 +57,16 @@ def dataset_registered(name: str) -> bool:
     return name in _LOADERS.names()
 
 
+from mlapi_tpu_torch.datasets.criteo import load_criteo  # noqa: E402,F401
+from mlapi_tpu_torch.datasets.digits import load_digits  # noqa: E402,F401
+from mlapi_tpu_torch.datasets.docs_clf import (  # noqa: E402,F401
+    load_docs_clf,
+)
+from mlapi_tpu_torch.datasets.iris import load_iris  # noqa: E402,F401
+from mlapi_tpu_torch.datasets.mnist import (  # noqa: E402,F401
+    load_fashion_mnist,
+    load_mnist,
+)
 from mlapi_tpu_torch.datasets.sst2 import load_sst2  # noqa: E402,F401
 from mlapi_tpu_torch.datasets.textlm import (  # noqa: E402,F401
     load_docs_text,

@@ -1,6 +1,7 @@
 """Model registry: ``get_model(name, **kwargs)`` builds a model by its
 config name, the name a checkpoint's manifest records (``gpt_lm``,
-``llama_lm``, ``bert_classifier``)."""
+``llama_lm``, ``bert_classifier``, ``linear``, ``mlp``,
+``wide_deep``)."""
 
 from __future__ import annotations
 
@@ -23,4 +24,9 @@ def model_registered(name: str) -> bool:
 from mlapi_tpu_torch.models import gpt as _gpt  # noqa: E402,F401
 from mlapi_tpu_torch.models.bert import BertClassifier  # noqa: E402,F401
 from mlapi_tpu_torch.models.gpt import GptLM  # noqa: E402,F401
+from mlapi_tpu_torch.models.linear import LinearClassifier  # noqa: E402,F401
 from mlapi_tpu_torch.models.llama import LlamaLM  # noqa: E402,F401
+from mlapi_tpu_torch.models.mlp import MLPClassifier  # noqa: E402,F401
+from mlapi_tpu_torch.models.wide_deep import (  # noqa: E402,F401
+    WideDeepClassifier,
+)

@@ -104,7 +104,7 @@ class BertClassifier(nn.Module):
         if attention_impl == "ring":
             raise NotImplementedError(
                 'attention_impl="ring" is not ported (sequence-parallel '
-                "ring attention waits for ROADMAP Queue A item 9)"
+                "ring attention waits for ROADMAP Queue A item 8)"
             )
         if attention_impl not in ("full", "flash"):
             raise ValueError(f"unknown attention_impl {attention_impl!r}")
@@ -121,6 +121,7 @@ class BertClassifier(nn.Module):
         self.hidden_size = hidden_size
         self.num_layers = num_layers
         self.num_heads = num_heads
+        self.max_positions = max_positions
         self.compute_dtype = compute_dtype
         self.attention_impl = attention_impl
 

@@ -165,7 +165,7 @@ class DecoderLM(nn.Module):
         if any(".lora." in k or k.endswith(".lora") for k in state_dict):
             raise NotImplementedError(
                 "LoRA adapter weights are not ported (ROADMAP Queue A "
-                "item 6)"
+                "item 5)"
             )
         return super().load_state_dict(state_dict, strict=strict,
                                        assign=assign)
@@ -196,7 +196,7 @@ class GptLM(DecoderLM):
     loaded.
     ``attention_impl`` is ``"full"`` or ``"flash"`` (the full-sequence
     ``apply`` through the B5-B7 kernels, ``ops/cuda/flash_attention``);
-    ``"ring"`` waits for the parallel slice (ROADMAP Queue A item 9).
+    ``"ring"`` waits for the parallel slice (ROADMAP Queue A item 8).
     The cache paths attend as ``decode_attn_impl`` says, whatever this
     is.
     """
@@ -221,7 +221,7 @@ class GptLM(DecoderLM):
         if attention_impl == "ring":
             raise NotImplementedError(
                 'attention_impl="ring" is not ported (sequence-parallel '
-                "ring attention waits for ROADMAP Queue A item 9)"
+                "ring attention waits for ROADMAP Queue A item 8)"
             )
         if attention_impl not in ("full", "flash"):
             raise ValueError(f"unknown attention_impl {attention_impl!r}")

@@ -127,7 +127,7 @@ class LlamaLM(DecoderLM):
     ``seed=None`` skips the draw for weights about to be loaded.
     ``attention_impl`` is ``"full"`` or ``"flash"`` (``apply`` through
     B5-B7 with the KV heads as they are); ``"ring"`` waits for the
-    parallel slice (ROADMAP Queue A item 9).
+    parallel slice (ROADMAP Queue A item 8).
     """
 
     def __init__(
@@ -153,7 +153,7 @@ class LlamaLM(DecoderLM):
         if attention_impl == "ring":
             raise NotImplementedError(
                 'attention_impl="ring" is not ported (sequence-parallel '
-                "ring attention waits for ROADMAP Queue A item 9)"
+                "ring attention waits for ROADMAP Queue A item 8)"
             )
         if attention_impl not in ("full", "flash"):
             raise ValueError(f"unknown attention_impl {attention_impl!r}")
@@ -376,5 +376,5 @@ class LlamaLM(DecoderLM):
     def param_shardings(self, layout=None):
         raise NotImplementedError(
             "tensor-parallel parameter layouts are not ported (ROADMAP "
-            "Queue A item 9)"
+            "Queue A item 8)"
         )

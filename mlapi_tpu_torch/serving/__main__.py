@@ -1,60 +1,150 @@
-"""``python -m mlapi_tpu_torch.serving``: serve a ``gpt_lm`` or
-``llama_lm`` checkpoint.
+"""``python -m mlapi_tpu_torch.serving``: serve checkpoints over HTTP.
 
-The generative subset of ``mlapi_tpu/serving/__main__.py``::
+Counterpart of ``mlapi_tpu/serving/__main__.py``::
 
     python -m mlapi_tpu_torch.serving --checkpoint DIR \\
+        [--model ID=CHECKPOINT ...] [--max-batch N] [--max-wait-ms MS] \\
         [--kv-quant int8] [--decode-attn-impl flash] \\
         [--kv-page-size 16 [--kv-pages N]] [--sched-max-batches 2] \\
         [--default-deadline-ms MS] [--no-admission-control] \\
-        [--drain-timeout-s S] \\
-        [--max-batch N] [--host H] [--port P] [--device cpu]
+        [--drain-timeout-s S] [--host H] [--port P] [--device cpu]
+    python -m mlapi_tpu_torch.serving --demo-iris
+
+A classifier checkpoint (``linear``, ``mlp``, ``wide_deep``,
+``bert_classifier``) serves ``POST /predict`` and ``/files/``; a
+``gpt_lm`` / ``llama_lm`` one ``POST /generate``. ``--demo-iris``
+trains the ``iris-linear`` preset in process and serves it. Each
+``--model ID=CHECKPOINT`` adds an entry served at
+``/models/ID/{predict|generate}`` in the same process; the
+``--checkpoint`` (or demo) model stays the default, and a classifier's
+batches run as score units on the default generative engine's
+scheduler. The cache and scheduler flags configure the default model.
 
 It runs on the CUDA device unless ``--device cpu`` (or
 ``MLAPI_TPU_PLATFORM=cpu``) asks for the CPU, and fails when there is
 no card and no such request. SIGTERM or SIGINT drain the server (new
-requests 503, ``/healthz`` draining, in-flight streams get
-``--drain-timeout-s`` to finish) and stop it.
+requests 503, ``/healthz`` draining, in-flight work gets
+``--drain-timeout-s`` to finish) and stop it. ``--quantize``,
+``--workers``, ``--router`` and the tenant flags of the JAX CLI are
+refused with the ROADMAP item that will bring them.
 """
 
 from __future__ import annotations
 
 import argparse
 import asyncio
+import re
 import signal
+import tempfile
 
 from mlapi_tpu_torch.serving.app import build_app
-from mlapi_tpu_torch.serving.engine import TextGenerationEngine
+from mlapi_tpu_torch.serving.engine import GENERATIVE_MODELS, InferenceEngine
 from mlapi_tpu_torch.serving.server import Server
+from mlapi_tpu_torch.utils.logging import get_logger
+
+_log = get_logger("serving.main")
+
+# Flags of the JAX CLI that the port does not serve yet, by ROADMAP
+# Queue A item: refused, never ignored.
+_REFUSED = {
+    "quantize": ("--quantize", 5),
+    "workers": ("--workers", 7),
+    "router": ("--router", 7),
+    "tenant_pages": ("--tenant-pages", 5),
+    "tenant_slots": ("--tenant-slots", 5),
+    "tenant_weight": ("--tenant-weight", 5),
+}
 
 
 def build_engine(checkpoint, *, device=None, kv_quant=None,
                  decode_attn_impl=None, max_batch=None, kv_page_size=None,
                  kv_pages=None, sched_max_batches=None, **kwargs):
-    """The engine the CLI serves, from a checkpoint dir and the CLI's
-    options (``None`` keeps the checkpoint's / engine's default)."""
-    if max_batch is not None:
-        kwargs["max_batch"] = max_batch
-    if kv_page_size is not None:
-        kwargs["kv_page_size"] = kv_page_size
-    if kv_pages is not None:
-        kwargs["kv_pages"] = kv_pages
-    if sched_max_batches is not None:
-        kwargs["sched_max_batches"] = sched_max_batches
-    return TextGenerationEngine.from_checkpoint(
+    """The engine the CLI serves from a checkpoint dir: a generative
+    engine with the CLI's cache and scheduler options (``None`` keeps
+    the engine's default), or a classifier's engine, which refuses the
+    cache options (``InferenceEngine.from_checkpoint``)."""
+    from mlapi_tpu_torch.checkpoint import read_manifest
+
+    if read_manifest(checkpoint).config.get("model") in GENERATIVE_MODELS:
+        if max_batch is not None:
+            kwargs["max_batch"] = max_batch
+        if sched_max_batches is not None:
+            kwargs["sched_max_batches"] = sched_max_batches
+    return InferenceEngine.from_checkpoint(
         checkpoint, device=device, kv_quant=kv_quant,
-        decode_attn_impl=decode_attn_impl, **kwargs,
+        decode_attn_impl=decode_attn_impl, kv_page_size=kv_page_size,
+        kv_pages=kv_pages, **kwargs,
     )
 
 
-def parse_args(argv=None):
+def demo_iris_checkpoint(device=None) -> str:
+    """Train the ``iris-linear`` preset on ``device`` and write its
+    checkpoint to a new temporary directory; returns the path."""
+    from mlapi_tpu_torch.config import get_preset
+    from mlapi_tpu_torch.train.__main__ import run
+
+    path = tempfile.mkdtemp(prefix="mlapi_tpu_torch_iris_")
+    summary = run(get_preset("iris-linear"), path, device=device)
+    _log.info("demo Iris trained: test_accuracy=%.4f",
+              summary["test_accuracy"])
+    return path
+
+
+def parse_model_specs(parser, specs) -> list[tuple[str, str, str]]:
+    """``(spec, id, checkpoint)`` of each ``--model ID=CHECKPOINT``,
+    checked as the JAX CLI checks them (``parser.error`` on a bad one)."""
+    out: list[tuple[str, str, str]] = []
+    for spec in specs or ():
+        mid, _, mpath = spec.partition("=")
+        mid = mid.strip()
+        if not mid or not mpath:
+            parser.error(f"--model {spec!r}: expected ID=CHECKPOINT")
+        if not re.fullmatch(r"[A-Za-z0-9._-]+", mid):
+            parser.error(f"--model {spec!r}: id must be URL-path-safe "
+                         "([A-Za-z0-9._-]+)")
+        if mid == "default" or mid in {m for _, m, _ in out}:
+            parser.error(f"--model {spec!r}: duplicate model id")
+        out.append((spec, mid, mpath))
+    return out
+
+
+def build_models(parser, model_specs, device=None) -> dict:
+    """The extra registry entries, one engine per checked
+    ``--model`` spec; a checkpoint that fails to load is a
+    ``parser.error``."""
+    engines = {}
+    for spec, mid, mpath in model_specs:
+        try:
+            engines[mid] = InferenceEngine.from_checkpoint(mpath,
+                                                           device=device)
+        except (OSError, ValueError) as e:
+            parser.error(f"--model {spec!r}: {e}")
+    return engines
+
+
+def make_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser("mlapi_tpu_torch.serving")
-    parser.add_argument("--checkpoint", required=True,
-                        help="a gpt_lm or llama_lm checkpoint dir "
-                             "(MANIFEST.json + params.npz)")
+    parser.add_argument("--checkpoint",
+                        help="a checkpoint dir (MANIFEST.json + "
+                             "params.npz): a classifier or a gpt_lm / "
+                             "llama_lm")
+    parser.add_argument("--demo-iris", action="store_true",
+                        help="train the iris-linear preset now and serve "
+                             "it")
+    parser.add_argument(
+        "--model", action="append", metavar="ID=CHECKPOINT",
+        help="multi-model serving (repeatable): add model ID from "
+             "CHECKPOINT, served at /models/ID/{predict|generate}; the "
+             "--checkpoint model stays the default (id 'default', the "
+             "/predict or /generate route). A classifier's batches run "
+             "as score units on the default generative engine's unit "
+             "scheduler",
+    )
     parser.add_argument("--host", default="127.0.0.1")
     parser.add_argument("--port", type=int, default=8000)
     parser.add_argument("--max-batch", type=int, default=None)
+    parser.add_argument("--max-wait-ms", type=float, default=0.2,
+                        help="the scoring micro-batch window")
     parser.add_argument(
         "--kv-quant", choices=["int8"], default=None,
         help="store KV caches as int8 payload + per-token-per-head f32 "
@@ -113,24 +203,51 @@ def parse_args(argv=None):
         help="where to run (default: cuda; MLAPI_TPU_PLATFORM=cpu also "
              "selects the CPU)",
     )
+    for dest, (flag, _) in _REFUSED.items():
+        parser.add_argument(flag, dest=dest, default=None,
+                            action=("store_true" if flag in ("--router",)
+                                    else "append" if "tenant" in flag
+                                    else "store"),
+                            help=argparse.SUPPRESS)
+    return parser
+
+
+def parse_args(argv=None, parser=None):
+    """The CLI's arguments, checked (``parser.error`` on a refused or
+    inconsistent flag, or a malformed ``--model``)."""
+    parser = parser or make_parser()
     args = parser.parse_args(argv)
+    for dest, (flag, item) in _REFUSED.items():
+        if getattr(args, dest) not in (None, False):
+            parser.error(f"{flag} is not ported (ROADMAP Queue A item "
+                         f"{item})")
+    if bool(args.checkpoint) == bool(args.demo_iris):
+        parser.error("need exactly one of --checkpoint and --demo-iris")
     if args.kv_pages is not None and args.kv_page_size is None:
         parser.error("--kv-pages requires --kv-page-size")
     if args.sched_max_batches < 1:
         parser.error("--sched-max-batches must be >= 1")
+    args.model_specs = parse_model_specs(parser, args.model)
     return args
 
 
 def main(argv=None) -> int:
-    args = parse_args(argv)
+    from mlapi_tpu_torch.serving.registry import ModelRegistry
+
+    parser = make_parser()
+    args = parse_args(argv, parser)
+    checkpoint = args.checkpoint or demo_iris_checkpoint(args.device)
     engine = build_engine(
-        args.checkpoint, device=args.device, kv_quant=args.kv_quant,
+        checkpoint, device=args.device, kv_quant=args.kv_quant,
         decode_attn_impl=args.decode_attn_impl, max_batch=args.max_batch,
         kv_page_size=args.kv_page_size, kv_pages=args.kv_pages,
         sched_max_batches=args.sched_max_batches,
     )
+    extra = build_models(parser, args.model_specs, device=args.device)
     app = build_app(
-        engine, default_deadline_ms=args.default_deadline_ms,
+        models=ModelRegistry({"default": engine, **extra}),
+        max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,
+        default_deadline_ms=args.default_deadline_ms,
         drain_timeout_s=args.drain_timeout_s,
         admission_control=args.admission_control,
     )

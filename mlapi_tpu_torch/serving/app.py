@@ -1,34 +1,55 @@
-"""The serving application: ``POST /generate``, ``/healthz``, ``/metrics``.
+"""The serving application: ``/predict``, ``/files/``, ``/generate``,
+``/healthz``, ``/metrics``, ``/openapi.json``.
 
-Counterpart of ``mlapi_tpu/serving/app.py`` for a generative engine:
+Counterpart of ``mlapi_tpu/serving/app.py``. :func:`build_app` serves
+one engine or a :class:`~mlapi_tpu_torch.serving.registry.ModelRegistry`
+of them; the registry's default entry owns the single-model routes, and
+a process with several models adds ``/models/<id>/predict`` and
+``/models/<id>/generate``.
 
-- ``POST /generate`` takes ``text``, ``max_new_tokens``, ``temperature``,
-  ``top_k``, ``top_p``, ``seed``, ``stream``, ``stop``, ``prefix`` and
-  ``deadline_ms``. Concurrent requests coalesce into one batch.
-  ``"stream": true`` answers NDJSON: one ``{"token_ids": [...]}`` line
-  per decoded chunk, then a ``{"done": true, "text", "token_ids",
+- ``POST /predict`` (classifiers): a JSON body of the checkpoint's
+  feature names (Iris: four floats, numeric strings coerced), or
+  ``{"features": [...]}`` when it names none, or ``{"text": ...}`` for a
+  text classifier, each with an optional ``deadline_ms``; the answer is
+  ``{"prediction": "<label>", "probability": <max prob>}``. A wrong
+  width is a 422 with a FastAPI-shaped detail list; overload and drain
+  a 503 with ``retry-after``; a deadline passed in the queue a 504.
+  Requests coalesce into batches on a ``ScorePath``
+  (``serving/scoring.py``), whose batches run as ``score`` units on the
+  primary generative engine's scheduler when one is co-resident.
+- ``POST /files/``: a multipart CSV (``file``) and a ``token`` field;
+  the answer echoes ``columns``, ``rows``, the first 1000 ``records``
+  and ``truncated``, as the JAX app's pandas reading gives them
+  (``serving/csvread.py``). Non-UTF-8 or unparseable input is a 400, a
+  missing ``token`` or ``file`` a 422.
+- ``POST /generate`` (generative): ``text``, ``max_new_tokens``,
+  ``temperature``, ``top_k``, ``top_p``, ``seed``, ``stream``, ``stop``,
+  ``prefix`` and ``deadline_ms``. Concurrent requests coalesce into one
+  batch. ``"stream": true`` answers NDJSON: one ``{"token_ids": [...]}``
+  line per decoded chunk, then a ``{"done": true, "text", "token_ids",
   "prompt_tokens"}`` line whose ``token_ids`` is the FULL list; an error
   ends a stream with ``{"error", "code"}``. ``prefix`` makes the prompt
   ``prefix + text`` with the prefix's KV computed once and cached
-  (``serving/prefix.py``); an invalid one (empty after tokenizing, too
-  long for the window) is a 422 at ``["prefix"]``. ``deadline_ms`` (> 0)
-  is the request's wall-clock budget: a deadline that passes ends the
-  request with ``deadline_exceeded`` (504 unary), one the admission
-  estimate says cannot be met is shed with a 503. The JAX package's
-  ``adapter`` and ``tenant`` fields are refused with a 422, since the
-  port does not serve them yet.
+  (``serving/prefix.py``); an invalid one is a 422 at ``["prefix"]``.
+  ``deadline_ms`` (> 0) is the request's wall-clock budget: a deadline
+  that passes ends the request with ``deadline_exceeded`` (504 unary),
+  one the admission estimate says cannot be met is shed with a 503. The
+  JAX package's ``adapter`` and ``tenant`` fields are refused with a
+  422, since the port does not serve them yet.
 - ``GET /healthz``: liveness (``"draining"`` once shutdown began), queue
-  depth, model, checkpoint, device, and the KV page size and pool size
-  (0 for a contiguous cache).
-- ``GET /metrics``: the request counters and latency histograms, plus
-  the JAX package's ``generate.*`` names for what the port has (the
-  scheduler's ``sched_*``, the sheds, expiries and brownout clamps
-  among them), and the CUDA kernels' launch counts under ``kernels``.
+  depth, model, classes, checkpoint, device, the KV page size and pool
+  size of a generative default, and a ``models`` block when several
+  models are served.
+- ``GET /metrics``: the request counters and latency histograms, the
+  JAX package's ``batcher.*`` names for a scoring default and
+  ``generate.*`` names for a generative one (``sched_units_score``
+  among them), the ``model.<id>.*`` family when several models are
+  served, and the CUDA kernels' launch counts under ``kernels``.
 
-Every 503 carries ``retry-after``: an exhausted KV page pool (1 s), a
-full queue, a drain or an infeasible deadline (the engine's hint); a
-stream ends in an error frame instead, as in the JAX package. Shutdown
-drains the engine (``drain_timeout_s``) before it stops.
+Every 503 carries ``retry-after``. Startup warms every engine and starts
+the generative engines before the scoring paths; shutdown drains and
+stops the scoring paths before the generative engines whose scheduler
+their batches may ride (``drain_timeout_s``).
 """
 
 from __future__ import annotations
@@ -38,6 +59,7 @@ import json
 import os
 import time
 
+import numpy as np
 import torch
 
 from mlapi_tpu_torch.serving import faults
@@ -46,16 +68,22 @@ from mlapi_tpu_torch.serving.asgi import (
     Field,
     HTTPError,
     Request,
+    Response,
     Schema,
     StreamingResponse,
 )
+from mlapi_tpu_torch.serving.csvread import read_csv
 from mlapi_tpu_torch.serving.engine import OverloadedError
 from mlapi_tpu_torch.serving.paged_pool import PagePoolExhausted
+from mlapi_tpu_torch.serving.registry import ModelRegistry
 from mlapi_tpu_torch.serving.requests import DeadlineExceeded, DrainCancelled
+from mlapi_tpu_torch.serving.scoring import ScorePath
 from mlapi_tpu_torch.utils.logging import get_logger
 from mlapi_tpu_torch.utils.metrics import MetricsRegistry
 
 _log = get_logger("serving.app")
+
+MAX_ECHO_RECORDS = 1000
 
 GENERATE_SCHEMA = Schema(
     "GenerateRequest",
@@ -98,42 +126,191 @@ def _terminal_http(e: Exception) -> HTTPError | None:
     return None
 
 
-def build_app(engine, *, default_deadline_ms: float | None = None,
+def _overloaded_http(e: OverloadedError) -> HTTPError:
+    return HTTPError(
+        503, str(e),
+        headers={"retry-after": str(int(max(1, e.retry_after_s)))},
+    )
+
+
+def build_app(engine=None, *, models: ModelRegistry | None = None,
+              max_batch: int | None = None, max_wait_ms: float = 0.2,
+              default_deadline_ms: float | None = None,
               drain_timeout_s: float = 10.0,
               admission_control: bool = True) -> App:
-    """The app over one generative engine. Startup warms the engine and
-    starts its collector; shutdown drains it (``drain_timeout_s``) and
-    stops it. ``default_deadline_ms`` applies to requests that name no
-    ``deadline_ms``; ``admission_control`` turns the infeasible-deadline
-    shed and the brownout rungs on or off."""
+    """The app over one engine or a registry (``models``). The default
+    generative engine takes ``default_deadline_ms``,
+    ``admission_control`` and ``drain_timeout_s`` (its batch size is a
+    constructor argument); other generative entries keep their own.
+    Each classifier gets a :class:`ScorePath` (``max_batch``,
+    ``max_wait_ms``, ``default_deadline_ms``) whose batches ride the
+    primary generative engine's scheduler when there is one."""
+    if models is None:
+        if engine is None:
+            raise ValueError("build_app needs an engine or a registry")
+        models = ModelRegistry({"default": engine})
+    engine = models.default
     app = App(title="mlapi-tpu-torch")
     registry = MetricsRegistry()
-    engine.default_deadline_ms = default_deadline_ms
-    engine.drain_timeout_s = float(drain_timeout_s)
-    engine.admission_control = bool(admission_control)
-    _install_generate(app, engine)
+    multi = len(models.ids()) > 1
+    primary_gen = models.primary_generative()
+    score_paths: dict[str, ScorePath] = {}
+    for mid, eng in models.items():
+        is_default = mid == models.default_id
+        if eng.kind == "generative":
+            if is_default:
+                eng.default_deadline_ms = default_deadline_ms
+                eng.drain_timeout_s = float(drain_timeout_s)
+                eng.admission_control = bool(admission_control)
+                _install_generate(app, eng)
+            if multi:
+                _install_generate(app, eng, path=f"/models/{mid}/generate")
+            continue
+        sp = ScorePath(
+            eng, model_id=mid, max_batch=max_batch,
+            max_wait_ms=max_wait_ms,
+            default_deadline_ms=default_deadline_ms,
+            sched_source=((lambda g=primary_gen: g.sched)
+                          if primary_gen is not None else None),
+        )
+        score_paths[mid] = sp
+        if is_default:
+            _install_predict(app, eng, sp)
+        if multi:
+            _install_predict(app, eng, sp, path=f"/models/{mid}/predict")
+    batcher = score_paths.get(models.default_id)
+    app.state.update(models=models, score_paths=score_paths,
+                     batcher=batcher)
 
     @app.on_startup
     async def _start():
         faults.arm_from_env()
         loop = asyncio.get_running_loop()
-        await loop.run_in_executor(None, engine.warmup)
-        await engine.start()
-        _log.info("serving %s on %s", type(engine.model).__name__,
-                  engine.device)
+        # Generative engines start before the scoring paths, so a batch
+        # formed at once finds the scheduler live.
+        for mid, eng in models.items():
+            await loop.run_in_executor(None, eng.warmup)
+            if eng.kind == "generative":
+                await eng.start()
+            models.note_started(mid)
+        for sp in score_paths.values():
+            await sp.start()
+        _log.info("serving %s on %s", ", ".join(
+            f"{mid}:{type(e.model).__name__}" for mid, e in models.items()
+        ), engine.device)
 
     @app.on_shutdown
     async def _stop():
         # Drain first: new requests shed 503 and /healthz reads
-        # draining while in-flight streams finish; then the hard stop.
-        await engine.drain(engine.drain_timeout_s)
-        await engine.stop()
+        # draining while in-flight work finishes; then the hard stop.
+        # Scoring paths go before the engines their units may ride.
+        for sp in score_paths.values():
+            await sp.drain(drain_timeout_s)
+            await sp.stop()
+        for mid, eng in models.items():
+            if eng.kind == "generative":
+                await eng.drain(eng.drain_timeout_s)
+                await eng.stop()
+            models.note_stopped(mid)
 
-    _install_common(app, engine, registry)
+    _install_files(app)
+    _install_common(app, models, registry, score_paths)
+    app.install_docs()
     return app
 
 
-def _install_generate(app: App, engine) -> None:
+def _install_predict(app: App, engine, batcher: ScorePath,
+                     path: str = "/predict") -> None:
+    """``POST /predict`` over one classifier's scoring path (and, with
+    several models, the same handler at ``/models/<id>/predict``)."""
+    deadline = Field(float, None, nullable=True)
+    if engine.kind == "text":
+        schema = Schema("TextRequest", text=Field(str), deadline_ms=deadline)
+    elif engine.feature_names:
+        schema = Schema("Features")
+        schema.fields = {name: Field(float) for name in engine.feature_names}
+        schema.fields["deadline_ms"] = deadline
+    else:
+        schema = Schema("Features", features=Field("list[float]"),
+                        deadline_ms=deadline)
+    order = engine.feature_names
+    expected_dim = engine.num_features
+    # Each label's JSON bytes, escaped once.
+    label_json = {
+        label: json.dumps(label).encode() for label in engine.vocab.labels
+    }
+
+    @app.post(path, body=schema)
+    async def predict(req):
+        """Classify one row: ``{"prediction", "probability"}``."""
+        if engine.kind == "text":
+            row = engine.encode(req.text)
+        elif order:
+            row = np.asarray([getattr(req, f) for f in order], np.float32)
+        else:
+            row = np.asarray(req.features, np.float32)
+        if row.shape != (expected_dim,):
+            raise HTTPError(422, [{
+                "type": "value_error", "loc": ["features"],
+                "msg": f"expected {expected_dim} features, "
+                       f"got {row.shape[0]}",
+                "input": int(row.shape[0]),
+            }])
+        if req.deadline_ms is not None and req.deadline_ms <= 0:
+            raise _value_error("deadline_ms", "must be > 0 (omit for no "
+                               "deadline)", req.deadline_ms)
+        try:
+            label, prob = await batcher.submit(
+                row, deadline_ms=req.deadline_ms)
+        except OverloadedError as e:
+            raise _overloaded_http(e) from None
+        except DeadlineExceeded as e:
+            raise HTTPError(504, str(e)) from None
+        body = b'{"prediction":%b,"probability":%.10g}' % (
+            label_json.get(label) or json.dumps(label).encode(), prob,
+        )
+        return Response(body, content_type="application/json")
+
+
+def _install_files(app: App) -> None:
+    @app.post("/files/")
+    async def create_file(request: Request):
+        """Ingest a CSV upload (multipart) with a token form field;
+        echoes columns, rows and records as JSON."""
+        fields, files = request.form()
+        if "token" not in fields:
+            raise HTTPError(422, "missing form field 'token'")
+        if "file" not in files:
+            raise HTTPError(422, "missing file field 'file'")
+        try:
+            text = files["file"].data.decode("utf-8")
+        except UnicodeDecodeError as e:
+            raise HTTPError(400, f"file is not utf-8 text: {e}") from None
+        try:
+            columns, n, records = await asyncio.get_running_loop(
+            ).run_in_executor(None, read_csv, text, MAX_ECHO_RECORDS)
+        except Exception as e:  # noqa: BLE001 — any parse failure is a 400
+            raise HTTPError(400, f"could not parse CSV: {e}") from None
+        return {
+            "file": {"columns": columns, "rows": n, "records": records,
+                     "truncated": n > MAX_ECHO_RECORDS},
+            "token": fields["token"],
+        }
+
+    # A multipart body has no Schema: its form contract, spelled out.
+    create_file.__openapi__ = {"requestBody": {
+        "required": True,
+        "content": {"multipart/form-data": {"schema": {
+            "type": "object", "required": ["file", "token"],
+            "properties": {
+                "file": {"type": "string", "format": "binary"},
+                "token": {"type": "string"},
+            },
+        }}},
+    }}
+
+
+def _install_generate(app: App, engine, path: str = "/generate") -> None:
     hard_cap = engine.model.max_positions - 1
 
     def _norm_stops(stop) -> list[str]:
@@ -149,7 +326,7 @@ def _install_generate(app: App, engine) -> None:
         hits = [(i, s) for s in stops if (i := text.find(s)) != -1]
         return min(hits, key=lambda h: (h[0], -len(h[1])), default=None)
 
-    @app.post("/generate", body=GENERATE_SCHEMA)
+    @app.post(path, body=GENERATE_SCHEMA)
     async def generate(req, request: Request):
         """Generate a continuation of ``text`` (unary or NDJSON)."""
         extra = request.json()
@@ -193,10 +370,7 @@ def _install_generate(app: App, engine) -> None:
                 deadline_ms=req.deadline_ms,
             )
         except OverloadedError as e:
-            raise HTTPError(
-                503, str(e),
-                headers={"retry-after": str(int(max(1, e.retry_after_s)))},
-            ) from None
+            raise _overloaded_http(e) from None
         except ValueError as e:
             # An invalid prefix (too long for the window, empty after
             # tokenizing, no room left for the suffix) is the
@@ -290,7 +464,8 @@ def _install_generate(app: App, engine) -> None:
         return out
 
 
-def _install_common(app: App, engine, registry: MetricsRegistry) -> None:
+def _install_common(app: App, models: ModelRegistry,
+                    registry: MetricsRegistry, score_paths: dict) -> None:
     _counters: dict = {}
     _histograms: dict = {}
 
@@ -350,14 +525,23 @@ def _install_common(app: App, engine, registry: MetricsRegistry) -> None:
 
     @app.get("/healthz")
     async def healthz():
+        engine = models.default
+        batcher = score_paths.get(models.default_id)
         dev = engine.device
-        return {
+        gen = engine.kind == "generative"
+        draining = (batcher.draining if batcher is not None
+                    else engine.draining)
+        vocab = getattr(engine, "vocab", None)
+        body = {
             # "draining" from the moment shutdown begins, so a load
-            # balancer stops routing here while streams finish.
-            "status": "draining" if engine.draining else "ok",
-            "queue_depth": engine.queue_depth,
+            # balancer stops routing here while work finishes.
+            "status": "draining" if draining else "ok",
+            **({"models": models.describe()} if len(models.ids()) > 1
+               else {}),
+            "queue_depth": (batcher.queue_depth if batcher is not None
+                            else engine.queue_depth),
             "model": type(engine.model).__name__,
-            "classes": [],
+            "classes": list(vocab.labels) if vocab is not None else [],
             "checkpoint": engine.meta,
             "backend": dev.type,
             "device": (
@@ -367,12 +551,16 @@ def _install_common(app: App, engine, registry: MetricsRegistry) -> None:
             "device_count": (
                 torch.cuda.device_count() if dev.type == "cuda" else 1
             ),
-            "kv_quant": engine.kv_quant,
-            "decode_attn_impl": engine.decode_attn_impl,
-            "kv_page_size": engine.kv_page_size,
-            "kv_pages": engine.kv_pages_total,
-            "pid": os.getpid(),
         }
+        if gen:
+            body.update(
+                kv_quant=engine.kv_quant,
+                decode_attn_impl=engine.decode_attn_impl,
+                kv_page_size=engine.kv_page_size,
+                kv_pages=engine.kv_pages_total,
+            )
+        body["pid"] = os.getpid()
+        return body
 
     @app.get("/metrics")
     async def metrics():
@@ -380,64 +568,88 @@ def _install_common(app: App, engine, registry: MetricsRegistry) -> None:
 
         snap = registry.snapshot()
         c = snap["counters"]
-        c["generate.requests"] = engine.requests
-        c["generate.batch_calls"] = engine.batch_calls
-        c["generate.chunk_calls"] = engine.chunk_calls
-        c["generate.rejected"] = engine.rejected
-        c["generate.cancelled_batches"] = engine.cancelled_batches
-        c["generate.prefill_chunks"] = engine.prefill_chunks
-        c["generate.admitted"] = engine.admitted
-        c["generate.growths"] = engine.growths
-        c["generate.compactions"] = engine.compactions
-        c["generate.prefix_hits"] = engine.prefix_hits
-        c["generate.prefix_misses"] = engine.prefix_misses
-        c["generate.prefix_fallbacks"] = engine.prefix_fallbacks
-        c["generate.prefix_builds"] = engine.prefix_builds
-        c["generate.prefix_adopt_bytes"] = engine.prefix_adopt_bytes
-        c["generate.kv_prefix_copy_fallback"] = (
-            engine.kv_prefix_copy_fallback
-        )
-        c["generate.faults_injected"] = faults.injected_count()
-        c["generate.interleaved_prefills"] = engine.interleaved_prefills
-        # Why requests failed: shed at the door, expired at a boundary,
-        # clamped by brownout rung 1.
-        for name in ("shed_queue_full", "shed_deadline_infeasible",
-                     "shed_draining", "deadline_expired_queued",
-                     "deadline_expired_prefill", "deadline_expired_decode",
-                     "brownout_tokens_clamped",
-                     # The unit scheduler's dispatches by kind,
-                     # deadline preemptions and page-budget deferrals.
-                     "sched_units_prefill", "sched_units_decode",
-                     "sched_units_admit", "sched_units_compact",
-                     "sched_deadline_preempts", "sched_pages_deferred"):
-            c[f"generate.{name}"] = getattr(engine, name)
         g = snap.setdefault("gauges", {})
-        g["generate.queue_depth"] = engine.queue_depth
-        g["generate.sched_queue_depth"] = engine.sched_queue_depth
-        g["generate.sched_batches_live"] = engine.sched_batches_live
-        g["generate.sched_batches_live_max"] = engine.sched_batches_live_max
-        g["generate.sched_lane_stall_max"] = engine.sched_lane_stall_max
-        g["generate.router_queue_depth"] = engine.router_queue_depth
-        g["generate.draining"] = int(engine.draining)
-        g["generate.prefill_chunk_queue_depth"] = (
-            engine.prefill_chunk_queue_depth
-        )
-        g["generate.interleave_max_stall"] = engine.interleave_max_stall
-        for k, v in engine.latency.summary().items():
-            g[f"generate.{k}"] = v
-        g["generate.kv_cache_bytes_per_slot"] = engine.kv_cache_slot_bytes()
-        g["generate.decode_bytes_per_step"] = engine.decode_bytes_per_step()
-        g["generate.extend_bytes_per_chunk"] = (
-            engine.extend_bytes_per_chunk()
-        )
-        g["generate.kv_pages_total"] = engine.kv_pages_total
-        g["generate.kv_pages_in_use"] = engine.kv_pages_in_use
-        g["generate.kv_pages_shared"] = engine.kv_pages_shared
-        g["generate.kv_page_utilization"] = engine.kv_page_utilization
-        g["generate.kv_page_bytes"] = engine.kv_page_bytes()
-        snap["kernels"] = {
-            name: getattr(kern, name).launches
-            for name in ("decode_attention", "extend_attention",
-                         "paged_decode_attention", "paged_extend_attention")
-        }
+        engine = models.default
+        batcher = score_paths.get(models.default_id)
+        if batcher is not None:
+            for name in ("device_calls", "requests", "timeouts", "rejected",
+                         "shed_draining", "deadline_expired",
+                         "sched_dispatches"):
+                c[f"batcher.{name}"] = getattr(batcher, name)
+            # The overload early warnings: queue depth and in-flight
+            # batches move first when offered load passes capacity.
+            g["batcher.queue_depth"] = batcher.queue_depth
+            g["batcher.inflight"] = batcher.inflight
+            g["batcher.draining"] = int(batcher.draining)
+            g["batcher.router_queue_depth"] = batcher.router_queue_depth
+            for k, v in batcher.latency.summary().items():
+                g[f"batcher.{k}"] = v
+        else:
+            _generate_metrics(engine, c, g)
+        if len(models.ids()) > 1:
+            for mid, eng in models.items():
+                pfx = f"model.{mid}"
+                if eng.kind == "generative":
+                    c[f"{pfx}.requests"] = eng.requests
+                    c[f"{pfx}.rejected"] = eng.rejected
+                    c[f"{pfx}.sched_units_decode"] = eng.sched_units_decode
+                    c[f"{pfx}.sched_units_score"] = eng.sched_units_score
+                    g[f"{pfx}.queue_depth"] = eng.queue_depth
+                    stats = eng.latency
+                else:
+                    sp = score_paths[mid]
+                    c[f"{pfx}.requests"] = sp.requests
+                    c[f"{pfx}.device_calls"] = sp.device_calls
+                    # Batches that rode the generative scheduler as score
+                    # units: equal to device_calls when all did.
+                    c[f"{pfx}.sched_dispatches"] = sp.sched_dispatches
+                    c[f"{pfx}.rejected"] = sp.rejected
+                    c[f"{pfx}.deadline_expired"] = sp.deadline_expired
+                    g[f"{pfx}.queue_depth"] = sp.queue_depth
+                    stats = sp.latency
+                for k, v in stats.summary().items():
+                    g[f"{pfx}.{k}"] = v
+        names = ["decode_attention", "extend_attention",
+                 "paged_decode_attention", "paged_extend_attention"]
+        if any(e.kind == "text" for _, e in models.items()):
+            names.append("flash_forward")   # a BERT classifier's B5
+        snap["kernels"] = {name: getattr(kern, name).launches
+                           for name in names}
         return snap
+
+
+def _generate_metrics(engine, c: dict, g: dict) -> None:
+    """The ``generate.*`` counters and gauges of a generative engine."""
+    for name in ("requests", "batch_calls", "chunk_calls", "rejected",
+                 "cancelled_batches", "prefill_chunks", "admitted",
+                 "growths", "compactions", "prefix_hits", "prefix_misses",
+                 "prefix_fallbacks", "prefix_builds", "prefix_adopt_bytes",
+                 "kv_prefix_copy_fallback", "interleaved_prefills",
+                 # Why requests failed: shed at the door, expired at a
+                 # boundary, clamped by brownout rung 1.
+                 "shed_queue_full", "shed_deadline_infeasible",
+                 "shed_draining", "deadline_expired_queued",
+                 "deadline_expired_prefill", "deadline_expired_decode",
+                 "brownout_tokens_clamped",
+                 # The unit scheduler's dispatches by kind (score units:
+                 # co-resident classifiers' batches), deadline
+                 # preemptions and page-budget deferrals.
+                 "sched_units_prefill", "sched_units_decode",
+                 "sched_units_admit", "sched_units_compact",
+                 "sched_units_score", "sched_deadline_preempts",
+                 "sched_pages_deferred"):
+        c[f"generate.{name}"] = getattr(engine, name)
+    c["generate.faults_injected"] = faults.injected_count()
+    for name in ("queue_depth", "sched_queue_depth", "sched_batches_live",
+                 "sched_batches_live_max", "sched_lane_stall_max",
+                 "router_queue_depth", "prefill_chunk_queue_depth",
+                 "interleave_max_stall", "kv_pages_total", "kv_pages_in_use",
+                 "kv_pages_shared", "kv_page_utilization"):
+        g[f"generate.{name}"] = getattr(engine, name)
+    g["generate.draining"] = int(engine.draining)
+    for k, v in engine.latency.summary().items():
+        g[f"generate.{k}"] = v
+    g["generate.kv_cache_bytes_per_slot"] = engine.kv_cache_slot_bytes()
+    g["generate.decode_bytes_per_step"] = engine.decode_bytes_per_step()
+    g["generate.extend_bytes_per_chunk"] = engine.extend_bytes_per_chunk()
+    g["generate.kv_page_bytes"] = engine.kv_page_bytes()

@@ -7,14 +7,19 @@ the port serves, so a route declares its body as a :class:`Schema` of
 FastAPI-shaped 422 ``{"detail": [{"type", "loc", "msg", "input"}]}``
 (malformed JSON stays a 400). Field coercion follows pydantic's lax
 mode for the types the routes use: integral floats and numeric strings
-become ints, ints and numeric strings become floats, ``0``/``1`` and
-``"true"``/``"false"`` become bools.
+become ints, ints, bools and numeric strings become floats, ``0``/``1``
+and ``"true"``/``"false"`` become bools, and a ``list[float]`` field
+takes a JSON array whose items coerce as floats (an item's error is
+located at ``[field, index]``).
 
 - ``@app.post(path, body=schema)`` / ``@app.get(path)`` route
   decorators; the handler receives the validated body as an object
   with one attribute per field, plus ``request`` if it names one.
 - Returned dicts become JSON responses; ``Response`` for anything else.
 - Middleware hooks (used by the metrics subsystem).
+- ``install_docs()`` serves ``GET /openapi.json``: the routes and their
+  schemas, plus what a handler's ``__openapi__`` adds (the multipart
+  form of ``/files/``).
 """
 
 from __future__ import annotations
@@ -77,7 +82,7 @@ def _as_int(name, v):
 
 
 def _as_float(name, v):
-    if isinstance(v, (int, float)) and not isinstance(v, bool):
+    if isinstance(v, (int, float)):
         return float(v)
     if isinstance(v, str):
         try:
@@ -121,16 +126,41 @@ def _as_str_or_list(name, v):
                         "string or a list of strings", v))
 
 
+def _as_float_list(name, v):
+    if not isinstance(v, list):
+        raise _Invalid(_err("list_type", name, "Input should be a valid "
+                            "array", v))
+    out, errors = [], []
+    for i, x in enumerate(v):
+        try:
+            out.append(_as_float(name, x))
+        except _Invalid as e:
+            e.error["loc"] = [name, i]
+            errors.append(e.error)
+    if errors:
+        raise _Invalid(*errors)
+    return out
+
+
 _COERCE = {
     int: _as_int, float: _as_float, bool: _as_bool, str: _as_str,
-    "str|list[str]": _as_str_or_list,
+    "str|list[str]": _as_str_or_list, "list[float]": _as_float_list,
+}
+# JSON-schema types of the field kinds (``App.openapi``).
+_JSON_TYPES = {
+    int: {"type": "integer"}, float: {"type": "number"},
+    bool: {"type": "boolean"}, str: {"type": "string"},
+    "str|list[str]": {"anyOf": [{"type": "string"}, {
+        "type": "array", "items": {"type": "string"}}]},
+    "list[float]": {"type": "array", "items": {"type": "number"}},
 }
 
 
 class _Invalid(Exception):
-    def __init__(self, error: dict):
+    def __init__(self, error: dict, *more: dict):
         super().__init__(error["msg"])
         self.error = error
+        self.errors = [error, *more]
 
 
 class Field:
@@ -185,10 +215,24 @@ class Schema:
             try:
                 out[name] = _COERCE[f.kind](name, v)
             except _Invalid as e:
-                errors.append(e.error)
+                errors.extend(e.errors)
         if errors:
             raise HTTPError(422, errors)
         return types.SimpleNamespace(**out)
+
+    def json_schema(self) -> dict:
+        props, required = {}, []
+        for name, f in self.fields.items():
+            t = dict(_JSON_TYPES[f.kind])
+            if f.nullable:
+                t = {"anyOf": [t, {"type": "null"}]}
+            props[name] = {"title": name, **t}
+            if f.default is REQUIRED:
+                required.append(name)
+            elif f.default is not None:
+                props[name]["default"] = f.default
+        return {"title": self.name, "type": "object", "properties": props,
+                "required": required}
 
 
 class _Route:
@@ -233,6 +277,17 @@ class Request:
             return parse_multipart(self.body, boundary_from_content_type(ctype))
         except MultipartError as e:
             raise HTTPError(400, str(e)) from None
+
+    def form(self) -> tuple[dict[str, str], dict[str, Part]]:
+        """(plain fields, file parts) of a multipart body."""
+        fields: dict[str, str] = {}
+        files: dict[str, Part] = {}
+        for part in self.multipart():
+            if part.filename is None:
+                fields[part.name] = part.text()
+            else:
+                files[part.name] = part
+        return fields, files
 
 
 class Response:
@@ -293,6 +348,8 @@ class App:
 
     def __init__(self, title: str = "mlapi-tpu-torch"):
         self.title = title
+        # What build_app shares with its callers (the registry, the paths).
+        self.state: dict[str, Any] = {}
         self._routes: dict[tuple[str, str], _Route] = {}
         self._middleware: list = []
         self._startup_hooks: list[Callable[[], Awaitable[None]]] = []
@@ -317,6 +374,57 @@ class App:
     def middleware(self, fn):
         self._middleware.append(fn)
         return fn
+
+    def openapi(self) -> dict:
+        """An OpenAPI 3.1 document of the registered routes, from the
+        same route table the dispatcher reads."""
+        from mlapi_tpu_torch import __version__
+
+        paths: dict[str, dict] = {}
+        schemas: dict[str, Any] = {}
+        for (method, path), route in sorted(self._routes.items()):
+            if path == "/openapi.json":
+                continue
+            fn = route.handler
+            doc = inspect.getdoc(fn) or ""
+            op: dict[str, Any] = {
+                "summary": doc.splitlines()[0] if doc else path,
+                "operationId": f"{method.lower()}_{fn.__name__}",
+                "responses": {"200": {
+                    "description": "Successful Response",
+                    "content": {"application/json": {"schema": {}}},
+                }},
+            }
+            if route.body is not None:
+                schemas[route.body.name] = route.body.json_schema()
+                ref = {"$ref": f"#/components/schemas/{route.body.name}"}
+                op["requestBody"] = {
+                    "required": True,
+                    "content": {"application/json": {"schema": ref}},
+                }
+                op["responses"]["422"] = {
+                    "description": "Validation Error",
+                    "content": {"application/json": {"schema": {
+                        "$ref": "#/components/schemas/ValidationError"}}},
+                }
+                schemas["ValidationError"] = {
+                    "title": "ValidationError", "type": "object",
+                    "properties": {"detail": {
+                        "title": "Detail", "type": "array",
+                        "items": {"type": "object"}}},
+                }
+            op.update(getattr(fn, "__openapi__", None) or {})
+            paths.setdefault(path, {})[method.lower()] = op
+        return {"openapi": "3.1.0",
+                "info": {"title": self.title, "version": __version__},
+                "paths": paths, "components": {"schemas": schemas}}
+
+    def install_docs(self) -> None:
+        """Serve :meth:`openapi` at ``GET /openapi.json``."""
+
+        @self.get("/openapi.json")
+        async def openapi_json():
+            return self.openapi()
 
     def on_startup(self, fn):
         self._startup_hooks.append(fn)

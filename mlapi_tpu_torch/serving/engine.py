@@ -1,6 +1,11 @@
-"""Generative serving engine: one resident model, batched decoding.
+"""Serving engines: one resident model each (counterpart of
+``mlapi_tpu/serving/engine.py``).
 
-Counterpart of ``mlapi_tpu/serving/engine.py::TextGenerationEngine``.
+:class:`InferenceEngine` and :class:`TextClassificationEngine` (end of
+the module) classify bucket-padded batches for the scoring path
+(``serving/scoring.py``); ``InferenceEngine.from_checkpoint`` builds
+whichever engine a checkpoint needs. The rest of this note is about
+:class:`TextGenerationEngine`, the generative engine.
 Prompts are left-padded to a bucket (pads masked, positions shifted,
 so the answer does not depend on the bucket), concurrent requests
 coalesce into one batch, and each batch prefills once and decodes in
@@ -40,6 +45,7 @@ from __future__ import annotations
 
 import asyncio
 import bisect
+import contextlib
 import threading
 import time
 from typing import Sequence
@@ -60,6 +66,7 @@ from mlapi_tpu_torch.serving.requests import (
 from mlapi_tpu_torch.utils.logging import get_logger
 
 _log = get_logger("serving.engine")
+_NULL = contextlib.nullcontext()
 
 
 class OverloadedError(RuntimeError):
@@ -79,6 +86,8 @@ GENERATIVE_MODELS = ("gpt_lm", "llama_lm")
 
 class TextGenerationEngine:
     """Serving engine for generative LMs (``gpt_lm``, ``llama_lm``)."""
+
+    kind = "generative"
 
     def __init__(
         self,
@@ -203,6 +212,8 @@ class TextGenerationEngine:
         self.sched_units_decode = 0
         self.sched_units_admit = 0
         self.sched_units_compact = 0
+        # Scoring batches of co-resident classifiers run as score units.
+        self.sched_units_score = 0
         self.sched_deadline_preempts = 0
         self.sched_pages_deferred = 0
         self.sched_batches_live_max = 0
@@ -948,3 +959,230 @@ class TextGenerationEngine:
             "warmed generate on %s (kv_quant=%s, decode_attn_impl=%s)",
             self.device, self.kv_quant, self.decode_attn_impl,
         )
+
+
+# -- classification --------------------------------------------------------
+
+DEFAULT_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512)
+
+
+class InferenceEngine:
+    """Batched classification over a resident model (counterpart of
+    ``mlapi_tpu/serving/engine.py::InferenceEngine``).
+
+    Rows are float32 feature vectors (:class:`TextClassificationEngine`:
+    token ids). A call pads its rows to the next bucket size and chunks
+    past the largest (``max_batch``); each chunk is one forward whose
+    logits become ONE fused ``[B, 2]`` float32 tensor (label id,
+    max-probability), so a batch costs one device→host copy. The forward
+    runs under ``torch.inference_mode()`` entered by the calling thread
+    (it is thread-local: a scoring path calls from pool threads or the
+    unit scheduler's dispatch thread), so no call builds an autograd
+    graph.
+    """
+
+    kind = "tabular"
+    input_dtype = np.float32
+
+    def __init__(self, model, vocab, feature_names=(), *,
+                 buckets: Sequence[int] = DEFAULT_BUCKETS,
+                 meta: dict | None = None):
+        self.model = model
+        self.device = model.device
+        self.vocab = vocab
+        self.feature_names = tuple(feature_names)
+        self.num_features = int(
+            getattr(model, "num_features", 0) or len(self.feature_names)
+            or 1
+        )
+        self.buckets = tuple(sorted(buckets))
+        self.meta = dict(meta or {})
+
+    @classmethod
+    def from_checkpoint(cls, path, *, device=None,
+                        buckets: Sequence[int] = DEFAULT_BUCKETS,
+                        quantize: str | None = None,
+                        kv_quant: str | None = None,
+                        decode_attn_impl: str | None = None,
+                        kv_page_size: int | None = None,
+                        kv_pages: int | None = None,
+                        **gen_kwargs):
+        """The engine a checkpoint dir serves: a ``gpt_lm`` /
+        ``llama_lm`` checkpoint goes to
+        :meth:`TextGenerationEngine.from_checkpoint` (``gen_kwargs`` and
+        the cache options with it); a classifier to a
+        :class:`TextClassificationEngine` when its model reads token ids
+        (``input_kind == "text"``), else to this class. A classifier
+        refuses the cache and decode options with the JAX package's
+        messages, and a checkpoint without a label vocab."""
+        from mlapi_tpu_torch.checkpoint import load_checkpoint, read_manifest
+        from mlapi_tpu_torch.models import get_model
+        from mlapi_tpu_torch.text import (
+            load_tokenizer,
+            tokenizer_from_fingerprint,
+        )
+        from mlapi_tpu_torch.utils.platform import resolve_device
+
+        if quantize is not None and quantize != "int8":
+            raise ValueError(f"unsupported quantize={quantize!r}")
+        if quantize is not None:
+            raise NotImplementedError(
+                "quantize='int8' (weight-only int8 serving) is not ported "
+                "(ROADMAP Queue A item 5)"
+            )
+        meta = read_manifest(path)
+        cfg = meta.config
+        if cfg.get("model") in GENERATIVE_MODELS:
+            if kv_page_size is not None:
+                gen_kwargs["kv_page_size"] = kv_page_size
+            if kv_pages is not None:
+                gen_kwargs["kv_pages"] = kv_pages
+            return TextGenerationEngine.from_checkpoint(
+                path, device=device, kv_quant=kv_quant,
+                decode_attn_impl=decode_attn_impl, **gen_kwargs,
+            )
+        dev = resolve_device(device)
+        model = get_model(cfg["model"], seed=None, device="cpu",
+                          **cfg.get("model_kwargs", {}))
+        name = type(model).__name__
+        if kv_quant is not None:
+            if kv_quant != "int8":
+                raise ValueError(f"unsupported kv_quant={kv_quant!r}")
+            raise ValueError(
+                "kv_quant applies to generative checkpoints (they hold KV "
+                f"caches); {name} has none"
+            )
+        if decode_attn_impl is not None:
+            if decode_attn_impl not in ("einsum", "flash"):
+                raise ValueError(
+                    f"unsupported decode_attn_impl={decode_attn_impl!r}"
+                )
+            raise ValueError(
+                "decode_attn_impl applies to generative checkpoints (they "
+                f"decode); {name} does not"
+            )
+        if kv_page_size is not None or kv_pages is not None:
+            raise ValueError(
+                "kv_page_size/kv_pages apply to generative checkpoints "
+                f"(they hold KV caches); {name} has none"
+            )
+        # The generative engine's knobs (sched_max_batches, max_batch,
+        # ...) do not shape a classifier: ignored, as the JAX package
+        # ignores sched_max_batches here.
+        if meta.vocab is None:
+            raise ValueError(
+                f"checkpoint {path} has no label vocab; cannot serve"
+            )
+        state, meta = load_checkpoint(path, model)
+        model.load_state_dict(state)
+        model.requires_grad_(False)
+        model.to(dev)
+        info = {"step": meta.step, "config_hash": meta.config_hash}
+        if getattr(model, "input_kind", "tabular") == "text":
+            tokenizer = (
+                tokenizer_from_fingerprint(cfg["tokenizer"])
+                if "tokenizer" in cfg else load_tokenizer(model.vocab_size)
+            )
+            default_len = min(128, getattr(model, "max_positions", 128))
+            return TextClassificationEngine(
+                model, meta.vocab, tokenizer=tokenizer,
+                max_len=cfg.get("max_len", default_len), buckets=buckets,
+                meta=info,
+            )
+        return cls(model, meta.vocab, cfg.get("feature_names", ()),
+                   buckets=buckets, meta=info)
+
+    # -- shapes ------------------------------------------------------------
+    def bucket_for(self, n: int) -> int:
+        i = bisect.bisect_left(self.buckets, n)
+        return self.buckets[min(i, len(self.buckets) - 1)]
+
+    @property
+    def max_batch(self) -> int:
+        return self.buckets[-1]
+
+    def warmup(self) -> None:
+        """One forward at every bucket size before serving: the first
+        request then pays no kernel build, library handle or allocator
+        growth."""
+        for b in self.buckets:
+            self._predict_padded(
+                np.zeros((b, self.num_features), self.input_dtype))
+        _log.info("warmed %d bucket shapes up to batch=%d on %s",
+                  len(self.buckets), self.max_batch, self.device)
+
+    def _predict_padded(self, x: np.ndarray) -> np.ndarray:
+        """One forward over a padded ``[b, d]`` block → the fused
+        ``[b, 2]`` (id, max-prob) array, after one device→host copy."""
+        xt = torch.as_tensor(x)
+        if not xt.is_floating_point():
+            xt = xt.long()
+        ctx = (torch.cuda.device(self.device) if self.device.type == "cuda"
+               else _NULL)
+        with ctx, torch.inference_mode():
+            logits = self.model.apply(xt.to(self.device)).to(torch.float32)
+            probs = torch.softmax(logits, dim=-1)
+            fused = torch.stack(
+                [logits.argmax(dim=-1).to(torch.float32),
+                 probs.max(dim=-1).values], dim=-1,
+            )
+            return fused.cpu().numpy()
+
+    # -- public API ----------------------------------------------------------
+    def predict(self, x) -> tuple[np.ndarray, np.ndarray]:
+        """Classify ``[n, d]`` rows → (label ids ``[n]`` int32, max-probs
+        ``[n]`` float32); pads to a bucket, chunks past the largest."""
+        x = np.asarray(x, self.input_dtype)
+        if x.ndim != 2:
+            raise ValueError(f"expected [n, d] features, got shape {x.shape}")
+        n = len(x)
+        ids_out = np.empty((n,), np.int32)
+        probs_out = np.empty((n,), np.float32)
+        start = 0
+        while start < n:
+            chunk = x[start:start + self.max_batch]
+            b = self.bucket_for(len(chunk))
+            padded = np.zeros((b, x.shape[1]), self.input_dtype)
+            padded[: len(chunk)] = chunk
+            fused = self._predict_padded(padded)
+            ids_out[start:start + len(chunk)] = fused[: len(chunk), 0].astype(
+                np.int32)
+            probs_out[start:start + len(chunk)] = fused[: len(chunk), 1]
+            start += len(chunk)
+        return ids_out, probs_out
+
+    def predict_labels(self, x) -> tuple[list[str], np.ndarray]:
+        ids, probs = self.predict(x)
+        return self.vocab.decode(ids), probs
+
+
+class TextClassificationEngine(InferenceEngine):
+    """Batched text classification: a tokenizer and a BERT-style model
+    (counterpart of ``mlapi_tpu/serving/engine.py::
+    TextClassificationEngine``). Rows are fixed-length int32 id vectors
+    (``max_len``); the model derives its key mask from ``ids != pad``,
+    so bucket-padding rows are all-masked and their answers dropped."""
+
+    kind = "text"
+    input_dtype = np.int32
+
+    def __init__(self, model, vocab, *, tokenizer, max_len: int = 128,
+                 buckets: Sequence[int] = DEFAULT_BUCKETS,
+                 meta: dict | None = None):
+        super().__init__(model, vocab, (), buckets=buckets, meta=meta)
+        model_vocab = getattr(model, "vocab_size", None)
+        if model_vocab is not None and tokenizer.vocab_size > model_vocab:
+            # An id past the table would raise in the gather on the card
+            # (JAX clamps it): refuse the pairing instead.
+            raise ValueError(
+                f"tokenizer emits ids up to {tokenizer.vocab_size - 1} but "
+                f"the model's embedding table has {model_vocab} rows"
+            )
+        self.tokenizer = tokenizer
+        self.max_len = int(max_len)
+        self.num_features = self.max_len  # the row width
+
+    def encode(self, text: str) -> np.ndarray:
+        """One request's text → a fixed-length id row."""
+        ids, _ = self.tokenizer.encode(text, self.max_len)
+        return ids

@@ -3,8 +3,8 @@
 A copy of ``mlapi_tpu/serving/faults.py`` restricted to the seams the
 port has: the page pool's allocation, an admission's table install,
 prefill-chunk dispatch, decode-chunk dispatch, the unit scheduler's
-dispatch of each unit, the collector's queue pop and the per-request
-stream push. Tests and chaos
+dispatch of each unit, the collector's queue pop, the per-request
+stream push and a scoring batch's device call. Tests and chaos
 drills force failures there and check that every stream still ends in
 a well-formed terminal frame and that the engine serves fresh work.
 
@@ -38,6 +38,8 @@ POINTS = (
     "sched_unit",      # the unit scheduler, before each unit (formation
                        # included): a raise kills that lane only
     "collector_pop",   # the collector claiming a queued request
+    "score_dispatch",  # a scoring batch's device call, on its runner
+                       # thread: a raise fails that batch's requests
     "stream_push",     # a token chunk entering a request's queue
 )
 

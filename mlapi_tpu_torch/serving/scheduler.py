@@ -26,17 +26,27 @@ generation lanes:
   beside live lanes only if its worst case and the live reservations
   fit the pool; otherwise it waits (``sched_pages_deferred``, once per
   episode). With no lane live a group starts regardless.
+- **Score units.** A co-resident scoring path
+  (``serving/scoring.py::ScorePath``) hands each formed batch in as a
+  ``score`` unit (``submit_score``): a FIFO beside the lanes whose head
+  competes with the most urgent lane each dispatch slot. Deadlines on
+  either side decide by least slack (an override of alternation counts
+  as a preemption); with none anywhere score and lane units strictly
+  alternate, so neither can starve the other. A deadline-less score
+  unit's urgency ages from its model's first-result p95 (floor 5 ms) to
+  zero. Each counts in ``sched_units_score``, enters the trace as
+  ``(0, "score")`` and the head-of-line streak as pseudo-lane 0.
 - **Faults.** The ``sched_unit`` point fires before each unit, the
-  formation included: a raise kills that lane only (its generator is
-  closed, its pages go back, its waiters get the error).
+  formation and score units included: a raise kills that lane (its
+  generator is closed, its pages go back, its waiters get the error) or
+  fails that scoring batch only.
 
-Not ported, and refused by name where a caller could reach them: score
-units (``_ScoreUnit``, ``submit_score``; ROADMAP Queue A item 2), the
+Not ported, and refused by name where a caller could reach them: the
 tenant terms of the page gate (``_tenant_split``, ``_tenant_block``;
-item 5) and spec units (item 6). The reference's ``_rebind_pool`` and
-``_writeback_pool`` have no counterpart: the port's pool tensors are
-written in place and never donated, so no lane's view of them goes
-stale.
+ROADMAP Queue A item 5) and spec units (item 6). The reference's
+``_rebind_pool`` and ``_writeback_pool`` have no counterpart: the port's
+pool tensors are written in place and never donated, so no lane's view
+of them goes stale.
 """
 
 from __future__ import annotations
@@ -52,10 +62,11 @@ from mlapi_tpu_torch.utils.logging import get_logger
 
 _log = get_logger("serving.scheduler")
 
+# The kinds a lane's generator yields (score units come from
+# ``submit_score``, never from a lane).
 UNIT_KINDS = ("prefill", "decode", "admit", "compact")
 # Unit kinds of the reference that wait for their modules.
 _NOT_PORTED_UNITS = {
-    "score": "score units (ROADMAP Queue A item 2)",
     "spec": "spec units (ROADMAP Queue A item 6)",
 }
 
@@ -97,11 +108,31 @@ class _Lane:
 
 
 class _ScoreUnit:
-    """A scoring batch as a typed unit: not ported."""
+    """One formed scoring batch as a typed unit: ``fn`` runs the device
+    call on the dispatch thread and resolves the batch's futures
+    thread-safely; ``fail`` delivers the stop-path error without
+    running it."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(_NOT_PORTED_UNITS["score"] +
-                                  " are not ported")
+    __slots__ = ("fn", "fail", "n_rows", "deadline", "stats", "weight",
+                 "t_submit", "target")
+
+    def __init__(self, fn, fail, n_rows: int, deadline: float | None,
+                 stats, weight: float):
+        self.fn = fn
+        self.fail = fail
+        self.n_rows = n_rows
+        self.deadline = deadline   # perf_counter domain, or None
+        self.stats = stats         # the scoring model's LatencyStats
+        self.weight = max(float(weight), 1e-6)
+        self.t_submit = time.perf_counter()
+        # The deadline-less aging target: the scoring model's observed
+        # first-result p95 (floor 5 ms), frozen at submit so the
+        # dispatch thread never sorts a reservoir.
+        self.target = 0.005
+        if stats is not None:
+            t95 = stats.summary()["ttft_p95_ms"]
+            if t95:
+                self.target = max(t95 / 1e3, 0.005)
 
 
 def _min_slack(reqs, now: float) -> float | None:
@@ -132,6 +163,11 @@ class UnitScheduler:
         # The group claimed off _pending whose formation is running:
         # in neither list, yet in flight for idle/backlog/drain.
         self._forming_group: _Group | None = None
+        # Score units from co-resident scoring paths, FIFO (their
+        # batches are alike, so arrival order is deadline order), and
+        # whether the last dispatch was one (the alternation state).
+        self._score: collections.deque = collections.deque()
+        self._last_was_score = False
         self._stopped = False
         self._pick_seq = 0
         self._lane_seq = 0
@@ -159,9 +195,19 @@ class UnitScheduler:
             self._pending.append(_Group(reqs))
             self._work.notify_all()
 
-    def submit_score(self, *args, **kwargs) -> None:
-        raise NotImplementedError(_NOT_PORTED_UNITS["score"] +
-                                  " are not ported")
+    def submit_score(self, fn, fail, *, n_rows: int = 0,
+                     deadline: float | None = None, stats=None,
+                     weight: float = 1.0) -> None:
+        """Hand one formed scoring batch to the unit queue (event-loop
+        side, from ScorePath). Raises once stopped, so the caller falls
+        back to its worker pool."""
+        with self._work:
+            if self._stopped:
+                raise RuntimeError("scheduler stopped")
+            self._score.append(
+                _ScoreUnit(fn, fail, n_rows, deadline, stats, weight)
+            )
+            self._work.notify_all()
 
     def stop(self, timeout_s: float = 10.0) -> None:
         """Stop the dispatch thread; whatever is still pending or live
@@ -185,11 +231,12 @@ class UnitScheduler:
 
     @property
     def queue_depth(self) -> int:
-        """One runnable unit per live lane plus one formation per
-        pending or forming group."""
+        """One runnable unit per live lane, one formation per pending or
+        forming group, and every queued score unit."""
         with self._lock:
             return (len(self._pending) + len(self._lanes)
-                    + (1 if self._forming_group is not None else 0))
+                    + (1 if self._forming_group is not None else 0)
+                    + len(self._score))
 
     @property
     def batches_live(self) -> int:
@@ -207,7 +254,7 @@ class UnitScheduler:
     def idle(self) -> bool:
         with self._lock:
             return (not self._pending and not self._lanes
-                    and self._forming_group is None)
+                    and self._forming_group is None and not self._score)
 
     def sweep_requests(self) -> list:
         """Drain's sweep once its budget is spent: pop every pending
@@ -233,15 +280,20 @@ class UnitScheduler:
             while True:
                 with self._work:
                     while (not self._stopped and not self._lanes
-                           and not self._pending):
+                           and not self._pending and not self._score):
                         self._work.wait(timeout=0.1)
                     if self._stopped:
                         break
                 try:
                     started = self._maybe_start()
+                    su = self._claim_score()
+                    if su is not None:
+                        self._dispatch_score(su)
+                        continue
                     lane = self._pick()
                     if lane is not None:
                         self._advance(lane)
+                        self._last_was_score = False
                     elif not started:
                         # Pending work blocked on the page budget with
                         # no lane live to release: wait a tick.
@@ -255,6 +307,13 @@ class UnitScheduler:
             with self._lock:
                 pending, self._pending = self._pending, []
                 lanes, self._lanes = self._lanes, []
+                score = list(self._score)
+                self._score.clear()
+            for su in score:
+                try:
+                    su.fail(err)  # the batch's futures get the error
+                except Exception:  # noqa: BLE001
+                    _log.exception("score-unit fail delivery failed")
             for lane in lanes:
                 try:
                     lane.gen.close()
@@ -315,11 +374,76 @@ class UnitScheduler:
         itl = (summary["intertoken_p50_ms"] or 0.0) / 1e3
         return (itl if itl > 0.0 else _RELAXED_S) / w
 
-    def _claim_score(self):
-        raise NotImplementedError(_NOT_PORTED_UNITS["score"] +
-                                  " are not ported")
+    # -- score units -----------------------------------------------------
 
-    _dispatch_score = _claim_score
+    @staticmethod
+    def _urgency_score(su: _ScoreUnit, now: float) -> float:
+        """Weighted urgency of a queued scoring batch: its deadline slack,
+        else its aging target minus its wait (reaching 0 within one
+        target, so lanes delay it at most that long)."""
+        if su.deadline is not None:
+            return (su.deadline - now) / su.weight
+        return max(su.target - (now - su.t_submit), 0.0) / su.weight
+
+    def _claim_score(self) -> _ScoreUnit | None:
+        """Score or lane for this dispatch slot: pop the head score unit
+        when scoring wins. With no lane live it always wins; with a
+        deadline on either side the least weighted urgency wins (an
+        override of alternation for a real deadline counts in
+        ``sched_deadline_preempts``); with none anywhere the two
+        alternate."""
+        with self._lock:
+            if not self._score:
+                return None
+            su = self._score[0]
+            lanes = list(self._lanes)
+        if not lanes:
+            with self._lock:
+                return self._score.popleft() if self._score else None
+        now = time.perf_counter()
+        u_score = self._urgency_score(su, now)
+        summary = self._cached_summary()
+        u_lane = min(self._urgency_lane(ln, now, summary) for ln in lanes)
+        score_deadlined = su.deadline is not None
+        lane_deadlined = any(
+            _min_slack(ln.run.reqs, now) is not None for ln in lanes
+        )
+        alternation = not self._last_was_score
+        if score_deadlined or lane_deadlined:
+            take = u_score <= u_lane
+            if take != alternation and (
+                score_deadlined if take else lane_deadlined
+            ):
+                self.eng.sched_deadline_preempts += 1
+        else:
+            take = alternation
+        if not take:
+            return None
+        with self._lock:
+            return self._score.popleft() if self._score else None
+
+    def _dispatch_score(self, su: _ScoreUnit) -> None:
+        """One score unit on this thread: the device call inline (``fn``
+        resolves its futures), then the accounting lanes get: the kind
+        counter, the trace, the head-of-line streak as pseudo-lane 0."""
+        eng = self.eng
+        with self._lock:
+            n_live = len(self._lanes)
+        try:
+            faults.fire("sched_unit")
+            su.fn()
+        except Exception as e:  # noqa: BLE001 — unit-scoped failure
+            _log.error("score unit of %d rows failed: %s", su.n_rows, e)
+            try:
+                su.fail(e)
+            except Exception:  # noqa: BLE001
+                _log.exception("score-unit fail delivery failed")
+        eng.sched_units_score += 1
+        self.trace.append((0, "score"))
+        # A score unit is one more live party for the streak gauge.
+        self._note_dispatch(0, n_live + 1)
+        self._last_was_score = True
+        self._pick_seq += 1
 
     def _pick(self) -> _Lane | None:
         """The least-urgency lane; exact ties go least recently picked.

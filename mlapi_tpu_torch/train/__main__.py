@@ -62,7 +62,7 @@ def run(cfg: TrainConfig, out: str | None, *, device=None) -> dict:
         if math.prod(cfg.mesh_shape) <= visible:
             raise NotImplementedError(
                 f"config wants mesh {cfg.mesh_shape}: sharded training is "
-                "not ported (ROADMAP Queue A item 9)"
+                "not ported (ROADMAP Queue A item 8)"
             )
         _log.warning(
             "config wants mesh %s but only %d device(s) visible; running "
@@ -133,7 +133,7 @@ def main(argv=None) -> None:
     if cfg.distill_required and cfg.distill_from is None:
         parser.error(
             f"preset {cfg.name!r} is a distillation config; distillation "
-            "is not ported (ROADMAP Queue A item 5)"
+            "is not ported (ROADMAP Queue A item 4)"
         )
     summary = run(cfg, args.out)
     summary.pop("step_ms")

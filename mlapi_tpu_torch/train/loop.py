@@ -8,9 +8,9 @@ defaults and the minibatch schedule are the JAX package's, so the same
 weights and the same seed follow the same trajectory (to rounding).
 
 Not in this slice, each refused with the ROADMAP item that will bring
-it: a device mesh (Queue A item 9), train-state checkpoints and resume,
+it: a device mesh (Queue A item 8), train-state checkpoints and resume,
 profiling, ``debug_checks``, distillation and the recsys optimizers
-(Queue A item 5), LoRA (Queue A item 6).
+(Queue A item 4), LoRA (Queue A item 5).
 """
 
 from __future__ import annotations
@@ -63,11 +63,11 @@ def make_train_step(
         raise ValueError(f"unknown task {task!r}")
     if debug_checks:
         raise NotImplementedError(
-            "debug_checks (checkify) is not ported (ROADMAP Queue A item 5)"
+            "debug_checks (checkify) is not ported (ROADMAP Queue A item 4)"
         )
     if teacher is not None:
         raise NotImplementedError(
-            "distillation is not ported (ROADMAP Queue A item 5)"
+            "distillation is not ported (ROADMAP Queue A item 4)"
         )
     matrices = [p for p in params if p.ndim >= 2]
 
@@ -108,7 +108,7 @@ def _make_optimizer(name: str, learning_rate: float,
     if name.startswith("recsys-"):
         raise NotImplementedError(
             f"optimizer {name!r} (rowwise AdaGrad tables, sparse embedding "
-            "updates) is not ported (ROADMAP Queue A item 5)"
+            "updates) is not ported (ROADMAP Queue A item 4)"
         )
     if name == "adam":
         return torch.optim.Adam(params, lr=learning_rate, betas=(0.9, 0.999),
@@ -199,25 +199,25 @@ def fit(
     """
     if mesh is not None:
         raise NotImplementedError(
-            "training on a device mesh is not ported (ROADMAP Queue A item 9)"
+            "training on a device mesh is not ported (ROADMAP Queue A item 8)"
         )
     if checkpoint_dir or save_every or keep_last:
         raise NotImplementedError(
             "train-state checkpoints and resume (checkpoint_dir, "
-            "save_every, keep_last) are not ported (ROADMAP Queue A item 5)"
+            "save_every, keep_last) are not ported (ROADMAP Queue A item 4)"
         )
     if profile_dir:
         raise NotImplementedError(
-            "profile_dir is not ported (ROADMAP Queue A item 5); "
+            "profile_dir is not ported (ROADMAP Queue A item 4); "
             "chip_smoke.py profiles a train step with torch.profiler"
         )
     if distill_from is not None:
         raise NotImplementedError(
-            "distillation is not ported (ROADMAP Queue A item 5)"
+            "distillation is not ported (ROADMAP Queue A item 4)"
         )
     if hasattr(model, "trainable_mask"):
         raise NotImplementedError(
-            "LoRA fine-tuning is not ported (ROADMAP Queue A item 6)"
+            "LoRA fine-tuning is not ported (ROADMAP Queue A item 5)"
         )
     if task == "auto":
         task = getattr(splits, "extras", {}).get(

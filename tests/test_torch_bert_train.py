@@ -217,12 +217,23 @@ def test_yaml_config_without_pyyaml_says_so(tmp_path, monkeypatch):
 
 
 def test_presets_are_the_jax_table_filtered_to_what_is_ported():
-    assert preset_names() == ["docs-gpt", "docs-gpt-draft",
-                              "docs-gpt-draft-distilled", "docs-llama",
-                              "sst2-bert"]
-    assert "docsclf-bert" in preset_names(only_available=False)
-    with pytest.raises(ValueError, match="not both ported"):
-        get_preset("docsclf-bert")       # its docs_clf dataset is not
+    # Every model and dataset of the JAX table is ported now; a preset
+    # whose model is not registered still refuses by name.
+    assert preset_names() == preset_names(only_available=False) == [
+        "criteo-widedeep", "digits-mlp", "digits-softmax", "docs-gpt",
+        "docs-gpt-draft", "docs-gpt-draft-distilled", "docs-llama",
+        "docsclf-bert", "fashion-mlp", "iris-linear", "mnist-softmax",
+        "sst2-bert"]
+    assert get_preset("docsclf-bert").dataset == "docs_clf"
+    from mlapi_tpu_torch.config import TrainConfig, register_preset
+    from mlapi_tpu_torch.config import _PRESETS
+    cfg = TrainConfig(name="test-unported", model="no_such_model")
+    register_preset(cfg)
+    try:
+        with pytest.raises(ValueError, match="not both ported"):
+            get_preset("test-unported")
+    finally:
+        del _PRESETS["test-unported"]
     cfg = get_preset("sst2-bert")
     assert cfg.model_kwargs["attention_impl"] == "flash"
     assert (cfg.batch_size, cfg.optimizer, cfg.learning_rate) == (
@@ -230,13 +241,13 @@ def test_presets_are_the_jax_table_filtered_to_what_is_ported():
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(mesh=object()), "Queue A item 9"),
-    (dict(save_every=10), "Queue A item 5"),
-    (dict(checkpoint_dir="x"), "Queue A item 5"),
-    (dict(profile_dir="x"), "Queue A item 5"),
-    (dict(debug_checks=True), "Queue A item 5"),
-    (dict(distill_from="x"), "Queue A item 5"),
-    (dict(optimizer="recsys-adamw"), "Queue A item 5"),
+    (dict(mesh=object()), "Queue A item 8"),
+    (dict(save_every=10), "Queue A item 4"),
+    (dict(checkpoint_dir="x"), "Queue A item 4"),
+    (dict(profile_dir="x"), "Queue A item 4"),
+    (dict(debug_checks=True), "Queue A item 4"),
+    (dict(distill_from="x"), "Queue A item 4"),
+    (dict(optimizer="recsys-adamw"), "Queue A item 4"),
 ])
 def test_unported_training_features_refuse(kwargs, match):
     model = get_model("bert_classifier", **BERT, seed=0, device="cpu")

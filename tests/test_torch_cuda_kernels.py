@@ -1183,3 +1183,99 @@ def test_launches_are_exact_summed_over_lanes(card, page, kv_quant):
             extend: layers * (eng.prefill_chunks - chunks0)}
     assert eng.prefill_chunks - chunks0 == 2
     assert launched == [want.get(f, 0) for f in fns]
+
+
+# -- the scoring path ----------------------------------------------------
+
+@pytest.mark.parametrize("b", [1, 64, 512])
+def test_b5_at_serving_shapes_with_dead_rows(card, b):
+    """B5 as a BERT classifier's /predict batch runs it: L = 128, 12 heads
+    of 64, bf16, key masks of ragged lengths, and for B > 1 a last
+    quarter of bucket-padding rows whose keys are all masked (dead):
+    within 2e-2 of the plain version on live rows, exact zeros on dead
+    ones, on the tensor-core body."""
+    rng = np.random.default_rng(b)
+    live = b if b == 1 else b - b // 4
+    lens = np.concatenate([rng.integers(8, 129, live),
+                           np.zeros(b - live, np.int64)])
+    mask = (torch.arange(128)[None] < torch.as_tensor(lens)[:, None])
+    mask = mask.to(card, torch.float32)
+
+    def t():
+        return torch.as_tensor(rng.standard_normal((b, 128, 12, 64)),
+                               dtype=torch.float32).to(card, torch.bfloat16)
+
+    q, k, v = t(), t(), t()
+    n0, mma0 = kern.flash_forward.launches, kern.flash_forward.bodies["mma"]
+    with torch.inference_mode():
+        out, _ = kern.flash_forward(q, k, v, mask, scale=0.125)
+    torch.cuda.synchronize()
+    assert kern.flash_forward.launches == n0 + 1
+    assert kern.flash_forward.bodies["mma"] == mma0 + 1
+    want, _ = kern.flash_forward_plain(q, k, v, mask, scale=0.125)
+    live_q = mask.bool().any(-1)
+    err = (out.float() - want.float()).abs()[live_q].max().item()
+    assert torch.isfinite(out).all() and err <= FLASH_TOL[torch.bfloat16]
+    assert not out[~live_q].any()
+
+
+@pytest.mark.parametrize("backend", ["pool", "sched"])
+def test_score_path_on_the_card_builds_no_graph(card, backend):
+    """A BERT classifier (flash attention) behind a ScorePath on the card:
+    its runner, on a worker thread or the unit scheduler's dispatch
+    thread, launches B5 once per layer per batch, in inference mode, and
+    its output requires no grad, though the weights do."""
+    import asyncio
+    import threading
+
+    from mlapi_tpu_torch.models import get_model
+    from mlapi_tpu_torch.serving.engine import TextClassificationEngine
+    from mlapi_tpu_torch.serving.scoring import ScorePath
+    from mlapi_tpu_torch.text import ByteTokenizer
+    from mlapi_tpu_torch.utils.vocab import LabelVocab
+
+    model = get_model("bert_classifier", num_classes=2, vocab_size=260,
+                      hidden_size=128, num_layers=2, num_heads=2,
+                      intermediate_size=256, attention_impl="flash",
+                      device=card)
+    assert all(p.requires_grad for p in model.parameters())
+    eng = TextClassificationEngine(model, LabelVocab(("neg", "pos")),
+                                   tokenizer=ByteTokenizer(), max_len=64)
+    seen = []
+    apply = model.apply
+
+    def probe(x):
+        out = apply(x)
+        seen.append((threading.current_thread().name,
+                     torch.is_inference_mode_enabled(), out.requires_grad))
+        return out
+
+    model.apply = probe
+
+    async def run():
+        gen = None
+        if backend == "sched":
+            gen = _serving_engine(card, None, None)
+            await gen.start()
+        sp = ScorePath(eng, max_wait_ms=0.0, sched_source=(
+            (lambda: gen.sched) if gen is not None else None))
+        await sp.start()
+        try:
+            texts = ["a fine film", "", "dreadful" * 3, "ok"]
+            rows = [eng.encode(t) for t in texts]
+            return await asyncio.gather(*(sp.submit(r) for r in rows)), sp
+        finally:
+            await sp.stop()
+            if gen is not None:
+                await gen.stop()
+
+    n0 = kern.flash_forward.launches
+    answers, sp = asyncio.run(run())
+    assert [lab in ("neg", "pos") and 0.5 <= p <= 1.0
+            for lab, p in answers] == [True] * 4
+    assert sp.device_calls == 1
+    assert sp.sched_dispatches == (1 if backend == "sched" else 0)
+    assert kern.flash_forward.launches == n0 + 2     # one per layer
+    assert seen and all(mode and not grad for _, mode, grad in seen)
+    want = "unitsched" if backend == "sched" else "score-dispatch"
+    assert all(name.startswith(want) for name, _, _ in seen), seen
