@@ -199,11 +199,37 @@ the JAX package. Phases, each fatal on failure:
     12 heads of 64, bf16, sst2 key masks, a quarter of bucket-padding
     rows dead): kernel, device, plain and SDPA ms beside the bound, max
     error on live rows, exact zeros on dead ones.
+11. the rest of training, launch counters zeroed just before and read
+    just after each run. (a) ``python -m mlapi_tpu_torch.train --preset
+    sst2-bert --steps 30 --save-every 10 --keep-last 2`` as a subprocess,
+    SIGKILLed once ``step_00000020`` has committed, then the same command
+    again (in this process): it resumes at step 20; B5 12 launches per
+    step and per eval batch, B6 and B7 12 per step, all ``mma``; test
+    accuracy equal to phase 4's uninterrupted run, step losses 21-30
+    within 1e-2 and parameters within 1e-3 of it (bf16; the largest gaps
+    and whether the two are bitwise equal printed); two committed steps
+    left. (b) ``docs-gpt`` (the teacher), ``docs-gpt-draft`` and
+    ``docs-gpt-draft-distilled --distill-from`` the teacher, all with
+    flash attention: per distilled step the teacher's B5 twice (2 layers,
+    head dim 32) and the student's B5, B6 and B7 once (head dim 12), all
+    ``fma``; the distilled draft's mean KL to the teacher on the test
+    split below the hard-label draft's. (c) ``criteo-widedeep`` at its
+    published widths (26 tables of 100,000 × 16, batch 1024) on
+    ``recsys-sparse-adamw`` for 500 steps (test accuracy); from one init
+    20 sparse steps against 20 dense ``recsys-adamw`` steps: parameters
+    within 1e-4, rows no batch touched bit-equal to the init, wall and
+    profiled device ms per step both ways. (d) ``--bench`` rows for
+    sst2-bert and criteo-widedeep (step ms, examples/s, FLOPs with B5-B7
+    counted from their shapes, MFU against 989 TFLOP/s). Then
+    ``debug_checks`` raising at step 1 on a batch with a NaN feature and
+    passing a clean flash run, and a ``profile_dir`` trace that names
+    the flash kernels.
 
 Stdout: one JSON line per kernel case, per training and serving run,
 then the run's seconds, the ``{"kernels": [...]}`` summary (B1-B7; each
 kernel's ``launches_per_path`` holds the GPT and Llama paths, the
-scheduler phase's included, and B5's the scoring legs'), the ``nvidia-smi``
+scheduler phase's included, B5's the scoring legs', and B5-B7's the
+phase 11 runs), the ``nvidia-smi``
 line, and last ``{"ok": true, "device": {...}}``. Without a card, or
 outside the repo, it exits non-zero and prints no result.
 """
@@ -2798,6 +2824,7 @@ def train_run(cfg, splits, out: Path):
         "run_seconds": run_s, "launches": launches,
         "launches_expected": want, "bodies": bodies,
         "checkpoint_round_trip": ckpt_ok,
+        "step_losses": summary["step_losses"],
     }
     emit(row)
     if not (math.isfinite(row["first_loss"])
@@ -2876,8 +2903,8 @@ def profile_train_step(cfg, splits, runs: int = 5):
 
     model = get_model(cfg.model, **cfg.model_kwargs, seed=cfg.seed,
                       device="cuda")
-    params = list(model.parameters())
-    opt = _make_optimizer(cfg.optimizer, cfg.learning_rate, params)
+    params = dict(model.named_parameters())
+    opt = _make_optimizer(cfg.optimizer, cfg.learning_rate, params.values())
     step = make_train_step(model.apply, params, opt,
                            weight_decay=cfg.weight_decay)
     n = len(splits.x_train)
@@ -3806,6 +3833,462 @@ def scoring_phase(gpt_ckpt: Path, sst2_ckpt: Path, sst2_x, scratch: Path,
     }
 
 
+# -- 11. the rest of training ---------------------------------------------
+
+RESUME_EVERY = 10               # train-state saves of the killed run
+RESUME_KEEP = 2
+# The resumed sst2-bert run against phase 4's uninterrupted one (bf16
+# compute): step losses 21-30 and every parameter.
+RESUME_TOL = {"loss": 1e-2, "param": 1e-3}
+CRITEO_STEPS = 500              # the criteo-widedeep run (preset: 2000)
+SPARSE_DENSE_STEPS = 20
+SPARSE_DENSE_TOL = 1e-4
+BENCH_STEPS = {"sst2-bert": 20, "criteo-widedeep": 50}
+
+
+def committed_steps(root: Path) -> list:
+    return sorted(p.name for p in root.glob("step_*")
+                  if (p / "MANIFEST.json").exists())
+
+
+def resume_leg(full_row: dict, full_ckpt: Path, work: Path, power) -> dict:
+    """(a) ``python -m mlapi_tpu_torch.train --preset sst2-bert`` with
+    train-state saves as a subprocess, SIGKILLed once ``step_00000020``
+    has committed, then the same command again in this process (its
+    ``parse_args`` and ``run``), the launch counters zeroed just before
+    and read just after: it resumes at step 20; B5 one launch a layer per
+    step and per eval batch, B6 and B7 one a layer per step, all
+    ``mma``; test accuracy equal to phase 4's uninterrupted run, step
+    losses 21-30 and parameters within RESUME_TOL; two committed steps
+    remain."""
+    import signal
+
+    import numpy as np
+
+    from mlapi_tpu_torch.checkpoint import load_checkpoint
+    from mlapi_tpu_torch.train.__main__ import parse_args, run
+
+    out = work / "sst2-resumed"
+    state = Path(f"{out}_train_state")
+    argv = ["--preset", "sst2-bert", "--steps", str(SST2_STEPS),
+            "--save-every", str(RESUME_EVERY), "--keep-last",
+            str(RESUME_KEEP), "--out", str(out)]
+    marker = state / f"step_{2 * RESUME_EVERY:08d}" / "MANIFEST.json"
+    t0 = time.perf_counter()
+    with open(work / "resume_killed.log", "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "mlapi_tpu_torch.train", *argv],
+            cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
+        try:
+            while not marker.exists():
+                if proc.poll() is not None:
+                    raise SystemExit(
+                        f"resume: the first run exited ({proc.returncode}) "
+                        f"before {marker.parent.name} committed; see "
+                        f"{log.name}")
+                if time.perf_counter() - t0 > 600:
+                    raise SystemExit("resume: step 20 never committed")
+                time.sleep(0.005)
+        finally:
+            proc.kill()                                 # SIGKILL
+            proc.wait()
+    killed_s = time.perf_counter() - t0
+    killed = proc.returncode == -signal.SIGKILL
+    at_kill = committed_steps(state)
+    cfg, kwargs = parse_args(argv)
+    zero_counters()
+    t0 = time.perf_counter()
+    summary = run(cfg, kwargs.pop("out"), **kwargs)
+    resumed_s = time.perf_counter() - t0
+    launches, bodies = read_counters()
+    # Phase 4's counts: one launch a layer per step (B6, B7) and per step
+    # and eval batch (B5); the resumed process runs steps 21-30 and the
+    # same evaluation.
+    ran = SST2_STEPS - 2 * RESUME_EVERY
+    layers = full_row["launches"]["flash_backward_dq"] // SST2_STEPS
+    eval_launches = full_row["launches"]["flash_forward"] - layers * SST2_STEPS
+    want = {name: 0 for name in SERVING}
+    want.update(flash_forward=layers * ran + eval_launches,
+                flash_backward_dq=layers * ran,
+                flash_backward_dkv=layers * ran)
+    want_bodies = {name: {"mma": want[name], "fma": 0} for name in FLASH}
+    got, _ = load_checkpoint(out)
+    full, _ = load_checkpoint(full_ckpt)
+    gaps = {k: float((got[k] - v).abs().max()) for k, v in full.items()}
+    worst = max(gaps, key=gaps.get)
+    loss_gap = float(np.max(np.abs(
+        np.asarray(summary["step_losses"])
+        - np.asarray(full_row["step_losses"][2 * RESUME_EVERY:]))))
+    row = {
+        "case": "train_resume", "preset": cfg.name, "steps": SST2_STEPS,
+        "save_every": RESUME_EVERY, "keep_last": RESUME_KEEP,
+        "killed_by_sigkill": killed, "killed_after_s": killed_s,
+        "committed_at_kill": at_kill, "start_step": summary["start_step"],
+        "resumed_run_s": resumed_s,
+        "committed_after": committed_steps(state),
+        "test_accuracy": summary["test_accuracy"],
+        "test_accuracy_uninterrupted": full_row["test_accuracy"],
+        "step_losses_21_30": summary["step_losses"],
+        "max_loss_gap": loss_gap, "max_param_gap": gaps[worst],
+        "max_param_gap_leaf": worst,
+        "bitwise": all(g == 0.0 for g in gaps.values()) and loss_gap == 0.0,
+        "tolerance": RESUME_TOL, "launches": launches,
+        "launches_expected": want, "bodies": bodies, "nvidia_smi": power,
+    }
+    emit(row)
+    checks = {
+        "killed": killed,
+        "resumed_at_20": summary["start_step"] == 2 * RESUME_EVERY,
+        "launches": launches == want and bodies == want_bodies,
+        "accuracy": row["test_accuracy"] == row["test_accuracy_uninterrupted"],
+        "losses": loss_gap <= RESUME_TOL["loss"],
+        "params": gaps[worst] <= RESUME_TOL["param"],
+        "kept": row["committed_after"] == [
+            f"step_{s:08d}" for s in (RESUME_EVERY, 2 * RESUME_EVERY)],
+    }
+    if not all(checks.values()):
+        raise SystemExit(f"resume leg failed: {checks}; want {want}, "
+                         f"{want_bodies}")
+    return row
+
+
+def mean_kl(teacher, student, x, batch: int = 256) -> float:
+    """Mean KL(teacher || student) at temperature 1 over the next-token
+    positions of ``x`` that are not pad (id 0)."""
+    import torch
+    import torch.nn.functional as F
+
+    total = count = 0.0
+    with torch.no_grad():
+        for s in range(0, len(x), batch):
+            ids = torch.as_tensor(x[s:s + batch]).long().to("cuda")
+            keep = (ids[:, 1:] != 0).float()
+            t = F.log_softmax(teacher.apply(ids).float()[:, :-1], -1)
+            q = F.log_softmax(student.apply(ids).float()[:, :-1], -1)
+            kl = (t.exp() * (t - q)).sum(-1)
+            total += float((kl * keep).sum())
+            count += float(keep.sum())
+    return total / count
+
+
+def distill_leg(work: Path, power) -> dict:
+    """(b) ``docs-gpt`` (the teacher), ``docs-gpt-draft`` (hard labels)
+    and ``docs-gpt-draft-distilled --distill-from <teacher>`` through the
+    train CLI's ``run``, all with ``attention_impl="flash"``, counters
+    zeroed just before and read just after each: per distilled step the
+    teacher's B5 once per layer (2, head dim 32) and the student's B5, B6
+    and B7 once (1 layer, head dim 12), all ``fma`` (float32); plus the
+    student's B5 per eval batch. The distilled draft's mean KL to the
+    teacher on the test split must be below the hard-label draft's."""
+    import dataclasses
+
+    import torch
+
+    from mlapi_tpu_torch.checkpoint import load_checkpoint
+    from mlapi_tpu_torch.config import get_preset
+    from mlapi_tpu_torch.datasets import get_dataset
+    from mlapi_tpu_torch.models import get_model
+    from mlapi_tpu_torch.train.__main__ import run
+
+    def flash(name, **kw):
+        cfg = get_preset(name)
+        return dataclasses.replace(
+            cfg, model_kwargs={**cfg.model_kwargs, "attention_impl": "flash"},
+            **kw)
+
+    teacher_dir = work / "docs-gpt"
+    runs = {}
+    for name, cfg in (
+            ("docs-gpt", flash("docs-gpt")),
+            ("docs-gpt-draft", flash("docs-gpt-draft")),
+            ("docs-gpt-draft-distilled",
+             flash("docs-gpt-draft-distilled",
+                   distill_from=str(teacher_dir)))):
+        zero_counters()
+        t0 = time.perf_counter()
+        summary = run(cfg, str(work / name))
+        launches, bodies = read_counters()
+        runs[name] = {"cfg": cfg, "summary": summary, "launches": launches,
+                      "bodies": bodies, "seconds": time.perf_counter() - t0}
+    splits = get_dataset("docs_text", seq_len=128)
+    eval_batches = math.ceil(len(splits.x_test) / 256)   # evaluate_lm's
+    models = {}
+    for name, r in runs.items():
+        cfg = r["cfg"]
+        model = get_model(cfg.model, **cfg.model_kwargs, seed=None,
+                          device="cuda")
+        model.load_state_dict(load_checkpoint(work / name, model)[0])
+        models[name] = model
+        s_layers = cfg.model_kwargs["num_layers"]
+        evals = cfg.steps // cfg.eval_every + 1
+        t_layers = (get_preset("docs-gpt").model_kwargs["num_layers"]
+                    if cfg.distill_from else 0)
+        want = {k: 0 for k in SERVING}
+        want.update(
+            flash_forward=cfg.steps * (t_layers + s_layers)
+            + s_layers * eval_batches * evals,
+            flash_backward_dq=cfg.steps * s_layers,
+            flash_backward_dkv=cfg.steps * s_layers)
+        r["want"] = want
+    kl = {name: mean_kl(models["docs-gpt"], models[name], splits.x_test)
+          for name in ("docs-gpt-draft", "docs-gpt-draft-distilled")}
+    row = {"case": "train_distill", "nvidia_smi": power,
+           "mean_kl_to_teacher": kl,
+           "runs": {name: {"steps": r["cfg"].steps,
+                           "first_loss": r["summary"]["first_loss"],
+                           "final_loss": r["summary"]["final_loss"],
+                           "test_next_token_accuracy":
+                           r["summary"]["test_accuracy"],
+                           "wall_ms_per_step_median": sorted(
+                               r["summary"]["step_ms"])[
+                               len(r["summary"]["step_ms"]) // 2],
+                           "run_seconds": r["seconds"],
+                           "launches": r["launches"],
+                           "launches_expected": r["want"],
+                           "bodies": r["bodies"]}
+                    for name, r in runs.items()}}
+    emit(row)
+    del models
+    torch.cuda.empty_cache()
+    for name, r in runs.items():
+        want_bodies = {k: {"mma": 0, "fma": r["want"][k]} for k in FLASH}
+        if r["launches"] != r["want"] or r["bodies"] != want_bodies:
+            raise SystemExit(f"distill leg: {name} launches {r['launches']}, "
+                             f"bodies {r['bodies']}; want {r['want']}")
+    if not kl["docs-gpt-draft-distilled"] < kl["docs-gpt-draft"]:
+        raise SystemExit(f"distill leg: the distilled draft is not closer "
+                         f"to the teacher: {kl}")
+    return {name: r["launches"] for name, r in runs.items()}
+
+
+def profiled_steps_ms(step, batches, runs: int = 5) -> float:
+    """Device ms per step of ``runs`` steps under ``torch.profiler`` (the
+    kernels and copies they launched)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(runs):
+            float(step(*batches[i % len(batches)]))
+        torch.cuda.synchronize()
+    return sum(e.device_time_total for e in device_kernels(prof)) / 1e3 / runs
+
+
+def criteo_leg(work: Path, power) -> dict:
+    """(c) ``criteo-widedeep`` at its published widths (26 tables of
+    100,000 rows × 16, dense 13, hidden 256/128, batch 1024) on its
+    seeded synthetic stand-in with ``recsys-sparse-adamw`` through the
+    train CLI's ``run`` for CRITEO_STEPS steps (test accuracy printed);
+    then from one init SPARSE_DENSE_STEPS sparse steps against as many
+    dense ``recsys-adamw`` steps: parameters within SPARSE_DENSE_TOL,
+    rows no batch touched bit-equal to the init on both; wall and
+    profiled device ms per step both ways."""
+    import dataclasses
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from mlapi_tpu_torch.config import get_preset
+    from mlapi_tpu_torch.datasets import get_dataset
+    from mlapi_tpu_torch.models import get_model
+    from mlapi_tpu_torch.train.__main__ import run
+    from mlapi_tpu_torch.train.loop import (
+        _as_input,
+        _make_optimizer,
+        _make_sparse_step,
+        fit,
+        make_train_step,
+    )
+
+    cfg = dataclasses.replace(get_preset("criteo-widedeep"),
+                              steps=CRITEO_STEPS)
+    zero_counters()
+    t0 = time.perf_counter()
+    summary = run(cfg, None)
+    run_s = time.perf_counter() - t0
+    launches, _ = read_counters()
+    splits = get_dataset(cfg.dataset, **cfg.dataset_kwargs)
+    kw = dict(steps=SPARSE_DENSE_STEPS, batch_size=cfg.batch_size,
+              learning_rate=cfg.learning_rate, seed=cfg.seed)
+    results, models = {}, {}
+    for opt in ("recsys-adamw", "recsys-sparse-adamw"):
+        models[opt] = get_model(cfg.model, **cfg.model_kwargs, seed=cfg.seed,
+                                device="cuda")
+        results[opt] = fit(models[opt], splits, optimizer=opt, **kw)
+    init = get_model(cfg.model, **cfg.model_kwargs, seed=cfg.seed,
+                     device="cuda").state_dict()
+    n, nd = len(splits.x_train), cfg.model_kwargs["num_dense"]
+    vocab = np.asarray(cfg.model_kwargs["vocab_sizes"])
+    touched = np.zeros((len(vocab), int(vocab.max())), bool)
+    for i in range(SPARSE_DENSE_STEPS):
+        idx = np.random.default_rng((cfg.seed, i)).choice(
+            n, size=cfg.batch_size, replace=False)
+        ids = np.remainder(splits.x_train[idx, nd:].astype(np.int32), vocab)
+        touched[np.arange(len(vocab))[None, :], ids] = True
+    frozen = torch.as_tensor(~touched, device="cuda")
+    dense_sd = models["recsys-adamw"].state_dict()
+    sparse_sd = models["recsys-sparse-adamw"].state_dict()
+    gaps = {k: float((sparse_sd[k] - v).abs().max())
+            for k, v in dense_sd.items()}
+    untouched_equal = all(
+        torch.equal(sd[k][frozen], init[k][frozen])
+        for sd in (dense_sd, sparse_sd) for k in init if k.endswith("_tables"))
+    # Device time per step of each way, on batches of the run's schedule.
+    batches = []
+    for i in range(3):
+        idx = np.random.default_rng((cfg.seed, 100 + i)).choice(
+            n, size=cfg.batch_size, replace=False)
+        batches.append((_as_input(splits.x_train[idx], "cuda"),
+                        _as_input(splits.y_train[idx], "cuda")))
+    device_ms = {}
+    for opt, model in models.items():
+        if opt.startswith("recsys-sparse-"):
+            _, step = _make_sparse_step(opt, cfg.learning_rate, model)
+        else:
+            named = dict(model.named_parameters())
+            step = make_train_step(model.apply, named, _make_optimizer(
+                opt, cfg.learning_rate, named.values(), model=model))
+        for b in batches:
+            float(step(*b))                             # warm
+        device_ms[opt] = profiled_steps_ms(step, batches)
+    row = {
+        "case": "train_criteo", "preset": cfg.name, "steps": CRITEO_STEPS,
+        "batch": cfg.batch_size, "model": cfg.model_kwargs,
+        "dataset_source": summary["dataset_source"],
+        "first_loss": summary["first_loss"],
+        "final_loss": summary["final_loss"],
+        "test_accuracy": summary["test_accuracy"], "run_seconds": run_s,
+        "wall_ms_per_step_median": statistics.median(summary["step_ms"]),
+        "launches": launches,
+        "sparse_vs_dense": {
+            "steps": SPARSE_DENSE_STEPS, "max_param_gap": max(gaps.values()),
+            "gaps": gaps, "tolerance": SPARSE_DENSE_TOL,
+            "untouched_rows_bit_equal": untouched_equal,
+            "touched_rows": int(touched.sum()),
+            "wall_ms_per_step_median": {
+                opt: statistics.median(r.step_ms[2:])
+                for opt, r in results.items()},
+            "device_ms_per_step": device_ms},
+        "nvidia_smi": power,
+    }
+    emit(row)
+    del models, init
+    torch.cuda.empty_cache()
+    if not (math.isfinite(row["final_loss"])
+            and max(gaps.values()) <= SPARSE_DENSE_TOL and untouched_equal
+            and sum(launches.values()) == 0):
+        raise SystemExit(f"criteo leg failed: {row}")
+    return row
+
+
+def bench_leg(power) -> dict:
+    """(d) ``--bench`` rows (the train CLI's ``bench_train``) for
+    sst2-bert and criteo-widedeep, counters zeroed just before and read
+    just after each: step ms, examples/s, FLOPs (B5-B7 from their
+    shapes) and MFU."""
+    from mlapi_tpu_torch.train.bench import bench_train
+
+    launches = {}
+    for preset, steps in BENCH_STEPS.items():
+        zero_counters()
+        row = bench_train(preset, bench_steps=steps)
+        launches[preset], bodies = read_counters()
+        emit({"case": "train_bench", **row, "launches": launches[preset],
+              "bodies": bodies, "nvidia_smi": power})
+        if not (row["mfu"] and row["mfu"] > 0 and row["backend"] == "cuda"):
+            raise SystemExit(f"bench leg: no MFU for {preset}: {row}")
+    return launches
+
+
+def debug_profile_leg(work: Path, power) -> dict:
+    """``--debug-checks``: a batch with a NaN feature raises at step 1 on
+    the card, and the flash path (docs-gpt-draft, B5-B7) trains clean
+    under the checks; ``--profile-dir``: the trace of a few flash steps
+    names the flash kernels."""
+    import dataclasses
+    import json as _json
+
+    import numpy as np
+
+    from mlapi_tpu_torch.config import get_preset
+    from mlapi_tpu_torch.models import get_model
+    from mlapi_tpu_torch.train.__main__ import run
+    from mlapi_tpu_torch.train.loop import fit
+
+    class Poisoned:
+        x_train = np.zeros((64, 4), np.float32)
+        y_train = np.zeros((64,), np.int32)
+        x_test = np.zeros((0, 4), np.float32)
+        y_test = np.zeros((0,), np.int32)
+
+    Poisoned.x_train[3, 2] = np.nan
+    model = get_model("linear", num_features=4, num_classes=3, device="cuda")
+    try:
+        fit(model, Poisoned(), steps=5, debug_checks=True)
+        raised = None
+    except FloatingPointError as e:
+        raised = str(e)
+    cfg = get_preset("docs-gpt-draft")
+    cfg = dataclasses.replace(
+        cfg, steps=3, model_kwargs={**cfg.model_kwargs,
+                                    "attention_impl": "flash"})
+    clean = run(cfg, None, debug_checks=True)
+    prof_dir = work / "profile"
+    run(cfg, None, profile_dir=str(prof_dir))
+    trace = _json.loads((prof_dir / "trace.json").read_text())
+    names = {e.get("name", "") for e in trace["traceEvents"]}
+    flash = sorted({n[:80] for n in names
+                    if "flash_fwd" in n or "flash_bwd" in n})
+    row = {"case": "train_debug_profile", "poisoned_raised": raised,
+           "clean_flash_run_final_loss": clean["final_loss"],
+           "trace_flash_kernels": flash,
+           "trace_bytes": (prof_dir / "trace.json").stat().st_size,
+           "nvidia_smi": power}
+    emit(row)
+    if not (raised and "nan" in raised.lower()
+            and raised.endswith("at step 1")
+            and math.isfinite(clean["final_loss"])
+            and any("flash_fwd" in n for n in flash)
+            and any("flash_bwd_dq" in n for n in flash)
+            and any("flash_bwd_dkv" in n for n in flash)):
+        raise SystemExit(f"debug/profile leg failed: {row}")
+    return row
+
+
+def rest_of_training(train_row: dict, sst2_ckpt: Path, work: Path,
+                     power) -> dict:
+    """Item 11 of the docstring. Returns each leg's B5-B7 launches by
+    path."""
+    seconds = {}
+    t0 = time.perf_counter()
+    resume = resume_leg(train_row, sst2_ckpt, work, power)
+    seconds["resume"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    distill = distill_leg(work, power)
+    seconds["distill"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    criteo_leg(work, power)
+    seconds["criteo"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bench = bench_leg(power)
+    seconds["bench"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    debug_profile_leg(work, power)
+    seconds["debug_profile"] = time.perf_counter() - t0
+    emit({"case": "rest_of_training_seconds", **seconds})
+    paths = {f"resume sst2-bert, steps {2 * RESUME_EVERY + 1}-{SST2_STEPS}"
+             " + test eval": resume["launches"]}
+    for name, launches in distill.items():
+        paths[f"train {name} (flash), steps + evals"] = launches
+    for preset, launches in bench.items():
+        paths[f"bench {preset}, {BENCH_STEPS[preset]} steps + warmup"] = (
+            launches)
+    return {k: {path: counts[k] for path, counts in paths.items()}
+            for k in FLASH}
+
+
 def kernel_label(mangled: str) -> str:
     """``extend_mma_kernel<true, false>`` from the mangled name ptxas
     prints (the template arguments these sources use: bool, int, float,
@@ -3955,6 +4438,10 @@ def main() -> int:
     # f32 streams, the docs-llama training run
     llama_train = llama_phases(scratch, launches, power)
 
+    # 11. the rest of training: kill and resume, distillation,
+    # criteo-widedeep, bench rows, debug checks and a profile
+    training = rest_of_training(train_row, sst2_ckpt, work, power)
+
     summary = []
     for name in SERVING:
         mine = [r for r in rows if r["kernel"] == name]
@@ -3989,7 +4476,8 @@ def main() -> int:
                 f"train docs-llama, {DOCS_LLAMA_STEPS} steps + test eval":
                 llama_train["launches"][name],
                 **(scoring["launches"] if name == "flash_forward"
-                   else {})},
+                   else {}),
+                **training[name]},
             "bodies": train_row["bodies"][name],
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],

@@ -18,6 +18,15 @@ Layout::
 
     <dir>/MANIFEST.json
     <dir>/params.npz
+    <dir>/opt_state.npz      # train state only
+
+A train-state checkpoint (``train.loop.fit`` with ``save_every``) is a
+``<root>/step_%08d/`` directory of this layout whose manifest config has
+``"kind": "train_state"`` and whose ``opt_state.npz`` holds the
+optimizer's moments keyed by moment name and JAX key path (``mu/…``,
+``nu/…``, ``acc/…`` for rowwise AdaGrad) and the step ``count``. The
+JAX package stores the same state with orbax; :func:`opt_state_from_jax`
+carries it across.
 """
 
 from __future__ import annotations
@@ -39,6 +48,7 @@ from mlapi_tpu_torch.utils.vocab import LabelVocab
 FORMAT_VERSION = 1
 _MANIFEST = "MANIFEST.json"
 _PARAMS = "params.npz"
+_OPT_STATE = "opt_state.npz"
 
 
 def _stable_hash(obj: Any) -> str:
@@ -135,20 +145,29 @@ class CheckpointMeta:
         )
 
 
+def _write_npz(path: Path, name: str, arrays: dict) -> None:
+    tmp = path / f".{name}.tmp.npz"
+    np.savez(tmp, **arrays)
+    tmp.rename(path / name)
+
+
 def save_checkpoint(path: str | os.PathLike, params, *, step: int = 0,
                     config: dict | None = None,
-                    vocab: LabelVocab | None = None) -> Path:
+                    vocab: LabelVocab | None = None,
+                    opt_state: dict | None = None) -> Path:
     """Write a complete checkpoint at ``path``: ``params`` (a module or
     state dict; bf16 leaves are stored as float32), ``config``
-    (``{"model": ..., "model_kwargs": ..., "tokenizer": ...}``) and the
-    label ``vocab`` of a classifier."""
+    (``{"model": ..., "model_kwargs": ..., "tokenizer": ...}``), the
+    label ``vocab`` of a classifier and, for a train state, the flat
+    ``opt_state`` (``{"mu/a/b": array, ..., "count": array}``)."""
     path = Path(path).resolve()
     path.mkdir(parents=True, exist_ok=True)
     config = dict(config or {})
     flat = _flat_np(params)
-    tmp = path / f".{_PARAMS}.tmp.npz"
-    np.savez(tmp, **flat)
-    tmp.rename(path / _PARAMS)
+    _write_npz(path, _PARAMS, flat)
+    if opt_state is not None:
+        _write_npz(path, _OPT_STATE,
+                   {k: np.asarray(v) for k, v in opt_state.items()})
     meta = CheckpointMeta(
         format_version=FORMAT_VERSION,
         framework_version=_framework_version,
@@ -202,3 +221,113 @@ def load_checkpoint(path: str | os.PathLike, model=None):
                 f"differs from the checkpoint's (config {meta.config})"
             )
     return params_from_jax(flat), meta
+
+
+def load_opt_state(path: str | os.PathLike) -> dict[str, np.ndarray]:
+    """The flat optimizer state of a committed train-state checkpoint."""
+    read_manifest(path)
+    with np.load(Path(path) / _OPT_STATE) as z:
+        return {k: z[k] for k in z.files}
+
+
+def _masked(node) -> bool:
+    """optax's ``MaskedNode``: an empty named tuple where a masked
+    partition holds no state."""
+    return getattr(node, "_fields", None) == ()
+
+
+def _np_leaves(tree, prefix: str):
+    """``(key path, array)`` of a nested dict of arrays, masked leaves
+    skipped."""
+    for key, val in tree.items():
+        path = f"{prefix}{key}"
+        if isinstance(val, dict):
+            yield from _np_leaves(val, path + "/")
+        elif not _masked(val):
+            yield path, np.asarray(val)
+
+
+def opt_state_from_jax(np_state) -> dict[str, np.ndarray]:
+    """Carry the JAX package's optimizer state (an optax state as a tree
+    of numpy arrays) into the port's flat train-state form: Adam/AdamW's
+    ``ScaleByAdamState`` becomes ``count``, ``mu/<path>``, ``nu/<path>``;
+    rowwise-AdaGrad accumulators become ``acc/<path>``, whether they sit
+    in ``partitioned``'s ``"embedding"`` partition (``recsys-<base>``) or
+    in the sparse step's ``{"base", "acc"}`` dict
+    (``recsys-sparse-<base>``). SGD's empty state gives ``{}``. Reads
+    the structure by its field names, so it needs no optax."""
+    flat: dict[str, np.ndarray] = {}
+
+    def walk(node, acc: bool = False):
+        fields = getattr(node, "_fields", None)
+        if fields is not None and {"count", "mu", "nu"} <= set(fields):
+            flat["count"] = np.asarray(node.count)
+            for moment in ("mu", "nu"):
+                for path, arr in _np_leaves(getattr(node, moment), ""):
+                    flat[f"{moment}/{path}"] = arr
+        elif fields is not None and "inner_states" in fields:
+            for label, inner in node.inner_states.items():
+                walk(inner, acc=label == "embedding")
+        elif fields is not None and "inner_state" in fields:
+            walk(node.inner_state, acc)
+        elif isinstance(node, (tuple, list)):
+            for child in node:
+                walk(child, acc)
+        elif isinstance(node, dict) and set(node) == {"base", "acc"}:
+            walk(node["base"])
+            walk(node["acc"], acc=True)
+        elif isinstance(node, dict) and acc:
+            for path, arr in _np_leaves(node, ""):
+                flat[f"acc/{path}"] = arr
+        elif isinstance(node, dict):
+            raise ValueError(
+                f"unrecognised optimizer state node with keys {sorted(node)}"
+            )
+
+    walk(np_state)
+    return flat
+
+
+def latest_step(root: str | os.PathLike) -> Path | None:
+    """Newest committed ``step_*`` dir under ``root`` (resume point)."""
+    root = Path(root)
+    if not root.exists():
+        return None
+    newest = max(_committed_steps(root), default=None)
+    return newest[1] if newest else None
+
+
+def step_dir(root: str | os.PathLike, step: int) -> Path:
+    return Path(root) / f"step_{step:08d}"
+
+
+def _committed_steps(root: Path) -> list[tuple[int, Path]]:
+    out = []
+    for child in root.iterdir():
+        if child.name.startswith("step_") and (child / _MANIFEST).exists():
+            try:
+                out.append((int(child.name.removeprefix("step_")), child))
+            except ValueError:
+                continue
+    return out
+
+
+def gc_checkpoints(root: str | os.PathLike, keep_last: int) -> list[Path]:
+    """Delete all but the newest ``keep_last`` committed ``step_*`` dirs
+    under ``root``; returns the deleted paths. An uncommitted dir (no
+    manifest: a save in progress) is its writer's and is left alone.
+    Deletion unlinks the manifest first, so a crash mid-delete never
+    leaves a committed half-checkpoint."""
+    import shutil
+
+    if keep_last < 1:
+        raise ValueError(f"keep_last must be >= 1, got {keep_last}")
+    root = Path(root)
+    if not root.exists():
+        return []
+    committed = sorted(_committed_steps(root))
+    doomed = [p for _, p in committed[:-keep_last]]
+    for p in doomed:
+        (p / _MANIFEST).unlink()
+        shutil.rmtree(p, ignore_errors=True)
+    return doomed

@@ -4,9 +4,10 @@ as data).
 
 A preset shows up (``preset_names``, ``get_preset``) only once both its
 model and its dataset are ported (:func:`preset_available`), as in the
-JAX package: in this port ``sst2-bert`` and the ``docs_text`` decoder
-presets (``docs-gpt``, ``docs-gpt-draft``, ``docs-llama``; the CLI
-refuses ``docs-gpt-draft-distilled``, which needs distillation).
+JAX package. Every preset's model and dataset are ported. The train CLI
+refuses ``docs-gpt-draft-distilled`` without ``--distill-from`` (as the
+JAX CLI does); the presets' meshes run unsharded on one card (ROADMAP
+Queue A item 8).
 """
 
 from __future__ import annotations
@@ -41,7 +42,7 @@ class TrainConfig:
 
     checkpoint_dir: str | None = None
 
-    # Knowledge distillation (not ported: ROADMAP Queue A item 4).
+    # Knowledge distillation from a teacher checkpoint.
     distill_from: str | None = None
     distill_temperature: float = 2.0
     distill_alpha: float = 0.5

@@ -1,4 +1,4 @@
-"""Wide&Deep classifier, forward only (counterpart of
+"""Wide&Deep classifier (counterpart of
 ``mlapi_tpu/models/wide_deep.py``).
 
 - **Wide**: a linear map of the dense features plus, per categorical
@@ -17,10 +17,13 @@ inside the table. Parameters keep the JAX key paths (``wide_dense``,
 ``wide_bias``, ``wide_tables``, ``deep_tables``,
 ``deep_{i}/{kernel,bias}``).
 
-Not ported here: ``param_shardings`` (vocab-sharded tables wait for
-ROADMAP Queue A item 8) and the sparse-update optimizer split (item
-4); ``split_embeddings`` / ``merge_embeddings`` exist because
-``apply`` uses them.
+The forward is split at the gather (``split_embeddings``,
+``gather_rows``, ``apply_from_rows``, ``merge_embeddings``) so the
+sparse training step (``train/sparse_embed.py``) can take gradients
+with respect to the gathered rows; ``optimizer_partitions`` labels the
+tables for rowwise AdaGrad (``train/optimizers.py``). Not ported here:
+``param_shardings`` (vocab-sharded tables wait for ROADMAP Queue A item
+8).
 """
 
 from __future__ import annotations
@@ -155,6 +158,13 @@ class WideDeepClassifier(nn.Module):
         return self.apply_from_rows(dense_params, rows, x)
 
     forward = apply
+
+    def optimizer_partitions(self) -> dict[str, str]:
+        """``{parameter name: label}`` for ``train.optimizers.partitioned``:
+        the two embedding stacks ``"embedding"`` (rowwise AdaGrad, the
+        Wide&Deep paper's recipe), everything else ``"default"``."""
+        return {name: "embedding" if name.endswith("_tables") else "default"
+                for name, _ in self.named_parameters()}
 
     def param_shardings(self, layout=None):
         raise NotImplementedError(
