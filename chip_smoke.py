@@ -224,18 +224,53 @@ the JAX package. Phases, each fatal on failure:
     ``debug_checks`` raising at step 1 on a batch with a NaN feature and
     passing a clean flash run, and a ``profile_dir`` trace that names
     the flash kernels.
+12. int8 weights, adapters and tenants, LoRA. (a) At GPT-2 small and
+    TinyLlama-1.1B widths (inside phases 5 and 7, on their
+    checkpoints): the CLI's engine factory with ``--quantize int8``,
+    contiguous bf16 and paged 16 int8 (one quantized model): its weight
+    bytes on the card (``torch.cuda.memory_allocated`` around the load)
+    between ``quantized_bytes`` and the caching allocator's rounding of
+    it; B1-B4 launches exact for 8 short rows and one chunked prompt;
+    teacher-forced top-1 agreement with the float engine (each
+    disagreement's margin listed) at least ``INT8_AGREE``, with two
+    wrong-scale controls under it; decode wall/device ms and kernels per
+    step beside the float engine's profile row. (b) ``--adapter-slots 4``
+    and three rank-8 seeded adapters through ``--adapter ID=PATH`` files
+    on a paged 16 bf16 engine: slot bytes and resident bytes in closed
+    form, the first install's pool allocation, decode launches per step
+    with adapters equal to those without, a grouped and a mixed batch
+    beside each row's solo stream, base streams unchanged after adapter
+    traffic, every adapter row of the mixed batch apart from its base
+    stream, top-1 agreement with the eagerly merged engine (margins
+    listed) at least ``SLOTS_AGREE`` while the engine without the
+    adapter and with another stay under it; at GPT-2, one ``/generate``
+    naming ``adapter`` and ``tenant`` over HTTP and an unknown adapter
+    answering 404; small f32
+    GPT and Llama: slot-path streams equal the merged engine's, a mixed
+    batch its rows' solo streams, exactly. (c) ``--preset sst2-bert
+    --init-from <phase 4's checkpoint> --lora-rank 8`` for 10 steps with
+    flash: B5 12 a step and a test batch, B6/B7 11 a step (layer 0's
+    attention inputs need no gradient), all ``mma``; every leaf without
+    an adapter bit-equal to the init, each adapted kernel the init plus
+    a rank-8 matrix; adapter moments exactly twice the adapters' f32
+    bytes; wall and device ms per step beside phase 4's; the merged
+    checkpoint on ``/predict`` through B5. (d) sst2-bert with
+    ``--quantize int8`` on ``/predict`` through B5, labels beside the
+    float engine's.
 
 Stdout: one JSON line per kernel case, per training and serving run,
 then the run's seconds, the ``{"kernels": [...]}`` summary (B1-B7; each
 kernel's ``launches_per_path`` holds the GPT and Llama paths, the
-scheduler phase's included, B5's the scoring legs', and B5-B7's the
-phase 11 runs), the ``nvidia-smi``
+scheduler phase's and phase 12's included, B5's the scoring legs', and
+B5-B7's the phase 11 and 12 runs), the ``nvidia-smi``
 line, and last ``{"ok": true, "device": {...}}``. Without a card, or
 outside the repo, it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import json
 import math
 import os
@@ -1344,7 +1379,13 @@ def device_kernels(prof):
             and not getattr(e, "is_user_annotation", False)]
 
 
-def profile_decode(engine, runs: int = 5) -> None:
+# Every profile_decode row of the run, by (model class, width, cache
+# format, page size): phase 12 sets the int8-weight engines' beside the
+# float engines' of phases 5 and 7.
+PROFILES: dict = {}
+
+
+def profile_decode(engine, runs: int = 5, lora=None) -> dict:
     """Where one serving decode step's time goes: an 8-step decode chunk
     at B = 8 (bucket 16, default tier) through the engine's model and
     cache layout (a paged engine's rows map pages of its pool). Wall
@@ -1356,7 +1397,9 @@ def profile_decode(engine, runs: int = 5) -> None:
     time, given for the median and for the extremes of the runs. A paged
     engine's runs alternate with the same chunk on a contiguous cache of
     the same model (one order, then the other), so the two layouts'
-    host times compare within one window."""
+    host times compare within one window. ``lora`` (an adapter engine's
+    ``adapters.batch_params(...)``) runs every step with that adapter
+    context; ``lora_mode`` names it in the row."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1376,11 +1419,15 @@ def profile_decode(engine, runs: int = 5) -> None:
     host = dict(temps=np.zeros(b, np.float32), seeds=np.zeros(b, np.int64),
                 top_k=np.zeros(b, np.int64), top_p=np.ones(b, np.float32))
     pool, pages = engine.pool, None
+    # Passed only when given: mlapi_tpu_torch/tools/parent_ab.py runs
+    # this against a parent tree whose functions take no ``lora``.
+    adapter = {} if lora is None else {"lora": lora}
 
     def chunk(cache, tok, pos):
         return decode_chunk_fn(
             model, cache, tok, pos, n_pad, host["temps"], host["seeds"],
             np.ones(b, np.int64), host["top_k"], host["top_p"], chunk=steps,
+            **adapter,
         )
 
     def timed(cache, tok) -> float:
@@ -1393,14 +1440,14 @@ def profile_decode(engine, runs: int = 5) -> None:
         contiguous = None
         tok, cache = prefill_fn(model, prompt, host["seeds"], host["temps"],
                                 n_pad, host["top_k"], host["top_p"],
-                                total_len=total)
+                                total_len=total, **adapter)
         if pool is not None:
             contiguous = (cache, chunk(cache, tok, 16)[2])   # warm
             pages = pool.alloc(b * -(-total // pool.page))
             cache = paged_cache_tree(pool.layers, pages.reshape(b, -1))
             tok, cache = paged_prefill_fn(
                 model, cache, prompt, 0, host["seeds"], host["temps"],
-                n_pad, host["top_k"], host["top_p"],
+                n_pad, host["top_k"], host["top_p"], **adapter,
             )
         _, cache, tok = chunk(cache, tok, 16)        # warm
         torch.cuda.synchronize()
@@ -1453,10 +1500,12 @@ def profile_decode(engine, runs: int = 5) -> None:
     walls.sort()
     beside.sort()
     dev_ms = dev_us / 1e3 / steps
-    emit({
+    row = {
         "case": "profile", "model": type(model).__name__, "B": b,
         "L": total, "steps": steps,
         "kv_quant": engine.kv_quant, "decode_attn_impl": "flash",
+        "lora_mode": None if lora is None else (
+            "gathered" if "rows" in lora["layer_0"] else "grouped"),
         "kv_page_size": pool.page if pool is not None else None,
         "wall_ms_per_step": {"min": walls[0], "median": walls[runs // 2],
                              "max": walls[-1], "runs": runs},
@@ -1477,7 +1526,12 @@ def profile_decode(engine, runs: int = 5) -> None:
         "page_coords_host_ms": coords_ms if coords is not None else None,
         "host_syncs_per_step": syncs,
         "host_top_ops": host_top,
-    })
+    }
+    emit(row)
+    if lora is None:
+        PROFILES[(type(model).__name__, model.hidden_size,
+                  engine.kv_quant, row["kv_page_size"])] = row
+    return row
 
 
 def profile_prefill(engine, runs: int = 5) -> None:
@@ -3141,7 +3195,7 @@ def llama_train_run():
     return row
 
 
-def llama_phases(scratch: Path, launches: dict, power) -> dict:
+def llama_phases(scratch: Path, launches: dict, power, then=None) -> dict:
     """Item 7 of the docstring: the Llama family. A seeded TinyLlama-1.1B-width
     checkpoint served in two runs (contiguous bf16, paged 16 int8) with
     their profiles and, on the contiguous engine, flash's top-1 agreement
@@ -3149,7 +3203,8 @@ def llama_phases(scratch: Path, launches: dict, power) -> dict:
     Llamas' greedy streams; the docs-llama training run. Each serving
     engine then runs the prefix phase (:func:`prefix_leg`), the paged one
     the scheduler phase (:func:`sched_leg`). Adds each serving run's
-    launches to ``launches``; returns the training row."""
+    launches to ``launches``; ``then(checkpoint)`` runs last on the
+    TinyLlama-width checkpoint; returns the training row."""
     import torch
 
     seconds = {}
@@ -3190,6 +3245,10 @@ def llama_phases(scratch: Path, launches: dict, power) -> dict:
         t0 = time.perf_counter()
         llama_flash_vs_full(ckpt)
         seconds["flash_vs_full"] = time.perf_counter() - t0
+        if then is not None:
+            t0 = time.perf_counter()
+            then(ckpt)
+            seconds["item5"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     check_small_f32(4, "llama_lm", kv_heads=2)            # docs-llama
     check_small_f32(8, "llama_lm", kv_heads=1, hidden=512)  # a group of 8
@@ -4289,6 +4348,731 @@ def rest_of_training(train_row: dict, sst2_ckpt: Path, work: Path,
             for k in FLASH}
 
 
+# -- 12. int8 weights, adapters and tenants, LoRA ---------------------------
+
+ADAPTER_RANK = 8
+ADAPTER_SLOTS = 4
+ADAPTER_IDS = ("t1", "t2", "t3")
+ITEM5_NEW = 32                   # new tokens of the launch-count batches
+AGREE_NEW = 64                   # teacher-forced agreement positions
+LORA_STEPS = 10                  # sst2-bert LoRA fine-tune steps
+LORA_TEXTS = 16                  # /predict texts of each sst2 leg
+# Teacher-forced top-1 agreement limits of phase 12's bf16 legs, each
+# between the leg's worst sound reading and its controls' best, read on
+# an H100 (PERF.md, PR 14). int8 weights against the float engine: sound
+# 0.973 (GPT-2) and 0.818 (TinyLlama); the same int8 weights dequantized
+# with wrong scales (:func:`wrong_scales`) at most 0.471 and 0.031. The
+# slot path against the eagerly merged engine: sound 0.992 and 0.939;
+# the adapter dropped, or another in its place, at most 0.178 and 0.035.
+# An agreement under its limit fails the leg, and so does a control over
+# it (the limit could not have seen that fault).
+INT8_AGREE = {"gpt2-small": 0.9, "tinyllama-1.1b": 0.75}
+SLOTS_AGREE = {"gpt2-small": 0.9, "tinyllama-1.1b": 0.9}
+
+
+def adapter_targets(cfg: dict) -> dict:
+    """``{target: (d_in, d_out)}`` of every adapted kernel of a layer
+    (``models/lora.DEFAULT_TARGETS``) at ``cfg``'s widths."""
+    h = cfg["hidden_size"]
+    if "num_kv_heads" not in cfg:            # GPT-2
+        return {"qkv": (h, 3 * h), "attn_out": (h, h), "ffn_up": (h, 4 * h),
+                "ffn_down": (4 * h, h)}
+    kvd = cfg["num_kv_heads"] * (h // cfg["num_heads"])
+    f = cfg["intermediate_size"]
+    return {"wq": (h, h), "wk": (h, kvd), "wv": (h, kvd), "wo": (h, h),
+            "w_gate": (h, f), "w_up": (h, f), "w_down": (f, h)}
+
+
+def seeded_adapter(cfg: dict, seed: int, rank: int = ADAPTER_RANK,
+                   b_scale: float = 0.05) -> dict:
+    """A canonical serving payload (``b`` carrying its scale) over every
+    target of ``cfg``: ``a ~ N(0, 1/d_in)``, ``b ~ N(0, b_scale^2)``,
+    float32, drawn from ``seed``; at 0.05, a delta of 15-25 % of the
+    seeded kernels' scale at GPT-2 and TinyLlama widths."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return {f"layer_{n}": {t: {
+        "a": (rng.standard_normal((i, rank)) / math.sqrt(i)).astype(
+            np.float32),
+        "b": (b_scale * rng.standard_normal((rank, o))).astype(np.float32),
+    } for t, (i, o) in adapter_targets(cfg).items()}
+        for n in range(cfg["num_layers"])}
+
+
+def forced_run(engine, prompts, n: int, forced=None, adapter=None):
+    """Greedy ``n`` tokens of ``prompts`` (one batch, the engine's own
+    formation and decode steps, with ``adapter``'s context on every
+    step), or teacher-forced by ``forced``'s tokens. Returns ``(tokens [B,
+    n], logits [B, n, V])``."""
+    import torch
+
+    import mlapi_tpu_torch.models.gpt as gpt
+    from mlapi_tpu_torch.serving.requests import _SyncSink
+
+    model = engine.model
+    pick = gpt._pick_token
+    sinks = [_SyncSink(engine._encode(t, n, 0.0, 0, None, adapter=adapter),
+                       []) for t in prompts]
+    firsts = []
+
+    def capture(temps, logits, *args, **kwargs):
+        firsts.append(logits.float())
+        return pick(temps, logits, *args, **kwargs)
+
+    gpt._pick_token = capture
+    try:
+        batch = engine._form_batch(sinks)
+    finally:
+        gpt._pick_token = pick
+    b = batch.b
+    try:
+        tok = batch._first
+        toks, logs = [tok[:b]], [firsts[-1][:b]]
+        for t in range(n - 1):
+            if batch.pool is not None:
+                batch._ensure_pages(1, list(range(b)))
+            if forced is not None:
+                tok = tok.clone()
+                tok[:b] = forced[:, t]
+            logits, batch.cache = model.decode_step(
+                batch.cache, tok[:, None], batch.pos, batch._n_pad_dev(),
+                batch.p_len, batch._lo_arg(), lora=batch._lora())
+            tok = pick(batch.temps, logits, batch.seeds, batch.step)
+            batch.pos += 1
+            toks.append(tok[:b])
+            logs.append(logits[:b].float())
+    finally:
+        batch._paged_cleanup()
+        batch._release_adapters()
+    return torch.stack(toks, dim=1), torch.stack(logs, dim=1)
+
+
+def pair_agreement(ref, got, prompts, n: int = AGREE_NEW, adapter=None):
+    """Teacher-forced top-1 agreement of engine ``got`` (with
+    ``adapter``) with engine ``ref``'s greedy stream (``ref`` an engine,
+    or its :func:`forced_run` result), and for each disagreement the
+    ``ref`` logits' top-1 - top-2 margin and the largest |got - ref|
+    logit difference there (as :func:`forced_agreement`)."""
+    import torch
+
+    with torch.inference_mode():
+        want, want_logits = (ref if isinstance(ref, tuple)
+                             else forced_run(ref, prompts, n))
+        have, have_logits = forced_run(got, prompts, n, forced=want,
+                                       adapter=adapter)
+    ties = []
+    for row, pos in (have != want).nonzero().tolist():
+        top2 = want_logits[row, pos].topk(2).values
+        diff = (have_logits[row, pos] - want_logits[row, pos]).abs().max()
+        ties.append({"row": row, "pos": pos,
+                     "margin": float(top2[0] - top2[1]),
+                     "max_abs_diff": float(diff)})
+    return float((have == want).float().mean()), ties
+
+
+@contextlib.contextmanager
+def wrong_scales(model, fault: str):
+    """The int8 leg's controls, in place and undone on exit: every int8
+    leaf's per-channel scales rolled by one channel (``rolled``: each
+    channel dequantized with its neighbour's scale), or each set to its
+    tensor's largest (``per_tensor``)."""
+    import torch
+
+    from mlapi_tpu_torch.ops.quant import QuantLeaf
+
+    leaves = [m for m in model.modules() if isinstance(m, QuantLeaf)]
+    saved = [m.scale.clone() for m in leaves]
+    with torch.no_grad():
+        for m in leaves:
+            m.scale.copy_(m.scale.roll(1, -1) if fault == "rolled"
+                          else m.scale.amax().expand_as(m.scale))
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            for m, s in zip(leaves, saved):
+                m.scale.copy_(s)
+
+
+def batch_streams(engine, specs, n: int = ITEM5_NEW) -> list:
+    """One formed batch of ``(text, adapter)`` through the engine's
+    ``_run_batch``: every row's greedy stream."""
+    from mlapi_tpu_torch.serving.requests import _SyncSink
+
+    outs = [[] for _ in specs]
+    sinks = [_SyncSink(engine._encode(t, n, 0.0, 0, None, adapter=a), out)
+             for (t, a), out in zip(specs, outs)]
+    engine._run_batch(sinks)
+    errors = [s.error for s in sinks if s.error is not None]
+    if errors:
+        raise SystemExit(f"batch failed: {errors[0]!r}")
+    return outs
+
+
+def counted_decode(engine) -> list:
+    """Count the engine's decode steps (one flash-decode launch a layer
+    each): returns the one-element counter."""
+    steps = [0]
+    step = engine.model.decode_step
+
+    def counted(*args, **kwargs):
+        steps[0] += 1
+        return step(*args, **kwargs)
+
+    engine.model.decode_step = counted
+    return steps
+
+
+def launches_of(engine, run) -> dict:
+    """``run()`` with the launch counters zeroed just before and read
+    just after; with the decode steps and prefill chunks it took and the
+    launches they need (B1/B3 one a layer a decode step, B2/B4 one a layer
+    a prefill chunk)."""
+    steps = counted_decode(engine)
+    chunks0 = engine.prefill_chunks
+    zero_counters()
+    out = run()
+    launches, bodies = read_counters(SERVING)
+    del engine.model.decode_step
+    layers = engine.model.num_layers
+    paged = engine.pool is not None
+    want = {k: 0 for k in KERNELS}
+    want["paged_decode_attention" if paged else "decode_attention"] = (
+        layers * steps[0])
+    want["paged_extend_attention" if paged else "extend_attention"] = (
+        layers * (engine.prefill_chunks - chunks0))
+    return {"out": out, "launches": launches, "want": want,
+            "bodies": bodies, "decode_steps": steps[0],
+            "per_step": {k: v / max(steps[0], 1) for k, v in launches.items()
+                         if v and "decode" in k}}
+
+
+def allocator_bound(model) -> int:
+    """The most ``torch.cuda.memory_allocated`` can count for ``model``'s
+    tensors: the caching allocator rounds a block up to 512 B, and one
+    past 1 MiB up to at most a whole 2 MiB multiple (it leaves a
+    remainder under 1 MiB unsplit)."""
+    total = 0
+    for t in model.state_dict().values():
+        n = t.numel() * t.element_size()
+        unit = 2 << 20 if n > 1 << 20 else 512
+        total += -(-n // unit) * unit
+    return total
+
+
+def weights_leg(ckpt: Path, cfg: dict, model: str, power) -> dict:
+    """(a) int8 weights at ``cfg``'s width: the CLI's engine factory with
+    ``--quantize int8`` (contiguous bf16 cache; the paged 16 int8 engine
+    serves the same quantized model) beside the float engine. Weight
+    bytes on the card (``torch.cuda.memory_allocated`` around the load)
+    against ``quantized_bytes``; exact B1-B4 launches for 8 short rows
+    and one chunked prompt; teacher-forced top-1 agreement with the float
+    engine, each disagreement's margin listed, at least ``INT8_AGREE``
+    while both :func:`wrong_scales` controls stay under it; decode wall
+    and device ms
+    and kernels per step beside the float engine's (``profile_decode``).
+    Returns launches by path."""
+    import torch
+
+    from mlapi_tpu_torch.ops.quant import quantized_bytes
+    from mlapi_tpu_torch.serving.__main__ import build_engine
+    from mlapi_tpu_torch.serving.engine import TextGenerationEngine
+
+    gc.collect()
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    qeng = build_engine(ckpt, quantize="int8", decode_attn_impl="flash")
+    load_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    on_card = torch.cuda.memory_allocated() - m0
+    stored, full = quantized_bytes(qeng.model)
+    bound = allocator_bound(qeng.model)
+    feng = build_engine(ckpt, decode_attn_impl="flash")
+    float_bytes = quantized_bytes(feng.model)[0]
+    tensors = sum(1 for _ in qeng.model.state_dict().values())
+    paths, rows = {}, []
+    for kv_quant, page in ((None, None), ("int8", PAGE)):
+        if page:
+            for eng in (qeng, feng):
+                eng.model.configure(kv_quant=kv_quant)
+            qeng = TextGenerationEngine(qeng.model, tokenizer=qeng.tokenizer,
+                                        kv_page_size=page, meta=qeng.meta)
+            feng = TextGenerationEngine(feng.model, tokenizer=feng.tokenizer,
+                                        kv_page_size=page)
+        path = f"int8 weights {model} " + (kv_quant or "none") + (
+            f", page {page}" if page else "")
+        short = launches_of(qeng, lambda: batch_streams(
+            qeng, [(t, None) for t in SHORT_PROMPTS]))
+        long = launches_of(qeng, lambda: batch_streams(
+            qeng, [(LONG_PROMPT, None)], 16))
+        launches = {k: short["launches"][k] + long["launches"][k]
+                    for k in KERNELS}
+        want = {k: short["want"][k] + long["want"][k] for k in KERNELS}
+        paths[path] = launches
+        with torch.inference_mode():
+            reference = forced_run(feng, SHORT_PROMPTS, AGREE_NEW)
+        agree, ties = pair_agreement(reference, qeng, SHORT_PROMPTS)
+        controls = {}
+        for fault in ("rolled", "per_tensor"):
+            with wrong_scales(qeng.model, fault):
+                controls[f"scales_{fault}"] = pair_agreement(
+                    reference, qeng, SHORT_PROMPTS)[0]
+        limit = INT8_AGREE[model]
+        prof_q = profile_decode(qeng)
+        # The float engine's row from phase 5 or 7 of this run, else now.
+        prof_f = PROFILES.get((type(feng.model).__name__, cfg["hidden_size"],
+                               feng.kv_quant, page)) or profile_decode(feng)
+        row = {
+            "case": "int8_weights", "model": model,
+            "kv_quant": kv_quant or "none", "kv_page_size": page,
+            "meta_quantized": qeng.meta.get("quantized"),
+            "weight_bytes_on_card": on_card,
+            "quantized_bytes_stored": stored, "f32_bytes": full,
+            "allocator_bound": bound,
+            "float_engine_bytes": float_bytes,
+            "weight_tensors": tensors, "load_s": load_s,
+            "launches": launches, "launches_expected": want,
+            "decode_steps": short["decode_steps"] + long["decode_steps"],
+            "bodies": {k: short["bodies"][k] for k in SERVING},
+            "top1_agreement_with_float": agree, "disagreements": ties,
+            "controls": controls, "limit": limit,
+            "decode": {
+                side: {k: p[k] for k in ("wall_ms_per_step",
+                                         "device_ms_per_step",
+                                         "kernels_per_step")}
+                for side, p in (("int8", prof_q), ("float", prof_f))},
+            "card": power,
+        }
+        rows.append(row)
+        emit(row)
+        if not (stored <= on_card <= row["allocator_bound"]
+                and row["meta_quantized"] == "int8"):
+            raise SystemExit(f"{model} int8 weights: {on_card} bytes on the "
+                             f"card for {stored} stored")
+        if launches != want:
+            raise SystemExit(f"{model} int8 weights {path}: launches "
+                             f"{launches}, want {want}")
+        if not (agree >= limit
+                and all(c < limit for c in controls.values())):
+            raise SystemExit(f"{model} int8 weights {path}: top-1 "
+                             f"agreement {agree} with the float engine, "
+                             f"controls {controls}, limit {limit}")
+    del qeng, feng
+    torch.cuda.empty_cache()
+    return paths
+
+
+def adapters_leg(ckpt: Path, cfg: dict, model: str, work: Path, power,
+                 http_leg: bool = False) -> dict:
+    """(b) ``--adapter-slots 4`` and three rank-8 seeded adapters loaded
+    through ``--adapter ID=PATH`` files (the CLI's parser and loader) on
+    a paged 16 bf16 engine: adapter-slot bytes against the closed form
+    (and the first install's pool allocation); launches per decode step
+    with adapters equal to those without; a grouped and a mixed batch
+    (three tenants and a base row) against each row's solo stream; base
+    streams unchanged after adapter traffic; each adapter row of the mixed
+    batch apart from its base stream; teacher-forced top-1 agreement of
+    the slot path with the eagerly merged engine (margins listed) at
+    least ``SLOTS_AGREE``, with two controls under it: the base engine
+    and the slot path of another adapter, against the same merged
+    engine; with ``http_leg``, one ``/generate`` naming ``adapter`` and
+    ``tenant`` and an unknown adapter answering 404. Returns launches by
+    path."""
+    import torch
+
+    from mlapi_tpu_torch.models import get_model
+    from mlapi_tpu_torch.models.lora import merge_adapter
+    from mlapi_tpu_torch.ops.quant import quantized_bytes
+    from mlapi_tpu_torch.serving.__main__ import (
+        build_engine,
+        make_parser,
+        parse_args,
+        register_adapters,
+    )
+    from mlapi_tpu_torch.serving.adapter_store import save_adapter
+    from mlapi_tpu_torch.serving.app import build_app
+    from mlapi_tpu_torch.serving.engine import TextGenerationEngine
+    from mlapi_tpu_torch.serving.registry import TenantLedger
+    from mlapi_tpu_torch.serving.server import BackgroundServer
+
+    payloads = {aid: seeded_adapter(cfg, 100 + i)
+                for i, aid in enumerate(ADAPTER_IDS)}
+    argv = ["--checkpoint", str(ckpt), "--decode-attn-impl", "flash",
+            "--kv-page-size", str(PAGE), "--adapter-slots",
+            str(ADAPTER_SLOTS)]
+    for aid, payload in payloads.items():
+        path = work / f"{model}-{aid}.lora"
+        save_adapter(str(path), aid, payload)
+        argv += ["--adapter", f"{aid}={path}"]
+    parser = make_parser()
+    args = parse_args(argv, parser)
+    engine = build_engine(args.checkpoint, decode_attn_impl="flash",
+                          kv_page_size=args.kv_page_size,
+                          adapter_slots=args.adapter_slots)
+    register_adapters(parser, engine, args.adapter)
+    # The pools take the served kernels' dtype (bf16 at these widths).
+    itemsize = torch.empty((), dtype=engine.model.cdt).element_size()
+    slot_closed = itemsize * ADAPTER_RANK * cfg["num_layers"] * sum(
+        i + o for i, o in adapter_targets(cfg).values())
+    base_specs = [(t, None) for t in SHORT_PROMPTS[:4]]
+    base = launches_of(engine, lambda: batch_streams(engine, base_specs))
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
+    grouped = launches_of(engine, lambda: batch_streams(
+        engine, [(t, "t1") for t in SHORT_PROMPTS[:4]]))
+    torch.cuda.synchronize()
+    pool_alloc = torch.cuda.memory_allocated() - m0
+    mixed_specs = [(SHORT_PROMPTS[0], "t1"), (SHORT_PROMPTS[1], None),
+                   (SHORT_PROMPTS[2], "t2"), (SHORT_PROMPTS[3], "t3")]
+    mixed = launches_of(engine, lambda: batch_streams(engine, mixed_specs))
+    solos = [batch_streams(engine, [s])[0] for s in mixed_specs]
+    base_after = batch_streams(engine, base_specs)
+    base_bytes = quantized_bytes(engine.model)[0]
+    counters = {k: getattr(engine, k) for k in (
+        "adapter_installs", "adapter_evictions", "adapter_slots_in_use",
+        "adapter_grouped_batches", "adapter_gathered_batches",
+        "adapter_slot_bytes", "adapter_resident_bytes",
+        "adapter_store_entries", "adapter_store_bytes_in_use")}
+    # Decode at B = 8 with no adapter, one tenant and four (BGMV).
+    decode = {}
+    for mode, ctx in (("base", None),
+                      ("grouped", engine.adapters.batch_params(slot=1)),
+                      ("gathered", engine.adapters.batch_params(
+                          rows=[1, 0, 2, 3, 1, 0, 2, 3]))):
+        p = profile_decode(engine, lora=ctx)
+        decode[mode] = {k: p[k] for k in ("wall_ms_per_step",
+                                          "device_ms_per_step",
+                                          "kernels_per_step")}
+    # The eagerly merged reference of t1, from the served weights.
+    state = {k: v.float() for k, v in engine.model.state_dict().items()}
+    merged_model = get_model(engine.meta["config"]["model"],
+                             **engine.meta["config"]["model_kwargs"],
+                             seed=None)
+    merged_model.load_state_dict(merge_adapter(state, payloads["t1"]))
+    del state
+    merged_model.configure(decode_attn_impl="flash")
+    merged = TextGenerationEngine(merged_model, tokenizer=engine.tokenizer,
+                                  kv_page_size=PAGE)
+    with torch.inference_mode():
+        reference = forced_run(merged, SHORT_PROMPTS, AGREE_NEW)
+    agree, ties = pair_agreement(reference, engine, SHORT_PROMPTS,
+                                 adapter="t1")
+    controls = {name: pair_agreement(reference, engine, SHORT_PROMPTS,
+                                     adapter=aid)[0]
+                for name, aid in (("base", None), ("other_adapter", "t2"))}
+    limit = SLOTS_AGREE[model]
+    http_row = None
+    if http_leg:
+        led = TenantLedger(weights={"acme": 2.0})
+        want_http = engine.generate_text(SHORT_PROMPTS[5], max_new_tokens=16,
+                                         adapter="t2")["token_ids"]
+        with BackgroundServer(build_app(engine, tenants=led)) as srv:
+            got_http = json.loads(post(srv.port, {
+                "text": SHORT_PROMPTS[5], "max_new_tokens": 16,
+                "adapter": "t2", "tenant": "acme"}))["token_ids"]
+            unknown, _ = http(srv.port, "POST", "/generate", json.dumps(
+                {"text": "x", "adapter": "nobody"}).encode())
+            metrics = get(srv.port, "/metrics")
+        http_row = {"equal_engine": got_http == want_http,
+                    "unknown_adapter_status": unknown,
+                    "metrics_adapter_installs":
+                    metrics["counters"]["generate.adapter_installs"]}
+    row = {
+        "case": "adapters", "model": model, "kv_page_size": PAGE,
+        "rank": ADAPTER_RANK, "slots": ADAPTER_SLOTS, **counters,
+        "slot_bytes_closed_form": slot_closed, "base_bytes": base_bytes,
+        "first_install_pool_alloc_bytes": pool_alloc,
+        "pool_bytes_closed_form": (ADAPTER_SLOTS + 1) * slot_closed,
+        "launches": {"base": base["launches"], "grouped": grouped["launches"],
+                     "mixed": mixed["launches"]},
+        "launches_per_decode_step": {"base": base["per_step"],
+                                     "grouped": grouped["per_step"],
+                                     "mixed": mixed["per_step"]},
+        # bf16: the gathered products round otherwise than the grouped
+        # ones, so rows may drift from their solo streams (exact at f32:
+        # adapters_f32_leg).
+        "mixed_rows_equal_solos": [m == s for m, s in
+                                   zip(mixed["out"], solos)],
+        "mixed_vs_solo_token_agreement": sum(
+            a == b for m, s in zip(mixed["out"], solos)
+            for a, b in zip(m, s)) / sum(len(m) for m in mixed["out"]),
+        "base_unchanged_after_adapters": base_after == base["out"],
+        "adapter_bites": grouped["out"][0] != base["out"][0],
+        # The gathered path: each adapter row apart from its base stream.
+        "mixed_adapter_rows_differ_from_base": [
+            mixed["out"][i] != base["out"][i] for i in (0, 2, 3)],
+        "top1_agreement_with_merged": agree, "disagreements": ties,
+        "controls": controls, "limit": limit,
+        "http": http_row, "decode_b8": decode, "card": power,
+    }
+    emit(row)
+    ok = (counters["adapter_slot_bytes"] == slot_closed
+          and counters["adapter_resident_bytes"]
+          == base_bytes + 3 * slot_closed
+          and counters["adapter_installs"] == 3
+          # grouped: the t1 batch and the three adapter solos
+          and (counters["adapter_grouped_batches"],
+               counters["adapter_gathered_batches"]) == (4, 1)
+          and all(r["launches"] == r["want"] for r in (base, grouped, mixed))
+          and base["per_step"] == grouped["per_step"] == mixed["per_step"]
+          and row["base_unchanged_after_adapters"] and row["adapter_bites"]
+          and all(row["mixed_adapter_rows_differ_from_base"])
+          and agree >= limit and all(c < limit for c in controls.values())
+          and (http_row is None or (http_row["equal_engine"]
+                                    and http_row["unknown_adapter_status"]
+                                    == 404)))
+    if not ok:
+        raise SystemExit(f"{model} adapters failed: {row}")
+    del engine, merged, merged_model
+    torch.cuda.empty_cache()
+    return {f"adapters {model} page {PAGE} {kind}": r["launches"]
+            for kind, r in (("base", base), ("grouped", grouped),
+                            ("mixed", mixed))}
+
+
+def adapters_f32_leg(power) -> None:
+    """(b) at float32 on small models (a GPT of 2 heads of 64, a Llama of
+    4 heads on 2 KV heads of 32): the slot path's grouped streams equal
+    the eagerly merged engine's, and a mixed batch (two tenants and a
+    base row) equals each row solo, exactly, contiguous and paged 16."""
+    import torch
+
+    from mlapi_tpu_torch.models import get_model
+    from mlapi_tpu_torch.models.lora import merge_adapter
+    from mlapi_tpu_torch.serving.engine import TextGenerationEngine
+    from mlapi_tpu_torch.text import ByteTokenizer
+
+    results = {}
+    for family, kw in (("gpt_lm", {"num_heads": 2}),
+                       ("llama_lm", {"num_heads": 4, "num_kv_heads": 2,
+                                     "intermediate_size": 256})):
+        cfg = dict(vocab_size=260, hidden_size=128, num_layers=2,
+                   max_positions=256, compute_dtype="float32", **kw)
+        model = get_model(family, **cfg, seed=1)
+        with torch.no_grad():    # sharper logits than the 0.02 init
+            for p in model.parameters():
+                if p.ndim == 2:
+                    p.mul_(10.0)
+        model.configure(decode_attn_impl="flash")
+        payloads = {aid: seeded_adapter(cfg, 200 + i, rank=4, b_scale=0.5)
+                    for i, aid in enumerate(ADAPTER_IDS[:2])}
+        state = {k: v.clone() for k, v in model.state_dict().items()}
+        for page in (None, PAGE):
+            eng = TextGenerationEngine(model, tokenizer=ByteTokenizer(),
+                                       kv_page_size=page, adapter_slots=2)
+            for aid, payload in payloads.items():
+                eng.register_adapter(aid, payload)
+            specs = [(SHORT_PROMPTS[0], "t1"), (SHORT_PROMPTS[1], None),
+                     (SHORT_PROMPTS[2], "t2")]
+            mixed = batch_streams(eng, specs)
+            solos = [batch_streams(eng, [s])[0] for s in specs]
+            base0 = batch_streams(eng, [(SHORT_PROMPTS[0], None)])[0]
+            mm = get_model(family, **cfg, seed=None)
+            mm.load_state_dict(merge_adapter(state, payloads["t1"]))
+            mm.configure(decode_attn_impl="flash")
+            ref = batch_streams(TextGenerationEngine(
+                mm, tokenizer=ByteTokenizer(), kv_page_size=page),
+                [(SHORT_PROMPTS[0], None)])[0]
+            results[f"{family} page {page}"] = {
+                "mixed_equals_solos": mixed == solos,
+                "slot_equals_merged": solos[0] == ref,
+                "adapter_bites": solos[0] != base0}
+    emit({"case": "adapters_f32", "results": results, "card": power})
+    if not all(all(v.values()) for v in results.values()):
+        raise SystemExit(f"f32 adapter streams differ: {results}")
+
+
+def item5_serving(ckpt: Path, cfg: dict, model: str, work: Path, power,
+                  http_leg: bool = False) -> dict:
+    """Phase 12 (a) and (b) at one width; returns launches by path."""
+    t0 = time.perf_counter()
+    paths = weights_leg(ckpt, cfg, model, power)
+    t1 = time.perf_counter()
+    paths.update(adapters_leg(ckpt, cfg, model, work, power, http_leg))
+    emit({"case": "item5_seconds", "model": model, "weights": t1 - t0,
+          "adapters": time.perf_counter() - t1})
+    return paths
+
+
+def lora_leg(sst2_ckpt: Path, train_row: dict, train_profile: dict,
+             work: Path, power, cfg=None) -> dict:
+    """(c) ``--preset sst2-bert --init-from <phase 4's checkpoint>
+    --lora-rank 8`` through the train CLI's ``run`` for LORA_STEPS steps
+    with flash attention, counters zeroed just before and read just
+    after: B5 12 a step and per eval batch; B6 and B7 11 a step (layer
+    0's attention inputs need no gradient: the frozen embeddings feed
+    it, and BERT's q/k/v carry no adapter), all ``mma``. The merged
+    checkpoint: every leaf without an adapter bit-equal to the init, each
+    adapted kernel the init plus a rank-8 matrix; optimizer moments
+    exactly twice the adapters' f32 bytes; wall ms per step and profiled
+    device ms per step beside the full fine-tune's (phase 4); then the
+    merged checkpoint served on ``/predict`` through B5. Returns the
+    launches by path."""
+    import dataclasses
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from mlapi_tpu_torch.checkpoint import load_checkpoint
+    from mlapi_tpu_torch.config import get_preset
+    from mlapi_tpu_torch.datasets import get_dataset
+    from mlapi_tpu_torch.models import get_model
+    from mlapi_tpu_torch.models.lora import LoraModel
+    from mlapi_tpu_torch.train.__main__ import run
+    from mlapi_tpu_torch.train.loop import _make_optimizer, make_train_step
+
+    cfg = dataclasses.replace(cfg or get_preset("sst2-bert"),
+                              steps=LORA_STEPS)
+    out = work / "sst2-bert-lora8"
+    zero_counters()
+    t0 = time.perf_counter()
+    summary = run(cfg, str(out), init_from=str(sst2_ckpt),
+                  lora_rank=ADAPTER_RANK)
+    run_s = time.perf_counter() - t0
+    launches, bodies = read_counters()
+    model = get_model(cfg.model, **cfg.model_kwargs, seed=None, device="cpu")
+    init, _ = load_checkpoint(sst2_ckpt, model)
+    merged, meta = load_checkpoint(out, model)
+    layers, h = model.num_layers, model.hidden_size
+    inter = model.layer(0).ffn_up.kernel.shape[1]
+    adapted = {f"layer_{n}.{t}.kernel" for n in range(layers)
+               for t in ("attn_out", "ffn_up", "ffn_down")}
+    frozen_equal = all(torch.equal(merged[k], init[k])
+                       for k in init if k not in adapted)
+    ranks = []
+    for k in sorted(adapted):
+        s = torch.linalg.svdvals((merged[k] - init[k]).double())
+        ranks.append(float(s[ADAPTER_RANK] / s[0]))
+    adapter_f32 = 4 * ADAPTER_RANK * layers * (
+        (h + h) + (h + inter) + (inter + h))
+    splits = get_dataset(cfg.dataset, **cfg.dataset_kwargs)
+    eval_batches = math.ceil(len(splits.x_test) / 4096)
+    want = {k: 0 for k in KERNELS}
+    want.update(flash_forward=layers * (LORA_STEPS + eval_batches),
+                flash_backward_dq=(layers - 1) * LORA_STEPS,
+                flash_backward_dkv=(layers - 1) * LORA_STEPS)
+    # Device ms per step of the same LoRA step (the train CLI's).
+    lora = LoraModel(get_model(cfg.model, **cfg.model_kwargs, seed=None),
+                     rank=ADAPTER_RANK,
+                     seed=cfg.seed)
+    lora.base.load_state_dict(init)
+    every = dict(lora.named_parameters())
+    trainable = [p for n, p in every.items() if n.startswith("lora.")]
+    for p in trainable:
+        p.requires_grad_(True)
+    opt = _make_optimizer(cfg.optimizer, cfg.learning_rate, trainable)
+    step = make_train_step(lora.apply, every, opt,
+                           weight_decay=cfg.weight_decay)
+    n = len(splits.x_train)
+    batches = []
+    for i in range(3):
+        idx = np.random.default_rng((cfg.seed, i)).choice(
+            n, size=cfg.batch_size, replace=False)
+        batches.append(batch_tensors(splits.x_train[idx],
+                                     splits.y_train[idx]))
+    for b in batches:                                   # warm
+        float(step(*b))
+    device_ms = profiled_steps_ms(step, batches)
+    del lora, opt, step
+    torch.cuda.empty_cache()
+    wall = statistics.median(summary["step_ms"][2:])
+    row = {
+        "case": "lora_sst2_bert", "rank": ADAPTER_RANK, "steps": LORA_STEPS,
+        "final_loss": summary["final_loss"],
+        "test_accuracy": summary["test_accuracy"],
+        "launches": launches, "launches_expected": want, "bodies": bodies,
+        "frozen_leaves_bit_equal": frozen_equal,
+        "adapted_kernels": len(adapted),
+        "max_sv_ratio_past_rank": max(ranks),
+        "opt_state_bytes": summary["opt_state_bytes"],
+        "adapter_f32_bytes": adapter_f32,
+        "wall_ms_per_step": {"lora_median": wall,
+                             "full_median_last_20":
+                             train_row["wall_ms_per_step"]["median_last_20"]},
+        "device_ms_per_step": {"lora": device_ms,
+                               "full": train_profile["device_ms_per_step"]},
+        "run_seconds": run_s, "card": power,
+    }
+    emit(row)
+    want_bodies = {k: {"mma": want[k], "fma": 0} for k in FLASH}
+    if not (launches == want and bodies == want_bodies and frozen_equal
+            and max(ranks) < 1e-2
+            and summary["opt_state_bytes"] == 2 * adapter_f32
+            and math.isfinite(summary["final_loss"])):
+        raise SystemExit(f"sst2-bert LoRA failed: {row}")
+    paths = {f"train sst2-bert --lora-rank {ADAPTER_RANK}, {LORA_STEPS} "
+             "steps + test eval": launches}
+    paths["/predict sst2-bert LoRA-merged"] = predict_leg(out, None, power)
+    return paths
+
+
+def predict_leg(ckpt: Path, quantize, power) -> dict:
+    """A sst2-bert checkpoint served through the CLI's engine factory
+    (``quantize``: None or "int8") and the HTTP app: LORA_TEXTS
+    concurrent ``/predict`` texts, B5 exactly one launch a layer per
+    device call, all ``mma``; with int8 weights, the labels beside the
+    float engine's (near ties listed) and the weight bytes on the card
+    against ``quantized_bytes``. Returns the launches."""
+    import numpy as np
+    import torch
+
+    from mlapi_tpu_torch.ops.quant import quantized_bytes
+    from mlapi_tpu_torch.serving.__main__ import build_engine
+    from mlapi_tpu_torch.serving.app import build_app
+    from mlapi_tpu_torch.serving.engine import TextClassificationEngine
+    from mlapi_tpu_torch.serving.server import BackgroundServer
+
+    gc.collect()
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
+    engine = build_engine(ckpt, quantize=quantize)
+    torch.cuda.synchronize()
+    on_card = torch.cuda.memory_allocated() - m0
+    if not isinstance(engine, TextClassificationEngine):
+        raise SystemExit(f"sst2-bert served by {type(engine).__name__}")
+    texts = sst2_texts(LORA_TEXTS, seed=7)
+    app = build_app(engine)
+    with BackgroundServer(app) as srv:
+        sp = app.state["batcher"]
+        calls0 = sp.device_calls
+        zero_counters()
+        answers = at_once(lambda t: predict(srv.port, {"text": t}), texts)
+        launches, bodies = read_counters()
+        calls = sp.device_calls - calls0
+    want = {k: 0 for k in KERNELS}
+    want["flash_forward"] = engine.model.num_layers * calls
+    row = {"case": "predict_sst2_bert", "checkpoint": ckpt.name,
+           "quantized": engine.meta.get("quantized"), "texts": len(texts),
+           "device_calls": calls, "launches": launches,
+           "launches_expected": want, "bodies": bodies, "card": power}
+    if quantize:
+        stored = quantized_bytes(engine.model)[0]
+        ref = build_engine(ckpt)
+        rows = np.stack([engine.encode(t) for t in texts])
+        want_ids, want_p = ref.predict(rows)
+        got = [engine.vocab.labels.index(a["prediction"]) for a in answers]
+        differ = [i for i in range(len(texts)) if got[i] != want_ids[i]]
+        row.update(weight_bytes_on_card=on_card, quantized_bytes_stored=stored,
+                   allocator_bound=allocator_bound(engine.model),
+                   labels_equal_float=len(texts) - len(differ),
+                   label_changes=[{"row": i, "float_max_prob":
+                                   float(want_p[i])} for i in differ])
+        del ref
+    emit(row)
+    if launches != want or bodies["flash_forward"] != {
+            "mma": want["flash_forward"], "fma": 0}:
+        raise SystemExit(f"sst2-bert /predict ({quantize}): {row}")
+    if quantize and not (row["quantized_bytes_stored"] <= on_card
+                         <= row["allocator_bound"]):
+        raise SystemExit(f"sst2-bert int8 weights: {row}")
+    del engine
+    torch.cuda.empty_cache()
+    return launches
+
+
 def kernel_label(mangled: str) -> str:
     """``extend_mma_kernel<true, false>`` from the mangled name ptxas
     prints (the template arguments these sources use: bool, int, float,
@@ -4389,7 +5173,7 @@ def main() -> int:
     sst2_ckpt = work / "sst2-bert"
     train_row = train_run(cfg, splits, sst2_ckpt)
     flash_vs_full(cfg, x0, y0)
-    profile_train_step(cfg, splits)
+    train_profile = profile_train_step(cfg, splits)
     del splits
     torch.cuda.empty_cache()
 
@@ -4430,17 +5214,37 @@ def main() -> int:
         # 10. the scoring path (the GPT-2 checkpoint is the co-resident
         # leg's default model)
         scoring = scoring_phase(ckpt, sst2_ckpt, x0, work, power)
+        # 12 (a, b) at GPT-2 small: int8 weights, adapters over HTTP
+        t12 = time.perf_counter()
+        item5_paths = item5_serving(ckpt, GPT2_SMALL, "gpt2-small", work,
+                                    power, http_leg=True)
+        item5_seconds = time.perf_counter() - t12
     check_small_f32(2)
     check_small_f32(4)     # docs-gpt: head dim 32
     check_prefix_f32("gpt_lm", 2)
 
     # 7. Llama: TinyLlama-1.1B-width serving, flash against full, small
     # f32 streams, the docs-llama training run
-    llama_train = llama_phases(scratch, launches, power)
+    # (and 12 (a, b) at TinyLlama's width on its checkpoint)
+    def tinyllama_item5(llama_ckpt):
+        item5_paths.update(item5_serving(llama_ckpt, TINYLLAMA,
+                                         "tinyllama-1.1b", work, power))
+
+    llama_train = llama_phases(scratch, launches, power,
+                               then=tinyllama_item5)
 
     # 11. the rest of training: kill and resume, distillation,
     # criteo-widedeep, bench rows, debug checks and a profile
     training = rest_of_training(train_row, sst2_ckpt, work, power)
+
+    # 12 (b, c, d): f32 adapter streams, LoRA fine-tuning, int8 sst2-bert
+    t12 = time.perf_counter()
+    adapters_f32_leg(power)
+    lora_paths = lora_leg(sst2_ckpt, train_row, train_profile, work, power)
+    lora_paths["/predict sst2-bert --quantize int8"] = predict_leg(
+        sst2_ckpt, "int8", power)
+    emit({"case": "phase12_seconds", "gpt2_serving": item5_seconds,
+          "f32_lora_predict": time.perf_counter() - t12})
 
     summary = []
     for name in SERVING:
@@ -4454,7 +5258,10 @@ def main() -> int:
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],
             "launches": launches[name][main_path],
-            "launches_per_path": launches[name],
+            "launches_per_path": {
+                **launches[name],
+                **{path: counts[name]
+                   for path, counts in item5_paths.items()}},
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"],
@@ -4477,7 +5284,9 @@ def main() -> int:
                 llama_train["launches"][name],
                 **(scoring["launches"] if name == "flash_forward"
                    else {}),
-                **training[name]},
+                **training[name],
+                **{path: counts[name] for path, counts in lora_paths.items()
+                   if counts[name]}},
             "bodies": train_row["bodies"][name],
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],

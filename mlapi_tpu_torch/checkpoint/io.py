@@ -81,15 +81,34 @@ def _flat_np(params) -> dict[str, np.ndarray]:
     return flat
 
 
+def _key_parts(paths) -> dict[str, tuple[str, ...]]:
+    """Each flat path's pytree keys. A LoRA tree (top level ``base`` and
+    ``lora``) keys its adapters by the JOINED kernel path
+    (``lora/layer_0/qkv/a`` is ``['lora']['layer_0/qkv']['a']``); any
+    other path splits at every ``/``."""
+    paths = list(paths)
+    lora = (any(p.startswith("lora/") for p in paths)
+            and all(p.startswith(("base/", "lora/")) for p in paths))
+    out = {}
+    for path in paths:
+        parts = tuple(path.split("/"))
+        if lora and parts[0] == "lora" and len(parts) > 3:
+            parts = ("lora", "/".join(parts[1:-1]), parts[-1])
+        out[path] = parts
+    return out
+
+
 def tree_signature(params) -> str:
     """Structural signature: key paths + shapes + dtypes, hashed as
     ``mlapi_tpu.checkpoint.io.tree_signature`` hashes a pytree (same
-    key-string format, same leaf order)."""
+    key-string format, same leaf order), quantized (``q``/``scale``
+    leaves) and LoRA trees included."""
     flat = _flat_np(params)
+    parts = _key_parts(flat)
     leaves = [
-        ("".join(f"['{p}']" for p in path.split("/")),
+        ("".join(f"['{p}']" for p in parts[path]),
          tuple(flat[path].shape), str(flat[path].dtype))
-        for path in sorted(flat, key=lambda s: tuple(s.split("/")))
+        for path in sorted(flat, key=parts.__getitem__)
     ]
     return _stable_hash(leaves)
 
@@ -98,10 +117,15 @@ def params_from_jax(np_tree) -> dict[str, torch.Tensor]:
     """Carry the JAX package's parameters (a nested dict of numpy
     arrays, or a ``/``-keyed flat dict) into the port's state dict:
     ``layer_0/qkv/kernel`` becomes ``layer_0.qkv.kernel``; kernels keep
-    their ``[d_in, d_out]`` orientation."""
+    their ``[d_in, d_out]`` orientation. A quantized tree's ``{q,
+    scale}`` leaves become ``<path>.q`` / ``<path>.scale`` (a
+    ``models/quantized.QuantizedModel``'s keys) and a LoRA tree's
+    adapters ``lora.layer_0/qkv.a`` (a ``models/lora.LoraModel``'s)."""
+    flat = _flat_np(np_tree)
+    parts = _key_parts(flat)
     return {
-        path.replace("/", "."): torch.as_tensor(np.array(arr))
-        for path, arr in _flat_np(np_tree).items()
+        ".".join(parts[path]): torch.as_tensor(np.array(arr))
+        for path, arr in flat.items()
     }
 
 
@@ -249,7 +273,9 @@ def _np_leaves(tree, prefix: str):
 
 def opt_state_from_jax(np_state) -> dict[str, np.ndarray]:
     """Carry the JAX package's optimizer state (an optax state as a tree
-    of numpy arrays) into the port's flat train-state form: Adam/AdamW's
+    of numpy arrays) into the port's flat train-state form (optax's
+    ``masked`` state of a LoRA fine-tune included: its ``MaskedNode``
+    holes, the frozen base, carry nothing): Adam/AdamW's
     ``ScaleByAdamState`` becomes ``count``, ``mu/<path>``, ``nu/<path>``;
     rowwise-AdaGrad accumulators become ``acc/<path>``, whether they sit
     in ``partitioned``'s ``"embedding"`` partition (``recsys-<base>``) or

@@ -31,6 +31,7 @@ from mlapi_tpu_torch.models import register_model
 from mlapi_tpu_torch.models.gpt import _DTYPES, _Dense, _layer_norm
 from mlapi_tpu_torch.ops.attention import full_attention
 from mlapi_tpu_torch.ops.cuda.flash_attention import flash_attention
+from mlapi_tpu_torch.ops.quant import take
 from mlapi_tpu_torch.utils.platform import resolve_device
 
 BERT_PRESETS = {
@@ -171,8 +172,8 @@ class BertClassifier(nn.Module):
             attention_mask = token_ids != 0
         emb = self.embeddings
         pos = torch.arange(l, device=token_ids.device)
-        x = (emb.word[token_ids] + emb.position[pos][None]
-             + emb.token_type[torch.zeros_like(token_ids)])
+        x = (take(emb.word, token_ids) + take(emb.position, pos)[None]
+             + take(emb.token_type, torch.zeros_like(token_ids)))
         x = _layer_norm(x, emb.ln_scale, emb.ln_bias, _LN_EPS)
         key_mask = attention_mask.to(torch.float32)
         nh, hd = self.num_heads, self.head_dim

@@ -27,6 +27,13 @@ pool tensors in place. Shared-prefix serving adds
 :func:`prefix_prefill_fn` (a cached prefix's KV under a suffix block),
 and for the pool :func:`paged_scatter_fn` (a contiguous cache copied
 into pages) and :func:`paged_cow_fn` (copy-on-write of whole pages).
+
+Weights are read through ``ops/quant.weight`` / ``take``, so a model
+quantized in place (``models/quantized``) serves through the same code.
+Many-tenant serving passes a batch's adapter context as ``lora=`` to
+``prefill_core`` / ``decode_step`` / ``extend_core`` (and the functions
+below); each block adds ``models/lora.lora_apply``'s delta to its
+projections. Without a context nothing is added.
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from mlapi_tpu_torch.models import register_model
+from mlapi_tpu_torch.models.lora import layer_lora, lora_apply
 from mlapi_tpu_torch.ops.attention import NEG, full_attention
 from mlapi_tpu_torch.ops.cuda.flash_attention import flash_attention
 from mlapi_tpu_torch.ops.quant import (
@@ -50,6 +58,8 @@ from mlapi_tpu_torch.ops.quant import (
     kv_cache_seq_len,
     kv_is_paged_layer,
     kv_is_quantized_layer,
+    take,
+    weight,
 )
 from mlapi_tpu_torch.utils.platform import resolve_device
 
@@ -72,7 +82,9 @@ def _param(*shape) -> nn.Parameter:
 class _Dense(nn.Module):
     """``x @ kernel + bias`` with ``kernel [d_in, d_out]`` (the JAX
     orientation). The product and the bias add round separately in the
-    compute dtype, as the JAX expression does."""
+    compute dtype, as the JAX expression does. The kernel is read
+    through ``ops/quant.weight``, so an int8 kernel
+    (``models/quantized``) dequantizes here, at its use."""
 
     def __init__(self, d_in: int, d_out: int):
         super().__init__()
@@ -80,7 +92,7 @@ class _Dense(nn.Module):
         self.bias = _param(d_out)
 
     def forward(self, x, cdt):
-        return x @ self.kernel.to(cdt) + self.bias.to(cdt)
+        return x @ weight(self.kernel, cdt) + self.bias.to(cdt)
 
 
 class _Block(nn.Module):
@@ -157,18 +169,6 @@ class DecoderLM(nn.Module):
             )
             for n in range(self.num_layers)
         }
-
-    def load_state_dict(self, state_dict, strict: bool = True,
-                        assign: bool = False):
-        """``nn.Module.load_state_dict``, refusing a per-layer ``lora``
-        sub-dict (the JAX package's serving adapters) by name."""
-        if any(".lora." in k or k.endswith(".lora") for k in state_dict):
-            raise NotImplementedError(
-                "LoRA adapter weights are not ported (ROADMAP Queue A "
-                "item 5)"
-            )
-        return super().load_state_dict(state_dict, strict=strict,
-                                       assign=assign)
 
     def generate(self, prompt_ids, *, max_new_tokens: int,
                  temperature=0.0, seed: int = 0, pad_lens=None, top_k=0,
@@ -269,38 +269,43 @@ class GptLM(DecoderLM):
             layer = self.layer(n)
             for dense in (layer.qkv, layer.attn_out, layer.ffn_up,
                           layer.ffn_down):
-                dense.kernel.data = dense.kernel.data.to(self.cdt)
+                if isinstance(dense.kernel, nn.Parameter):  # not int8
+                    dense.kernel.data = dense.kernel.data.to(self.cdt)
                 dense.bias.data = dense.bias.data.to(self.cdt)
         return self
 
     # ------------------------------------------------------------------
-    def _block(self, layer: _Block, x, attend):
+    def _block(self, layer: _Block, x, attend, lora=None):
         """One pre-norm transformer block; ``attend(q, k, v)`` supplies
         the attention so the full-sequence and cached paths share every
-        other op."""
+        other op. ``lora`` is the layer's serving adapters (see
+        ``models/lora.lora_apply``), added to each projection's output;
+        ``None`` (every path without adapter traffic) adds no op."""
         cdt = self.cdt
         b, l, _ = x.shape
         nh, hd = self.num_heads, self.head_dim
         xn = _layer_norm(x, layer.ln1_scale, layer.ln1_bias).to(cdt)
-        qkv = layer.qkv(xn, cdt)
+        qkv = lora_apply(lora, "qkv", xn, layer.qkv(xn, cdt))
         q, k, v = qkv.reshape(b, l, 3 * nh, hd).split(nh, dim=2)
         ctx = attend(q, k, v).reshape(b, l, -1)
-        x = x + layer.attn_out(ctx, cdt).to(torch.float32)
+        attn = lora_apply(lora, "attn_out", ctx, layer.attn_out(ctx, cdt))
+        x = x + attn.to(torch.float32)
         xn = _layer_norm(x, layer.ln2_scale, layer.ln2_bias).to(cdt)
-        up = layer.ffn_up(xn, cdt)
+        up = lora_apply(lora, "ffn_up", xn, layer.ffn_up(xn, cdt))
         up = F.gelu(up.to(torch.float32), approximate="tanh").to(cdt)
-        return x + layer.ffn_down(up, cdt).to(torch.float32)
+        down = lora_apply(lora, "ffn_down", up, layer.ffn_down(up, cdt))
+        return x + down.to(torch.float32)
 
     def _logits(self, x):
         x = _layer_norm(x, self.ln_f_scale, self.ln_f_bias)
         # Weight-tied head; logits in f32.
-        return x.to(torch.float32) @ self.wte.to(torch.float32).T
+        return x.to(torch.float32) @ weight(self.wte, torch.float32).T
 
     def apply(self, token_ids):
         """``[B, L]`` ids → ``[B, L, V]`` next-token logits (causal)."""
         _, l = token_ids.shape
         pos = torch.arange(l, device=token_ids.device)
-        x = self.wte[token_ids] + self.wpe[pos][None]
+        x = take(self.wte, token_ids) + take(self.wpe, pos)[None]
 
         def attend(q, k, v):
             if self.attention_impl == "flash":
@@ -315,7 +320,7 @@ class GptLM(DecoderLM):
 
     # ------------------------------------------------------------------
     def prefill_core(self, prompt_ids, n_pad, total_len: int,
-                     cache=None, pos0=0):
+                     cache=None, pos0=0, lora=None):
         """Full causal forward over a left-padded ``[B, P]`` prompt,
         writing its K/V into a fresh ``[B, total_len]`` cache (or into
         ``cache`` at slot ``pos0``). Pads are masked and positions
@@ -326,7 +331,7 @@ class GptLM(DecoderLM):
         dev = prompt_ids.device
         ar = torch.arange(p, device=dev)[None, :]
         pos_idx = torch.clamp(ar - n_pad[:, None], min=0)
-        x = self.wte[prompt_ids] + self.wpe[pos_idx]
+        x = take(self.wte, prompt_ids) + take(self.wpe, pos_idx)
         mask = (ar >= n_pad[:, None]).to(torch.float32)
         coords = kv_cache_coords(cache, pos0, p)
         for n in range(self.num_layers):
@@ -336,7 +341,7 @@ class GptLM(DecoderLM):
                 _seen["k"], _seen["v"] = k, v
                 return full_attention(q, k, v, mask=mask, causal=True)
 
-            x = self._block(self.layer(n), x, attend)
+            x = self._block(self.layer(n), x, attend, layer_lora(lora, n))
             # The prompt attends full-precision in-register; only the
             # stored cache is quantized, at this append.
             kv_cache_append(cache[f"layer_{n}"], seen["k"], seen["v"],
@@ -344,7 +349,7 @@ class GptLM(DecoderLM):
         return cache, self._logits(x[:, -1])
 
     def decode_step(self, cache, token_ids, pos, n_pad=None,
-                    prefix_len=None, prefix_lo=None):
+                    prefix_len=None, prefix_lo=None, lora=None):
         """One decode step: ``[B, 1]`` ids at slot ``pos`` (an int, or a
         per-row ``[B]`` tensor) → ``(logits [B, V], cache)``. The new
         token's K/V is written into ``cache`` in place BEFORE the read,
@@ -358,7 +363,7 @@ class GptLM(DecoderLM):
             max_len, pos, n_pad, prefix_len, prefix_lo
         )
         posq = torch.clamp(pos - shift, min=0)
-        x = self.wte[token_ids] + self.wpe[posq][:, None, :]
+        x = take(self.wte, token_ids) + take(self.wpe, posq)[:, None, :]
         coords = kv_cache_coords(cache, pos, 1)
         for n in range(self.num_layers):
             def attend(q, k_new, v_new, _n=n):
@@ -369,11 +374,11 @@ class GptLM(DecoderLM):
                 )
                 return ctx
 
-            x = self._block(self.layer(n), x, attend)
+            x = self._block(self.layer(n), x, attend, layer_lora(lora, n))
         return self._logits(x[:, 0]), cache
 
     def extend_core(self, cache, token_ids, pos0, n_pad, prefix_len=None,
-                    prefix_lo=None, all_logits: bool = False):
+                    prefix_lo=None, all_logits: bool = False, lora=None):
         """Block forward of ``[B, U]`` tokens at slots ``[pos0,
         pos0+U)`` against the cache (written in place): each query
         attends every earlier valid slot plus the causal part of its
@@ -384,7 +389,7 @@ class GptLM(DecoderLM):
         posq, mask = extend_positions_and_mask(
             max_len, u, pos0, n_pad, prefix_len, prefix_lo
         )
-        x = self.wte[token_ids] + self.wpe[posq]
+        x = take(self.wte, token_ids) + take(self.wpe, posq)
         coords = kv_cache_coords(cache, pos0, u)
         for n in range(self.num_layers):
             def attend(q, k_new, v_new, _n=n):
@@ -395,7 +400,7 @@ class GptLM(DecoderLM):
                 )
                 return ctx
 
-            x = self._block(self.layer(n), x, attend)
+            x = self._block(self.layer(n), x, attend, layer_lora(lora, n))
         if not all_logits:
             x = x[:, -1]
         return cache, self._logits(x)
@@ -616,17 +621,19 @@ def run_generate(model, prompt_ids, *, max_new_tokens: int,
 
 @torch.no_grad()
 def prefill_fn(model, prompt_ids, seeds, temps, n_pad, top_k, top_p, *,
-               total_len: int):
+               total_len: int, lora=None):
     """Prefill + first token: ``(first_tok [B], cache)`` for a fresh
-    ``[B, total_len]`` cache."""
-    cache, logits = model.prefill_core(prompt_ids, n_pad, total_len)
+    ``[B, total_len]`` cache. ``lora`` (here and in the functions
+    below) is the batch's serving-adapter context, or None."""
+    cache, logits = model.prefill_core(prompt_ids, n_pad, total_len,
+                                       lora=lora)
     return _pick_token(temps, logits, seeds, 0, top_k, top_p), cache
 
 
 @torch.no_grad()
 def decode_chunk_fn(model, cache, tok, pos: int, n_pad, temps, seeds,
                     step0, top_k, top_p, *, chunk: int, prefix_len=0,
-                    prefix_lo=0):
+                    prefix_lo=0, lora=None):
     """``chunk`` cached decode steps from the last emitted ``tok [B]``
     whose successor is written at slot ``pos``; ``step0`` (scalar or
     per-row) is the sampling-stream index of the first step. The cache
@@ -636,7 +643,8 @@ def decode_chunk_fn(model, cache, tok, pos: int, n_pad, temps, seeds,
     toks = []
     for i in range(chunk):
         logits, cache = model.decode_step(
-            cache, tok[:, None], pos + i, n_pad, prefix_len, prefix_lo
+            cache, tok[:, None], pos + i, n_pad, prefix_len, prefix_lo,
+            lora=lora,
         )
         tok = _pick_token(temps, logits, seeds, step0 + i, top_k, top_p)
         toks.append(tok)
@@ -644,17 +652,17 @@ def decode_chunk_fn(model, cache, tok, pos: int, n_pad, temps, seeds,
 
 
 @torch.no_grad()
-def extend_chunk_fn(model, cache, chunk_ids, pos0: int, n_pad):
+def extend_chunk_fn(model, cache, chunk_ids, pos0: int, n_pad, lora=None):
     """Chunked prefill: one ``[B, width]`` block of a long prompt
     forwarded against the cache at slot ``pos0`` (``extend_core``),
     cache updated IN PLACE. Returns ``(cache, last_logits)``; callers
     sample the final chunk's logits with :func:`sample_fn`."""
-    return model.extend_core(cache, chunk_ids, pos0, n_pad, 0, 0)
+    return model.extend_core(cache, chunk_ids, pos0, n_pad, 0, 0, lora=lora)
 
 
 @torch.no_grad()
 def paged_prefill_fn(model, cache, prompt_ids, off: int, seeds, temps,
-                     n_pad, top_k, top_p):
+                     n_pad, top_k, top_p, lora=None):
     """Page-native prefill + first token: the same full causal forward
     as :func:`prefill_fn` (the prompt attends in full precision, no
     kernel), with the K/V append written through ``cache``'s page table
@@ -663,19 +671,20 @@ def paged_prefill_fn(model, cache, prompt_ids, off: int, seeds, temps,
     - used``): positions are ``local_slot - n_pad``, whatever ``off``.
     Returns ``(first_tok [R], cache)``."""
     cache, logits = model.prefill_core(prompt_ids, n_pad, 0, cache=cache,
-                                       pos0=off)
+                                       pos0=off, lora=lora)
     return _pick_token(temps, logits, seeds, 0, top_k, top_p), cache
 
 
 @torch.no_grad()
 def paged_extend_fn(model, cache, chunk_ids, pos0: int, n_pad,
-                    prefix_len=0, lo=0):
+                    prefix_len=0, lo=0, lora=None):
     """One ``[B, width]`` block forward against a PAGED cache at slot
     ``pos0`` (``extend_core``), pools written in place: the chunked
     long-prompt prefill of a paged engine (``prefix_len = lo = 0``).
     Returns ``(cache, last_logits)``; callers sample the final block's
     logits with :func:`sample_fn`."""
-    return model.extend_core(cache, chunk_ids, pos0, n_pad, prefix_len, lo)
+    return model.extend_core(cache, chunk_ids, pos0, n_pad, prefix_len, lo,
+                             lora=lora)
 
 
 @torch.no_grad()

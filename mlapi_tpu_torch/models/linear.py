@@ -14,6 +14,7 @@ from torch import nn
 
 from mlapi_tpu_torch.models import register_model
 from mlapi_tpu_torch.models.gpt import _DTYPES
+from mlapi_tpu_torch.ops.quant import weight
 from mlapi_tpu_torch.utils.platform import resolve_device
 
 
@@ -43,6 +44,6 @@ class LinearClassifier(nn.Module):
 
     def apply(self, x):
         """``[B, d]`` features → ``[B, k]`` logits."""
-        return x @ self.w + self.b
+        return x @ weight(self.w) + self.b
 
     forward = apply

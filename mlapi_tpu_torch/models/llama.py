@@ -45,12 +45,15 @@ from mlapi_tpu_torch.models.gpt import (
     decode_valid_and_shift,
     extend_positions_and_mask,
 )
+from mlapi_tpu_torch.models.lora import layer_lora, lora_apply
 from mlapi_tpu_torch.ops.attention import full_attention
 from mlapi_tpu_torch.ops.cuda.flash_attention import flash_attention
 from mlapi_tpu_torch.ops.quant import (
     kv_cache_append,
     kv_cache_coords,
     kv_cache_seq_len,
+    take,
+    weight,
 )
 from mlapi_tpu_torch.utils.platform import resolve_device
 
@@ -225,38 +228,48 @@ class LlamaLM(DecoderLM):
         for n in range(self.num_layers):
             for name in _DENSE:
                 w = getattr(self.layer(n), name)
-                w.data = w.data.to(self.cdt)
+                if isinstance(w, nn.Parameter):  # not int8
+                    w.data = w.data.to(self.cdt)
         return self
 
     # ------------------------------------------------------------------
-    def _qkv(self, layer: _Block, xn, rope):
+    def _qkv(self, layer: _Block, xn, rope, lora=None):
         """Project and rotate one block's q/k/v; ``rope`` is the
         forward's :func:`_rope_tables` of the rows' effective
-        positions."""
+        positions, ``lora`` the layer's serving adapters
+        (``models/lora.lora_apply``; ``None``: none)."""
         cdt = self.cdt
         b, l, _ = xn.shape
         nh, kvh, hd = self.num_heads, self.kv_heads, self.head_dim
-        q = (xn @ layer.wq.to(cdt)).reshape(b, l, nh, hd)
-        k = (xn @ layer.wk.to(cdt)).reshape(b, l, kvh, hd)
-        v = (xn @ layer.wv.to(cdt)).reshape(b, l, kvh, hd)
+        q = lora_apply(lora, "wq", xn, xn @ weight(layer.wq, cdt))
+        k = lora_apply(lora, "wk", xn, xn @ weight(layer.wk, cdt))
+        v = lora_apply(lora, "wv", xn, xn @ weight(layer.wv, cdt))
+        q = q.reshape(b, l, nh, hd)
+        k = k.reshape(b, l, kvh, hd)
+        v = v.reshape(b, l, kvh, hd)
         return _rotate(q, rope), _rotate(k, rope), v
 
     def _rope_for(self, positions):
         return _rope_tables(positions, self.head_dim, self.rope_theta,
                             self.cdt)
 
-    def _block(self, layer: _Block, x, rope, attend):
+    def _block(self, layer: _Block, x, rope, attend, lora=None):
         """One pre-norm block; ``attend(q, k, v)`` gets the rotated q/k
-        and the raw KV heads."""
+        and the raw KV heads. ``lora``: the layer's serving adapters,
+        added to each projection by ``lora_apply`` (``None``: no op)."""
         cdt = self.cdt
         xn = _rms_norm(x, layer.rms1_scale).to(cdt)
-        q, k, v = self._qkv(layer, xn, rope)
+        q, k, v = self._qkv(layer, xn, rope, lora)
         ctx = attend(q, k, v).reshape(x.shape[0], x.shape[1], -1)
-        x = x + (ctx @ layer.wo.to(cdt)).to(torch.float32)
+        wo = lora_apply(lora, "wo", ctx, ctx @ weight(layer.wo, cdt))
+        x = x + wo.to(torch.float32)
         xn = _rms_norm(x, layer.rms2_scale).to(cdt)
-        gate = F.silu((xn @ layer.w_gate.to(cdt)).to(torch.float32)).to(cdt)
-        gu = gate * (xn @ layer.w_up.to(cdt))
-        return x + (gu @ layer.w_down.to(cdt)).to(torch.float32)
+        gate = lora_apply(lora, "w_gate", xn,
+                          xn @ weight(layer.w_gate, cdt))
+        gate = F.silu(gate.to(torch.float32)).to(cdt)
+        gu = gate * lora_apply(lora, "w_up", xn, xn @ weight(layer.w_up, cdt))
+        down = lora_apply(lora, "w_down", gu, gu @ weight(layer.w_down, cdt))
+        return x + down.to(torch.float32)
 
     def _repeat_kv(self, k):
         group = self.num_heads // self.kv_heads
@@ -264,12 +277,12 @@ class LlamaLM(DecoderLM):
 
     def _logits(self, x):
         x = _rms_norm(x, self.rms_f_scale)
-        return x.to(torch.float32) @ self.lm_head.to(torch.float32)
+        return x.to(torch.float32) @ weight(self.lm_head, torch.float32)
 
     def apply(self, token_ids):
         """``[B, L]`` ids → ``[B, L, V]`` next-token logits (causal)."""
         b, l = token_ids.shape
-        x = self.wte[token_ids]
+        x = take(self.wte, token_ids)
         rope = self._rope_for(
             torch.arange(l, device=token_ids.device).expand(b, l))
 
@@ -289,7 +302,7 @@ class LlamaLM(DecoderLM):
     # -- incremental decoding (the GPT family's programs and, from
     # ``DecoderLM``, its ``init_cache``: ``[B, max_len, KVH, D]``) -------
     def prefill_core(self, prompt_ids, n_pad, total_len: int,
-                     cache=None, pos0=0):
+                     cache=None, pos0=0, lora=None):
         """Full causal forward over a left-padded ``[B, P]`` prompt,
         writing the ROTATED K (and V) into a fresh ``[B, total_len]``
         cache, or into ``cache`` at slot ``pos0`` (the page-native
@@ -302,7 +315,7 @@ class LlamaLM(DecoderLM):
         ar = torch.arange(p, device=prompt_ids.device)[None, :]
         rope = self._rope_for(torch.clamp(ar - n_pad[:, None], min=0))
         mask = (ar >= n_pad[:, None]).to(torch.float32)
-        x = self.wte[prompt_ids]
+        x = take(self.wte, prompt_ids)
         coords = kv_cache_coords(cache, pos0, p)
         for n in range(self.num_layers):
             seen = {}
@@ -313,13 +326,14 @@ class LlamaLM(DecoderLM):
                                       self._repeat_kv(v), mask=mask,
                                       causal=True)
 
-            x = self._block(self.layer(n), x, rope, attend)
+            x = self._block(self.layer(n), x, rope, attend,
+                            layer_lora(lora, n))
             kv_cache_append(cache[f"layer_{n}"], seen["k"], seen["v"],
                             pos0, self.cdt, coords)
         return cache, self._logits(x[:, -1])
 
     def decode_step(self, cache, token_ids, pos, n_pad=None,
-                    prefix_len=None, prefix_lo=None):
+                    prefix_len=None, prefix_lo=None, lora=None):
         """One decode step, the contract of ``GptLM.decode_step``: the
         new token's rotated K/V is written in place before the read."""
         b = token_ids.shape[0]
@@ -331,7 +345,7 @@ class LlamaLM(DecoderLM):
             max_len, pos, n_pad, prefix_len, prefix_lo
         )
         rope = self._rope_for(torch.clamp(pos - shift, min=0)[:, None])
-        x = self.wte[token_ids]
+        x = take(self.wte, token_ids)
         coords = kv_cache_coords(cache, pos, 1)
         for n in range(self.num_layers):
             def attend(q, k_new, v_new, _n=n):
@@ -342,11 +356,12 @@ class LlamaLM(DecoderLM):
                 )
                 return ctx
 
-            x = self._block(self.layer(n), x, rope, attend)
+            x = self._block(self.layer(n), x, rope, attend,
+                            layer_lora(lora, n))
         return self._logits(x[:, 0]), cache
 
     def extend_core(self, cache, token_ids, pos0, n_pad, prefix_len=None,
-                    prefix_lo=None, all_logits: bool = False):
+                    prefix_lo=None, all_logits: bool = False, lora=None):
         """Block forward of ``[B, U]`` tokens at slots ``[pos0, pos0+U)``
         against the cache, the contract of ``GptLM.extend_core``, with
         rotary positions per row."""
@@ -356,7 +371,7 @@ class LlamaLM(DecoderLM):
             max_len, u, pos0, n_pad, prefix_len, prefix_lo
         )
         rope = self._rope_for(posq)
-        x = self.wte[token_ids]
+        x = take(self.wte, token_ids)
         coords = kv_cache_coords(cache, pos0, u)
         for n in range(self.num_layers):
             def attend(q, k_new, v_new, _n=n):
@@ -367,7 +382,8 @@ class LlamaLM(DecoderLM):
                 )
                 return ctx
 
-            x = self._block(self.layer(n), x, rope, attend)
+            x = self._block(self.layer(n), x, rope, attend,
+                            layer_lora(lora, n))
         if not all_logits:
             x = x[:, -1]
         return cache, self._logits(x)

@@ -33,6 +33,7 @@ from torch import nn
 
 from mlapi_tpu_torch.models import register_model
 from mlapi_tpu_torch.models.gpt import _DTYPES, _Dense
+from mlapi_tpu_torch.ops.quant import take, weight
 from mlapi_tpu_torch.utils.platform import resolve_device
 
 
@@ -130,12 +131,12 @@ class WideDeepClassifier(nn.Module):
     def gather_rows(self, tables: dict, ids) -> dict:
         """Per-occurrence rows of every table, ``{name: [B, F, D_k]}``."""
         feat = torch.arange(self.num_categorical, device=ids.device)[None, :]
-        return {k: t[feat, ids.long()] for k, t in tables.items()}
+        return {k: take(t, feat, ids.long()) for k, t in tables.items()}
 
     def apply_from_rows(self, dense_params: dict, rows: dict, x):
         """The forward from gathered rows (``apply`` delegates here)."""
         dense = x[:, : self.num_dense]
-        wide_logits = (dense @ dense_params["wide_dense"]
+        wide_logits = (dense @ weight(dense_params["wide_dense"])
                        + dense_params["wide_bias"]
                        + rows["wide_tables"].sum(dim=1))
         cdt = _DTYPES[self.compute_dtype]
@@ -144,10 +145,11 @@ class WideDeepClassifier(nn.Module):
         n_hidden = len(self.hidden_dims)
         for i in range(n_hidden):
             layer = dense_params[f"deep_{i}"]
-            h = torch.relu(h @ layer["kernel"].to(cdt)
+            h = torch.relu(h @ weight(layer["kernel"], cdt)
                            + layer["bias"].to(cdt))
         out = dense_params[f"deep_{n_hidden}"]
-        deep_logits = h.to(torch.float32) @ out["kernel"] + out["bias"]
+        deep_logits = (h.to(torch.float32) @ weight(out["kernel"])
+                       + out["bias"])
         return wide_logits + deep_logits
 
     def apply(self, x):

@@ -1,7 +1,22 @@
-"""The KV-cache formats and layouts: full precision or int8 payload +
-f32 scales, contiguous or paged.
+"""Weight-only int8 quantization, and the KV-cache formats and
+layouts: full precision or int8 payload + f32 scales, contiguous or
+paged.
 
-Counterpart of the KV subset of ``mlapi_tpu/ops/quant.py``. A cache
+Counterpart of ``mlapi_tpu/ops/quant.py``.
+
+Weights (the end of this module): :func:`quantize_tree` turns every
+float leaf with ``ndim >= 2`` and at least ``MIN_QUANT_SIZE`` elements
+into a ``{"q": int8, "scale": f32}`` pair, symmetric per channel over
+the LAST axis, in numpy on the host, bit for bit as the JAX package
+does. Inside a model a quantized leaf is a :class:`QuantLeaf` module
+(int8 ``q`` and f32 ``scale`` buffers) in the float parameter's place;
+the models read every weight through :func:`weight` and gather
+embedding rows through :func:`take`, so a quantized leaf dequantizes at
+its use (``q.float() * scale``, then the site's own cast) and an
+embedding only for the rows it gathers. A float leaf goes through the
+same two calls as the plain ``t.to(dtype)`` / ``t[idx]``.
+
+KV caches: a cache
 layer is a dict of tensors: ``{"k", "v"}`` in the compute dtype, or
 ``{"k_q", "k_scale", "v_q", "v_scale"}`` for ``kv_quant="int8"``
 (symmetric per-token-per-head int8, ``scale f32[B, L, H, 1]``).
@@ -30,6 +45,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch import nn
 
 KV_FORMATS = ("none", "int8")
 
@@ -322,3 +338,171 @@ def maybe_dequant_kv(x, dtype=None):
             f"pairs, got dict with keys {sorted(x)}"
         )
     return x
+
+
+# -- weight-only int8 ------------------------------------------------------
+
+# Leaves smaller than this stay float: quantizing a small bias saves
+# nothing and costs accuracy.
+MIN_QUANT_SIZE = 4096
+
+
+def _quantize_array(a: np.ndarray):
+    amax = np.max(np.abs(a), axis=tuple(range(a.ndim - 1)), keepdims=True)
+    scale = (amax / 127.0).astype(np.float32)
+    scale = np.where(scale == 0.0, 1.0, scale)
+    q = np.clip(np.rint(a / scale), -127, 127).astype(np.int8)
+    return q, scale
+
+
+def _quantizable(a, min_size: int) -> bool:
+    return (a.ndim >= 2 and a.size >= min_size
+            and np.issubdtype(a.dtype, np.floating))
+
+
+def quantize_tree(params, *, min_size: int = MIN_QUANT_SIZE):
+    """Quantize every float leaf of a nested dict of arrays with
+    ``ndim >= 2`` and ``size >= min_size`` to a per-channel symmetric
+    int8 ``{"q", "scale"}`` pair (``scale`` keeps the reduced axes at
+    length 1); other leaves pass through. Host-side numpy, one pass."""
+    if isinstance(params, dict):
+        return {k: quantize_tree(v, min_size=min_size)
+                for k, v in params.items()}
+    a = np.asarray(params)
+    if not _quantizable(a, min_size):
+        return params
+    q, scale = _quantize_array(a)
+    return {"q": q, "scale": scale}
+
+
+def dequantize_tree(params, dtype=torch.float32):
+    """Every ``{"q", "scale"}`` pair of a nested dict → ``q * scale`` in
+    ``dtype`` (f32 by default: each model site applies its own compute
+    cast); other leaves pass through."""
+    if _is_quant_leaf(params):
+        return params["q"].to(dtype) * params["scale"].to(dtype)
+    if isinstance(params, dict):
+        return {k: dequantize_tree(v, dtype) for k, v in params.items()}
+    return params
+
+
+def _tree_leaves(params):
+    if _is_quant_leaf(params) or not isinstance(params, dict):
+        yield params
+        return
+    for v in params.values():
+        yield from _tree_leaves(v)
+
+
+def _numel(x) -> int:
+    return int(x.numel()) if isinstance(x, torch.Tensor) else int(
+        np.asarray(x).size)
+
+
+def _nbytes(x) -> int:
+    if isinstance(x, torch.Tensor):
+        return int(x.numel()) * x.element_size()
+    return int(np.asarray(x).nbytes)
+
+
+def is_quantized(params) -> bool:
+    """Whether a nested dict holds a ``{"q", "scale"}`` pair, or a
+    module a :class:`QuantLeaf`."""
+    if isinstance(params, nn.Module):
+        return any(isinstance(m, QuantLeaf) for m in params.modules())
+    return any(_is_quant_leaf(x) for x in _tree_leaves(params))
+
+
+def quantized_bytes(params) -> tuple[int, int]:
+    """``(bytes as stored, bytes if fully f32)`` of a nested dict of
+    arrays or of a module (its :class:`QuantLeaf` modules count as
+    pairs), as the JAX package counts them."""
+    if isinstance(params, nn.Module):
+        params = _module_tree(params)
+    stored = full = 0
+    for x in _tree_leaves(params):
+        if _is_quant_leaf(x):
+            stored += _numel(x["q"]) + 4 * _numel(x["scale"])
+            full += 4 * _numel(x["q"])
+        else:
+            stored += _nbytes(x)
+            full += _nbytes(x)
+    return stored, full
+
+
+def _module_tree(module: nn.Module) -> dict:
+    """A module's parameters and persistent buffers as a nested dict,
+    each :class:`QuantLeaf` as its ``{"q", "scale"}`` pair."""
+    if isinstance(module, QuantLeaf):
+        return {"q": module.q, "scale": module.scale}
+    tree: dict = {}
+    for name, p in module._parameters.items():
+        if p is not None:
+            tree[name] = p
+    for name, b in module._buffers.items():
+        if b is not None and name not in module._non_persistent_buffers_set:
+            tree[name] = b
+    for name, child in module._modules.items():
+        if child is not None:
+            tree[name] = _module_tree(child)
+    return tree
+
+
+class QuantLeaf(nn.Module):
+    """One int8 weight inside a model, in the float parameter's place:
+    ``q`` (int8, the weight's shape) and ``scale`` (f32, the reduced
+    axes at length 1), so the state dict holds ``<path>.q`` and
+    ``<path>.scale``, the JAX package's quantized key paths."""
+
+    def __init__(self, q: torch.Tensor, scale: torch.Tensor):
+        super().__init__()
+        self.register_buffer("q", q)
+        self.register_buffer("scale", scale)
+
+    @property
+    def device(self) -> torch.device:
+        return self.q.device
+
+    def dequantize(self, dtype=None) -> torch.Tensor:
+        w = self.q.to(torch.float32) * self.scale
+        return w if dtype is None else w.to(dtype)
+
+
+def weight(w, dtype=None):
+    """A weight at its use: ``w.to(dtype)`` (``w`` itself for
+    ``dtype=None``), or for a :class:`QuantLeaf` its f32 dequantization
+    cast to ``dtype``."""
+    if isinstance(w, QuantLeaf):
+        return w.dequantize(dtype)
+    return w if dtype is None else w.to(dtype)
+
+
+def take(w, *idx):
+    """``w[idx]``: gathered rows of a table. A :class:`QuantLeaf`
+    dequantizes the gathered rows alone (its per-channel scales run
+    along the last axis, which a row gather keeps)."""
+    if isinstance(w, QuantLeaf):
+        return w.q[idx].to(torch.float32) * w.scale.reshape(-1)
+    return w[idx]
+
+
+def quantize_module_(model: nn.Module) -> nn.Module:
+    """Replace every float parameter of ``model`` with ``ndim >= 2`` and
+    at least ``MIN_QUANT_SIZE`` elements by a :class:`QuantLeaf` holding its
+    :func:`quantize_tree` pair, IN PLACE (the float storage is freed).
+    The parameters are read on the host, so quantize before moving the
+    model to the card."""
+    for owner in list(model.modules()):
+        for name, p in list(owner._parameters.items()):
+            if p is None:
+                continue
+            a = p.detach().to("cpu", torch.float32).numpy() \
+                if p.is_floating_point() else None
+            if a is None or not _quantizable(a, MIN_QUANT_SIZE):
+                continue
+            q, scale = _quantize_array(a)
+            del owner._parameters[name]
+            owner.add_module(name, QuantLeaf(
+                torch.from_numpy(q).to(p.device),
+                torch.from_numpy(scale).to(p.device)))
+    return model

@@ -7,7 +7,11 @@ Counterpart of ``mlapi_tpu/serving/__main__.py``::
         [--kv-quant int8] [--decode-attn-impl flash] \\
         [--kv-page-size 16 [--kv-pages N]] [--sched-max-batches 2] \\
         [--default-deadline-ms MS] [--no-admission-control] \\
-        [--drain-timeout-s S] [--host H] [--port P] [--device cpu]
+        [--drain-timeout-s S] [--quantize int8] \\
+        [--adapter-slots N [--adapter ID=PATH ...] \\
+         [--adapter-store-bytes B] [--adapter-disk-dir DIR]] \\
+        [--tenant-pages T=N ...] [--tenant-slots T=N ...] \\
+        [--tenant-weight T=W ...] [--host H] [--port P] [--device cpu]
     python -m mlapi_tpu_torch.serving --demo-iris
 
 A classifier checkpoint (``linear``, ``mlp``, ``wide_deep``,
@@ -24,9 +28,11 @@ It runs on the CUDA device unless ``--device cpu`` (or
 ``MLAPI_TPU_PLATFORM=cpu``) asks for the CPU, and fails when there is
 no card and no such request. SIGTERM or SIGINT drain the server (new
 requests 503, ``/healthz`` draining, in-flight work gets
-``--drain-timeout-s`` to finish) and stop it. ``--quantize``,
-``--workers``, ``--router`` and the tenant flags of the JAX CLI are
-refused with the ROADMAP item that will bring them.
+``--drain-timeout-s`` to finish) and stop it. ``--quantize int8``
+serves int8 weights; ``--adapter-slots`` serves per-tenant LoRA adapters
+(``--adapter ID=PATH`` preloads one from its wire-format file), and the
+tenant flags set per-tenant quotas and weights. ``--workers`` and
+``--router`` are refused with the ROADMAP item that will bring them.
 """
 
 from __future__ import annotations
@@ -47,22 +53,20 @@ _log = get_logger("serving.main")
 # Flags of the JAX CLI that the port does not serve yet, by ROADMAP
 # Queue A item: refused, never ignored.
 _REFUSED = {
-    "quantize": ("--quantize", 5),
     "workers": ("--workers", 7),
     "router": ("--router", 7),
-    "tenant_pages": ("--tenant-pages", 5),
-    "tenant_slots": ("--tenant-slots", 5),
-    "tenant_weight": ("--tenant-weight", 5),
 }
 
 
 def build_engine(checkpoint, *, device=None, kv_quant=None,
                  decode_attn_impl=None, max_batch=None, kv_page_size=None,
-                 kv_pages=None, sched_max_batches=None, **kwargs):
+                 kv_pages=None, sched_max_batches=None, quantize=None,
+                 **kwargs):
     """The engine the CLI serves from a checkpoint dir: a generative
-    engine with the CLI's cache and scheduler options (``None`` keeps
-    the engine's default), or a classifier's engine, which refuses the
-    cache options (``InferenceEngine.from_checkpoint``)."""
+    engine with the CLI's cache, scheduler and adapter options (``None``
+    keeps the engine's default), or a classifier's engine, which refuses
+    the cache and adapter options (``InferenceEngine.from_checkpoint``).
+    ``quantize="int8"`` serves either with int8 weights."""
     from mlapi_tpu_torch.checkpoint import read_manifest
 
     if read_manifest(checkpoint).config.get("model") in GENERATIVE_MODELS:
@@ -73,8 +77,51 @@ def build_engine(checkpoint, *, device=None, kv_quant=None,
     return InferenceEngine.from_checkpoint(
         checkpoint, device=device, kv_quant=kv_quant,
         decode_attn_impl=decode_attn_impl, kv_page_size=kv_page_size,
-        kv_pages=kv_pages, **kwargs,
+        kv_pages=kv_pages, quantize=quantize, **kwargs,
     )
+
+
+def register_adapters(parser, engine, specs) -> None:
+    """Preload each ``--adapter ID=PATH`` into the engine's host store
+    (device slots install at the tenant's first request); the file's
+    embedded id must be ``ID`` (``parser.error`` otherwise)."""
+    from mlapi_tpu_torch.serving.adapter_store import load_adapter
+
+    for spec in specs or ():
+        aid, _, path = spec.partition("=")
+        if not aid or not path:
+            parser.error(f"--adapter {spec!r}: expected ID=PATH")
+        try:
+            file_aid, payload, rank, nbytes = load_adapter(path)
+        except (OSError, ValueError) as e:
+            parser.error(f"--adapter {spec!r}: {e}")
+        if file_aid != aid:
+            parser.error(
+                f"--adapter {spec!r}: file embeds adapter id "
+                f"{file_aid!r} — ids must match (rename the export, "
+                "not the flag)"
+            )
+        engine.register_adapter(aid, payload)
+        _log.info("preloaded adapter %r (rank %d, %d bytes)", aid, rank,
+                  nbytes)
+
+
+def build_tenants(parser, args):
+    """The ``TenantLedger`` of the tenant flags, or None when none is
+    given (``parser.error`` on a malformed or duplicate entry)."""
+    if not (args.tenant_pages or args.tenant_slots or args.tenant_weight):
+        return None
+    from mlapi_tpu_torch.serving.registry import TenantLedger, parse_tenant_kv
+
+    try:
+        return TenantLedger(
+            quota_pages=parse_tenant_kv(args.tenant_pages, "--tenant-pages"),
+            quota_slots=parse_tenant_kv(args.tenant_slots, "--tenant-slots"),
+            weights=parse_tenant_kv(args.tenant_weight, "--tenant-weight",
+                                    cast=float),
+        )
+    except ValueError as e:
+        parser.error(str(e))
 
 
 def demo_iris_checkpoint(device=None) -> str:
@@ -199,6 +246,59 @@ def make_parser() -> argparse.ArgumentParser:
              "with a draining frame",
     )
     parser.add_argument(
+        "--quantize", choices=["int8"], default=None,
+        help="weight-only int8: store every weight matrix as per-channel "
+             "symmetric int8 with f32 scales (about a quarter of the f32 "
+             "bytes), dequantized at each use; composes with --kv-quant",
+    )
+    parser.add_argument(
+        "--adapter-slots", type=int, default=0,
+        help="many-adapter LoRA serving: a device slot pool of this many "
+             "tenants' (A, B) pairs over the ONE resident base (device "
+             "bytes: base + N x generate.adapter_slot_bytes). Requests "
+             "name a tenant in the 'adapter' field; mixed-tenant batches "
+             "apply per-row deltas by gathered BGMV. 0 (default) turns "
+             "the subsystem off. Generative checkpoints only",
+    )
+    parser.add_argument(
+        "--adapter-store-bytes", type=int, default=0,
+        help="with --adapter-slots: the host adapter store's LRU byte "
+             "budget (default 256 MiB); evicted slots refill from it",
+    )
+    parser.add_argument(
+        "--adapter-disk-dir", default=None,
+        help="with --adapter-slots: spill directory of the host adapter "
+             "store (pid-scoped files, stale ones swept at start)",
+    )
+    parser.add_argument(
+        "--adapter", action="append", default=None, metavar="ID=PATH",
+        help="preload an adapter into the host store at startup "
+             "(repeatable): PATH is an adapter file in the wire format "
+             "(serving/adapter_store.save_adapter) registered under ID; "
+             "the file's embedded id must match",
+    )
+    parser.add_argument(
+        "--tenant-pages", action="append", metavar="TENANT=N",
+        help="per-tenant KV page quota (repeatable; paged engines): a "
+             "tenant holding reservations may not grow past N pages; "
+             "further group starts defer (generate."
+             "sched_tenant_pages_deferred, tenant.<t>.deferrals) until "
+             "its own pages free. Unlisted tenants are unquotaed",
+    )
+    parser.add_argument(
+        "--tenant-slots", action="append", metavar="TENANT=N",
+        help="per-tenant adapter-slot quota (repeatable; with "
+             "--adapter-slots): the same deferral over device adapter "
+             "slots",
+    )
+    parser.add_argument(
+        "--tenant-weight", action="append", metavar="TENANT=W",
+        help="per-tenant scheduling weight (repeatable; default 1.0): "
+             "deadline slack divides by W in the unit scheduler's pick, "
+             "so a weight-2 tenant's requests look twice as urgent at "
+             "equal slack",
+    )
+    parser.add_argument(
         "--device", choices=["cuda", "cpu"], default=None,
         help="where to run (default: cuda; MLAPI_TPU_PLATFORM=cpu also "
              "selects the CPU)",
@@ -206,7 +306,6 @@ def make_parser() -> argparse.ArgumentParser:
     for dest, (flag, _) in _REFUSED.items():
         parser.add_argument(flag, dest=dest, default=None,
                             action=("store_true" if flag in ("--router",)
-                                    else "append" if "tenant" in flag
                                     else "store"),
                             help=argparse.SUPPRESS)
     return parser
@@ -227,6 +326,10 @@ def parse_args(argv=None, parser=None):
         parser.error("--kv-pages requires --kv-page-size")
     if args.sched_max_batches < 1:
         parser.error("--sched-max-batches must be >= 1")
+    if (args.adapter_store_bytes or args.adapter_disk_dir
+            or args.adapter) and not args.adapter_slots:
+        parser.error("--adapter-store-bytes/--adapter-disk-dir/--adapter "
+                     "require --adapter-slots > 0")
     args.model_specs = parse_model_specs(parser, args.model)
     return args
 
@@ -241,8 +344,13 @@ def main(argv=None) -> int:
         checkpoint, device=args.device, kv_quant=args.kv_quant,
         decode_attn_impl=args.decode_attn_impl, max_batch=args.max_batch,
         kv_page_size=args.kv_page_size, kv_pages=args.kv_pages,
-        sched_max_batches=args.sched_max_batches,
+        sched_max_batches=args.sched_max_batches, quantize=args.quantize,
+        **({"adapter_slots": args.adapter_slots,
+            "adapter_store_bytes": args.adapter_store_bytes,
+            "adapter_disk_dir": args.adapter_disk_dir}
+           if args.adapter_slots else {}),
     )
+    register_adapters(parser, engine, args.adapter)
     extra = build_models(parser, args.model_specs, device=args.device)
     app = build_app(
         models=ModelRegistry({"default": engine, **extra}),
@@ -250,6 +358,7 @@ def main(argv=None) -> int:
         default_deadline_ms=args.default_deadline_ms,
         drain_timeout_s=args.drain_timeout_s,
         admission_control=args.admission_control,
+        tenants=build_tenants(parser, args),
     )
     server = Server(app, host=args.host, port=args.port)
 

@@ -33,9 +33,12 @@ a process with several models adds ``/models/<id>/predict`` and
   (``serving/prefix.py``); an invalid one is a 422 at ``["prefix"]``.
   ``deadline_ms`` (> 0) is the request's wall-clock budget: a deadline
   that passes ends the request with ``deadline_exceeded`` (504 unary),
-  one the admission estimate says cannot be met is shed with a 503. The
-  JAX package's ``adapter`` and ``tenant`` fields are refused with a
-  422, since the port does not serve them yet.
+  one the admission estimate says cannot be met is shed with a 503.
+  ``adapter`` decodes under that tenant's LoRA adapter
+  (``serving/adapter_store.py``): an id the engine cannot serve is a
+  404, adapter slots all held by live batches a 503 with retry-after.
+  ``tenant`` names the quota and fairness identity (by default the
+  adapter id).
 - ``GET /healthz``: liveness (``"draining"`` once shutdown began), queue
   depth, model, classes, checkpoint, device, the KV page size and pool
   size of a generative default, and a ``models`` block when several
@@ -44,7 +47,9 @@ a process with several models adds ``/models/<id>/predict`` and
   JAX package's ``batcher.*`` names for a scoring default and
   ``generate.*`` names for a generative one (``sched_units_score``
   among them), the ``model.<id>.*`` family when several models are
-  served, and the CUDA kernels' launch counts under ``kernels``.
+  served, the adapter block (``generate.adapter_*``) of an engine with
+  adapter slots, the ``tenant.<t>.*`` block when tenant quotas are
+  set, and the CUDA kernels' launch counts under ``kernels``.
 
 Every 503 carries ``retry-after``. Startup warms every engine and starts
 the generative engines before the scoring paths; shutdown drains and
@@ -63,6 +68,10 @@ import numpy as np
 import torch
 
 from mlapi_tpu_torch.serving import faults
+from mlapi_tpu_torch.serving.adapter_store import (
+    AdapterSlotsExhausted,
+    AdapterUnavailable,
+)
 from mlapi_tpu_torch.serving.asgi import (
     App,
     Field,
@@ -100,10 +109,12 @@ GENERATE_SCHEMA = Schema(
     prefix=Field(str, None, nullable=True),
     # The request's end-to-end wall-clock budget.
     deadline_ms=Field(float, None, nullable=True),
+    # A tenant's LoRA adapter id: decode under base + its delta,
+    # batched with other tenants over the one resident base.
+    adapter=Field(str, None, nullable=True),
+    # The quota and fairness identity (by default the adapter id).
+    tenant=Field(str, None, nullable=True),
 )
-# Fields of the JAX package's /generate that change the answer and that
-# the port does not implement: refused rather than silently ignored.
-_NOT_PORTED = ("adapter", "tenant")
 
 
 def _value_error(loc: str, msg: str, value) -> HTTPError:
@@ -123,6 +134,13 @@ def _terminal_http(e: Exception) -> HTTPError | None:
         return HTTPError(503, str(e), headers={"retry-after": "5"})
     if isinstance(e, PagePoolExhausted):
         return HTTPError(503, str(e), headers={"retry-after": "1"})
+    if isinstance(e, AdapterUnavailable):
+        # The named adapter is absent here: the resource, not the
+        # server.
+        return HTTPError(404, str(e))
+    if isinstance(e, AdapterSlotsExhausted):
+        # Momentary: every slot is held by a live batch.
+        return HTTPError(503, str(e), headers={"retry-after": "1"})
     return None
 
 
@@ -137,14 +155,16 @@ def build_app(engine=None, *, models: ModelRegistry | None = None,
               max_batch: int | None = None, max_wait_ms: float = 0.2,
               default_deadline_ms: float | None = None,
               drain_timeout_s: float = 10.0,
-              admission_control: bool = True) -> App:
+              admission_control: bool = True, tenants=None) -> App:
     """The app over one engine or a registry (``models``). The default
     generative engine takes ``default_deadline_ms``,
     ``admission_control`` and ``drain_timeout_s`` (its batch size is a
     constructor argument); other generative entries keep their own.
     Each classifier gets a :class:`ScorePath` (``max_batch``,
     ``max_wait_ms``, ``default_deadline_ms``) whose batches ride the
-    primary generative engine's scheduler when there is one."""
+    primary generative engine's scheduler when there is one.
+    ``tenants`` (a ``TenantLedger``) gives every generative engine its
+    per-tenant quotas, weights and brownout rung."""
     if models is None:
         if engine is None:
             raise ValueError("build_app needs an engine or a registry")
@@ -158,6 +178,8 @@ def build_app(engine=None, *, models: ModelRegistry | None = None,
     for mid, eng in models.items():
         is_default = mid == models.default_id
         if eng.kind == "generative":
+            if tenants is not None:
+                eng.tenants = tenants
             if is_default:
                 eng.default_deadline_ms = default_deadline_ms
                 eng.drain_timeout_s = float(drain_timeout_s)
@@ -180,7 +202,7 @@ def build_app(engine=None, *, models: ModelRegistry | None = None,
             _install_predict(app, eng, sp, path=f"/models/{mid}/predict")
     batcher = score_paths.get(models.default_id)
     app.state.update(models=models, score_paths=score_paths,
-                     batcher=batcher)
+                     batcher=batcher, tenants=tenants)
 
     @app.on_startup
     async def _start():
@@ -327,14 +349,8 @@ def _install_generate(app: App, engine, path: str = "/generate") -> None:
         return min(hits, key=lambda h: (h[0], -len(h[1])), default=None)
 
     @app.post(path, body=GENERATE_SCHEMA)
-    async def generate(req, request: Request):
+    async def generate(req):
         """Generate a continuation of ``text`` (unary or NDJSON)."""
-        extra = request.json()
-        for name in _NOT_PORTED:
-            if extra.get(name) is not None:
-                raise _value_error(
-                    name, "not supported by this server", extra[name]
-                )
         n_new = (
             req.max_new_tokens if req.max_new_tokens is not None
             else engine.default_max_new_tokens
@@ -367,10 +383,14 @@ def _install_generate(app: App, engine, path: str = "/generate") -> None:
                 top_k=req.top_k, top_p=req.top_p, prefix=req.prefix,
                 # Incremental consumers need tokens per chunk.
                 stream=bool(req.stream) or bool(stops),
-                deadline_ms=req.deadline_ms,
+                deadline_ms=req.deadline_ms, adapter=req.adapter,
+                tenant=req.tenant,
             )
         except OverloadedError as e:
             raise _overloaded_http(e) from None
+        except AdapterUnavailable as e:
+            # Resolved before the request queues: 404.
+            raise HTTPError(404, str(e)) from None
         except ValueError as e:
             # An invalid prefix (too long for the window, empty after
             # tokenizing, no room left for the suffix) is the
@@ -615,6 +635,15 @@ def _install_common(app: App, models: ModelRegistry,
             names.append("flash_forward")   # a BERT classifier's B5
         snap["kernels"] = {name: getattr(kern, name).launches
                            for name in names}
+        # Per-tenant pressure: live depth, quota deferrals and brownout
+        # clamps of every tenant with any history.
+        tenants = app.state.get("tenants")
+        if tenants is not None:
+            for t, row in sorted(tenants.snapshot().items()):
+                pfx = f"tenant.{t or 'anonymous'}"
+                g[f"{pfx}.depth"] = row["depth"]
+                c[f"{pfx}.deferrals"] = row["deferrals"]
+                c[f"{pfx}.brownouts"] = row["brownouts"]
         return snap
 
 
@@ -637,7 +666,12 @@ def _generate_metrics(engine, c: dict, g: dict) -> None:
                  "sched_units_prefill", "sched_units_decode",
                  "sched_units_admit", "sched_units_compact",
                  "sched_units_score", "sched_deadline_preempts",
-                 "sched_pages_deferred"):
+                 "sched_pages_deferred",
+                 # Group starts deferred on a TENANT's page or slot
+                 # quota, and the tenant brownout rung's clamps.
+                 "sched_tenant_pages_deferred",
+                 "sched_tenant_adapters_deferred",
+                 "brownout_tenant_clamped"):
         c[f"generate.{name}"] = getattr(engine, name)
     c["generate.faults_injected"] = faults.injected_count()
     for name in ("queue_depth", "sched_queue_depth", "sched_batches_live",
@@ -653,3 +687,20 @@ def _generate_metrics(engine, c: dict, g: dict) -> None:
     g["generate.decode_bytes_per_step"] = engine.decode_bytes_per_step()
     g["generate.extend_bytes_per_chunk"] = engine.extend_bytes_per_chunk()
     g["generate.kv_page_bytes"] = engine.kv_page_bytes()
+    if engine.adapters is not None:
+        # Many-adapter LoRA: the slot pool, the host store and the
+        # application modes. Byte gauges are dtype/shape arithmetic:
+        # adapter_resident_bytes grows by exactly adapter_slot_bytes per
+        # resident tenant over the base. The fetch/serve counters are
+        # the fleet tier's (not ported, ROADMAP Queue A item 7): 0.
+        for name in ("adapter_fetch_hits", "adapter_fetch_misses",
+                     "adapter_fetch_bytes", "adapter_fetch_failures",
+                     "adapter_serve_count", "adapter_serve_bytes",
+                     "adapter_installs", "adapter_evictions",
+                     "adapter_grouped_batches", "adapter_gathered_batches",
+                     "adapter_store_evictions", "sched_adapters_deferred"):
+            c[f"generate.{name}"] = getattr(engine, name)
+        for name in ("adapter_slots_total", "adapter_slots_in_use",
+                     "adapter_slot_bytes", "adapter_resident_bytes",
+                     "adapter_store_bytes_in_use", "adapter_store_entries"):
+            g[f"generate.{name}"] = getattr(engine, name)

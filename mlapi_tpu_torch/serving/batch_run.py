@@ -44,8 +44,16 @@ the host table changes).
 Prefix rows batch at formation only, never by admission (the running
 batch's prefix region is a batch-wide layout). A long-prompt joiner of
 a contiguous batch is prefilled in one admission once ``pos`` reaches
-its bucket, as in the JAX package. Not ported: speculation, adapters,
-fused widths and disaggregation.
+its bucket, as in the JAX package.
+
+Adapters: ``arow[row]`` is the device row's adapter slot (0, the
+all-zero NULL slot, for base rows), a host mirror like ``n_pad``. Every
+member's adapter is acquired (installed if need be, and held) before the
+prefill, a joiner's before its own prefill, and every hold is released
+when the run ends. Each dispatch passes the model the adapter context
+:meth:`_lora` picks: none (no adapter row: the base model's ops), grouped
+(one tenant: ``x @ a @ b``) or gathered (mixed: BGMV). Not ported:
+speculation, fused widths and disaggregation.
 """
 
 from __future__ import annotations
@@ -104,6 +112,12 @@ class BatchRun:
         self.lo = np.full((self.b_pad,), self.p_len, np.int64)
         for i, r in enumerate(reqs):
             self.lo[i] = self.p_len - r.prefix_len + r.prefix_lo
+        # Per-row adapter slot mirror (0: base), the holds this run took
+        # (released at its end), and whether its adapter mode (grouped
+        # or gathered) was counted.
+        self.arow = np.zeros((self.b_pad,), np.int64)
+        self._adapter_holds: list = []
+        self._adapter_counted = False
         self.device = eng.device
         # Paged: tab[row, i] maps virtual tile i of device row ``row``
         # to a pool page (0 = the null page).
@@ -122,14 +136,26 @@ class BatchRun:
         self.b_cur = self.b_pad
         self.cache = None
         try:
+            # Every member's adapter is made resident and held BEFORE
+            # any device work: a miss (unknown id, slots exhausted)
+            # fails the formation with nothing half-installed.
+            for i, r in enumerate(reqs):
+                self.arow[i] = self._acquire_adapter(r)
+            s0 = int(self.arow[0])
+            if s0 and bool(np.all(self.arow[:b] == s0)):
+                # One tenant: the masked dummy rows take its slot too,
+                # so the grouped path applies.
+                self.arow[:] = s0
             first = self._prefill()
             self.pos = self.p_len + self.bucket
             self._first_token(first)
             self.chain = DispatchChain(self._deliver)
         except BaseException:
             # Formation failed (a PagePoolExhausted included): give
-            # every held page back; the engine delivers the error.
+            # every held page and adapter back; the engine delivers the
+            # error.
             self._paged_cleanup()
+            self._release_adapters()
             raise
 
     # -- formation ----------------------------------------------------
@@ -171,14 +197,14 @@ class BatchRun:
                 eng.prefill_chunks += 1
                 self.cache, logits = extend_chunk_fn(
                     eng.model, self.cache, prompt[:, c0:c0 + cp], c0,
-                    self._n_pad_dev(),
+                    self._n_pad_dev(), lora=self._lora(),
                 )
             return sample_fn(
                 logits, self.seeds, self.temps, self.topk, self.topp
             )
         first, self.cache = prefill_fn(
             eng.model, prompt, self.seeds, self.temps, self._n_pad_dev(),
-            self.topk, self.topp, total_len=total,
+            self.topk, self.topp, total_len=total, lora=self._lora(),
         )
         return first
 
@@ -213,13 +239,14 @@ class BatchRun:
                 eng.prefill_chunks += 1
                 self.cache, logits = paged_extend_fn(
                     eng.model, self.cache, prompt[:, c0:c0 + cp], c0, n_pad,
+                    lora=self._lora(),
                 )
             return sample_fn(
                 logits, self.seeds, self.temps, self.topk, self.topp
             )
         first, self.cache = paged_prefill_fn(
             eng.model, self.cache, prompt, 0, self.seeds, self.temps, n_pad,
-            self.topk, self.topp,
+            self.topk, self.topp, lora=self._lora(),
         )
         return first
 
@@ -316,6 +343,56 @@ class BatchRun:
             P, self._lo_arg(),
         )
         return sample_fn(logits, self.seeds, self.temps, self.topk, self.topp)
+
+    # -- per-tenant adapters (serving/adapter_store.py) ----------------
+
+    def _acquire_adapter(self, req) -> int:
+        """A request's adapter as a resident, held slot (installed from
+        the host store on a miss); the hold is released when the run
+        ends, so a live batch's adapter is never evicted under it. 0
+        (the NULL slot) for a base request."""
+        aid = getattr(req, "adapter", None)
+        if aid is None:
+            return 0
+        slot = self.eng.adapters.acquire(aid, self.eng.adapter_store)
+        self._adapter_holds.append(aid)
+        return slot
+
+    def _release_adapters(self) -> None:
+        """Drop every hold this run took (idempotent). The slots stay
+        resident, warm for the tenant's next request, and evictable."""
+        while self._adapter_holds:
+            self.eng.adapters.release(self._adapter_holds.pop())
+
+    def _lora(self):
+        """The adapter context of this batch's next dispatch: None when
+        no row carries an adapter (the base model's ops), GROUPED (every
+        row one tenant: an int slot) or GATHERED (mixed: the per-row
+        slot vector, base and dummy rows at the NULL slot). Decided on
+        the host per dispatch; the mode is counted once per run."""
+        eng = self.eng
+        if eng.adapters is None:
+            return None
+        rows = self.arow[:self.b_cur]
+        if not rows.any():
+            return None
+        grouped = bool(np.all(rows == rows[0]))
+        if not self._adapter_counted:
+            self._adapter_counted = True
+            if grouped:
+                eng.adapter_grouped_batches += 1
+            else:
+                eng.adapter_gathered_batches += 1
+        if grouped:
+            return eng.adapters.batch_params(slot=int(rows[0]))
+        return eng.adapters.batch_params(rows=rows)
+
+    def _lora1(self, slot: int):
+        """The context of a one-row dispatch (a joiner's own prefill):
+        its tenant's slot, or None for a base joiner."""
+        if not slot:
+            return None
+        return self.eng.adapters.batch_params(slot=slot)
 
     def _lo_arg(self):
         """The prefix region's start: a per-row upload of the ``lo``
@@ -432,8 +509,9 @@ class BatchRun:
             self.n_pad[sel], self.temps[sel], self.topk[sel],
             self.topp[sel],
         )
-        self.seeds, self.tok, self.step, self.lo = (
+        self.seeds, self.tok, self.step, self.lo, self.arow = (
             self.seeds[sel], self.tok[sel], self.step[sel], self.lo[sel],
+            self.arow[sel],
         )
 
     def _deliver(self, toks_host, got, plive):
@@ -529,6 +607,14 @@ class BatchRun:
                 if self._unstage(cand):
                     eng._defer(cand)
                 continue
+            if (getattr(cand, "adapter", None) is not None
+                    and not eng.adapters.can_claim([cand.adapter])):
+                # Every slot is pinned by live holds: the acquire would
+                # fail mid-admission. The next formation (fresh holds)
+                # takes it.
+                if self._unstage(cand):
+                    eng._defer(cand)
+                continue
             bkt = len(cand.row)
             if self.pool is not None and bkt > cp and bkt % cp == 0:
                 # A long-prompt joiner: its prefill chunks interleave
@@ -577,7 +663,10 @@ class BatchRun:
             try:
                 # Between the joiner's page alloc and its install.
                 faults.fire("table_install")
-                ftok = self._install(cand, row)
+                # Its adapter is held BEFORE its prefill dispatches; a
+                # miss here is the joiner's alone (the except below).
+                jslot = self._acquire_adapter(cand)
+                ftok = self._install(cand, row, jslot)
             except Exception as e:  # noqa: BLE001 — the joiner's alone
                 # The joiner's pages go back and it gets its error; the
                 # running batch's mirrors and cache were not touched
@@ -599,6 +688,9 @@ class BatchRun:
             self.topk[row] = cand.top_k
             self.topp[row] = cand.top_p
             self.seeds[row] = cand.seed
+            # The row changes owner: its adapter slot ALWAYS follows (a
+            # finished tenant's stale slot would adapt this joiner).
+            self.arow[row] = jslot
             self.tok[row] = ftok
             self.step[row] = 1
             reqs.append(cand)
@@ -635,7 +727,7 @@ class BatchRun:
             if held == row:
                 self.rows[k] = None
 
-    def _install(self, cand, row: int) -> int:
+    def _install(self, cand, row: int, slot: int = 0) -> int:
         """The joiner's prefill into ``row``, its prompt ending at slot
         ``pos``; returns its first token. Paged: one page-native
         prefill through a one-row table at virtual offset ``pos -
@@ -661,11 +753,13 @@ class BatchRun:
             cache1 = paged_cache_tree(self.cache, self.tab[row:row + 1])
             first, _ = paged_prefill_fn(
                 eng.model, cache1, ids, off, *host, n_pad, topk, topp,
+                lora=self._lora1(slot),
             )
             self._tab_dirty = True
         else:
             first, mini = prefill_fn(
                 eng.model, ids, *host, n_pad, topk, topp, total_len=bkt,
+                lora=self._lora1(slot),
             )
             for ln, layer in self.cache.items():
                 for name, leaf in layer.items():
@@ -719,6 +813,27 @@ class BatchRun:
         row = free[0]
         self._detach(row)
         self._release_row(row)  # a finished request's leftover pages
+        try:
+            # The joiner's adapter is held before any pool pages move.
+            pf_slot = self._acquire_adapter(cand)
+        except Exception as e:  # noqa: BLE001 — the joiner's alone
+            from mlapi_tpu_torch.serving.adapter_store import (
+                AdapterSlotsExhausted,
+            )
+
+            self._unstage(cand)
+            if isinstance(e, AdapterSlotsExhausted):
+                # Slots momentarily pinned by live runs: next batch.
+                eng._defer(cand)
+                return False
+            # Unresolvable: its terminal frame; the batch and the pool
+            # were not touched.
+            try:
+                cand.push(e)
+            except Exception:  # noqa: BLE001 — a dead loop
+                pass
+            cand.cancel()
+            return False
         # Private table: the prompt's pages belong to ``ptab`` until
         # activation, so decode writes for the dummy row stay in the
         # null page.
@@ -739,7 +854,7 @@ class BatchRun:
         self._pf = {
             "cand": cand, "row": row, "ptab": ptab, "A": a,
             "off": a - bkt, "cp": cp, "skip": (bkt - bkt_eff) // cp,
-            "next": 0, "n_run": n_run, "logits": None,
+            "next": 0, "n_run": n_run, "logits": None, "slot": pf_slot,
         }
         eng.interleaved_prefills += 1
         eng.prefill_chunk_queue_depth = n_run
@@ -764,6 +879,7 @@ class BatchRun:
                                 device=self.device)
         _, pf["logits"] = paged_extend_fn(
             eng.model, cache1, ids, pf["off"] + c0, n_pad,
+            lora=self._lora1(pf["slot"]),
         )
         pf["next"] += 1
         eng.prefill_chunk_queue_depth = pf["n_run"] - pf["next"]
@@ -824,6 +940,7 @@ class BatchRun:
         self.topk[row] = cand.top_k
         self.topp[row] = cand.top_p
         self.seeds[row] = cand.seed
+        self.arow[row] = pf["slot"]
         self.tok[row] = ftok
         self.step[row] = 1
         self.reqs.append(cand)
@@ -913,6 +1030,7 @@ class BatchRun:
             eng.model, self.cache, tok, self.pos, self._n_pad_dev(),
             self.temps, self.seeds, self.step, self.topk, self.topp,
             chunk=size, prefix_len=self.p_len, prefix_lo=self._lo_arg(),
+            lora=self._lora(),
         )
         self.chain.push(toks, size, live)
         for i in live:
@@ -947,6 +1065,7 @@ class BatchRun:
             raise
         finally:
             self._paged_cleanup()
+            self._release_adapters()
 
     def _units(self):
         eng, reqs, chain = self.eng, self.reqs, self.chain

@@ -36,7 +36,16 @@ engages the brownout rungs (clamp token budgets; evict idle prefix
 page sets); ``drain`` stops admission and lets in-flight streams
 finish within a budget.
 
-Not ported: speculation, adapters, tenants, the fused-width policy.
+Many-tenant LoRA (``adapter_slots``): one resident base and a device
+slot pool of per-tenant adapters (``serving/adapter_store.py``); a
+request naming ``adapter`` decodes under base + its delta, batched with
+base rows and other tenants. Tenants (``tenants``, a
+``serving/registry.TenantLedger`` the app attaches): per-tenant page and
+adapter-slot quotas in the scheduler's reservation gate, weighted
+deadline slack, and a tenant-scoped brownout rung in :meth:`submit`.
+
+Not ported: speculation, the fleet tier of adapters (``AdapterPeer``),
+the fused-width policy.
 ``chunk`` is a fixed 8 (the JAX engine probes the device round trip to
 choose 8 or 16; a local card is the 8 case).
 """
@@ -104,6 +113,9 @@ class TextGenerationEngine:
         kv_page_size: int | None = None,
         kv_pages: int | None = None,
         sched_max_batches: int = 2,
+        adapter_slots: int = 0,
+        adapter_store_bytes: int = 0,
+        adapter_disk_dir: str | None = None,
     ):
         if tokenizer.vocab_size > model.vocab_size:
             raise ValueError(
@@ -179,6 +191,32 @@ class TextGenerationEngine:
         # Shared-prefix KV caching: every piece of prefix state lives in
         # the PrefixCache; the engine routes calls to it.
         self.prefix = PrefixCache(self)
+        # Many-adapter LoRA: a device slot pool (adapter_slots > 0) and
+        # the host store it installs from (default budget 256 MiB). Off,
+        # a request naming an adapter is refused (404) and every batch
+        # runs the base model's ops unchanged.
+        self.adapters = None
+        self.adapter_store = None
+        if (adapter_store_bytes or adapter_disk_dir) and not adapter_slots:
+            raise ValueError(
+                "adapter_store_bytes/adapter_disk_dir require "
+                "adapter_slots > 0 (the slot pool enables adapter "
+                "serving)"
+            )
+        if adapter_slots:
+            from mlapi_tpu_torch.serving.adapter_store import (
+                AdapterSlots,
+                AdapterStore,
+            )
+
+            self.adapters = AdapterSlots(self, int(adapter_slots))
+            self.adapter_store = AdapterStore(
+                int(adapter_store_bytes) or (1 << 28),
+                disk_dir=adapter_disk_dir,
+            )
+        # Per-tenant quotas, weights and pressure (TenantLedger), set by
+        # the app when a tenant flag is given; None: single-tenant.
+        self.tenants = None
         # Stats (read by /metrics and the tests).
         self.requests = 0
         self.batch_calls = 0
@@ -216,6 +254,19 @@ class TextGenerationEngine:
         self.sched_units_score = 0
         self.sched_deadline_preempts = 0
         self.sched_pages_deferred = 0
+        # Groups held back because their adapters could not all claim a
+        # slot (the adapter term of the same gate), or because their
+        # TENANT was at its page or adapter-slot quota; and submits whose
+        # budget the tenant brownout rung clamped.
+        self.sched_adapters_deferred = 0
+        self.sched_tenant_pages_deferred = 0
+        self.sched_tenant_adapters_deferred = 0
+        self.brownout_tenant_clamped = 0
+        # Adapter batch runs by application mode, counted once per run
+        # at its first adapter dispatch: every row one tenant (grouped,
+        # one x @ a @ b per target) or mixed (gathered BGMV).
+        self.adapter_grouped_batches = 0
+        self.adapter_gathered_batches = 0
         self.sched_batches_live_max = 0
         self.sched_lane_stall_max = 0
         # Bytes of prefix KV adopted into pool pages (once per entry
@@ -227,11 +278,14 @@ class TextGenerationEngine:
 
     @classmethod
     def from_checkpoint(cls, path, *, device=None, kv_quant=None,
-                        decode_attn_impl=None, **kwargs):
+                        decode_attn_impl=None, quantize=None, **kwargs):
         """Build an engine from a checkpoint dir (``checkpoint/io``): the
         model from the manifest's config, its weights loaded onto
         ``device`` (default CUDA; see ``utils/platform``), the cache
-        format and cache-read attention set when given."""
+        format and cache-read attention set when given. ``quantize=
+        "int8"`` serves int8 weights (``models/quantized``), quantized
+        on the host before the move, so the card never holds the float
+        weights; the engine's ``meta`` then says ``"quantized"``."""
         from mlapi_tpu_torch.checkpoint import load_checkpoint, read_manifest
         from mlapi_tpu_torch.models import get_model
         from mlapi_tpu_torch.text import tokenizer_from_fingerprint
@@ -250,12 +304,16 @@ class TextGenerationEngine:
                           **cfg.get("model_kwargs", {}))
         state, meta = load_checkpoint(path, model)
         model.load_state_dict(state)
+        info = meta.to_json()
+        if quantize is not None:
+            model = _quantized(model, quantize)
+            info["quantized"] = quantize
         model.to(dev)
         model.configure(kv_quant=kv_quant, decode_attn_impl=decode_attn_impl)
         tokenizer = tokenizer_from_fingerprint(
             cfg.get("tokenizer", {"kind": "bytes"})
         )
-        return cls(model, tokenizer=tokenizer, meta=meta.to_json(), **kwargs)
+        return cls(model, tokenizer=tokenizer, meta=info, **kwargs)
 
     @property
     def queue_depth(self) -> int:
@@ -421,6 +479,98 @@ class TextGenerationEngine:
         """Cold prefills of a prefix (``_build`` ran)."""
         return self.prefix.builds
 
+    # -- adapter accounting (state lives in serving/adapter_store.py) -----
+    @property
+    def adapter_slots_total(self) -> int:
+        return self.adapters.slots_total if self.adapters else 0
+
+    @property
+    def adapter_slots_in_use(self) -> int:
+        return self.adapters.slots_in_use if self.adapters else 0
+
+    @property
+    def adapter_evictions(self) -> int:
+        return self.adapters.evictions if self.adapters else 0
+
+    @property
+    def adapter_installs(self) -> int:
+        return self.adapters.installs if self.adapters else 0
+
+    @property
+    def adapter_slot_bytes(self) -> int:
+        """Device bytes ONE resident adapter costs (one slot of every
+        pool): ``adapter_resident_bytes == base + N x adapter_slot_bytes``
+        for N resident tenants. 0 until the first install."""
+        return self.adapters.slot_bytes() if self.adapters else 0
+
+    @property
+    def adapter_resident_bytes(self) -> int:
+        """The closed form of the amortization: the model's stored
+        parameter bytes + slots_in_use x adapter_slot_bytes."""
+        if self.adapters is None:
+            return 0
+        from mlapi_tpu_torch.ops.quant import quantized_bytes
+
+        base = quantized_bytes(self.model)[0]
+        return base + self.adapters.slots_in_use * self.adapters.slot_bytes()
+
+    # The fleet tier (AdapterPeer, ROADMAP Queue A item 7) is not
+    # ported: its fetch and serve counters read 0.
+    adapter_fetch_hits = adapter_fetch_misses = adapter_fetch_bytes = 0
+    adapter_fetch_failures = adapter_serve_count = adapter_serve_bytes = 0
+
+    @property
+    def adapter_store_bytes_in_use(self) -> int:
+        return self.adapter_store.bytes_in_use if self.adapter_store else 0
+
+    @property
+    def adapter_store_entries(self) -> int:
+        return self.adapter_store.entries if self.adapter_store else 0
+
+    @property
+    def adapter_store_evictions(self) -> int:
+        return self.adapter_store.evictions if self.adapter_store else 0
+
+    def register_adapter(self, aid: str, payload: dict) -> int:
+        """Put a pre-scaled adapter payload (``{layer: {target: {a,
+        b}}}``, ``b`` carrying alpha/rank: ``models/lora.export_adapter``)
+        into the HOST store under ``aid``; it installs into a device
+        slot at its first request. The CLI's ``--adapter ID=PATH`` loads
+        through here. Returns the payload bytes."""
+        from mlapi_tpu_torch.serving import adapter_store as _as
+
+        if self.adapter_store is None:
+            raise ValueError(
+                "engine built without adapter slots "
+                "(--adapter-slots 0): cannot register adapters"
+            )
+        if not _as.ADAPTER_ID_RE.match(aid or ""):
+            raise ValueError(f"bad adapter id {aid!r}")
+        _as.adapter_rank(payload)  # loud on ragged/empty payloads
+        return self.adapter_store.put(aid, payload)
+
+    def _resolve_adapter(self, aid: str) -> None:
+        """Check that this engine can serve adapter ``aid`` (resident in
+        a slot or in the host store) BEFORE the request queues; raises
+        ``AdapterUnavailable`` (404) otherwise: feature off, malformed
+        id, or not registered."""
+        from mlapi_tpu_torch.serving.adapter_store import (
+            ADAPTER_ID_RE,
+            AdapterUnavailable,
+        )
+
+        if self.adapters is None:
+            raise AdapterUnavailable(
+                "this replica serves no adapters (--adapter-slots 0)"
+            )
+        if not isinstance(aid, str) or not ADAPTER_ID_RE.match(aid):
+            raise AdapterUnavailable(f"malformed adapter id {aid!r:.80}")
+        if self.adapters.resident(aid) or self.adapter_store.has(aid):
+            return
+        raise AdapterUnavailable(
+            f"adapter {aid!r} is not registered on this replica"
+        )
+
     # -- shapes ------------------------------------------------------------
     def _bucket(self, n: int) -> int:
         i = bisect.bisect_left(self.prompt_buckets, n)
@@ -481,9 +631,20 @@ class TextGenerationEngine:
     def _encode(self, text: str, n_new: int, temperature: float, seed: int,
                 loop, top_k: int = 0, top_p: float = 1.0,
                 prefix: str | None = None, stream: bool = False,
-                deadline_ms: float | None = None) -> GenRequest:
+                deadline_ms: float | None = None,
+                adapter: str | None = None) -> GenRequest:
         entry = None
         raw = None
+        if adapter is not None:
+            self._resolve_adapter(adapter)
+            if prefix:
+                # The prefix cache holds BASE-model KV: under a tenant's
+                # adapted weights it would condition the suffix on the
+                # wrong model. Fold the prefix into the prompt (the same
+                # answer) and count the declined reuse.
+                self.prefix.count_fallback()
+                text = prefix + text
+                prefix = None
         if prefix:
             raw = self.tokenizer.token_ids(text)
             if not raw:
@@ -534,7 +695,7 @@ class TextGenerationEngine:
         return GenRequest(
             row, used, n_new, temperature, seed, loop, top_k, top_p,
             prefix=entry, stream=stream, stats=self.latency,
-            deadline_ms=deadline_ms,
+            deadline_ms=deadline_ms, adapter=adapter,
         )
 
     def _pack_rows(self, reqs, bucket: int, b_pad: int):
@@ -849,12 +1010,18 @@ class TextGenerationEngine:
                      temperature: float = 0.0, seed: int = 0,
                      top_k: int = 0, top_p: float = 1.0,
                      prefix: str | None = None, stream: bool = False,
-                     deadline_ms: float | None = None) -> GenRequest:
+                     deadline_ms: float | None = None,
+                     adapter: str | None = None,
+                     tenant: str | None = None) -> GenRequest:
         """Queue one prompt for batched decode; consume ``req.queue``
         for ``{"token_ids": [...]}`` chunks until the ``None`` sentinel
         (exceptions are delivered in-band). With ``prefix`` the prompt
         is ``prefix + text`` and the prefix's KV comes from the prefix
-        cache; an invalid prefix raises ``ValueError``.
+        cache; an invalid prefix raises ``ValueError``. ``adapter``
+        decodes under that tenant's LoRA adapter (``AdapterUnavailable``
+        when this engine cannot serve it); ``tenant`` names the
+        quota and fairness identity, by default the adapter id, else
+        the anonymous tenant.
 
         ``deadline_ms`` is the request's wall-clock budget (the engine's
         ``default_deadline_ms`` when None). The front door sheds with
@@ -868,6 +1035,18 @@ class TextGenerationEngine:
         n_new = int(max_new_tokens or self.default_max_new_tokens)
         if deadline_ms is None:
             deadline_ms = self.default_deadline_ms
+        tenant = tenant or adapter or ""
+        led = self.tenants
+        if led is not None and tenant:
+            # The tenant brownout rung engages before the fleet-wide
+            # ladder: one tenant whose live depth reaches a quarter of
+            # the queue has its budgets clamped at half the pressure
+            # rung 1 needs.
+            if (led.depth(tenant) * 4 >= self.max_queue
+                    and n_new > self.default_max_new_tokens):
+                n_new = self.default_max_new_tokens
+                self.brownout_tenant_clamped += 1
+                led.note_brownout(tenant)
         level = self._brownout_level()
         if level >= 1 and n_new > self.default_max_new_tokens:
             # Rung 1: bounded work per admitted request under pressure.
@@ -899,9 +1078,10 @@ class TextGenerationEngine:
                 text, n_new, float(temperature), int(seed), loop,
                 int(top_k), float(top_p), prefix=prefix,
                 stream=bool(stream), deadline_ms=deadline_ms,
+                adapter=adapter,
             )
 
-        if prefix:
+        if prefix and adapter is None:
             # Off the event loop: a prefix's first use runs its prefill.
             req = await loop.run_in_executor(None, encode)
             # The collector may have stopped, or a drain finished,
@@ -911,12 +1091,19 @@ class TextGenerationEngine:
                 raise self._shed_draining()
         else:
             req = encode()
+        req.tenant = tenant
         try:
             self._queue.put_nowait(req)
         except asyncio.QueueFull:
             self.rejected += 1
             self.shed_queue_full += 1
             raise OverloadedError("generate") from None
+        if led is not None and tenant:
+            # Live depth: entered here, left at the terminal frame
+            # (GenRequest.finish fires on every delivery path, cancels
+            # included).
+            led.enter(tenant)
+            req.on_done = lambda t=tenant: led.exit(t)
         self.requests += 1
         return req
 
@@ -924,14 +1111,15 @@ class TextGenerationEngine:
     def generate_text(self, text: str, *, max_new_tokens: int | None = None,
                       temperature: float = 0.0, seed: int = 0,
                       top_k: int = 0, top_p: float = 1.0,
-                      prefix: str | None = None) -> dict:
+                      prefix: str | None = None,
+                      adapter: str | None = None) -> dict:
         """One prompt → generated continuation (text + ids), through the
         same ``_run_batch`` the collector uses, on the caller's
         thread."""
         n_new = int(max_new_tokens or self.default_max_new_tokens)
         req = self._encode(
             text, n_new, float(temperature), int(seed), None,
-            int(top_k), float(top_p), prefix=prefix,
+            int(top_k), float(top_p), prefix=prefix, adapter=adapter,
         )
         out_ids: list[int] = []
         sink = _SyncSink(req, out_ids)
@@ -959,6 +1147,19 @@ class TextGenerationEngine:
             "warmed generate on %s (kv_quant=%s, decode_attn_impl=%s)",
             self.device, self.kv_quant, self.decode_attn_impl,
         )
+
+
+def _quantized(model, quantize: str):
+    """``model`` as weight-only int8 (``models/quantized``), with the
+    stored and f32 byte counts logged."""
+    from mlapi_tpu_torch.models.quantized import QuantizedModel
+    from mlapi_tpu_torch.ops.quant import quantized_bytes
+
+    model = QuantizedModel(model)
+    stored, full = quantized_bytes(model)
+    _log.info("weight-only %s: params %.1f MB (f32 would be %.1f MB)",
+              quantize, stored / 1e6, full / 1e6)
+    return model
 
 
 # -- classification --------------------------------------------------------
@@ -1025,11 +1226,6 @@ class InferenceEngine:
 
         if quantize is not None and quantize != "int8":
             raise ValueError(f"unsupported quantize={quantize!r}")
-        if quantize is not None:
-            raise NotImplementedError(
-                "quantize='int8' (weight-only int8 serving) is not ported "
-                "(ROADMAP Queue A item 5)"
-            )
         meta = read_manifest(path)
         cfg = meta.config
         if cfg.get("model") in GENERATIVE_MODELS:
@@ -1039,7 +1235,8 @@ class InferenceEngine:
                 gen_kwargs["kv_pages"] = kv_pages
             return TextGenerationEngine.from_checkpoint(
                 path, device=device, kv_quant=kv_quant,
-                decode_attn_impl=decode_attn_impl, **gen_kwargs,
+                decode_attn_impl=decode_attn_impl, quantize=quantize,
+                **gen_kwargs,
             )
         dev = resolve_device(device)
         model = get_model(cfg["model"], seed=None, device="cpu",
@@ -1066,6 +1263,14 @@ class InferenceEngine:
                 "kv_page_size/kv_pages apply to generative checkpoints "
                 f"(they hold KV caches); {name} has none"
             )
+        if any(gen_kwargs.get(k) for k in ("adapter_slots",
+                                           "adapter_store_bytes",
+                                           "adapter_disk_dir")):
+            raise ValueError(
+                "adapter_slots/adapter_store_bytes/adapter_disk_dir "
+                "apply to generative checkpoints (they serve per-tenant "
+                f"LoRA adapters); {name} does not"
+            )
         # The generative engine's knobs (sched_max_batches, max_batch,
         # ...) do not shape a classifier: ignored, as the JAX package
         # ignores sched_max_batches here.
@@ -1076,8 +1281,12 @@ class InferenceEngine:
         state, meta = load_checkpoint(path, model)
         model.load_state_dict(state)
         model.requires_grad_(False)
-        model.to(dev)
         info = {"step": meta.step, "config_hash": meta.config_hash}
+        if quantize is not None:
+            # Dispatch below reads the inner model's input kind.
+            model = _quantized(model, quantize)
+            info["quantized"] = quantize
+        model.to(dev)
         if getattr(model, "input_kind", "tabular") == "text":
             tokenizer = (
                 tokenizer_from_fingerprint(cfg["tokenizer"])

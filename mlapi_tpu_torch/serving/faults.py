@@ -4,7 +4,8 @@ A copy of ``mlapi_tpu/serving/faults.py`` restricted to the seams the
 port has: the page pool's allocation, an admission's table install,
 prefill-chunk dispatch, decode-chunk dispatch, the unit scheduler's
 dispatch of each unit, the collector's queue pop, the per-request
-stream push and a scoring batch's device call. Tests and chaos
+stream push, a scoring batch's device call and an adapter's install
+into the slot pool. Tests and chaos
 drills force failures there and check that every stream still ends in
 a well-formed terminal frame and that the engine serves fresh work.
 
@@ -41,6 +42,11 @@ POINTS = (
     "score_dispatch",  # a scoring batch's device call, on its runner
                        # thread: a raise fails that batch's requests
     "stream_push",     # a token chunk entering a request's queue
+    "adapter_install",  # an adapter's install into the slot pool (the
+                        # dispatch thread), after its validation and
+                        # before the slot allocation: a raise rejects
+                        # the install on untouched state and the
+                        # requests get it as their terminal frame
 )
 
 ENV_VAR = "MLAPI_FAULTS"

@@ -19,6 +19,10 @@ import time
 
 from mlapi_tpu_torch.serving import faults
 
+# Guards GenRequest.finish's check-then-set: the device thread's
+# terminal push and the event loop's cancel may both reach it.
+_FINISH_LOCK = threading.Lock()
+
 
 class DeadlineExceeded(Exception):
     """A request's wall-clock deadline passed before its generation
@@ -107,13 +111,15 @@ class GenRequest:
         "row", "used", "n_new", "temperature", "seed", "queue", "loop",
         "cancelled", "top_k", "top_p", "stream", "prompt_tokens", "stats",
         "t0", "t_last", "prefix_fp", "prefix_kv", "prefix_len",
-        "prefix_lo", "deadline", "staged",
+        "prefix_lo", "deadline", "staged", "adapter", "tenant", "on_done",
+        "_done_fired",
     )
 
     def __init__(self, row, used, n_new, temperature, seed, loop,
                  top_k=0, top_p=1.0, prefix=None, stream=False,
                  stats: LatencyStats | None = None,
-                 deadline_ms: float | None = None):
+                 deadline_ms: float | None = None, adapter=None,
+                 tenant: str = ""):
         self.row = row            # [bucket] int32 ids, left-padded
         self.used = used          # real prompt tokens in the row
         self.n_new = n_new
@@ -154,18 +160,48 @@ class GenRequest:
         self.deadline = (
             self.t0 + deadline_ms / 1e3 if deadline_ms else None
         )
+        # The tenant's LoRA adapter id (serving/adapter_store.py), or
+        # None for the base model; rows of different adapters batch
+        # together (the gathered path).
+        self.adapter = adapter
+        # The quota and fairness identity (serving/registry.py's
+        # TenantLedger): by default the adapter id, else "" (anonymous).
+        self.tenant = tenant
+        # Fired once at the terminal frame, whichever path ends the
+        # request (the tenant ledger's depth exit).
+        self.on_done = None
+        self._done_fired = False
 
     def push(self, item) -> None:
         """Thread-safe enqueue from the device thread."""
         faults.fire("stream_push")
         _record_push(self, item)
+        if item is None or isinstance(item, BaseException):
+            self.finish()
         self.loop.call_soon_threadsafe(self.queue.put_nowait, item)
+
+    def finish(self) -> None:
+        """Terminal-frame hook, idempotent: fires ``on_done`` exactly
+        once, whether a sentinel, an error frame or a cancel ends the
+        request, and whichever thread gets here first."""
+        with _FINISH_LOCK:
+            if self._done_fired:
+                return
+            self._done_fired = True
+        cb = self.on_done
+        if cb is not None:
+            try:
+                cb()
+            except Exception:  # noqa: BLE001 — bookkeeping, not delivery
+                pass
 
     def cancel(self) -> None:
         """Consumer is gone: the decode loop stops spending device time
         on this row (a plain bool read cross-thread; worst case one
-        extra chunk decodes)."""
+        extra chunk decodes). The tenant ledger's exit fires here too:
+        a cancelled row may retire without a terminal push."""
         self.cancelled = True
+        self.finish()
 
 
 class _PrefixEntry:
@@ -195,6 +231,7 @@ class _SyncSink:
         self.prefix_len, self.prefix_lo = req.prefix_len, req.prefix_lo
         self.stream = req.stream
         self.stats, self.t0, self.t_last = req.stats, req.t0, None
+        self.adapter, self.tenant = req.adapter, req.tenant
         self._out = out_ids
         self.error: Exception | None = None
         self.cancelled = False

@@ -41,9 +41,19 @@ generation lanes:
   generator is closed, its pages go back, its waiters get the error) or
   fails that scoring batch only.
 
-Not ported, and refused by name where a caller could reach them: the
-tenant terms of the page gate (``_tenant_split``, ``_tenant_block``;
-ROADMAP Queue A item 5) and spec units (item 6). The reference's
+- **Adapters and tenants.** The start gate has an adapter-slot term:
+  a group whose adapters could not all claim a slot now (free, or
+  evictable because no live run holds it) waits
+  (``sched_adapters_deferred``). With a ``TenantLedger`` on the engine
+  it also has per-tenant terms (``_tenant_split``, ``_tenant_block``):
+  a tenant already holding reservations may not grow past its page or
+  adapter-slot quota (``sched_tenant_pages_deferred``,
+  ``sched_tenant_adapters_deferred``, and the ledger's per-tenant
+  deferrals); and a candidate's slack is divided by its highest tenant
+  weight.
+
+Not ported, and refused by name where a caller could reach them: spec
+units (ROADMAP Queue A item 6). The reference's
 ``_rebind_pool`` and ``_writeback_pool`` have no counterpart: the port's
 pool tensors are written in place and never donated, so no lane's view
 of them goes stale.
@@ -91,16 +101,23 @@ class _Group:
 class _Lane:
     """One live BatchRun and its unit generator."""
 
-    __slots__ = ("lane_id", "run", "gen", "last_pick", "reserved")
+    __slots__ = ("lane_id", "run", "gen", "last_pick", "reserved",
+                 "tenant_pages", "tenant_adapters")
 
     def __init__(self, lane_id: int, run, gen, pick_seq: int,
-                 reserved: int = 0):
+                 reserved: int = 0, tenant_pages: dict | None = None,
+                 tenant_adapters: dict | None = None):
         self.lane_id = lane_id
         self.run = run
         self.gen = gen
         self.last_pick = pick_seq
         # Worst-case page footprint, fixed at lane start.
         self.reserved = reserved
+        # The same reservation split by tenant (tenant -> pages, tenant
+        # -> adapter-id set), fixed at lane start: the quota gate sums
+        # these, so a tenant's held footprint only shrinks.
+        self.tenant_pages = tenant_pages or {}
+        self.tenant_adapters = tenant_adapters or {}
 
     @property
     def reqs(self) -> list:
@@ -342,15 +359,63 @@ class UnitScheduler:
     # -- policy --------------------------------------------------------
 
     def _weight_of(self, reqs) -> float:
-        """Tenant weight of a candidate: 1 until tenants are ported
-        (ROADMAP Queue A item 5)."""
-        return 1.0
+        """The highest tenant weight among a candidate's requests (1.0
+        without a ledger or for anonymous tenants). Slack is divided by
+        it: a weight-2 tenant's 100 ms compete like 50 ms, winning ties
+        without starving weight-1 traffic."""
+        led = getattr(self.eng, "tenants", None)
+        if led is None:
+            return 1.0
+        w = 1.0
+        for r in reqs:
+            t = getattr(r, "tenant", "") or ""
+            if t:
+                w = max(w, led.weight(t))
+        return w
 
-    def _tenant_split(self, *args, **kwargs):
-        raise NotImplementedError(
-            "tenant quotas (ROADMAP Queue A item 5) are not ported")
+    @staticmethod
+    def _tenant_split(reqs, row_pages: int) -> tuple[dict, dict]:
+        """(tenant -> worst-case pages, tenant -> adapter-id set) of a
+        group; anonymous tenants are unquotaed and left out."""
+        pages: dict = {}
+        adapters: dict = {}
+        for r in reqs:
+            t = getattr(r, "tenant", "") or ""
+            if not t:
+                continue
+            pages[t] = pages.get(t, 0) + row_pages
+            a = getattr(r, "adapter", None)
+            if a is not None:
+                adapters.setdefault(t, set()).add(a)
+        return pages, adapters
 
-    _tenant_block = _tenant_split
+    def _tenant_block(self, g: _Group, row_pages: int):
+        """The per-tenant term of the start gate (the caller holds the
+        lock): a tenant already HOLDING reservations may not grow past
+        its quota; one holding nothing starts regardless (a quota below
+        one group must fail loudly downstream, not starve). Returns the
+        blocking ``(kind, tenant)`` or None."""
+        led = getattr(self.eng, "tenants", None)
+        if led is None or not self._lanes:
+            return None
+        need_pages, need_adapters = self._tenant_split(g.reqs, row_pages)
+        for t, need in need_pages.items():
+            quota = led.quota_pages_of(t)
+            if quota is None:
+                continue
+            held = sum(ln.tenant_pages.get(t, 0) for ln in self._lanes)
+            if held and need + held > quota:
+                return ("pages", t)
+        for t, ads in need_adapters.items():
+            quota = led.quota_slots_of(t)
+            if quota is None:
+                continue
+            held = set()
+            for ln in self._lanes:
+                held |= ln.tenant_adapters.get(t, set())
+            if held and len(held | ads) > quota:
+                return ("slots", t)
+        return None
 
     def _urgency_group(self, g: _Group, now: float, summary) -> float:
         w = self._weight_of(g.reqs)
@@ -488,10 +553,11 @@ class UnitScheduler:
         return -(-span // eng.pool.page)
 
     def _claim_next_group(self) -> _Group | None:
-        """Pop the most urgent pending group that passes the page gate
-        (its worst case plus every live lane's reservation within the
-        pool; prefix-entry pages are evictable and do not count), under
-        one lock hold. With no lane live a group starts regardless."""
+        """Pop the most urgent pending group that passes the start gate,
+        under one lock hold: its page worst case plus every live lane's
+        reservation within the pool (prefix-entry pages are evictable
+        and do not count), its adapters claimable, then its tenants'
+        quotas. With no lane live a group starts regardless."""
         now = time.perf_counter()
         pool = self.eng.pool
         with self._lock:
@@ -511,16 +577,42 @@ class UnitScheduler:
             else:
                 order = list(enumerate(self._pending))
             held = sum(ln.reserved for ln in self._lanes)
+            eng = self.eng
             for _, g in order:
-                if (pool is None or not self._lanes
-                        or self._page_need(g.reqs) + held
-                        <= pool.pages_total):
-                    self._pending.remove(g)
-                    self._forming_group = g
-                    return g
+                pages_ok = (pool is None or not self._lanes
+                            or self._page_need(g.reqs) + held
+                            <= pool.pages_total)
+                slots_ok = (eng.adapters is None or not self._lanes
+                            or eng.adapters.can_claim({
+                                r.adapter for r in g.reqs
+                                if getattr(r, "adapter", None) is not None
+                            }))
+                t_block = None
+                if pages_ok and slots_ok:
+                    # Checked once the pool-wide terms pass: a tenant
+                    # deferral means only the tenant's quota said no.
+                    t_block = self._tenant_block(
+                        g, self._row_pages(g.reqs) if pool is not None
+                        else 0)
+                    if t_block is None:
+                        self._pending.remove(g)
+                        self._forming_group = g
+                        return g
                 if not g.deferred_counted:
+                    # Once per deferral episode, not per check.
                     g.deferred_counted = True
-                    self.eng.sched_pages_deferred += 1
+                    if t_block is not None:
+                        kind, tenant = t_block
+                        if eng.tenants is not None:
+                            eng.tenants.note_deferral(tenant)
+                        if kind == "pages":
+                            eng.sched_tenant_pages_deferred += 1
+                        else:
+                            eng.sched_tenant_adapters_deferred += 1
+                    elif pages_ok:
+                        eng.sched_adapters_deferred += 1
+                    else:
+                        eng.sched_pages_deferred += 1
             return None
 
     def _cached_summary(self):
@@ -583,12 +675,13 @@ class UnitScheduler:
             self._deliver_error(reqs, e)
             return
         eng.sched_units_prefill += 1  # formation is the prefill unit
-        reserved = (len(reqs) * self._row_pages(reqs)
-                    if eng.pool is not None else 0)
+        row_pages = self._row_pages(reqs) if eng.pool is not None else 0
+        t_pages, t_adapters = self._tenant_split(reqs, row_pages)
         with self._lock:
             self._lane_seq += 1
             lane = _Lane(self._lane_seq, run, run.units(), self._pick_seq,
-                         reserved=reserved)
+                         reserved=len(reqs) * row_pages,
+                         tenant_pages=t_pages, tenant_adapters=t_adapters)
             self._lanes.append(lane)
             live = len(self._lanes)
         self.trace.append((lane.lane_id, "prefill"))

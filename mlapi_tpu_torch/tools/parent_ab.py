@@ -23,7 +23,14 @@ tree's ``mlapi_tpu_torch`` (the inputs and timers are this checkout's
    parent, change, change, parent;
 3. training -- one sst2-bert step (``chip_smoke.profile_train_step``):
    wall ms per step over ``--steps`` steps, device ms and kernels per
-   step, in the same order.
+   step, in the same order;
+4. decode -- ``chip_smoke.profile_decode`` of the float serving engines
+   (the CLI's factory, flash) on seeded GPT-2 small (contiguous bf16,
+   paged 16 int8) and TinyLlama-1.1B-width (contiguous bf16)
+   checkpoints written once: kernels, device ms and wall ms per decode
+   step at B = 8, in the same order.
+
+``--sections`` picks some of them (default: all four).
 
 One JSON line per measurement; exit 1 when an output differs or a
 process fails. Imports nothing of JAX.
@@ -149,6 +156,40 @@ def _train(cs, label, steps):
     }), flush=True)
 
 
+DECODE_CASES = (("gpt2", None, None), ("gpt2", "int8", 16),
+                ("tinyllama", None, None))
+
+
+def _checkpoints(cs, out_dir):
+    cs.make_checkpoint(Path(out_dir) / "gpt2")
+    cs.make_llama_checkpoint(Path(out_dir) / "tinyllama")
+
+
+def _decode(cs, label, ckpt_dir):
+    import contextlib
+    import io
+
+    import torch
+
+    from mlapi_tpu_torch.serving.__main__ import build_engine
+
+    for name, kv_quant, page in DECODE_CASES:
+        engine = build_engine(Path(ckpt_dir) / name, kv_quant=kv_quant,
+                              decode_attn_impl="flash", kv_page_size=page)
+        with contextlib.redirect_stdout(io.StringIO()) as text:
+            cs.profile_decode(engine)
+        row = json.loads(text.getvalue().splitlines()[-1])
+        print(json.dumps({
+            "case": "decode_step", "tree": label, "model": name,
+            "kv_quant": kv_quant or "none", "kv_page_size": page,
+            "wall_ms_per_step": row["wall_ms_per_step"],
+            "device_ms_per_step": row["device_ms_per_step"],
+            "kernels_per_step": row["kernels_per_step"],
+        }), flush=True)
+        del engine
+        torch.cuda.empty_cache()
+
+
 def worker(tree: str, label: str, task: str, arg: str) -> None:
     sys.path.insert(0, tree)
     import torch
@@ -174,6 +215,10 @@ def worker(tree: str, label: str, task: str, arg: str) -> None:
         _same_bits(cs, kern, torch, arg)
     elif task == "kernels":
         _kernels(cs, kern, label)
+    elif task == "checkpoints":
+        _checkpoints(cs, arg)
+    elif task == "decode":
+        _decode(cs, label, arg)
     else:
         _train(cs, label, int(arg))
 
@@ -194,6 +239,8 @@ def main() -> int:
     ap.add_argument("--parent", help="a checkout of the parent commit")
     ap.add_argument("--steps", type=int, default=15,
                     help="timed training steps per run")
+    ap.add_argument("--sections", default="bits,kernels,train,decode",
+                    help="comma-separated: bits, kernels, train, decode")
     ap.add_argument("--worker", nargs=4, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
@@ -201,24 +248,37 @@ def main() -> int:
         return 0
     if not args.parent:
         ap.error("--parent is required")
+    sections = set(args.sections.split(","))
+    if not sections <= {"bits", "kernels", "train", "decode"}:
+        ap.error(f"unknown --sections {args.sections!r}")
     trees = {"parent": str(Path(args.parent).resolve()), "change": str(ROOT)}
     builds = [_run(t, n, "build", background=True) for n, t in trees.items()]
     if any(p.wait() for p in builds):
         raise SystemExit("a tree's kernels did not build")
-    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
-        for label, tree in trees.items():
-            _run(tree, label, "bits", f"{tmp}/{label}.pt")
-        import torch
+    failed = False
+    if "bits" in sections:
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+            for label, tree in trees.items():
+                _run(tree, label, "bits", f"{tmp}/{label}.pt")
+            import torch
 
-        a, b = (torch.load(f"{tmp}/{n}.pt") for n in trees)
-    differ = sorted(k for k in a if not torch.equal(a[k], b[k]))
-    print(json.dumps({"case": "same_bits", "outputs": len(a),
-                      "differ": differ}), flush=True)
-    for label in ORDER:
-        _run(trees[label], label, "kernels")
-    for label in ORDER:
-        _run(trees[label], label, "train", str(args.steps))
-    return 1 if differ or a.keys() != b.keys() else 0
+            a, b = (torch.load(f"{tmp}/{n}.pt") for n in trees)
+        differ = sorted(k for k in a if not torch.equal(a[k], b[k]))
+        print(json.dumps({"case": "same_bits", "outputs": len(a),
+                          "differ": differ}), flush=True)
+        failed = bool(differ) or a.keys() != b.keys()
+    if "kernels" in sections:
+        for label in ORDER:
+            _run(trees[label], label, "kernels")
+    if "train" in sections:
+        for label in ORDER:
+            _run(trees[label], label, "train", str(args.steps))
+    if "decode" in sections:
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+            _run(trees["change"], "change", "checkpoints", tmp)
+            for label in ORDER:
+                _run(trees[label], label, "decode", tmp)
+    return 1 if failed else 0
 
 
 if __name__ == "__main__":

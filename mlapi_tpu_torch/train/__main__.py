@@ -5,6 +5,8 @@
     python -m mlapi_tpu_torch.train --preset docs-gpt-draft-distilled \\
         --distill-from TEACHER_DIR --out DIR
     python -m mlapi_tpu_torch.train --preset criteo-widedeep --out DIR
+    python -m mlapi_tpu_torch.train --preset sst2-bert --init-from BASE \\
+        --lora-rank 8 --out DIR
     python -m mlapi_tpu_torch.train --bench [--preset sst2-bert]
     python -m mlapi_tpu_torch.train --config run.yaml --out DIR
 
@@ -16,12 +18,14 @@ a ``docs-gpt`` / ``docs-llama`` checkpoint serves ``/generate``
 (``python -m mlapi_tpu_torch.serving --checkpoint DIR``). With
 ``--save-every`` the full train state goes to ``<out>_train_state`` (or
 the config's ``checkpoint_dir``) and rerunning the same command resumes
-from its newest committed step.
+from its newest committed step. ``--lora-rank R`` fine-tunes rank-R
+LoRA adapters over the frozen model (``--init-from`` supplies the
+pretrained base; without it the base is a fresh draw) and writes the
+MERGED plain checkpoint, which serves like any other.
 
 Refused, each naming why: ``--mesh-shape`` and ``--bench-attn ring``
-(sharding, ROADMAP Queue A item 8), ``--lora-rank`` (item 5) and
-``--from-hf`` (it needs a HuggingFace model directory, which is not in
-the repository).
+(sharding, ROADMAP Queue A item 8) and ``--from-hf`` (it needs a
+HuggingFace model directory, which is not in the repository).
 """
 
 from __future__ import annotations
@@ -42,11 +46,14 @@ _log = get_logger("train.main")
 def run(cfg: TrainConfig, out: str | None, *, save_every: int = 0,
         keep_last: int = 0, resume: bool = True,
         profile_dir: str | None = None, debug_checks: bool = False,
-        init_from: str | None = None, device=None) -> dict:
+        init_from: str | None = None, lora_rank: int = 0,
+        device=None) -> dict:
     """Train ``cfg`` on ``device`` (default: CUDA, see
     ``utils/platform``) and write the checkpoint to ``out``. Returns the
     run's summary; ``step_ms`` and ``step_losses`` list each step this
-    process ran (from ``start_step``, past a resumed train state)."""
+    process ran (from ``start_step``, past a resumed train state).
+    ``lora_rank`` fine-tunes LoRA adapters over the frozen model (its
+    ``init_from`` weights) and writes the merged plain tree."""
     from mlapi_tpu_torch.checkpoint import load_checkpoint, save_checkpoint
     from mlapi_tpu_torch.datasets import get_dataset
     from mlapi_tpu_torch.models import get_model
@@ -66,6 +73,13 @@ def run(cfg: TrainConfig, out: str | None, *, save_every: int = 0,
         # The tree-signature check refuses another architecture.
         init_params, _ = load_checkpoint(init_from, model)
         _log.info("initialised from checkpoint %s", init_from)
+    if lora_rank:
+        from mlapi_tpu_torch.models.lora import LoraModel
+
+        if init_params is not None:
+            model.load_state_dict(init_params)
+            init_params = None
+        model = LoraModel(model, rank=lora_rank, seed=cfg.seed)
     if getattr(model, "input_kind", "tabular") == "text":
         # An id past the embedding table raises in a torch gather (JAX
         # clamps it); catch a tokenizer/model vocab mismatch here.
@@ -133,7 +147,10 @@ def run(cfg: TrainConfig, out: str | None, *, save_every: int = 0,
             ckpt_config["max_len"] = int(splits.x_train.shape[1])
             if "tokenizer" in splits.extras:
                 ckpt_config["tokenizer"] = splits.extras["tokenizer"]
-        save_checkpoint(out, model, step=result.steps, config=ckpt_config,
+        # A LoRA run checkpoints the MERGED plain tree: serving needs
+        # no LoRA awareness.
+        save_checkpoint(out, model.merge_params() if lora_rank else model,
+                        step=result.steps, config=ckpt_config,
                         vocab=splits.vocab)
         _log.info("checkpoint written to %s", out)
     return {
@@ -149,6 +166,7 @@ def run(cfg: TrainConfig, out: str | None, *, save_every: int = 0,
         "checkpoint": out,
         "step_ms": result.step_ms,
         "step_losses": result.step_losses,
+        "opt_state_bytes": result.opt_state_bytes,
     }
 
 
@@ -201,8 +219,11 @@ def _parser() -> argparse.ArgumentParser:
                              "docs-gpt-draft-distilled --distill-from "
                              "<docs-gpt checkpoint>)")
     parser.add_argument("--lora-rank", type=int, default=0,
-                        help="LoRA fine-tuning: not ported (ROADMAP Queue A "
-                             "item 5)")
+                        help="LoRA fine-tune at this rank: only low-rank "
+                             "adapters train (the frozen base keeps no "
+                             "optimizer state); the checkpoint is the "
+                             "merged plain tree, served unchanged. Combine "
+                             "with --init-from to adapt a pretrained model")
     parser.add_argument("--from-hf", default=None,
                         help="a local HuggingFace BERT directory: not in the "
                              "repository, refused")
@@ -221,9 +242,6 @@ def parse_args(argv=None) -> tuple[TrainConfig | None, dict]:
     if args.bench_attn == "ring":
         parser.error("--bench-attn ring: ring attention is not ported "
                      "(ROADMAP Queue A item 8)")
-    if args.lora_rank:
-        parser.error("--lora-rank: LoRA fine-tuning is not ported (ROADMAP "
-                     "Queue A item 5)")
     if args.from_hf:
         parser.error("--from-hf needs a local HuggingFace BERT directory "
                      "(config.json and weights), which is not in the "
@@ -263,7 +281,7 @@ def parse_args(argv=None) -> tuple[TrainConfig | None, dict]:
                  "keep_last": args.keep_last, "resume": not args.no_resume,
                  "profile_dir": args.profile_dir,
                  "debug_checks": args.debug_checks,
-                 "init_from": args.init_from}
+                 "init_from": args.init_from, "lora_rank": args.lora_rank}
 
 
 def main(argv=None) -> None:

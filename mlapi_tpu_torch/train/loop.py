@@ -10,10 +10,12 @@ weights and the same seed follow the same trajectory (to rounding).
 Beyond plain fitting: knowledge distillation from a teacher checkpoint,
 ``debug_checks`` (the counterpart of checkify's float checks), the
 ``recsys-<base>`` and ``recsys-sparse-<base>`` optimizers, train-state
-checkpoints with resume (``save_every``, ``keep_last``, ``async_save``)
-and ``profile_dir`` (a ``torch.profiler`` trace). Refused, each with
-the ROADMAP item that will bring it: a device mesh (Queue A item 8) and
-LoRA (Queue A item 5).
+checkpoints with resume (``save_every``, ``keep_last``, ``async_save``),
+``profile_dir`` (a ``torch.profiler`` trace) and LoRA fine-tuning (a
+``models/lora.LoraModel``: the optimizer holds its adapters alone, so
+the frozen base gets no update and no moments, optax's ``masked``).
+Refused, with the ROADMAP item that will bring it: a device mesh (Queue
+A item 8).
 """
 
 from __future__ import annotations
@@ -54,6 +56,9 @@ class TrainResult:
     step_losses: list[float] = field(default_factory=list)
     step_ms: list[float] = field(default_factory=list)
     start_step: int = 0
+    # Bytes of the optimizer's moments at the end (a LoRA run's: the
+    # adapters' alone).
+    opt_state_bytes: int = 0
 
 
 # Ops whose output is uninitialised memory: a NaN there is not produced.
@@ -468,14 +473,15 @@ def fit(
                 "trainable_mask; fine-tune with the dense "
                 "recsys-<base> path instead"
             )
-    if hasattr(model, "trainable_mask"):
-        raise NotImplementedError(
-            "LoRA fine-tuning is not ported (ROADMAP Queue A item 5)"
-        )
     if init_params is not None:
         model.load_state_dict(init_params)
     device = model.device
-    named = dict(model.named_parameters())
+    every = dict(model.named_parameters())
+    # A LoRA wrapper trains its adapters alone: the optimizer never sees
+    # the frozen base, which keeps requires_grad off.
+    mask = (model.trainable_mask() if hasattr(model, "trainable_mask")
+            else dict.fromkeys(every, True))
+    named = {n: p for n, p in every.items() if mask[n]}
     names = {p: n for n, p in named.items()}
     for p in named.values():
         p.requires_grad_(True)
@@ -514,8 +520,10 @@ def fit(
                 "resume=False / --no-resume"
             )
     if not sparse_embed:
+        # ``every``: the L2 term sums all weight matrices, a frozen
+        # base's too, as the JAX loss does (it adds no gradient).
         step_fn = make_train_step(
-            model.apply, named, opt, weight_decay=weight_decay,
+            model.apply, every, opt, weight_decay=weight_decay,
             debug_checks=debug_checks, task=task,
             teacher=teacher.apply if teacher is not None else None,
             distill_temperature=distill_temperature,
@@ -627,4 +635,6 @@ def fit(
         step_losses=losses,
         step_ms=step_ms,
         start_step=start_step,
+        opt_state_bytes=sum(t.numel() * t.element_size()
+                            for _, t in state_tensors(opt, names)),
     )

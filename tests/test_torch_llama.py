@@ -36,6 +36,7 @@ from mlapi_tpu.checkpoint.io import FORMAT_VERSION, CheckpointMeta, _stable_hash
 from mlapi_tpu.checkpoint.io import tree_signature as jax_tree_signature
 from mlapi_tpu.models.gpt import GptLM as JaxGpt
 from mlapi_tpu.models.llama import LlamaLM as JaxLlama
+from mlapi_tpu.models.lora import LoraModel as JaxLoraModel
 from mlapi_tpu.models.llama import _rms_norm as jax_rms_norm
 from mlapi_tpu.models.llama import _rope as jax_rope
 from mlapi_tpu.ops import quant as jq
@@ -49,6 +50,7 @@ from mlapi_tpu_torch.checkpoint import (
 )
 from mlapi_tpu_torch.models.gpt import GptLM, decode_chunk_fn, paged_prefill_fn
 from mlapi_tpu_torch.models.llama import LlamaLM, _rms_norm, _rope
+from mlapi_tpu_torch.models.lora import LoraModel
 from mlapi_tpu_torch.ops import quant as tq
 from mlapi_tpu_torch.serving.engine import TextGenerationEngine
 from mlapi_tpu_torch.serving.paged_pool import PagePool
@@ -416,10 +418,24 @@ def test_unported_pieces_refuse_by_roadmap_item(pair):
         LlamaLM(**CFG, attention_impl="ring", device="cpu")
     with pytest.raises(NotImplementedError, match="Queue A item 8"):
         model.param_shardings()
-    lora = {**params_from_jax(np_params),
-            "layer_0.lora.wq.a": torch.zeros(64, 4)}
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
-        model.load_state_dict(lora)
+    # LoRA is served since Queue A item 5: a JAX LoRA tree (rank 4, its
+    # adapters with nonzero b) loads into the port's LoraModel, hashes
+    # the same and computes the same logits.
+    jlora = JaxLoraModel(JaxLlama(**CFG), rank=4)
+    tree = jax.tree.map(np.asarray, jlora.init(
+        jax.random.key(1), base_params=jax.tree.map(jnp.asarray, np_params)))
+    rng = np.random.default_rng(2)
+    for ab in tree["lora"].values():
+        ab["b"] = (0.02 * rng.standard_normal(ab["b"].shape)).astype(
+            np.float32)
+    lora = LoraModel(_port(np_params), rank=4)
+    lora.load_state_dict(params_from_jax(tree))
+    assert tree_signature(lora) == jax_tree_signature(tree)
+    ids = _ids((2, 9))
+    np.testing.assert_allclose(
+        lora.apply(torch.as_tensor(ids)).detach().numpy(),
+        np.asarray(jlora.apply(jax.tree.map(jnp.asarray, tree), ids)),
+        atol=1e-5, rtol=0)
     with pytest.raises(ValueError, match="multiple of"):
         LlamaLM(**{**CFG, "num_kv_heads": 3}, device="cpu")
 

@@ -510,9 +510,11 @@ def test_http_prefix_field_and_metrics(weights):
         assert e.value.code == 422
         detail = json.loads(e.value.read())["detail"]
         assert detail[0]["loc"] == ["prefix"]
+        # An adapter on an engine without adapter slots: the JAX
+        # engine's AdapterUnavailable, a 404.
         with pytest.raises(urllib.error.HTTPError) as e:
             _post(srv.port, {"text": "ij", "adapter": "t1"})
-        assert e.value.code == 422
+        assert e.value.code == 404
         with urllib.request.urlopen(
             f"http://127.0.0.1:{srv.port}/metrics", timeout=60
         ) as r:

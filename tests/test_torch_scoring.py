@@ -345,8 +345,17 @@ def test_from_checkpoint_refusals_carry_the_jax_messages(tmp_path, linear):
         with pytest.raises(ValueError) as e:
             InferenceEngine.from_checkpoint(path, device="cpu", **kw)
         assert str(e.value) == msg
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
-        InferenceEngine.from_checkpoint(path, device="cpu", quantize="int8")
+    # int8 weights are served since Queue A item 5: the JAX routing (a
+    # tabular checkpoint to InferenceEngine, "quantized" in its meta),
+    # and the Iris kernel (12 elements) stays float, so the labels are
+    # the float engine's.
+    q = InferenceEngine.from_checkpoint(path, device="cpu", quantize="int8")
+    assert type(q) is InferenceEngine and q.meta["quantized"] == "int8"
+    x = np.asarray([[5.1, 3.5, 1.4, 0.2], [6.7, 3.0, 5.2, 2.3]], np.float32)
+    plain = InferenceEngine.from_checkpoint(path, device="cpu")
+    assert q.predict_labels(x)[0] == plain.predict_labels(x)[0]
+    with pytest.raises(ValueError, match="unsupported quantize"):
+        InferenceEngine.from_checkpoint(path, device="cpu", quantize="int4")
     novocab = save_checkpoint(
         tmp_path / "novocab", {k: torch.as_tensor(v)
                                for k, v in linear.items()},
@@ -634,11 +643,15 @@ def test_cli_parses_models_and_refuses_what_is_not_ported():
         (["--checkpoint", "c", "--model", "a=x", "--model", "a=y"],
          "duplicate model id"),
         (["--checkpoint", "c", "--model", "default=x"], "duplicate"),
-        (["--checkpoint", "c", "--quantize", "int8"], "item 5"),
+        # --quantize and the tenant flags are served since Queue A item
+        # 5; the adapter flags need --adapter-slots, as in the JAX CLI.
+        (["--checkpoint", "c", "--quantize", "int4"], "invalid choice"),
         (["--checkpoint", "c", "--workers", "2"], "item 7"),
         (["--checkpoint", "c", "--router"], "item 7"),
-        (["--checkpoint", "c", "--tenant-pages", "a=4"], "item 5"),
-        (["--checkpoint", "c", "--tenant-weight", "a=2"], "item 5"),
+        (["--checkpoint", "c", "--adapter", "t1=/p"],
+         "require --adapter-slots > 0"),
+        (["--checkpoint", "c", "--adapter-store-bytes", "64"],
+         "require --adapter-slots > 0"),
     ):
         parser = make_parser()
         seen = []
@@ -648,6 +661,12 @@ def test_cli_parses_models_and_refuses_what_is_not_ported():
         with pytest.raises(SystemExit):
             parse_args(argv, parser)
         assert msg in seen[0], (argv, seen)
+    args = parse_args(["--checkpoint", "c", "--quantize", "int8",
+                       "--adapter-slots", "4", "--adapter", "t1=/p",
+                       "--tenant-pages", "a=4", "--tenant-weight", "a=2"])
+    assert (args.quantize, args.adapter_slots, args.adapter) == (
+        "int8", 4, ["t1=/p"])
+    assert (args.tenant_pages, args.tenant_weight) == (["a=4"], ["a=2"])
 
 
 @pytest.mark.parametrize("preset", [

@@ -140,19 +140,28 @@ def test_http_generate_stream_healthz_metrics(ckpt):
                            ({"text": "x", "top_k": "many"}, "top_k"),
                            # A prefix too long for the window (the
                            # field is served since the prefix slice);
-                           # fields the port does not serve yet.
+                           # adapter and tenant of the wrong type.
                            ({"text": "x", "prefix": "p" * 4096}, "prefix"),
-                           ({"text": "x", "adapter": "a"}, "adapter"),
-                           ({"text": "x", "tenant": "t"}, "tenant")):
+                           ({"text": "x", "adapter": 7}, "adapter"),
+                           ({"text": "x", "tenant": ["t"]}, "tenant")):
             with pytest.raises(urllib.error.HTTPError) as e:
                 _post(srv.port, bad)
             assert e.value.code == 422
             detail = json.loads(e.value.read())["detail"]
             assert detail[0]["loc"] == [field]
-        # deadline_ms is a served field since the scheduler slice.
+        # deadline_ms is a served field since the scheduler slice;
+        # tenant and adapter since the adapter slice: a tenant alone is
+        # served as the JAX engine serves it, an adapter on an engine
+        # without adapter slots is the JAX engine's 404.
         status, body = _post(srv.port, {"text": "over http", "max_new_tokens":
                                         10, "deadline_ms": 60000})
         assert status == 200 and json.loads(body)["token_ids"] == want
+        status, body = _post(srv.port, {"text": "over http", "max_new_tokens":
+                                        10, "tenant": "t"})
+        assert status == 200 and json.loads(body)["token_ids"] == want
+        with pytest.raises(urllib.error.HTTPError) as e:
+            _post(srv.port, {"text": "x", "adapter": "a"})
+        assert e.value.code == 404
 
 
 def test_stop_strings_and_window_incompatible_requests(ckpt):

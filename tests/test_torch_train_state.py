@@ -36,7 +36,7 @@ from mlapi_tpu_torch.config import TrainConfig
 from mlapi_tpu_torch.datasets import get_dataset
 from mlapi_tpu_torch.models import get_model
 from mlapi_tpu_torch.train import fit
-from mlapi_tpu_torch.train.__main__ import main, run
+from mlapi_tpu_torch.train.__main__ import main, parse_args, run
 
 MLP = dict(num_features=784, num_classes=10, hidden_dims=[16])
 WIDE = dict(num_dense=3, vocab_sizes=[50, 40, 50], embed_dim=4,
@@ -276,10 +276,16 @@ def test_cli_profile_dir_writes_a_trace_and_resume_flags(tmp_path, monkeypatch,
 @pytest.mark.parametrize("argv,why", [
     (["--mesh-shape", "2,4"], "Queue A item 8"),
     (["--bench", "--bench-attn", "ring"], "Queue A item 8"),
+    # Served since Queue A item 5: the flag parses as the JAX CLI's.
     (["--lora-rank", "4"], "Queue A item 5"),
     (["--from-hf", "bert-dir"], "not in the repository"),
 ])
 def test_cli_refusals_name_why(argv, why, capsys):
+    if why == "Queue A item 5":
+        cfg, kwargs = parse_args(["--preset", "docs-gpt", *argv])
+        assert cfg.name == "docs-gpt" and kwargs["lora_rank"] == 4
+        assert capsys.readouterr().err == ""
+        return
     with pytest.raises(SystemExit):
         main(["--preset", "docs-gpt", *argv])
     assert why in capsys.readouterr().err
