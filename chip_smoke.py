@@ -257,13 +257,36 @@ the JAX package. Phases, each fatal on failure:
     checkpoint on ``/predict`` through B5. (d) sst2-bert with
     ``--quantize int8`` on ``/predict`` through B5, labels beside the
     float engine's.
+13. speculative decoding, engines from the CLI's factory with
+    ``--draft-checkpoint`` (``spec_k`` 4). (a) GPT-2 small (seed 0) in
+    f32, contiguous f32 and paged 16 int8, with itself and with a
+    DistilGPT2-width draft (seed 1) as drafts: two solo streams and two
+    4-row batches (budgets whose gaps make the paged handoff a table
+    shift and a repack) equal the target-only engine's token for token;
+    the draft == target engine accepts every proposal and realigns both
+    ways; launches exact (each target decode step and verify block, and
+    each draft step, one launch a layer). (b) The same in bf16 with
+    draft == target, four solo streams, each first divergence held to
+    fault C3's rule (the target-only run's top-1 - top-2 margin below
+    the largest |verify - decode| logit difference there). (d) On the
+    bf16 spec engine at 2 lanes: a spec row yields to a second lane at a
+    round boundary and re-engages; at brownout rung 1 a run speculates
+    not at all, counted once. (c) After phase 11: ``docs-gpt`` with its
+    trained drafts (``--spec-sample``): greedy streams equal the
+    target-only engine's, a sampled run the same for one seed twice and
+    another for another seed; acceptance, tokens a round, wall and
+    device ms per emitted token beside the target alone, at batch 1.
+    (e) With phase 3's rows: B2/B4 at U = 5 (B = 1 and 4, rows at their
+    own slots, L = 1024), B1 at the draft's decode shape.
+    ``--only-spec`` runs phases 1, 2 and 13 alone (training the docs-gpt
+    pair itself) and prints no result line.
 
 Stdout: one JSON line per kernel case, per training and serving run,
 then the run's seconds, the ``{"kernels": [...]}`` summary (B1-B7; each
 kernel's ``launches_per_path`` holds the GPT and Llama paths, the
-scheduler phase's and phase 12's included, B5's the scoring legs', and
-B5-B7's the phase 11 and 12 runs), the ``nvidia-smi``
-line, and last ``{"ok": true, "device": {...}}``. Without a card, or
+scheduler phase's, phase 12's and phase 13's included, B5's the
+scoring legs', and B5-B7's the phase 11 and 12 runs), the
+``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``. Without a card, or
 outside the repo, it exits non-zero and prints no result.
 """
 
@@ -443,13 +466,22 @@ def kernel_case(kernel, fmt, b, u, length, pos, seed, h=12, kvh=12,
     )
     from mlapi_tpu_torch.ops.quant import kv_quantize
 
-    g = torch.Generator().manual_seed(seed)
     dev = "cuda"
+    # Drawn on the card: a row times several input sets, and host draws
+    # of the long-window sets cost more than the timing itself.
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if isinstance(pos, list):   # one slot a row (a verify at its row's)
+        pos = torch.as_tensor(pos, device=dev)
     dt = torch.float32 if fmt == "f32" else torch.bfloat16
-    q = torch.randn(b, u, h, d, generator=g).to(dev, dt)
-    k = torch.randn(b, length, kvh, d, generator=g).to(dev, dt)
-    v = torch.randn(b, length, kvh, d, generator=g).to(dev, dt)
-    n_pad = torch.randint(0, max(1, length // 8), (b,), generator=g).to(dev)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(dt)
+
+    q = randn(b, u, h, d)
+    k = randn(b, length, kvh, d)
+    v = randn(b, length, kvh, d)
+    n_pad = torch.randint(0, max(1, length // 8), (b,), generator=g,
+                          device=dev)
     if kernel.endswith("decode_attention"):
         valid, _ = decode_valid_and_shift(length, pos, n_pad)
         mask = valid[:, 0, 0, :]
@@ -480,12 +512,13 @@ def to_pages(cache, mask, seed, page=PAGE):
     n_pages = b * n_tiles + 1
     g = torch.Generator().manual_seed(seed)
     ids = (torch.randperm(n_pages - 1, generator=g) + 1).reshape(b, n_tiles)
+    gd = torch.Generator(device="cuda").manual_seed(seed)
     live = mask.reshape(b, -1, n_tiles, page).any(dim=(1, 3)).cpu()
     table = torch.where(live, ids, 0).to("cuda", torch.int32)
     pools = {}
     for name, leaf in leaves.items():
         pool = torch.randn((n_pages, page) + tuple(leaf.shape[2:]),
-                           generator=g).abs().to("cuda", leaf.dtype)
+                           generator=gd, device="cuda").abs().to(leaf.dtype)
         tiles = leaf.reshape((b, n_tiles, page) + tuple(leaf.shape[2:]))
         on = table != 0
         pool[table[on].long()] = tiles[on]
@@ -758,17 +791,17 @@ def prefix_kernel_case(kernel, fmt, b, u, p, bucket, per_row, seed, h=12,
     from mlapi_tpu_torch.ops.quant import kv_quantize
 
     length = p + bucket + 32
-    g = torch.Generator().manual_seed(seed)
     dev, dt = "cuda", (torch.float32 if fmt == "f32" else torch.bfloat16)
-    q = torch.randn(b, u, h, d, generator=g).to(dev, dt)
-    k = torch.randn(b, length, kvh, d, generator=g).to(dev, dt)
-    v = torch.randn(b, length, kvh, d, generator=g).to(dev, dt)
-    n_pad = torch.randint(0, bucket, (b,), generator=g).to(dev)
+    g = torch.Generator(device=dev).manual_seed(seed)   # as kernel_case
+    q = torch.randn(b, u, h, d, generator=g, device=dev).to(dt)
+    k = torch.randn(b, length, kvh, d, generator=g, device=dev).to(dt)
+    v = torch.randn(b, length, kvh, d, generator=g, device=dev).to(dt)
+    n_pad = torch.randint(0, bucket, (b,), generator=g, device=dev)
     if per_row:
-        lo = torch.randint(0, p, (b,), generator=g).to(dev)
+        lo = torch.randint(0, p, (b,), generator=g, device=dev)
         lo[-1], n_pad[-1] = p, length
     else:
-        lo = int(torch.randint(1, p // 2, (1,), generator=g))
+        lo = int(torch.randint(1, p // 2, (1,), generator=g, device=dev))
         k[:, :p], v[:, :p] = k[:1, :p], v[:1, :p]
     if kernel.endswith("decode_attention"):
         valid, _ = decode_valid_and_shift(length, p + bucket + 7, n_pad, p,
@@ -2587,11 +2620,11 @@ def flash_inputs(shape, seed):
 
     _, b, length, h, kvh, dtype, _, _, lengths, d = shape
     dt = getattr(torch, dtype)
-    g = torch.Generator().manual_seed(seed)
+    g = torch.Generator(device="cuda").manual_seed(seed)   # as kernel_case
 
     def t(heads, s=1.0):
-        return (s * torch.randn(b, length, heads, d, generator=g)).to(
-            "cuda", dt)
+        return (s * torch.randn(b, length, heads, d, generator=g,
+                                device="cuda")).to(dt)
 
     mask = torch.ones(b, length)
     if lengths is not None:
@@ -5073,6 +5106,586 @@ def predict_leg(ckpt: Path, quantize, power) -> dict:
     return launches
 
 
+# -- 13. speculative decoding -----------------------------------------------
+
+# HuggingFace ``distilgpt2`` (config.json: n_layer 6, n_embd 768, n_head
+# 12, n_positions 1024, vocab_size 50257): GPT-2 small's width at half
+# its depth.
+DISTILGPT2 = dict(GPT2_SMALL, num_layers=6)
+SPEC_K = 4                      # the engine's default proposals a round
+# New tokens of a solo spec stream: with draft == target the 35 after
+# the first are 7 rounds of k + 1 (the budget ends on a round).
+SPEC_NEW = 36
+SPEC_SOLO = ["Speculative decoding drafts k tokens, ",
+             "and the target verifies them in one block. ",
+             "A rejected proposal leaves stale slots behind, ",
+             "masked until the next round writes them. "]
+# Batches of (text, new tokens). With draft == target a round emits
+# k + 1 = 5 tokens: rows of 86 and 6 new tokens finish after 17 and 1
+# rounds, leaving the short rows 80 slots behind (5 pages of 16: the
+# paged handoff is a table shift); rows of 16, 6 and 11 finish after 3,
+# 1 and 2 rounds, 10 and 5 slots behind (a repack). A draft that accepts
+# nothing leaves the same gaps (one token a round).
+SPEC_BATCHES = (
+    (("row a", 86), ("row b", 6), ("row c", 86), ("row d", 6)),
+    (("row e", 16), ("row f", 6), ("row g", 11), ("row h", 16)),
+)
+SPEC_COUNTERS = ("spec_rounds", "spec_drafted", "spec_accepted",
+                 "spec_realign_table_ops", "spec_realign_repacks",
+                 "brownout_spec_suppressed", "sched_units_spec")
+# The trained pair's prompts: the docs corpus's own register.
+DOCS_PROMPTS = ["The serving engine ", "A checkpoint directory holds ",
+                "The unit scheduler "]
+DOCS_NEW = 64
+
+
+def dtype_variant(src: Path, dst: Path, dtype: str) -> Path:
+    """``src``'s checkpoint under a manifest whose model computes in
+    ``dtype``: the same weights (``params.npz`` hard-linked)."""
+    dst.mkdir(parents=True, exist_ok=True)
+    os.link(src / "params.npz", dst / "params.npz")
+    manifest = json.loads((src / "MANIFEST.json").read_text())
+    manifest["config"]["model_kwargs"]["compute_dtype"] = dtype
+    (dst / "MANIFEST.json").write_text(json.dumps(manifest))
+    return dst
+
+
+def spec_checkpoints(ckpt: Path, tmp: Path) -> dict:
+    """GPT-2 small (``ckpt``, bf16) and a DistilGPT2-width draft drawn
+    from seed 1, each with a bf16 and an f32 manifest."""
+    from mlapi_tpu_torch.checkpoint import save_checkpoint
+    from mlapi_tpu_torch.models.gpt import GptLM
+    from mlapi_tpu_torch.text import ByteTokenizer
+
+    draft = save_checkpoint(
+        tmp / "distilgpt2_seed1", GptLM(**DISTILGPT2, seed=1, device="cpu"),
+        config={"model": "gpt_lm", "model_kwargs": DISTILGPT2,
+                "tokenizer": ByteTokenizer().fingerprint()})
+    return {"gpt2": {"bfloat16": ckpt,
+                     "float32": dtype_variant(ckpt, tmp / "gpt2_f32",
+                                              "float32")},
+            "distilgpt2": {"bfloat16": draft,
+                           "float32": dtype_variant(
+                               draft, tmp / "distilgpt2_f32", "float32")}}
+
+
+class SpecCalls:
+    """Count the target's and the draft's cache calls (each decode step
+    launches B1 / B3 once a layer, each block B2 / B4), and with ``log``
+    keep the target's logits by effective query position (batch row 0:
+    solo runs), so two runs can be held position by position."""
+
+    def __init__(self, engine, log: bool = False):
+        self.engine = engine
+        self.calls = {"t_decode": 0, "t_extend": 0, "d_decode": 0,
+                      "d_extend": 0}
+        self.logits: dict | None = {} if log else None
+        models = [("t", engine.model)]
+        if engine.draft_model is not None:
+            models.append(("d", engine.draft_model))
+        for who, model in models:
+            self._wrap(model, who, "decode", "decode_step")
+            self._wrap(model, who, "extend", "extend_core")
+
+    def _wrap(self, model, who, kind, attr):
+        fn = getattr(model, attr)
+        key = f"{who}_{kind}"
+        keep = self.logits is not None and who == "t"
+
+        def counted(*args, **kwargs):
+            self.calls[key] += 1
+            out = fn(*args, **kwargs)
+            if keep:
+                self._keep(kind, args, kwargs, out)
+            return out
+
+        setattr(model, attr, counted)
+
+    def _keep(self, kind, args, kwargs, out):
+        pos, n_pad = args[2], args[3] if len(args) > 3 else None
+        pad = 0 if n_pad is None else int(n_pad[0])
+        p0 = int(pos[0]) if hasattr(pos, "ndim") and pos.ndim else int(pos)
+        if kind == "decode":
+            self.logits[p0 - pad] = out[0][0].float()
+        elif kwargs.get("all_logits"):
+            for i in range(out[1].shape[1]):
+                self.logits[p0 + i - pad] = out[1][0, i].float()
+
+    def undo(self):
+        for model in (self.engine.model, self.engine.draft_model):
+            if model is not None:
+                for attr in ("decode_step", "extend_core"):
+                    model.__dict__.pop(attr, None)
+
+    def want(self) -> dict:
+        """Each kernel's launches these calls need: the target's through
+        its layout's kernels, the draft's (a contiguous cache) through
+        B1 / B2."""
+        eng, c = self.engine, self.calls
+        paged = "paged_" if eng.pool is not None else ""
+        want = {k: 0 for k in KERNELS}
+        tl = eng.model.num_layers
+        want[paged + "decode_attention"] += tl * c["t_decode"]
+        want[paged + "extend_attention"] += tl * c["t_extend"]
+        if eng.draft_model is not None:
+            dl = eng.draft_model.num_layers
+            want["decode_attention"] += dl * c["d_decode"]
+            want["extend_attention"] += dl * c["d_extend"]
+        return want
+
+
+def spec_batch(engine, specs) -> list:
+    """One formed greedy batch of ``(text, new tokens)`` rows through the
+    engine's ``_run_batch``: every row's stream."""
+    from mlapi_tpu_torch.serving.requests import _SyncSink
+
+    outs = [[] for _ in specs]
+    sinks = [_SyncSink(engine._encode(t, n, 0.0, 0, None), out)
+             for (t, n), out in zip(specs, outs)]
+    engine._run_batch(sinks)
+    errors = [s.error for s in sinks if s.error is not None]
+    if errors:
+        raise SystemExit(f"spec batch failed: {errors[0]!r}")
+    return outs
+
+
+def spec_counts(engine) -> dict:
+    return {c: getattr(engine, c) for c in SPEC_COUNTERS}
+
+
+def spec_delta(engine, before: dict) -> dict:
+    now = spec_counts(engine)
+    d = {c: now[c] - before[c] for c in now}
+    d["acceptance"] = (d["spec_accepted"] / d["spec_drafted"]
+                       if d["spec_drafted"] else None)
+    return d
+
+
+def solo_ms(engine, text: str, n: int, runs: int = 3) -> dict:
+    """Batch 1: wall ms per emitted token (median of ``runs`` generations
+    after a warm one) and device ms per emitted token (one generation
+    under ``torch.profiler``, its kernels and copies), with the
+    speculation counters of the timed runs."""
+    import statistics
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    engine.generate_text(text, max_new_tokens=n)
+    before = spec_counts(engine)
+    walls = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = engine.generate_text(text, max_new_tokens=n)["token_ids"]
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3 / len(out))
+    counts = spec_delta(engine, before)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        engine.generate_text(text, max_new_tokens=n)
+        torch.cuda.synchronize()
+    dev = sum(e.device_time_total for e in device_kernels(prof)) / 1e3
+    rounds = counts["spec_rounds"]
+    return {"wall_ms_per_token": statistics.median(walls),
+            "wall_ms_per_token_runs": walls,
+            "device_ms_per_token": dev / n,
+            "tokens_per_round": ((counts["spec_accepted"] + rounds) / rounds
+                                 if rounds else None),
+            "acceptance": counts["acceptance"], "rounds": rounds}
+
+
+def spec_exact_leg(ckpts: dict, power) -> dict:
+    """(a) GPT-2 small at its full width in f32, contiguous f32 and paged
+    16 int8 caches: with draft == target and with the DistilGPT2-width
+    draft, solo and batched streams equal the target-only engine's token
+    for token; draft == target accepts every proposal; the paged
+    batches realign both ways (a table shift and a repack); launches
+    exact; batch-1 ms per token beside the target alone (contiguous).
+    The DistilGPT2-width draft, which random weights leave at one token
+    a round, runs one solo stream and the repack batch. Returns launches
+    by path."""
+    import gc
+
+    import torch
+
+    from mlapi_tpu_torch.serving.__main__ import build_engine
+
+    target = ckpts["gpt2"]["float32"]
+    paths = {}
+    for kv_quant, page in ((None, None), ("int8", PAGE)):
+        layout = (kv_quant or "f32") + (f", page {page}" if page else "")
+        kw = dict(kv_quant=kv_quant, decode_attn_impl="flash",
+                  kv_page_size=page)
+        plain = build_engine(target, **kw)
+        ref_solo = [plain.generate_text(t, max_new_tokens=SPEC_NEW)[
+            "token_ids"] for t in SPEC_SOLO[:2]]
+        ref_batches = [spec_batch(plain, b) for b in SPEC_BATCHES]
+        timing_plain = (solo_ms(plain, SPEC_SOLO[0], SPEC_NEW)
+                        if page is None else None)
+        del plain
+        gc.collect()
+        torch.cuda.empty_cache()
+        for dname in ("gpt2", "distilgpt2"):
+            same = dname == "gpt2"
+            n_solo = 2 if same else 1
+            batch_ids = (0, 1) if same else (1,)
+            t0 = time.perf_counter()
+            engine = build_engine(target, **kw,
+                                  draft_checkpoint=ckpts[dname]["float32"])
+            load_s = time.perf_counter() - t0
+            calls = SpecCalls(engine)
+            before = spec_counts(engine)
+            zero_counters()
+            solo = [engine.generate_text(t, max_new_tokens=SPEC_NEW)[
+                "token_ids"] for t in SPEC_SOLO[:n_solo]]
+            solo_counts = spec_delta(engine, before)
+            batches = [spec_batch(engine, SPEC_BATCHES[i])
+                       for i in batch_ids]
+            torch.cuda.synchronize()
+            launches, bodies = read_counters(SERVING)
+            calls.undo()
+            want = calls.want()
+            counts = spec_delta(engine, before)
+            timing = (solo_ms(engine, SPEC_SOLO[0], SPEC_NEW)
+                      if page is None else None)
+            path = f"spec f32 {layout}, draft {dname}"
+            paths[path] = launches
+            row = {
+                "case": "spec_exact", "layout": layout,
+                "draft": "gpt2-small (draft == target)" if same
+                else "distilgpt2 width, seed 1",
+                "k": engine.spec_k, "new_tokens": SPEC_NEW,
+                "batches": [[n for _, n in SPEC_BATCHES[i]]
+                            for i in batch_ids],
+                "solo_equal": solo == ref_solo[:n_solo],
+                "batch_equal": batches == [ref_batches[i]
+                                           for i in batch_ids],
+                "counters": counts, "solo_counters": solo_counts,
+                "launches": launches, "want": want, "bodies": bodies,
+                "calls": calls.calls, "load_seconds": load_s,
+                "batch1_ms": {"spec": timing, "plain": timing_plain},
+                "card": power,
+            }
+            emit(row)
+            fails = []
+            if not (row["solo_equal"] and row["batch_equal"]):
+                fails.append("a stream differs from the target-only "
+                             "engine's")
+            if same and counts["spec_accepted"] != counts["spec_drafted"]:
+                fails.append("draft == target rejected a proposal")
+            if same and (solo_counts["spec_accepted"]
+                         + solo_counts["spec_rounds"] != 2 * (SPEC_NEW - 1)
+                         or solo_counts["spec_accepted"]
+                         != SPEC_K * solo_counts["spec_rounds"]):
+                # Every solo token after the first came from a round of
+                # k + 1.
+                fails.append(f"solo rows left the rounds: {solo_counts}")
+            if counts["spec_rounds"] == 0:
+                fails.append("no speculative round ran")
+            if page and same and not (counts["spec_realign_table_ops"]
+                                      and counts["spec_realign_repacks"]):
+                fails.append("the paged handoff did not realign both ways")
+            if launches != want:
+                fails.append(f"launches {launches}, want {want}")
+            if not (launches["decode_attention"] and launches[
+                    ("paged_" if page else "") + "extend_attention"]):
+                fails.append("B1 or the verify kernel never launched")
+            if fails:
+                raise SystemExit(f"spec exact leg ({path}): {fails}")
+            del engine
+            gc.collect()
+            torch.cuda.empty_cache()
+    return paths
+
+
+def spec_tie_check(spec_log: dict, plain_log: dict, got, ref, used: int):
+    """Fault C3's rule on one solo stream pair: at the first position
+    where they disagree, the plain run's top-1 - top-2 margin must be
+    below the largest |spec - plain| logit difference there (both runs
+    saw the same tokens before it). ``None`` when the streams agree."""
+    j = next((i for i, (a, b) in enumerate(zip(got, ref)) if a != b), None)
+    if j is None:
+        return None
+    if j == 0:
+        return {"pos": 0, "tie": False, "why": "the first token differs"}
+    e = used - 1 + j
+    p, s = plain_log[e], spec_log[e]
+    top2 = p.topk(2).values
+    margin = float(top2[0] - top2[1])
+    diff = float((s - p).abs().max())
+    return {"pos": j, "margin": margin, "max_abs_diff": diff,
+            "tie": margin < diff}
+
+
+def spec_bf16_leg(ckpts: dict, power, then=None) -> dict:
+    """(b) GPT-2 small in bf16, contiguous bf16 and paged 16 int8, draft
+    == target: each solo spec stream held to the target-only engine's by
+    fault C3's tie rule (:func:`spec_tie_check`); acceptance and tokens
+    a round printed. ``then(engine)`` runs on the contiguous spec engine
+    (the scheduler and brownout leg) and returns its launches by path.
+    Returns launches by path."""
+    import gc
+
+    import torch
+
+    from mlapi_tpu_torch.serving.__main__ import build_engine
+
+    target = ckpts["gpt2"]["bfloat16"]
+    paths = {}
+    for kv_quant, page in ((None, None), ("int8", PAGE)):
+        layout = (kv_quant or "bf16") + (f", page {page}" if page else "")
+        kw = dict(kv_quant=kv_quant, decode_attn_impl="flash",
+                  kv_page_size=page)
+        plain = build_engine(target, **kw)
+        plain_calls = SpecCalls(plain, log=True)
+        refs = []
+        for text in SPEC_SOLO:
+            plain_calls.logits.clear()
+            out = plain.generate_text(text, max_new_tokens=SPEC_NEW)
+            refs.append((out["token_ids"], dict(plain_calls.logits)))
+        plain_calls.undo()
+        engine = build_engine(target, **kw, draft_checkpoint=target)
+        calls = SpecCalls(engine, log=True)
+        before = spec_counts(engine)
+        zero_counters()
+        checks = []
+        for text, (ref, ref_log) in zip(SPEC_SOLO, refs):
+            calls.logits.clear()
+            got = engine.generate_text(text, max_new_tokens=SPEC_NEW)[
+                "token_ids"]
+            tie = spec_tie_check(calls.logits, ref_log, got, ref, len(text))
+            checks.append({"text": text, "equal": got == ref,
+                           "agreement": sum(a == b for a, b in
+                                            zip(got, ref)) / len(ref),
+                           "first_disagreement": tie})
+        torch.cuda.synchronize()
+        launches, bodies = read_counters(SERVING)
+        calls.undo()
+        want = calls.want()
+        counts = spec_delta(engine, before)
+        path = f"spec bf16 {layout}, draft == target"
+        paths[path] = launches
+        rounds = counts["spec_rounds"]
+        row = {"case": "spec_bf16", "layout": layout, "k": engine.spec_k,
+               "new_tokens": SPEC_NEW, "streams": checks,
+               "all_ties": all(c["first_disagreement"] is None
+                               or c["first_disagreement"]["tie"]
+                               for c in checks),
+               "counters": counts,
+               "tokens_per_round": ((counts["spec_accepted"] + rounds)
+                                    / rounds if rounds else None),
+               "launches": launches, "want": want, "bodies": bodies,
+               "card": power}
+        emit(row)
+        if not row["all_ties"] or launches != want or not rounds:
+            raise SystemExit(f"spec bf16 leg ({path}): ties "
+                             f"{row['all_ties']}, rounds {rounds}, "
+                             f"launches {launches}, want {want}")
+        if then is not None and page is None:
+            paths.update(then(engine))
+        del plain, engine, refs
+        gc.collect()
+        torch.cuda.empty_cache()
+    return paths
+
+
+def spec_sched_leg(engine, power) -> dict:
+    """(d) The unit scheduler at 2 lanes: a solo spec row (the first
+    :data:`SPEC_SOLO` prompt, 64 new tokens) and, once its first token
+    is out, a window-incompatible long prompt (a second lane). The spec
+    phase yields at a round boundary while the other lane has work
+    (spec units of the row with the other lane's units between them)
+    and re-engages; both streams run to their budgets and the launches
+    are exact (bf16: the stream is held to nothing finer). Then at
+    brownout rung 1 (the fleet backlog at the queue bound) a greedy run
+    speculates not at all and ``brownout_spec_suppressed`` ticks once.
+    Returns launches by path."""
+    n = 64
+    # Past the window beside the spec row (bucket + 64 new tokens), so it
+    # forms a lane of its own.
+    long_text = text_of(engine.model.max_positions - 32, "lane two")
+
+    async def body(loop):
+        (first,) = enqueue(engine, loop, [(SPEC_SOLO[0], n, None)])
+        head = await first.queue.get()
+        (second,) = enqueue(engine, loop, [(long_text, 16, None)])
+        outs = [await collect_timed(r, time.perf_counter())
+                for r in (first, second)]
+        if any(e is not None for _, e, _, _ in outs):
+            raise SystemExit(f"spec sched leg: {[o[1] for o in outs]}")
+        await wait_until(lambda: engine.sched.batches_live == 0)
+        return (head["token_ids"] + outs[0][0], outs[1][0],
+                list(engine.sched.trace))
+
+    before = spec_counts(engine)
+    calls = SpecCalls(engine)
+    zero_counters()
+    got, other, trace = engine_run(engine, 2, body)
+    launches = read_counters(SERVING)[0]
+    calls.undo()
+    counts = spec_delta(engine, before)
+    lanes = [lane for lane, kind in trace if kind == "spec"]
+    spec_lane = lanes[0] if lanes else None
+    idx = [i for i, (lane, kind) in enumerate(trace)
+           if lane == spec_lane and kind == "spec"]
+    between = (len(idx) >= 2 and any(
+        lane != spec_lane for lane, _ in trace[idx[0] + 1:idx[-1]]))
+    engine.router_queue_depth = engine.max_queue
+    b0 = spec_counts(engine)
+    engine.generate_text(SPEC_SOLO[1], max_new_tokens=16)
+    brown = spec_delta(engine, b0)
+    engine.router_queue_depth = 0
+    row = {"case": "spec_sched", "lanes": 2, "new_tokens": n,
+           "spec_units_of_the_row": len(idx),
+           "other_lane_between_spec_units": between,
+           "counters": counts, "brownout": brown,
+           "launches": launches, "want": calls.want(), "card": power}
+    emit(row)
+    fails = []
+    if not counts["sched_units_spec"] or not counts["spec_rounds"]:
+        fails.append("no spec unit ran")
+    if not between:
+        fails.append("the spec phase never yielded to the other lane")
+    if brown["brownout_spec_suppressed"] != 1 or brown["spec_rounds"]:
+        fails.append(f"brownout: {brown}")
+    if len(got) != n or len(other) != 16 or launches != calls.want():
+        fails.append(f"lengths {len(got)}, {len(other)}; launches "
+                     f"{launches}, want {calls.want()}")
+    if fails:
+        raise SystemExit(f"spec sched leg: {fails}")
+    return {"spec sched bf16, 2 lanes": launches}
+
+
+def spec_trained_leg(work: Path, power) -> dict:
+    """(c) The trained pair: ``docs-gpt`` served with phase 11's
+    ``docs-gpt-draft-distilled`` and ``docs-gpt-draft`` as drafts
+    (``--spec-sample``, f32): greedy streams equal the target-only
+    engine's; a sampled solo run is the same for the same seed twice and
+    another for another seed; acceptance, tokens a round, and wall and
+    device ms per emitted token beside the target-only engine's at batch
+    1. Returns launches by path."""
+    import gc
+
+    import torch
+
+    from mlapi_tpu_torch.serving.__main__ import build_engine
+
+    target = work / "docs-gpt"
+    plain = build_engine(target, decode_attn_impl="flash")
+    refs = [plain.generate_text(t, max_new_tokens=DOCS_NEW)["token_ids"]
+            for t in DOCS_PROMPTS]
+    timing_plain = solo_ms(plain, DOCS_PROMPTS[0], DOCS_NEW)
+    del plain
+    paths = {}
+    sampling = dict(temperature=0.8, top_k=40, top_p=0.95)
+    for dname in ("docs-gpt-draft-distilled", "docs-gpt-draft"):
+        engine = build_engine(target, decode_attn_impl="flash",
+                              draft_checkpoint=work / dname,
+                              spec_sample=True)
+        calls = SpecCalls(engine)
+        before = spec_counts(engine)
+        zero_counters()
+        got = [engine.generate_text(t, max_new_tokens=DOCS_NEW)[
+            "token_ids"] for t in DOCS_PROMPTS]
+        greedy = spec_delta(engine, before)
+        b1 = spec_counts(engine)
+        sampled = [engine.generate_text(DOCS_PROMPTS[0],
+                                        max_new_tokens=DOCS_NEW, seed=s,
+                                        **sampling)["token_ids"]
+                   for s in (3, 3, 4)]
+        sampled_counts = spec_delta(engine, b1)
+        torch.cuda.synchronize()
+        launches = read_counters(SERVING)[0]
+        calls.undo()
+        want = calls.want()
+        timing = solo_ms(engine, DOCS_PROMPTS[0], DOCS_NEW)
+        path = f"spec docs-gpt, draft {dname}"
+        paths[path] = launches
+        rounds = greedy["spec_rounds"]
+        row = {"case": "spec_trained", "target": "docs-gpt",
+               "draft": dname, "k": engine.spec_k,
+               "greedy_equal": got == refs,
+               "greedy_counters": greedy,
+               "tokens_per_round": ((greedy["spec_accepted"] + rounds)
+                                    / rounds if rounds else None),
+               "sampled_same_seed_equal": sampled[0] == sampled[1],
+               "sampled_other_seed_differs": sampled[0] != sampled[2],
+               "sampled_counters": sampled_counts, "sampling": sampling,
+               "batch1_ms": {"spec": timing, "plain": timing_plain},
+               "launches": launches, "want": want, "card": power}
+        emit(row)
+        if (got != refs or sampled[0] != sampled[1]
+                or sampled[0] == sampled[2] or not rounds
+                or not sampled_counts["spec_rounds"] or launches != want):
+            raise SystemExit(f"spec trained leg ({dname}): {row}")
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    return paths
+
+
+def check_spec_kernels(power) -> list:
+    """(e) B2 and B4 at the verify block's shape (U = k + 1 = 5, B = 1
+    and 4, rows at their own positions, L = 1024, GPT-2 heads, bf16 and
+    int8) and B1 at the DistilGPT2-width draft's decode shape (its 12
+    heads of 64; B = 1 in f32, the exact legs' format, and B = 4 in
+    bf16), each against its plain version (:func:`kernel_row`)."""
+    u = SPEC_K + 1
+    shapes = []
+    for name in ("extend_attention", "paged_extend_attention"):
+        shapes.append((name, 1, u, 1024, [1019], ("bf16", "int8")))
+        shapes.append((name, 4, u, 1024, [1019, 1012, 1003, 996],
+                       ("bf16", "int8")))
+    shapes.append(("decode_attention", 1, 1, 1024, [1023], ("f32",)))
+    shapes.append(("decode_attention", 4, 1, 1024, [1023, 1016, 1007, 1000],
+                   ("bf16",)))
+    rows = []
+    for i, (name, b, uu, length, pos, fmts) in enumerate(shapes):
+        for fmt in fmts:
+            def make(seed, name=name, fmt=fmt, b=b, uu=uu, length=length,
+                     pos=pos):
+                return kernel_case(name, fmt, b, uu, length, pos, seed=seed)
+
+            rows.append(kernel_row(name, fmt, b, uu, length, pos, {}, make,
+                                   500 + i, power, TOLERANCE[fmt],
+                                   extra={"leg": "spec"}))
+    return rows
+
+
+def spec_gpt2_legs(ckpt: Path, tmp: Path, power) -> dict:
+    """13 (a), (b) and (d) on the GPT-2 small checkpoint ``ckpt``: returns
+    their launches by path."""
+    ckpts = spec_checkpoints(ckpt, tmp)
+    paths = spec_exact_leg(ckpts, power)
+    paths.update(spec_bf16_leg(
+        ckpts, power, then=lambda engine: spec_sched_leg(engine, power)))
+    return paths
+
+
+def spec_only(power) -> int:
+    """``--only-spec``: phase 13 alone (its kernel rows, the GPT-2 legs,
+    and the trained pair, trained here by phase 11's distillation leg),
+    a rehearsal; it prints no result line."""
+    scratch = ROOT / "build"
+    scratch.mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(dir=scratch, prefix="smoke_"))
+    t0 = time.perf_counter()
+    check_spec_kernels(power)
+    stamps = {"kernels": time.perf_counter() - t0}
+    try:
+        ckpt = make_checkpoint(work / "gpt2_small_seed0")
+        spec_gpt2_legs(ckpt, work, power)
+        stamps["gpt2"] = time.perf_counter() - t0
+        distill_leg(work, power)
+        stamps["distill"] = time.perf_counter() - t0
+        spec_trained_leg(work, power)
+        stamps["trained"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    emit({"case": "phase_seconds", **stamps})
+    return 0
+
+
 def kernel_label(mangled: str) -> str:
     """``extend_mma_kernel<true, false>`` from the mangled name ptxas
     prints (the template arguments these sources use: bool, int, float,
@@ -5155,13 +5768,22 @@ def main() -> int:
           "libraries": sorted(built),
           "kernels": {name: ptxas_summary(b.log)
                       for name, b in built.items()}})
+    if sys.argv[1:] == ["--only-spec"]:
+        return spec_only(power)
+    # Seconds of each phase, from the run's start.
+    stamps = {}
+
+    def mark(name):
+        stamps[name] = time.perf_counter() - t_run
 
     # 3. kernels against their plain versions (and, for the prefix phase,
     # B1-B4 at its masks)
     rows = check_kernels(power)
     rows += check_prefix_kernels(power)
+    rows += check_spec_kernels(power)
     cfg, splits, x0, y0 = sst2_first_batch()
     flash_rows = check_flash_kernels(power, x0)
+    mark("3 kernels")
 
     # 4. training: the sst2-bert run through the train CLI's run(), the
     # flash-vs-full check, one profiled step
@@ -5176,6 +5798,7 @@ def main() -> int:
     train_profile = profile_train_step(cfg, splits)
     del splits
     torch.cuda.empty_cache()
+    mark("4 training")
 
     # 5. serving, 6. correctness
     # Launches per serving path, each path's counts zeroed just before
@@ -5211,6 +5834,7 @@ def main() -> int:
                         launches[k]["sched " + path] = srow["launches"][k]
                 del engine
                 torch.cuda.empty_cache()
+        mark("5-9 serving")
         # 10. the scoring path (the GPT-2 checkpoint is the co-resident
         # leg's default model)
         scoring = scoring_phase(ckpt, sst2_ckpt, x0, work, power)
@@ -5219,6 +5843,10 @@ def main() -> int:
         item5_paths = item5_serving(ckpt, GPT2_SMALL, "gpt2-small", work,
                                     power, http_leg=True)
         item5_seconds = time.perf_counter() - t12
+        mark("10, 12a scoring, int8 weights")
+        # 13 (a, b, d): speculative decoding at GPT-2 small's width
+        spec_paths = spec_gpt2_legs(ckpt, Path(tmp), power)
+        mark("13 speculation at GPT-2 width")
     check_small_f32(2)
     check_small_f32(4)     # docs-gpt: head dim 32
     check_prefix_f32("gpt_lm", 2)
@@ -5232,10 +5860,15 @@ def main() -> int:
 
     llama_train = llama_phases(scratch, launches, power,
                                then=tinyllama_item5)
+    mark("7 llama")
 
     # 11. the rest of training: kill and resume, distillation,
     # criteo-widedeep, bench rows, debug checks and a profile
     training = rest_of_training(train_row, sst2_ckpt, work, power)
+    mark("11 rest of training")
+    # 13 (c): the trained pair phase 11 left in ``work``
+    spec_paths.update(spec_trained_leg(work, power))
+    mark("13 trained pair")
 
     # 12 (b, c, d): f32 adapter streams, LoRA fine-tuning, int8 sst2-bert
     t12 = time.perf_counter()
@@ -5245,6 +5878,8 @@ def main() -> int:
         sst2_ckpt, "int8", power)
     emit({"case": "phase12_seconds", "gpt2_serving": item5_seconds,
           "f32_lora_predict": time.perf_counter() - t12})
+    mark("12 f32 adapters, LoRA, int8 predict")
+    emit({"case": "phase_seconds", **stamps})
 
     summary = []
     for name in SERVING:
@@ -5261,7 +5896,9 @@ def main() -> int:
             "launches_per_path": {
                 **launches[name],
                 **{path: counts[name]
-                   for path, counts in item5_paths.items()}},
+                   for path, counts in item5_paths.items()},
+                **{path: counts[name]
+                   for path, counts in spec_paths.items()}},
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"],

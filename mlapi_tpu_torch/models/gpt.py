@@ -27,6 +27,9 @@ pool tensors in place. Shared-prefix serving adds
 :func:`prefix_prefill_fn` (a cached prefix's KV under a suffix block),
 and for the pool :func:`paged_scatter_fn` (a contiguous cache copied
 into pages) and :func:`paged_cow_fn` (copy-on-write of whole pages).
+The batched-speculation handoff adds :func:`realign_fn` (a per-row roll
+of the cache) and :func:`paged_realign_fn` (the same through the page
+tables).
 
 Weights are read through ``ops/quant.weight`` / ``take``, so a model
 quantized in place (``models/quantized``) serves through the same code.
@@ -747,6 +750,62 @@ def paged_cow_fn(cache, src, dst):
         for name, pool in layer.items():
             if name != "table":
                 pool.index_copy_(0, dst, pool.index_select(0, src))
+    return cache
+
+
+def _as_delta(delta, dev):
+    return torch.as_tensor(np.asarray(delta, np.int64), device=dev)
+
+
+@torch.no_grad()
+def realign_fn(cache, delta):
+    """Per-row cache ROLL for the batched-speculation handoff, IN PLACE:
+    row ``b``'s slots shift right by ``delta[b]`` (``new[b, i] = old[b,
+    i - delta_b]``; reads below slot 0 clamp to it and are garbage).
+    Callers bump ``n_pad[b] += delta_b``, so every effective position
+    (``slot - n_pad``) is unchanged: the learned positions and the
+    stored rotary phases key on it, and the scalar-``pos`` chunk loop
+    resumes as if the rows had always been in step. Each leaf is
+    gathered whole before it is written back. Returns ``cache``."""
+    dev = next(iter(cache["layer_0"].values())).device
+    delta = _as_delta(delta, dev)
+    for layer in cache.values():
+        for leaf in layer.values():
+            b, length = leaf.shape[:2]
+            idx = torch.arange(length, device=dev)[None, :] - delta[:, None]
+            idx = idx.clamp(0, length - 1)
+            idx = idx.reshape((b, length) + (1,) * (leaf.ndim - 2))
+            leaf.copy_(torch.gather(leaf, 1, idx.expand(leaf.shape)))
+    return cache
+
+
+@torch.no_grad()
+def paged_realign_fn(cache, delta):
+    """The paged twin of :func:`realign_fn` for a handoff whose deltas
+    are not all page multiples (a page-multiple shift is a host table
+    edit, ``BatchRun._paged_realign``): every row's virtual window is
+    gathered at the shifted coordinates through its table (``new[b, v]
+    = old[b, v - delta_b]``, clamped likewise), then scattered back into
+    the row's OWN pages, IN PLACE. Unmapped tiles route to the null
+    page, which nothing reads. Rows must not share pages (batched
+    speculation takes only ``p_len == 0`` batches). Returns ``cache``."""
+    from mlapi_tpu_torch.ops.quant import kv_layer_page_size
+
+    layer0 = cache["layer_0"]
+    table = layer0["table"].long()
+    page = kv_layer_page_size(layer0)
+    b, npv = table.shape
+    length = npv * page
+    dev = table.device
+    vdst = torch.arange(length, device=dev)[None, :].expand(b, length)
+    vsrc = (vdst - _as_delta(delta, dev)[:, None]).clamp(0, length - 1)
+    pd = torch.gather(table, 1, vdst // page)
+    ps = torch.gather(table, 1, vsrc // page)
+    od, os_ = vdst % page, vsrc % page
+    for layer in cache.values():
+        for name, pool in layer.items():
+            if name != "table":
+                pool.index_put_((pd, od), pool[ps, os_])
     return cache
 
 

@@ -8,6 +8,7 @@ Counterpart of ``mlapi_tpu/serving/__main__.py``::
         [--kv-page-size 16 [--kv-pages N]] [--sched-max-batches 2] \\
         [--default-deadline-ms MS] [--no-admission-control] \\
         [--drain-timeout-s S] [--quantize int8] \\
+        [--draft-checkpoint DIR [--spec-sample]] \\
         [--adapter-slots N [--adapter ID=PATH ...] \\
          [--adapter-store-bytes B] [--adapter-disk-dir DIR]] \\
         [--tenant-pages T=N ...] [--tenant-slots T=N ...] \\
@@ -29,7 +30,10 @@ It runs on the CUDA device unless ``--device cpu`` (or
 no card and no such request. SIGTERM or SIGINT drain the server (new
 requests 503, ``/healthz`` draining, in-flight work gets
 ``--drain-timeout-s`` to finish) and stop it. ``--quantize int8``
-serves int8 weights; ``--adapter-slots`` serves per-tenant LoRA adapters
+serves int8 weights; ``--draft-checkpoint`` speculates with a smaller
+same-tokenizer checkpoint as the draft (solo greedy rows and freshly
+formed all-greedy batches; ``--spec-sample`` adds sampled solo rows);
+``--adapter-slots`` serves per-tenant LoRA adapters
 (``--adapter ID=PATH`` preloads one from its wire-format file), and the
 tenant flags set per-tenant quotas and weights. ``--workers`` and
 ``--router`` are refused with the ROADMAP item that will bring them.
@@ -61,12 +65,14 @@ _REFUSED = {
 def build_engine(checkpoint, *, device=None, kv_quant=None,
                  decode_attn_impl=None, max_batch=None, kv_page_size=None,
                  kv_pages=None, sched_max_batches=None, quantize=None,
-                 **kwargs):
+                 draft_checkpoint=None, spec_sample=False, **kwargs):
     """The engine the CLI serves from a checkpoint dir: a generative
-    engine with the CLI's cache, scheduler and adapter options (``None``
-    keeps the engine's default), or a classifier's engine, which refuses
-    the cache and adapter options (``InferenceEngine.from_checkpoint``).
-    ``quantize="int8"`` serves either with int8 weights."""
+    engine with the CLI's cache, scheduler, speculation and adapter
+    options (``None`` keeps the engine's default), or a classifier's
+    engine, which refuses the cache and adapter options and ignores the
+    speculation ones, as the JAX package does
+    (``InferenceEngine.from_checkpoint``). ``quantize="int8"`` serves
+    either with int8 weights."""
     from mlapi_tpu_torch.checkpoint import read_manifest
 
     if read_manifest(checkpoint).config.get("model") in GENERATIVE_MODELS:
@@ -74,6 +80,9 @@ def build_engine(checkpoint, *, device=None, kv_quant=None,
             kwargs["max_batch"] = max_batch
         if sched_max_batches is not None:
             kwargs["sched_max_batches"] = sched_max_batches
+        if draft_checkpoint is not None:
+            kwargs["draft_checkpoint"] = draft_checkpoint
+            kwargs["spec_sample"] = bool(spec_sample)
     return InferenceEngine.from_checkpoint(
         checkpoint, device=device, kv_quant=kv_quant,
         decode_attn_impl=decode_attn_impl, kv_page_size=kv_page_size,
@@ -252,6 +261,20 @@ def make_parser() -> argparse.ArgumentParser:
              "bytes), dequantized at each use; composes with --kv-quant",
     )
     parser.add_argument(
+        "--draft-checkpoint", default=None,
+        help="speculative decoding: a smaller same-tokenizer checkpoint "
+             "whose proposals the target verifies in one block a round "
+             "(solo greedy rows and freshly formed all-greedy batches; "
+             "generate.spec_* on /metrics)",
+    )
+    parser.add_argument(
+        "--spec-sample", action="store_true",
+        help="with --draft-checkpoint: also speculate SAMPLED solo rows "
+             "by acceptance-rejection (the target's distribution exactly; "
+             "a stream interleaved with admission churn is not "
+             "byte-reproducible per seed, a solo run is)",
+    )
+    parser.add_argument(
         "--adapter-slots", type=int, default=0,
         help="many-adapter LoRA serving: a device slot pool of this many "
              "tenants' (A, B) pairs over the ONE resident base (device "
@@ -345,6 +368,7 @@ def main(argv=None) -> int:
         decode_attn_impl=args.decode_attn_impl, max_batch=args.max_batch,
         kv_page_size=args.kv_page_size, kv_pages=args.kv_pages,
         sched_max_batches=args.sched_max_batches, quantize=args.quantize,
+        draft_checkpoint=args.draft_checkpoint, spec_sample=args.spec_sample,
         **({"adapter_slots": args.adapter_slots,
             "adapter_store_bytes": args.adapter_store_bytes,
             "adapter_disk_dir": args.adapter_disk_dir}

@@ -671,7 +671,13 @@ def _generate_metrics(engine, c: dict, g: dict) -> None:
                  # quota, and the tenant brownout rung's clamps.
                  "sched_tenant_pages_deferred",
                  "sched_tenant_adapters_deferred",
-                 "brownout_tenant_clamped"):
+                 "brownout_tenant_clamped",
+                 # Speculation: rounds, proposals tested and accepted,
+                 # paged handoffs by route, brownout suppressions, spec
+                 # units.
+                 "spec_rounds", "spec_drafted", "spec_accepted",
+                 "spec_realign_table_ops", "spec_realign_repacks",
+                 "brownout_spec_suppressed", "sched_units_spec"):
         c[f"generate.{name}"] = getattr(engine, name)
     c["generate.faults_injected"] = faults.injected_count()
     for name in ("queue_depth", "sched_queue_depth", "sched_batches_live",

@@ -15,6 +15,13 @@ what this port serves:
                         ``_prefill_paged`` for a paged engine, whose
                         prefix rows share the entry's pages
                         (``_prefill_paged_prefix``)
+``_first_token``        the first token's delivery, and the speculation
+                        gates (solo rows; freshly formed all-greedy
+                        batches)
+``_spec_handoff``       the formation-time speculative phase (solo or
+                        batched, ``serving/spec_phase.py``), handing off
+                        to the chunk loop; ``_paged_realign`` the paged
+                        handoff's table shift or repack
 ``_alloc_rows`` et al.  the page lifecycle of a paged engine: rows map
                         only the pages of slots they reached, released
                         eagerly when a row finishes
@@ -28,7 +35,8 @@ what this port serves:
 ``_decode_chunk``       one chained decode chunk + the drain policy
 ``units``               the loop as a generator of typed units, which
                         the unit scheduler advances one at a time; the
-                        deadline sweeps run at its boundaries
+                        deadline sweeps run at its boundaries, and a
+                        lone greedy row speculates again there
 ``run``                 drain ``units()`` to exhaustion
 ======================  ================================================
 
@@ -53,7 +61,7 @@ prefill, a joiner's before its own prefill, and every hold is released
 when the run ends. Each dispatch passes the model the adapter context
 :meth:`_lora` picks: none (no adapter row: the base model's ops), grouped
 (one tenant: ``x @ a @ b``) or gathered (mixed: BGMV). Not ported:
-speculation, fused widths and disaggregation.
+fused widths and disaggregation.
 """
 
 from __future__ import annotations
@@ -86,6 +94,9 @@ class BatchRun:
         self.eng = eng
         self.reqs = reqs  # the engine's list object: admission appends
         self.admit = admit
+        # Brownout's speculation suppression counts once per run, however
+        # many boundaries re-confirm it.
+        self._spec_supp_counted = False
         self.bucket = max(len(r.row) for r in reqs)
         n_new_max = max(r.n_new for r in reqs)
         # The prefix region spans slots [0, p_len) of every row. A
@@ -412,19 +423,73 @@ class BatchRun:
         return torch.as_tensor(self.n_pad, dtype=torch.long,
                                device=self.device)
 
+    def _spec_brownout(self) -> bool:
+        """Brownout rung 1 suppresses speculation; re-decided at every
+        consultation (the queue may drain), counted in
+        ``brownout_spec_suppressed`` at most once per run."""
+        if self.eng._brownout_level() < 1:
+            return False
+        if not self._spec_supp_counted:
+            self._spec_supp_counted = True
+            self.eng.brownout_spec_suppressed += 1
+        return True
+
     def _first_token(self, first) -> None:
-        """The prefill's sampled token stays on the device as the first
-        chunk's feedback and is delivered by the first drain."""
+        """Decide the first token's delivery. The speculative phase
+        reads and writes the host token mirror, so a batch it takes
+        syncs the first token here; every other batch keeps it on the
+        device as the first chunk's feedback, delivered by the first
+        drain.
+
+        Speculation is declined for prefix rows (``p_len > 0``), adapter
+        rows (the phase drafts and verifies with the base weights, which
+        would emit the base model's stream for a tenant row), sampled
+        rows without ``spec_sample``, batches of more than one row
+        unless every row is greedy and the cache holds a final round,
+        and under brownout. (The port has no disaggregated rows, Queue A
+        item 7, so none is pushed.)"""
+        eng, reqs, b = self.eng, self.reqs, self.b
+        temps, topk, topp = self.temps, self.topk, self.topp
+        greedy = (temps <= 0.0) & (topk == 0) & (topp >= 1.0)
+        base = (eng.draft_model is not None and self.p_len == 0
+                and all(getattr(r, "adapter", None) is None for r in reqs))
+        self.spec_eligible = (
+            base and b == 1 and not reqs[0].cancelled
+            and (bool(greedy[0]) or (eng.spec_sample and temps[0] > 0.0))
+            and not self._spec_brownout()
+        )
+        # Batched: a freshly formed all-greedy batch speculates as a
+        # whole at per-row positions and realigns the cache before the
+        # chunk loop resumes; the final round's block needs k + 1 slots
+        # past every row's budget.
+        self.spec_batched = (
+            base and b > 1 and bool(np.all(greedy[:b]))
+            and self.total >= self.bucket + self.n_new_max + eng.spec_k + 1
+            and not self._spec_brownout()
+        )
         # step[row]: the row's NEXT sampling-stream index, its own
         # produced-token count, so a joiner reproduces its solo stream.
         self.step = np.ones((self.b_pad,), np.int64)
-        self.done = [False] * self.b
-        self.tok = np.zeros((self.b_pad,), np.int64)
-        self.produced = [0] * self.b
+        self.done = [False] * b
+        if self.spec_eligible or self.spec_batched:
+            self.tok = first.cpu().numpy().astype(np.int64)
+            self.produced = [1] * b
+            for i, r in enumerate(reqs):
+                r.push({"token_ids": [int(self.tok[i])]})
+                if r.n_new <= 1:
+                    r.push(None)
+                    self.done[i] = True
+            self.first_chunk = None
+        else:
+            self.tok = np.zeros((self.b_pad,), np.int64)
+            self.produced = [0] * b
+            self.first_chunk = first[:, None]
         # produced as of the DISPATCH frontier (scheduled on the device,
         # possibly not yet drained); ``produced`` is what was delivered.
         self.sched = list(self.produced)
-        self.first_chunk = first[:, None]
+        # The solo row's emitted tokens, replayed into a fresh draft
+        # cache when it speculates again.
+        self.spec_hist = [int(self.tok[0])] if self.spec_eligible else None
         self._first = first
 
     # -- the page lifecycle (paged engines) ---------------------------
@@ -447,6 +512,65 @@ class BatchRun:
         for (row, i), pid in zip(want, pages):
             self.tab[row, i] = pid
         self._tab_dirty = True
+
+    def _spec_ensure(self, cache, lo: int, hi: int):
+        """The speculative phase's page hook before each verify block:
+        map virtual slots ``[lo, hi)`` for every live row (the phase
+        writes ahead of the chunk loop's ``_ensure_pages``) and hand back
+        the cache with any new table. An exhausted pool raises, as at a
+        chunk boundary."""
+        from mlapi_tpu_torch.ops.quant import paged_cache_tree
+
+        self._alloc_rows(
+            sorted({
+                self.rows[i] for i, r in enumerate(self.reqs)
+                if self.rows[i] is not None and not self.done[i]
+                and not r.cancelled
+            }),
+            lo, min(hi, self.total),
+        )
+        if self._tab_dirty:
+            self._tab_dirty = False
+            return paged_cache_tree(cache, self.tab[:self.b_cur])
+        return cache
+
+    def _paged_realign(self, cache, delta: np.ndarray, top: int):
+        """The batched-speculation handoff's realign, paged: rows shift
+        right by ``delta[row]``. When every delta is a page multiple this
+        is a HOST table edit: each row's table rolls right by ``delta /
+        page`` tiles (the leading tiles go null, masked by the caller's
+        ``n_pad`` bump; tail pages shifted off are released), and no
+        cache byte moves (``spec_realign_table_ops``). Otherwise the
+        live rows map their destination slots and ``paged_realign_fn``
+        rewrites them on the device (``spec_realign_repacks``)."""
+        from mlapi_tpu_torch.models.gpt import paged_realign_fn
+        from mlapi_tpu_torch.ops.quant import paged_cache_tree
+
+        eng, page = self.eng, self.page
+        if np.all(delta % page == 0):
+            for row in range(self.b_cur):
+                s = int(delta[row]) // page
+                if s == 0:
+                    continue
+                self.pool.release(self.tab[row, self.npv - s:])
+                self.tab[row] = np.roll(self.tab[row], s)
+                self.tab[row, :s] = 0
+            eng.spec_realign_table_ops += 1
+            self._tab_dirty = False
+            return paged_cache_tree(cache, self.tab[:self.b_cur])
+        # A finished row's shifted bytes are never read again: only live
+        # rows map their destination slots (the rest die in the null
+        # page).
+        for i, r in enumerate(self.reqs):
+            row = self.rows[i]
+            if row is None or self.done[i] or r.cancelled:
+                continue
+            self._alloc_rows([row], int(self.n_pad[row] + delta[row]), top)
+        if self._tab_dirty:
+            self._tab_dirty = False
+            cache = paged_cache_tree(cache, self.tab[:self.b_cur])
+        eng.spec_realign_repacks += 1
+        return paged_realign_fn(cache, delta)
 
     def _release_row(self, row: int) -> None:
         """Null a row's table and drop its page holds. Chunks already
@@ -524,6 +648,8 @@ class BatchRun:
             if want > 0:
                 chunk_ids = toks_host[self.rows[i], : min(want, got)]
                 r.push({"token_ids": chunk_ids.tolist()})
+                if self.spec_hist is not None and i == 0:
+                    self.spec_hist.extend(chunk_ids.tolist())
                 self.produced[i] += got
                 if want <= got:
                     r.push(None)
@@ -532,6 +658,42 @@ class BatchRun:
     def _sdone(self, i: int) -> bool:
         """done[] as of the dispatch frontier."""
         return self.done[i] or self.sched[i] >= self.reqs[i].n_new
+
+    # -- speculative phases -------------------------------------------
+
+    def _try_spec(self) -> None:
+        """Speculate while this batch is one eligible row: the phase
+        hands back to the chunk loop when other work waits, and is
+        tried again at later boundaries once the row is alone (its
+        history replays into a fresh draft cache)."""
+        if self.spec_hist is None or self.done[0] or self.reqs[0].cancelled:
+            return
+        self.cache, self.pos = self.eng.spec.run_solo(
+            self.reqs[0], self.cache, self.pos, self.total, self.bucket,
+            self.tok, self.step, self.produced, self.n_pad, self.seeds,
+            self.spec_hist, self.temps, self.topk, self.topp,
+            ensure=self._spec_ensure if self.pool is not None else None,
+        )
+        self.sched[0] = self.produced[0]
+        if self.produced[0] >= self.reqs[0].n_new:
+            self.reqs[0].push(None)
+            self.done[0] = True
+
+    def _spec_handoff(self) -> None:
+        """The formation-time speculative phase (solo or batched),
+        leaving ``(cache, pos, tok, produced)`` ready for the chunk
+        loop."""
+        self._try_spec()
+        if self.spec_batched and not all(self.done):
+            paged = self.pool is not None
+            self.cache, self.pos = self.eng.spec.run_batched(
+                self.reqs, self.cache, self.pos, self.total, self.prompt,
+                self.tok, self.step, self.produced, self.done, self.n_pad,
+                self.b_pad,
+                ensure=self._spec_ensure if paged else None,
+                paged_realign=self._paged_realign if paged else None,
+            )
+            self.sched[:] = self.produced
 
     # -- continuous admission -----------------------------------------
 
@@ -1052,9 +1214,9 @@ class BatchRun:
 
     def units(self):
         """The lifecycle as a stream of typed units: yields
-        ``"prefill"``, ``"admit"``, ``"compact"`` or ``"decode"`` after
-        each. Every page goes back to the pool when the generator ends,
-        raises or is closed."""
+        ``"prefill"``, ``"decode"``, ``"spec"``, ``"admit"`` or
+        ``"compact"`` after each. Every page goes back to the pool when
+        the generator ends, raises or is closed."""
         try:
             yield from self._units()
         except BaseException:
@@ -1069,12 +1231,19 @@ class BatchRun:
 
     def _units(self):
         eng, reqs, chain = self.eng, self.reqs, self.chain
-        # The deferred first token rides the chain as a width-1 chunk.
-        all_rows = list(range(self.b))
-        chain.push(self.first_chunk, 1, all_rows)
-        for i in all_rows:
-            self.sched[i] += 1
-        chain.tok_dev = self._first
+        self._spec_handoff()
+        if self.spec_eligible or self.spec_batched:
+            # The phase ran (it yields at round boundaries when other
+            # work waits: engine._spec_should_yield).
+            yield "spec"
+        if self.first_chunk is not None:
+            # The deferred first token rides the chain as a width-1
+            # chunk.
+            all_rows = list(range(self.b))
+            chain.push(self.first_chunk, 1, all_rows)
+            for i in all_rows:
+                self.sched[i] += 1
+            chain.tok_dev = self._first
         while True:
             if (self._pf is not None and self._pf["next"] >= self._pf["n_run"]
                     and self.pos >= self._pf["A"]):
@@ -1110,6 +1279,22 @@ class BatchRun:
                 if not all(self.done):
                     eng.cancelled_batches += 1
                 break
+            # Speculate again once the batch is one eligible row (its
+            # joiners left); never during an interleaved prefill (rounds
+            # would move pos off its activation plan), and the brownout
+            # test last, so it counts only an engagement it blocked.
+            if (
+                self.spec_hist is not None and self.b_cur == 1
+                and live == [0] and not pending_n and self._pf is None
+                and reqs[0].n_new - self.sched[0] > 1
+                and self.pos + 1 + eng.spec_k + 1 <= self.total
+                and not self._spec_brownout()
+            ):
+                chain.invalidate()
+                self._try_spec()
+                yield "spec"
+                if self.done[0]:
+                    continue
             # The last chunk may be remainder-sized when the window
             # clamps the cache tier.
             size = min(eng.chunk, self.total - self.pos)

@@ -44,8 +44,16 @@ base rows and other tenants. Tenants (``tenants``, a
 adapter-slot quotas in the scheduler's reservation gate, weighted
 deadline slack, and a tenant-scoped brownout rung in :meth:`submit`.
 
-Not ported: speculation, the fleet tier of adapters (``AdapterPeer``),
-the fused-width policy.
+Speculative decoding (``draft``, ``spec_k``, ``spec_sample``): a
+smaller same-tokenizer draft proposes ``spec_k`` tokens a round and the
+target verifies them in one block (``serving/spec_phase.py``). A solo
+greedy row, or under ``spec_sample`` a solo sampled one, speculates
+until other work waits and again once it is alone; a freshly formed
+all-greedy batch speculates as a whole and realigns its cache for the
+chunk loop. Brownout rung 1 suppresses it.
+
+Not ported: the fleet tier of adapters (``AdapterPeer``), the
+fused-width policy.
 ``chunk`` is a fixed 8 (the JAX engine probes the device round trip to
 choose 8 or 16; a local card is the 8 case).
 """
@@ -116,12 +124,34 @@ class TextGenerationEngine:
         adapter_slots: int = 0,
         adapter_store_bytes: int = 0,
         adapter_disk_dir: str | None = None,
+        draft=None,
+        spec_k: int = 4,
+        spec_sample: bool = False,
     ):
         if tokenizer.vocab_size > model.vocab_size:
             raise ValueError(
                 f"tokenizer emits ids up to {tokenizer.vocab_size - 1} but "
                 f"the model's embedding table has {model.vocab_size} rows"
             )
+        # Speculative decoding: the draft model (its weights inside, on
+        # the target's device), proposals per round, and whether SAMPLED
+        # solo rows speculate too (a deployment flag: their streams keep
+        # the target's distribution, but a stream interleaved with
+        # admission churn is not byte-reproducible per seed).
+        if draft is not None:
+            if draft.vocab_size != model.vocab_size:
+                raise ValueError(
+                    "draft and target models must share a vocabulary"
+                )
+            if draft.max_positions < model.max_positions:
+                raise ValueError(
+                    f"draft window ({draft.max_positions}) must cover "
+                    f"the target's ({model.max_positions})"
+                )
+            draft = draft.cast_dense_()
+        self.draft_model = draft
+        self.spec_k = max(1, int(spec_k))
+        self.spec_sample = bool(spec_sample)
         # Dense weights stored in the compute dtype once, instead of a
         # cast per use (outputs are unchanged; see each family's
         # cast_dense_).
@@ -267,6 +297,17 @@ class TextGenerationEngine:
         # one x @ a @ b per target) or mixed (gathered BGMV).
         self.adapter_grouped_batches = 0
         self.adapter_gathered_batches = 0
+        # Speculation: rounds, proposals tested and accepted, paged
+        # handoffs realigned by a host table shift or a device repack,
+        # runs whose speculation brownout suppressed (once a run), and
+        # the scheduler's spec units.
+        self.spec_rounds = 0
+        self.spec_drafted = 0
+        self.spec_accepted = 0
+        self.spec_realign_table_ops = 0
+        self.spec_realign_repacks = 0
+        self.brownout_spec_suppressed = 0
+        self.sched_units_spec = 0
         self.sched_batches_live_max = 0
         self.sched_lane_stall_max = 0
         # Bytes of prefix KV adopted into pool pages (once per entry
@@ -275,19 +316,28 @@ class TextGenerationEngine:
         self.prefix_adopt_bytes = 0
         self.kv_prefix_copy_fallback = 0
         self.latency = LatencyStats()
+        from mlapi_tpu_torch.serving.spec_phase import SpecPhase
+
+        self.spec = SpecPhase(self)
 
     @classmethod
     def from_checkpoint(cls, path, *, device=None, kv_quant=None,
-                        decode_attn_impl=None, quantize=None, **kwargs):
+                        decode_attn_impl=None, quantize=None,
+                        draft_checkpoint=None, spec_sample: bool = False,
+                        **kwargs):
         """Build an engine from a checkpoint dir (``checkpoint/io``): the
         model from the manifest's config, its weights loaded onto
         ``device`` (default CUDA; see ``utils/platform``), the cache
         format and cache-read attention set when given. ``quantize=
         "int8"`` serves int8 weights (``models/quantized``), quantized
         on the host before the move, so the card never holds the float
-        weights; the engine's ``meta`` then says ``"quantized"``."""
-        from mlapi_tpu_torch.checkpoint import load_checkpoint, read_manifest
-        from mlapi_tpu_torch.models import get_model
+        weights; the engine's ``meta`` then says ``"quantized"``.
+
+        ``draft_checkpoint``: a smaller checkpoint of the same tokenizer
+        whose proposals the target verifies (speculative decoding); its
+        cache takes the target's ``kv_quant`` and ``decode_attn_impl``.
+        ``spec_sample`` also speculates sampled solo rows."""
+        from mlapi_tpu_torch.checkpoint import read_manifest
         from mlapi_tpu_torch.text import tokenizer_from_fingerprint
         from mlapi_tpu_torch.utils.platform import resolve_device
 
@@ -299,12 +349,7 @@ class TextGenerationEngine:
                 f"{path}: model {cfg.get('model')!r} is not served by the "
                 f"port (one of {GENERATIVE_MODELS})"
             )
-        # Staged on the host, where the archive is read, then moved.
-        model = get_model(cfg["model"], seed=None, device="cpu",
-                          **cfg.get("model_kwargs", {}))
-        state, meta = load_checkpoint(path, model)
-        model.load_state_dict(state)
-        info = meta.to_json()
+        model, info = _load_generative(path, cfg)
         if quantize is not None:
             model = _quantized(model, quantize)
             info["quantized"] = quantize
@@ -313,7 +358,22 @@ class TextGenerationEngine:
         tokenizer = tokenizer_from_fingerprint(
             cfg.get("tokenizer", {"kind": "bytes"})
         )
-        return cls(model, tokenizer=tokenizer, meta=info, **kwargs)
+        draft = None
+        if draft_checkpoint is not None:
+            dcfg = read_manifest(draft_checkpoint).config
+            if dcfg.get("tokenizer") != cfg.get("tokenizer"):
+                raise ValueError(
+                    "draft checkpoint was trained with a different "
+                    "tokenizer than the target"
+                )
+            draft = _load_generative(draft_checkpoint, dcfg)[0].to(dev)
+            # The draft's spec-phase cache rides the target's format and
+            # cache-read attention.
+            draft.configure(kv_quant=kv_quant,
+                            decode_attn_impl=decode_attn_impl)
+            info["draft"] = str(draft_checkpoint)
+        return cls(model, tokenizer=tokenizer, meta=info, draft=draft,
+                   spec_sample=spec_sample, **kwargs)
 
     @property
     def queue_depth(self) -> int:
@@ -371,9 +431,9 @@ class TextGenerationEngine:
 
     def _brownout_level(self) -> int:
         """Queue pressure → brownout rung: 0 normal, 1 at >= 50 % of
-        ``max_queue`` (clamp token budgets), 2 at >= 75 % (also evict
-        an idle prefix page set). Speculation suppression waits for
-        speculation (ROADMAP Queue A item 6)."""
+        ``max_queue`` (clamp token budgets, suppress speculation:
+        ``BatchRun._spec_brownout``), 2 at >= 75 % (also evict an idle
+        prefix page set)."""
         if not self.admission_control:
             return 0
         q = self.queue_depth + min(self.router_queue_depth, self.max_queue)
@@ -766,6 +826,18 @@ class TextGenerationEngine:
         n_new = max(r.n_new, *(g.n_new for g in group))
         return p_len + bucket + n_new <= self.model.max_positions
 
+    def _spec_should_yield(self) -> bool:
+        """Does a speculative phase end at its next round boundary:
+        joiners are staged for admission, or (under the unit scheduler)
+        other lanes or pending groups have work. A spec round is one
+        unit; a solo phase must not hold the dispatch thread while
+        another batch waits. (Tests patch it to force a handoff.)"""
+        with self._alock:
+            if self._admit:
+                return True
+        s = self.sched
+        return s is not None and s.queue_depth > 1
+
     def _defer(self, cand) -> None:
         """Hand a staged joiner a lane cannot take back to the collector
         and wake it."""
@@ -1143,10 +1215,26 @@ class TextGenerationEngine:
         self._run_batch([sink])
         if sink.error is not None:
             raise sink.error
+        if self.draft_model is not None:
+            self.spec.warm()
         _log.info(
-            "warmed generate on %s (kv_quant=%s, decode_attn_impl=%s)",
+            "warmed generate on %s (kv_quant=%s, decode_attn_impl=%s%s)",
             self.device, self.kv_quant, self.decode_attn_impl,
+            ", draft" if self.draft_model is not None else "",
         )
+
+
+def _load_generative(path, cfg: dict):
+    """A decoder checkpoint's model with its weights, on the host (where
+    the archive is read; callers move it), and the manifest's JSON."""
+    from mlapi_tpu_torch.checkpoint import load_checkpoint
+    from mlapi_tpu_torch.models import get_model
+
+    model = get_model(cfg["model"], seed=None, device="cpu",
+                      **cfg.get("model_kwargs", {}))
+    state, meta = load_checkpoint(path, model)
+    model.load_state_dict(state)
+    return model, meta.to_json()
 
 
 def _quantized(model, quantize: str):

@@ -2,11 +2,11 @@
 
 A copy of ``mlapi_tpu/serving/faults.py`` restricted to the seams the
 port has: the page pool's allocation, an admission's table install,
-prefill-chunk dispatch, decode-chunk dispatch, the unit scheduler's
-dispatch of each unit, the collector's queue pop, the per-request
-stream push, a scoring batch's device call and an adapter's install
-into the slot pool. Tests and chaos
-drills force failures there and check that every stream still ends in
+prefill-chunk dispatch, decode-chunk dispatch, each speculative verify
+block, the unit scheduler's dispatch of each unit, the collector's
+queue pop, the per-request stream push, a scoring batch's device call
+and an adapter's install into the slot pool. Tests and chaos drills
+force failures there and check that every stream still ends in
 a well-formed terminal frame and that the engine serves fresh work.
 
 - Zero overhead when disarmed: ``fire()`` is one module-global bool
@@ -36,6 +36,7 @@ POINTS = (
     "table_install",   # a joiner's admission, after its page alloc
     "prefill_chunk",   # each chunked-prefill chunk dispatch
     "decode",          # each decode-chunk dispatch
+    "spec_verify",     # each speculative verify block (solo + batched)
     "sched_unit",      # the unit scheduler, before each unit (formation
                        # included): a raise kills that lane only
     "collector_pop",   # the collector claiming a queued request

@@ -6,7 +6,8 @@ generation lanes:
 - **Lanes.** Each formed request group becomes a lane: a
   :class:`~mlapi_tpu_torch.serving.batch_run.BatchRun` and its
   ``units()`` generator, which yields a typed unit (``prefill``,
-  ``decode``, ``admit``, ``compact``) after each piece of device work.
+  ``decode``, ``spec``, ``admit``, ``compact``) after each piece of
+  device work.
   ``max_batches`` lanes may be live at once; at 1 the same machinery
   runs one batch at a time, so the two modes run the same code and
   give the same greedy streams wherever they form the same batches.
@@ -22,10 +23,12 @@ generation lanes:
   picked least recently, so equal lanes alternate. A lane whose slack
   is inside about one formation blocks new group starts.
 - **Page budget.** Paged lanes share the engine's pool. A lane reserves
-  its worst case (``_page_need``) at start, and a pending group starts
-  beside live lanes only if its worst case and the live reservations
-  fit the pool; otherwise it waits (``sched_pages_deferred``, once per
-  episode). With no lane live a group starts regardless.
+  its worst case (``_page_need``, plus ``spec_k + 1`` slots a row for a
+  speculative verify block when a draft is attached) at start, and a
+  pending group starts beside live lanes only if its worst case and the
+  live reservations fit the pool; otherwise it waits
+  (``sched_pages_deferred``, once per episode). With no lane live a
+  group starts regardless.
 - **Score units.** A co-resident scoring path
   (``serving/scoring.py::ScorePath``) hands each formed batch in as a
   ``score`` unit (``submit_score``): a FIFO beside the lanes whose head
@@ -52,8 +55,9 @@ generation lanes:
   deferrals); and a candidate's slack is divided by its highest tenant
   weight.
 
-Not ported, and refused by name where a caller could reach them: spec
-units (ROADMAP Queue A item 6). The reference's
+A spec unit is one speculative phase of a lane (``serving/spec_phase.py``),
+which ends at a round boundary once other lanes or pending groups have
+work (``engine._spec_should_yield``). The reference's
 ``_rebind_pool`` and ``_writeback_pool`` have no counterpart: the port's
 pool tensors are written in place and never donated, so no lane's view
 of them goes stale.
@@ -74,11 +78,7 @@ _log = get_logger("serving.scheduler")
 
 # The kinds a lane's generator yields (score units come from
 # ``submit_score``, never from a lane).
-UNIT_KINDS = ("prefill", "decode", "admit", "compact")
-# Unit kinds of the reference that wait for their modules.
-_NOT_PORTED_UNITS = {
-    "spec": "spec units (ROADMAP Queue A item 6)",
-}
+UNIT_KINDS = ("prefill", "decode", "spec", "admit", "compact")
 
 # Urgency (seconds) of work nobody waits on with a deadline and that
 # the latency reservoirs do not yet flag: above any real deadline,
@@ -545,11 +545,14 @@ class UnitScheduler:
         return len(reqs) * self._row_pages(reqs)
 
     def _row_pages(self, reqs) -> int:
+        """Per-row worst-case pages of a group (rows re-pack to its
+        geometry), with a speculative verify block's headroom when a
+        draft is attached."""
         eng = self.eng
         span = eng._cache_len(
             max(r.prefix_len for r in reqs) + max(len(r.row) for r in reqs),
             max(r.n_new for r in reqs),
-        )
+        ) + (eng.spec_k + 1 if eng.draft_model is not None else 0)
         return -(-span // eng.pool.page)
 
     def _claim_next_group(self) -> _Group | None:
@@ -711,9 +714,7 @@ class UnitScheduler:
             faults.fire("sched_unit")
             kind = next(lane.gen)
             if kind not in UNIT_KINDS:
-                raise NotImplementedError(
-                    _NOT_PORTED_UNITS.get(kind, f"unit {kind!r}")
-                    + " are not ported")
+                raise RuntimeError(f"unknown unit kind {kind!r}")
         except StopIteration:
             done = True
         except Exception as e:  # noqa: BLE001 — lane-scoped failure

@@ -1279,3 +1279,39 @@ def test_score_path_on_the_card_builds_no_graph(card, backend):
     assert seen and all(mode and not grad for _, mode, grad in seen)
     want = "unitsched" if backend == "sched" else "score-dispatch"
     assert all(name.startswith(want) for name, _, _ in seen), seen
+
+
+@pytest.mark.parametrize("page,kv_quant", [(None, "none"), (16, "int8")])
+def test_spec_streams_equal_plain_through_the_kernels(card, page, kv_quant):
+    """Speculative serving in f32 on the card: solo and batched greedy
+    streams equal the target-only engine's, the draft's steps through
+    flash-decode (B1) and the verify blocks through flash-extend (B2,
+    or B4 for a paged target), each counted."""
+    from mlapi_tpu_torch.models.gpt import GptLM
+    from mlapi_tpu_torch.serving.engine import TextGenerationEngine
+    from mlapi_tpu_torch.text import ByteTokenizer
+
+    cfg = dict(SERVE_CFG, compute_dtype="float32")
+
+    def engine(draft):
+        model = GptLM(**cfg, seed=0, device=card)
+        model.configure(kv_quant=kv_quant, decode_attn_impl="flash")
+        if draft is not None:
+            draft = GptLM(**dict(cfg, num_layers=1), seed=draft, device=card)
+            draft.configure(kv_quant=kv_quant, decode_attn_impl="flash")
+        return TextGenerationEngine(model, tokenizer=ByteTokenizer(),
+                                    kv_page_size=page, draft=draft)
+
+    verify = kern.paged_extend_attention if page else kern.extend_attention
+    specs = ([("a solo row", 40, None)],
+             [("row one", 30, None), ("two", 12, None),
+              ("row three", 21, None)])
+    plain = engine(None)
+    want = [_serve(plain, s, sched=1)[0] for s in specs]
+    spec = engine(1)
+    n_dec, n_ver = kern.decode_attention.launches, verify.launches
+    got = [_serve(spec, s, sched=1)[0] for s in specs]
+    assert got == want
+    assert spec.spec_rounds > 0
+    assert kern.decode_attention.launches > n_dec
+    assert verify.launches > n_ver

@@ -25,7 +25,8 @@ runs, so both engines form the same groups.
   infeasible deadline is a 503 with retry-after; drain covers the
   scheduler's queue and ``/healthz`` reads draining; the brownout rungs
   clamp budgets and evict an idle prefix page set; lanes run under
-  inference mode; tenant and spec units are refused by name.
+  inference mode; spec units count, a kind no lane yields is refused by
+  name.
 """
 
 import asyncio
@@ -487,24 +488,30 @@ def test_unported_units_are_refused_by_name_and_flags_parse(weights):
         def push(self, item):
             self.frames.append(item)
 
-    class SpecRun:
+    class Run:
         reqs = [Waiter()]
 
         def units(self):
+            # Spec units are served since Queue A item 6; a kind no
+            # lane yields is refused by name.
             yield "spec"
+            yield "bogus"
 
         def _paged_cleanup(self):
             pass
 
-    run = SpecRun()
+    run = Run()
     eng._wake_collector = lambda: None
     lane = _Lane(1, run, run.units(), 0)
     sched._lanes.append(lane)
     sched._advance(lane)
-    # The lane failed with an error naming the ROADMAP item, and left.
+    assert lane in sched._lanes and eng.sched_units_spec == 1
+    assert sched.trace[-1] == (1, "spec") and not run.reqs[0].frames
+    sched._advance(lane)
+    # The lane failed with an error naming the unit, and left.
     assert lane not in sched._lanes
     (err,) = run.reqs[0].frames
-    assert isinstance(err, NotImplementedError) and "item 6" in str(err)
+    assert isinstance(err, RuntimeError) and "'bogus'" in str(err)
     assert parse_args(["--checkpoint", "c"]).sched_max_batches == 2
     args = parse_args(["--checkpoint", "c", "--sched-max-batches", "1",
                        "--default-deadline-ms", "500",
