@@ -280,6 +280,29 @@ the JAX package. Phases, each fatal on failure:
     own slots, L = 1024), B1 at the draft's decode shape.
     ``--only-spec`` runs phases 1, 2 and 13 alone (training the docs-gpt
     pair itself) and prints no result line.
+14. fused widths and the host KV tier, on the GPT-2 contiguous bf16 and
+    paged 16 int8 engines after phase 9. (a) The 8 short prompts at
+    budgets 65 and 129 (above ``fused_max_new``) in one formed batch,
+    in fused widths and pinned to the plain chunk: the same streams, one
+    fused run, the chunk counts the width rule works out from the
+    budgets (2 against 16), one flash-decode launch a layer a decode
+    step and the same total; budgets 33 and 129, which compact at
+    different steps in the two modes, reported, with no divergence
+    before the short rows end; a non-streaming pair with a streaming
+    joiner (widths 8, 8, then 48); wall ms and host syncs a token, fused
+    against plain (``torch.cuda.set_sync_debug_mode``), reported. (b) A
+    host tier attached after a restart's state, ``PREFIX_A`` over HTTP:
+    cold, warm, its pages evicted (paged) and restored, its entry
+    dropped by the prefix LRU and rebuilt from the blob; restored
+    streams equal the cold one, ``prefix_builds`` flat, spill and
+    restore bytes ``n_pages x kv_page_bytes``, one flash-extend a layer
+    and one flash-decode a layer a step a restored request; the
+    ``tier_spill`` / ``tier_restore`` faults counted with pages
+    conserved; one restore timed beside pinned and pageable
+    host-to-device copies of its bytes; a ``--kv-tier-disk-dir`` round
+    trip from the CLI's factory; TTFT cold, warm and restored. At
+    TinyLlama's width (paged 16 int8, after phase 12 there): one
+    restore, 191,488-B pages.
 
 Stdout: one JSON line per kernel case, per training and serving run,
 then the run's seconds, the ``{"kernels": [...]}`` summary (B1-B7; each
@@ -1330,7 +1353,7 @@ def check_admission_f32(model):
     a 48-token and a 3-token request, and a joiner staged from the
     start, which ``max_batch`` 2 holds back until the short request has
     finished and then admits into that row (``tests/test_torch_paged_
-    serving.py``'s scenario, on the card). Each stream must equal the
+    serving.py``'s scenario, on the card; plain chunks, as there). Each stream must equal the
     einsum oracle's stream of its prompt alone, and a paged engine must
     end with every page back in its pool."""
     import torch
@@ -1355,7 +1378,10 @@ def check_admission_f32(model):
         sinks = [_SyncSink(eng._encode(t, n, 0.0, 0, None), o)
                  for (t, n), o in zip(ADMIT_F32, outs)]
         eng._admit.append(sinks[2])
-        eng._run_batch(sinks[:2], admit=True)
+        # Plain chunks: a fused width would finish the long request in
+        # one chunk after the short one ends, leaving no boundary to
+        # admit the joiner at.
+        eng._run_batch(sinks[:2], admit=True, fused_ok=False)
         row = {"case": "f32_admission", "kv_page_size": page,
                "admitted": eng.admitted, "equals_alone": outs == want,
                "errors": [repr(s.error) for s in sinks if s.error],
@@ -3292,6 +3318,543 @@ def llama_phases(scratch: Path, launches: dict, power, then=None) -> dict:
     seconds["train docs-llama"] = time.perf_counter() - t0
     emit({"case": "llama_seconds", **seconds})
     return train_row
+
+
+# -- 14. fused widths and the host KV tier ------------------------------
+
+# Two budgets above fused_max_new's 64: the longest row's remaining 128
+# tokens take two 64-wide fused chunks or sixteen plain ones, the same
+# decode steps either way, and the 65-token rows end on the boundary
+# both share (step 64), so both compact there and every step runs at
+# the same batch shape. At 33 the short rows end at step 32, where only
+# the plain chunks have a boundary: the fused run decodes steps 33-64 at
+# B = 8 and the plain one at B = 4, and bf16 GEMMs round by shape.
+FUSED_BUDGETS = (65, 129)
+FUSED_BUDGETS_SKEWED = (33, 129)
+# A non-streaming pair and a streaming joiner admitted at the first
+# boundary: plain widths while it is live, then one fused chunk.
+FUSED_PAIR, FUSED_JOINER = ("fused row one", "fused row two"), "join"
+FUSED_PAIR_NEW, FUSED_JOINER_NEW = 64, 16
+TIER_BYTES = 1 << 30             # host bytes of the KV tier
+
+
+def fused_widths_of(engine, bucket, budgets, stream_at_formation=False,
+                    joiner=None):
+    """The decode chunk widths of one batch by the fused-width rule,
+    worked out from its budgets alone: the top width is the smallest
+    ladder tier (powers of two of ``chunk`` from the default budget's
+    tier up to ``fused_max_new``'s) covering the longest budget, the last
+    rung past it, or the plain chunk when a row streams at formation; at
+    each boundary the smallest power of two of ``chunk`` covering the
+    live rows' remaining tokens, capped at the top, the plain chunk while
+    a streaming row is live. Every row has its first token at formation;
+    ``joiner`` ``(n_new, stream)`` joins at the first boundary with its
+    own. ``bucket``: the batch's prompt bucket."""
+    chunk = engine.chunk
+    tier = chunk
+    while tier < engine.default_max_new_tokens:
+        tier *= 2
+    ladder = [tier]
+    while ladder[-1] < engine.fused_max_new:
+        ladder.append(ladder[-1] * 2)
+    top = next((t for t in ladder if t >= max(budgets)), ladder[-1])
+    if stream_at_formation or top <= chunk:
+        top = 0
+    rows = [[n, stream_at_formation and i == 0, 1]
+            for i, n in enumerate(budgets)]
+    pos, total = bucket, engine._cache_len(bucket, max(budgets))
+    widths = []
+    while True:
+        if joiner is not None and not widths:
+            rows.append([joiner[0], joiner[1], 1])
+        live = [r for r in rows if r[2] < r[0]]
+        if not live:
+            return widths
+        w = chunk
+        if top and not any(r[1] for r in live):
+            need = max(r[0] - r[2] for r in live)
+            while w < need:
+                w *= 2
+            w = min(w, top)
+        size = min(max(w, chunk), total - pos)
+        if size <= 0:
+            return widths
+        widths.append(size)
+        for r in live:
+            r[2] += size
+        pos += size
+
+
+def fused_batch(engine, specs, fused: bool, joiner=None,
+                count_syncs: bool = False) -> dict:
+    """One formed batch on this thread (``_run_batch``, as
+    ``generate_text`` runs one), in fused widths or (``fused`` False)
+    pinned to the plain chunk: ``specs`` ``(text, n_new)`` rows, no
+    stream; ``joiner`` ``(text, n_new)`` staged to stream from the first
+    boundary. Its streams, wall seconds (device synchronized), the
+    engine's counter deltas, launches, decode steps and, with
+    ``count_syncs``, the host syncs of the run: the synchronizing CUDA
+    calls (device-to-host reads, pageable uploads, stream waits) that
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports, one warning
+    each."""
+    import warnings
+
+    import torch
+
+    from mlapi_tpu_torch.serving.requests import _SyncSink
+
+    steps = [0]
+    step = engine.model.decode_step
+
+    def counted(*args, **kwargs):
+        steps[0] += 1
+        return step(*args, **kwargs)
+
+    sinks = [_SyncSink(engine._encode(t, n, 0.0, 0, None), [])
+             for t, n in specs]
+    everyone = list(sinks)
+    if joiner is not None:
+        j = _SyncSink(engine._encode(joiner[0], joiner[1], 0.0, 0, None,
+                                     stream=True), [])
+        everyone.append(j)
+        engine._admit[:] = [j]
+    before = {k: getattr(engine, k) for k in (
+        "chunk_calls", "fused_calls", "admitted", "batch_calls")}
+    engine.model.decode_step = counted
+    caught: list = []
+    try:
+        zero_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            if count_syncs:
+                torch.cuda.set_sync_debug_mode("warn")
+            try:
+                engine._run_batch(sinks, admit=joiner is not None,
+                                  fused_ok=fused)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, _ = read_counters(SERVING)
+    finally:
+        del engine.model.decode_step        # the class's method again
+        engine._admit[:] = []
+    errors = [repr(s.error) for s in everyone if s.error is not None]
+    if errors:
+        raise SystemExit(f"fused batch failed: {errors}")
+    out = {"streams": [s._out for s in everyone], "wall_s": wall,
+           "steps": steps[0], "launches": launches,
+           **{k: getattr(engine, k) - v for k, v in before.items()}}
+    if count_syncs:
+        out["host_syncs"] = sum("synchroniz" in str(w.message)
+                                for w in caught)
+    return out
+
+
+def fused_leg(engine, cfg, model: str, power) -> dict:
+    """Phase 14 (a) on a served engine (contiguous bf16 or paged 16
+    int8): the 8 short prompts at ``FUSED_BUDGETS`` in one formed batch
+    with fused widths (the default) and pinned to the plain chunk, and a
+    non-streaming pair with a streaming joiner. Streams equal, one
+    fused run a batch, chunk counts as the rule works them out, one
+    flash-decode a layer a decode step; wall ms and host syncs per token
+    fused against plain, alternated (reported, no gate)."""
+    import statistics
+
+    layers = cfg["num_layers"]
+    decode = ("paged_decode_attention" if engine.kv_page_size
+              else "decode_attention")
+    specs = [(p, FUSED_BUDGETS[i % 2]) for i, p in enumerate(SHORT_PROMPTS)]
+    tokens = sum(n for _, n in specs)
+    budgets = [n for _, n in specs]
+    runs = {fused: fused_batch(engine, specs, fused)
+            for fused in (True, False)}
+    # Budgets whose compaction steps differ: report which streams
+    # diverge, and hold that none does before the short rows end.
+    skewed = [(p, FUSED_BUDGETS_SKEWED[i % 2])
+              for i, p in enumerate(SHORT_PROMPTS)]
+    sk = {fused: fused_batch(engine, skewed, fused)["streams"]
+          for fused in (True, False)}
+    first_diff = [next((i for i, (a, b) in enumerate(zip(x, y)) if a != b),
+                       None) for x, y in zip(sk[True], sk[False])]
+    bucket = max(engine._bucket(len(p)) for p in SHORT_PROMPTS)
+    want_fused = fused_widths_of(engine, bucket, budgets)
+    want_plain = [engine.chunk] * -(-(max(budgets) - 1) // engine.chunk)
+    pair = [(t, FUSED_PAIR_NEW) for t in FUSED_PAIR]
+    joined = {fused: fused_batch(engine, pair, fused,
+                                 (FUSED_JOINER, FUSED_JOINER_NEW))
+              for fused in (True, False)}
+    want_join = fused_widths_of(
+        engine, max(engine._bucket(len(t)) for t in FUSED_PAIR),
+        [FUSED_PAIR_NEW] * 2, joiner=(FUSED_JOINER_NEW, True))
+    # Timing: plain, fused, fused, plain, then one profiled run each.
+    walls = {True: [], False: []}
+    for fused in (False, True, True, False):
+        walls[fused].append(fused_batch(engine, specs, fused)["wall_s"])
+    syncs = {fused: fused_batch(engine, specs, fused,
+                                count_syncs=True)["host_syncs"]
+             for fused in (True, False)}
+    f, p = runs[True], runs[False]
+    row = {
+        "case": "fused_widths", "model": model,
+        "kv_quant": engine.kv_quant, "kv_page_size": engine.kv_page_size,
+        "budgets": list(FUSED_BUDGETS), "fused_max_new": engine.fused_max_new,
+        "chunk_calls": {"fused": f["chunk_calls"], "plain": p["chunk_calls"]},
+        "want_chunks": {"fused": len(want_fused), "plain": len(want_plain)},
+        "widths": want_fused, "fused_calls": f["fused_calls"],
+        "decode_steps": {"fused": f["steps"], "plain": p["steps"]},
+        "decode_launches": {"fused": f["launches"][decode],
+                            "plain": p["launches"][decode]},
+        "joiner": {"chunk_calls": joined[True]["chunk_calls"],
+                   "want_chunks": len(want_join), "widths": want_join,
+                   "admitted": joined[True]["admitted"],
+                   "plain_chunk_calls": joined[False]["chunk_calls"]},
+        "wall_ms_per_token": {
+            k: statistics.median(v) * 1e3 / tokens
+            for k, v in (("fused", walls[True]), ("plain", walls[False]))},
+        "wall_ms_per_token_runs": {
+            "fused": [w * 1e3 / tokens for w in walls[True]],
+            "plain": [w * 1e3 / tokens for w in walls[False]]},
+        "host_syncs_per_token": {"fused": syncs[True] / tokens,
+                                 "plain": syncs[False] / tokens},
+        "tokens": tokens, "card": power,
+        "skewed_budgets": {
+            "budgets": list(FUSED_BUDGETS_SKEWED),
+            "streams_differing": sum(d is not None for d in first_diff),
+            "first_divergence": first_diff},
+    }
+    row["checks"] = checks = {
+        "streams_equal_plain": f["streams"] == p["streams"]
+        and [len(s) for s in f["streams"]] == budgets,
+        "one_fused_run": f["fused_calls"] == 1 and p["fused_calls"] == 0,
+        "chunks_as_worked_out": f["chunk_calls"] == len(want_fused)
+        and p["chunk_calls"] == len(want_plain),
+        "decode_one_per_layer_per_step":
+            f["launches"][decode] == layers * f["steps"]
+            and p["launches"][decode] == layers * p["steps"],
+        "same_decode_total": f["launches"][decode] == p["launches"][decode],
+        "joiner_streams_equal_plain":
+            joined[True]["streams"] == joined[False]["streams"]
+            and joined[True]["admitted"] == 1,
+        "joiner_drops_the_width":
+            joined[True]["chunk_calls"] == len(want_join)
+            and want_join[0] == engine.chunk
+            and joined[True]["fused_calls"] == 1,
+        "joiner_decode_one_per_layer_per_step":
+            joined[True]["launches"][decode] == layers * joined[True]["steps"],
+        "skewed_same_until_the_short_rows_end": all(
+            d is None or d >= min(FUSED_BUDGETS_SKEWED) for d in first_diff),
+    }
+    emit(row)
+    if not all(checks.values()):
+        raise SystemExit(f"{model} fused widths failed: {checks}")
+    return f["launches"]
+
+
+def tier_leg(engine, cfg, model: str, power, scratch: Path | None = None,
+             ckpt: Path | None = None) -> dict:
+    """Phase 14 (b) on a served engine, with a host tier of
+    ``TIER_BYTES`` attached as the engine's constructor attaches one
+    (``kv_tier_bytes``), after a restart's state (no prefix entry, no
+    resident page set). Over HTTP, one request naming ``PREFIX_A``: cold
+    (a build), warm (a hit); on a paged engine ``evict_idle(1)`` spills
+    the entry's pages and the next request restores them; the prefix
+    dict's LRU (one entry) drops the entry when ``PREFIX_B`` arrives and
+    the next ``PREFIX_A`` request rebuilds it from the blob. Every
+    restored stream equals the cold one, ``prefix_builds`` stays flat,
+    spill and restore bytes are ``n_pages x kv_page_bytes`` (one
+    bucket-wide page on a contiguous engine), and each restored request
+    launches one flash-extend a layer (its suffix) and one flash-decode a
+    layer a step, nothing else. Then the fault points (``tier_spill``,
+    ``tier_restore``: counted, cold fallback, pages conserved), one
+    restore timed beside plain host-to-device copies of its bytes, and,
+    with ``ckpt``, a disk round trip through the CLI's factory with
+    ``--kv-tier-disk-dir`` under ``scratch``."""
+    import numpy as np
+    import torch
+
+    from mlapi_tpu_torch.ops.quant import kv_tree_bytes
+    from mlapi_tpu_torch.serving import faults
+    from mlapi_tpu_torch.serving.app import build_app
+    from mlapi_tpu_torch.serving.kv_tier import KVTier
+    from mlapi_tpu_torch.serving.prefix import PrefixCache
+    from mlapi_tpu_torch.serving.server import BackgroundServer
+
+    layers = cfg["num_layers"]
+    pool = engine.pool
+    page = engine.kv_page_size or None
+    mine = (("paged_decode_attention", "paged_extend_attention") if page
+            else ("decode_attention", "extend_attention"))
+    if page:
+        pool.evict_idle(pool.pages_total)   # no tier yet: discarded
+    engine.prefix = PrefixCache(engine)
+    engine.kv_tier = tier = KVTier(TIER_BYTES)
+    if page:
+        pool.tier = tier
+    suffix = prefix_suffixes()[0]
+    body = {"text": suffix, "prefix": PREFIX_A, "max_new_tokens": PREFIX_NEW}
+    body_b = {**body, "prefix": PREFIX_B}
+    steps = [0]
+    step = engine.model.decode_step
+
+    def counted(*args, **kwargs):
+        steps[0] += 1
+        return step(*args, **kwargs)
+
+    def restored_request(srv, what):
+        zero_counters()
+        steps[0] = 0
+        ttft, (done,) = concurrent_streams(srv.port, [body], what)
+        launches, _ = read_counters(SERVING)
+        return ttft[0], done["token_ids"], launches, steps[0]
+
+    def exact(launches, n_steps):
+        return (launches[mine[1]] == layers
+                and launches[mine[0]] == layers * n_steps
+                and not any(launches[k] for k in KERNELS if k not in mine))
+
+    def settled():
+        deadline = time.monotonic() + 60.0
+        want = lambda: sum(len(p) for p in pool._entries.values())  # noqa
+        while pool.pages_in_use != want() and time.monotonic() < deadline:
+            time.sleep(0.01)
+        return pool.pages_in_use == want()
+
+    engine.model.decode_step = counted
+    row = {"case": "kv_tier", "model": model, "kv_quant": engine.kv_quant,
+           "kv_page_size": page, "prefix_bytes": len(PREFIX_A),
+           "card": power}
+    checks = row["checks"] = {}
+    launch_paths = {}
+    t_leg = time.perf_counter()
+    try:
+        with BackgroundServer(build_app(engine)) as srv:
+            ttft_cold, (cold,) = concurrent_streams(srv.port, [body],
+                                                    "tier cold")
+            ref = cold["token_ids"]
+            ttft_warm, (warm,) = concurrent_streams(srv.port, [body],
+                                                    "tier warm")
+            entry = engine.prefix.entry(PREFIX_A)
+            if page:
+                settled()
+                n_pages = len(pool.entry_pages(PREFIX_A))
+                blob_bytes = n_pages * pool.page_bytes
+                # Seam 1: pool pressure (the brownout lever).
+                checks["evict_one"] = pool.evict_idle(1) == 1
+                checks["spill_bytes_closed_form"] = (
+                    tier.spill_count == 1 and tier.spill_bytes == blob_bytes)
+                ttft_pool, got, launches, n = restored_request(
+                    srv, "tier pool restore")
+                launch_paths["tier pool restore"] = launches
+                checks["pool_restore_stream"] = got == ref
+                checks["pool_restore_builds_flat"] = (
+                    engine.prefix_builds == 1)
+                checks["pool_restore_bytes"] = (
+                    tier.restore_hits == 1
+                    and tier.restore_bytes == blob_bytes)
+                checks["pool_restore_launches"] = exact(launches, n)
+                row["pool_restore"] = {"ttft_ms": ttft_pool,
+                                       "n_pages": n_pages,
+                                       "bytes": blob_bytes,
+                                       "launches": launches, "steps": n}
+            else:
+                blob_bytes = kv_tree_bytes(entry.kv)
+            # Seam 2: the prefix dict's own LRU.
+            engine.prefix.max_entries = 1
+            concurrent_streams(srv.port, [body_b], "tier other prefix")
+            hits0, builds0 = tier.restore_hits, engine.prefix_builds
+            checks["entry_spilled"] = tier.entries >= 1
+            ttft_entry, got, launches, n = restored_request(
+                srv, "tier entry restore")
+            launch_paths["tier entry restore"] = launches
+            checks["entry_restore_stream"] = got == ref
+            checks["entry_restore_builds_flat"] = (
+                engine.prefix_builds == builds0 == 2)
+            checks["entry_restore_hits"] = (
+                tier.restore_hits == hits0 + (2 if page else 1))
+            checks["restore_bytes_closed_form"] = (
+                tier.restore_bytes == tier.restore_hits * blob_bytes)
+            checks["entry_restore_launches"] = exact(launches, n)
+            row["entry_restore"] = {"ttft_ms": ttft_entry,
+                                    "launches": launches, "steps": n}
+            # The fault points: counted, cold fallback, pages conserved.
+            if page:
+                settled()
+                with faults.active("tier_spill:raise"):
+                    pool.evict_idle(1)
+                checks["spill_fault_counted"] = tier.spill_failures == 1
+                checks["spill_fault_pages_conserved"] = settled()
+                fails = tier.restore_failures
+                with faults.active("tier_restore:raise"):
+                    _, (done,) = concurrent_streams(
+                        srv.port, [body], "tier restore fault")
+                checks["restore_fault_stream"] = done["token_ids"] == ref
+                checks["restore_fault_counted"] = (
+                    tier.restore_failures == fails + 1)
+                checks["restore_fault_pages_conserved"] = settled()
+            else:
+                concurrent_streams(srv.port, [body_b], "tier other prefix")
+                fails, builds = tier.restore_failures, engine.prefix_builds
+                with faults.active("tier_restore:raise"):
+                    _, (done,) = concurrent_streams(
+                        srv.port, [body], "tier restore fault")
+                checks["restore_fault_stream"] = done["token_ids"] == ref
+                checks["restore_fault_counted"] = (
+                    tier.restore_failures == fails + 1
+                    and engine.prefix_builds == builds + 1)
+                spills = tier.spill_failures
+                with faults.active("tier_spill:raise"):
+                    concurrent_streams(srv.port, [body_b], "tier spill fault")
+                checks["spill_fault_counted"] = (
+                    tier.spill_failures == spills + 1)
+            metrics = get(srv.port, "/metrics")
+    finally:
+        del engine.model.decode_step
+    c, g = metrics["counters"], metrics["gauges"]
+    checks["metrics"] = all(
+        c[f"generate.{k}"] == getattr(engine, k) for k in (
+            "kv_prefix_restore_hits", "kv_prefix_restore_misses",
+            "kv_prefix_restore_bytes", "kv_prefix_restore_failures",
+            "kv_prefix_spill_count", "kv_prefix_spill_bytes",
+            "kv_prefix_spill_failures", "kv_tier_evictions")) and all(
+        g[f"generate.{k}"] == getattr(engine, k)
+        for k in ("kv_tier_bytes_in_use", "kv_tier_entries"))
+    row.update({
+        "ttft_ms": {"cold_build": ttft_cold, "warm_hit": ttft_warm,
+                    "pool_restore": row.get("pool_restore", {}).get(
+                        "ttft_ms"),
+                    "entry_restore": ttft_entry},
+        "blob_bytes": blob_bytes,
+        "counters": {k: getattr(engine, k) for k in (
+            "prefix_builds", "kv_prefix_restore_hits",
+            "kv_prefix_restore_bytes", "kv_prefix_restore_failures",
+            "kv_prefix_spill_count", "kv_prefix_spill_bytes",
+            "kv_prefix_spill_failures")},
+    })
+    if page:
+        # One restore timed: the blob into fresh pool pages (lookup
+        # outside the window), beside plain host-to-device copies of the
+        # same bytes from pageable and from pinned host memory.
+        settled()
+        pool.evict_idle(1)
+        blob = tier.lookup(PREFIX_A)
+        pool_fp = "timed restore"
+        restore_s = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pages = pool.restore_entry(pool_fp, blob)
+            torch.cuda.synchronize()
+            restore_s.append(time.perf_counter() - t0)
+            pool.drop_entry(pool_fp)
+        host = np.ones(blob.nbytes, np.uint8)
+        pinned = torch.from_numpy(host).pin_memory()
+        copies = {}
+        for name, src in (("pageable", torch.from_numpy(host)),
+                          ("pinned", pinned)):
+            ts = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                src.to("cuda", non_blocking=name == "pinned")
+                torch.cuda.synchronize()
+                ts.append(time.perf_counter() - t0)
+            copies[name] = min(ts)
+        best = min(restore_s)
+        row["restore_timing"] = {
+            "bytes": blob.nbytes, "pages": len(pages),
+            "restore_ms": [t * 1e3 for t in restore_s],
+            "restore_gb_s": blob.nbytes / best / 1e9,
+            "h2d_copy_ms": {k: v * 1e3 for k, v in copies.items()},
+            "h2d_copy_gb_s": {k: blob.nbytes / v / 1e9
+                              for k, v in copies.items()},
+        }
+        checks["pages_conserved_at_end"] = settled()
+    if ckpt is not None and scratch is not None:
+        row["disk"] = tier_disk_round_trip(ckpt, engine, scratch)
+        checks["disk_round_trip"] = all(row["disk"]["checks"].values())
+    row["seconds"] = time.perf_counter() - t_leg
+    emit(row)
+    if not all(checks.values()):
+        raise SystemExit(f"{model} kv tier failed: {checks}")
+    return launch_paths
+
+
+def tier_disk_round_trip(ckpt: Path, like, scratch: Path) -> dict:
+    """``--kv-tier-disk-dir``: an engine from the CLI's factory at
+    ``like``'s cache format and page size with a disk-backed tier under
+    ``scratch``; a prefix's pages evicted to a ``.npz`` file and restored
+    from it, the stream equal to the cold one."""
+    from mlapi_tpu_torch.serving.__main__ import build_engine
+
+    disk = scratch / "kv_tier"
+    engine = build_engine(
+        ckpt, kv_quant=None if like.kv_quant == "none" else like.kv_quant,
+        decode_attn_impl="flash", kv_page_size=like.kv_page_size,
+        kv_tier_bytes=TIER_BYTES, kv_tier_disk_dir=str(disk))
+    suffix = prefix_suffixes()[0]
+    ref = engine.generate_text(suffix, prefix=PREFIX_A,
+                               max_new_tokens=PREFIX_NEW)["token_ids"]
+    engine.pool.evict_idle(1)
+    files = sorted(os.listdir(disk))
+    got = engine.generate_text(suffix, prefix=PREFIX_A,
+                               max_new_tokens=PREFIX_NEW)["token_ids"]
+    out = {"files": len(files), "checks": {
+        "one_file": len(files) == 1 and files[0].endswith(".npz"),
+        "stream": got == ref,
+        "restored": engine.kv_prefix_restore_hits == 1
+        and engine.prefix_builds == 1,
+    }}
+    del engine
+    shutil.rmtree(disk, ignore_errors=True)
+    return out
+
+
+def tier_llama_leg(ckpt: Path, power) -> None:
+    """Phase 14 (b) at TinyLlama-1.1B's width (paged 16 int8, from the
+    CLI's factory with ``--kv-tier-bytes``): one prefix evicted and
+    restored, its stream equal to the cold one, spill and restore bytes
+    ``n_pages x`` 191,488 B (a 16-token int8 page over 4 KV heads)."""
+    import torch
+
+    from mlapi_tpu_torch.ops.quant import kv_page_bytes
+    from mlapi_tpu_torch.serving.__main__ import build_engine
+
+    t0 = time.perf_counter()
+    engine = build_engine(ckpt, kv_quant="int8", decode_attn_impl="flash",
+                          kv_page_size=PAGE, kv_tier_bytes=TIER_BYTES)
+    load_s = time.perf_counter() - t0
+    suffix = prefix_suffixes()[0]
+    ref = engine.generate_text(suffix, prefix=PREFIX_A,
+                               max_new_tokens=PREFIX_NEW)["token_ids"]
+    n_pages = len(engine.pool.entry_pages(PREFIX_A))
+    page_bytes = kv_page_bytes(engine.model, PAGE)
+    engine.pool.evict_idle(1)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    got = engine.generate_text(suffix, prefix=PREFIX_A,
+                               max_new_tokens=PREFIX_NEW)["token_ids"]
+    tier = engine.kv_tier
+    row = {"case": "kv_tier", "model": "tinyllama-1.1b", "kv_quant": "int8",
+           "kv_page_size": PAGE, "n_pages": n_pages, "page_bytes": page_bytes,
+           "restored_request_s": time.perf_counter() - t1, "load_s": load_s,
+           "spill_bytes": tier.spill_bytes,
+           "restore_bytes": tier.restore_bytes, "card": power}
+    row["checks"] = checks = {
+        "page_bytes": page_bytes == 191_488,
+        "spill_bytes": tier.spill_count == 1
+        and tier.spill_bytes == n_pages * page_bytes,
+        "restore_bytes": tier.restore_hits == 1
+        and tier.restore_bytes == n_pages * page_bytes,
+        "stream": got == ref, "builds_flat": engine.prefix_builds == 1,
+    }
+    emit(row)
+    del engine
+    torch.cuda.empty_cache()
+    if not all(checks.values()):
+        raise SystemExit(f"tinyllama kv tier failed: {checks}")
 
 
 # -- 10. the scoring path --------------------------------------------------
@@ -5807,6 +6370,7 @@ def main() -> int:
     # "llama none": N, "llama int8, page 16": N, "llama prefix none": N,
     # "llama prefix int8, page 16": N}}.
     launches = {name: {} for name in SERVING}
+    phase14: dict = {}   # phase 14's seconds by engine
     with tempfile.TemporaryDirectory(dir=scratch) as tmp:
         ckpt = make_checkpoint(Path(tmp) / "gpt2_small_seed0")
         for page in (None, PAGE):
@@ -5832,6 +6396,18 @@ def main() -> int:
                     srow = sched_leg(engine, GPT2_SMALL, "gpt2-small", power)
                     for k in launches:
                         launches[k]["sched " + path] = srow["launches"][k]
+                    # 14. fused widths, then the host KV tier (a disk
+                    # round trip beside the paged engine)
+                    t14 = time.perf_counter()
+                    frow = fused_leg(engine, GPT2_SMALL, "gpt2-small", power)
+                    for k in launches:
+                        launches[k]["fused " + path] = frow[k]
+                    trows = tier_leg(engine, GPT2_SMALL, "gpt2-small", power,
+                                     Path(tmp), ckpt if page else None)
+                    for name, counts in trows.items():
+                        for k in launches:
+                            launches[k][f"{name} {path}"] = counts[k]
+                    phase14[f"gpt2-small {path}"] = time.perf_counter() - t14
                 del engine
                 torch.cuda.empty_cache()
         mark("5-9 serving")
@@ -5857,10 +6433,16 @@ def main() -> int:
     def tinyllama_item5(llama_ckpt):
         item5_paths.update(item5_serving(llama_ckpt, TINYLLAMA,
                                          "tinyllama-1.1b", work, power))
+        # 14 (b) at TinyLlama's width: one restore on paged 16 int8
+        t14 = time.perf_counter()
+        tier_llama_leg(llama_ckpt, power)
+        phase14["tinyllama-1.1b int8, page 16"] = time.perf_counter() - t14
 
     llama_train = llama_phases(scratch, launches, power,
                                then=tinyllama_item5)
     mark("7 llama")
+    emit({"case": "phase14_seconds", **phase14,
+          "total": sum(phase14.values())})
 
     # 11. the rest of training: kill and resume, distillation,
     # criteo-widedeep, bench rows, debug checks and a profile

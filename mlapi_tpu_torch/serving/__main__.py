@@ -5,7 +5,8 @@ Counterpart of ``mlapi_tpu/serving/__main__.py``::
     python -m mlapi_tpu_torch.serving --checkpoint DIR \\
         [--model ID=CHECKPOINT ...] [--max-batch N] [--max-wait-ms MS] \\
         [--kv-quant int8] [--decode-attn-impl flash] \\
-        [--kv-page-size 16 [--kv-pages N]] [--sched-max-batches 2] \\
+        [--kv-page-size 16 [--kv-pages N]] \\
+        [--kv-tier-bytes B [--kv-tier-disk-dir DIR]] [--sched-max-batches 2] \\
         [--default-deadline-ms MS] [--no-admission-control] \\
         [--drain-timeout-s S] [--quantize int8] \\
         [--draft-checkpoint DIR [--spec-sample]] \\
@@ -35,7 +36,9 @@ same-tokenizer checkpoint as the draft (solo greedy rows and freshly
 formed all-greedy batches; ``--spec-sample`` adds sampled solo rows);
 ``--adapter-slots`` serves per-tenant LoRA adapters
 (``--adapter ID=PATH`` preloads one from its wire-format file), and the
-tenant flags set per-tenant quotas and weights. ``--workers`` and
+tenant flags set per-tenant quotas and weights. ``--kv-tier-bytes``
+keeps evicted prefix KV in host memory (``--kv-tier-disk-dir``: in
+``.npz`` files) and restores it with no prefill. ``--workers`` and
 ``--router`` are refused with the ROADMAP item that will bring them.
 """
 
@@ -65,12 +68,13 @@ _REFUSED = {
 def build_engine(checkpoint, *, device=None, kv_quant=None,
                  decode_attn_impl=None, max_batch=None, kv_page_size=None,
                  kv_pages=None, sched_max_batches=None, quantize=None,
-                 draft_checkpoint=None, spec_sample=False, **kwargs):
+                 draft_checkpoint=None, spec_sample=False, kv_tier_bytes=0,
+                 kv_tier_disk_dir=None, **kwargs):
     """The engine the CLI serves from a checkpoint dir: a generative
-    engine with the CLI's cache, scheduler, speculation and adapter
-    options (``None`` keeps the engine's default), or a classifier's
-    engine, which refuses the cache and adapter options and ignores the
-    speculation ones, as the JAX package does
+    engine with the CLI's cache, host-tier, scheduler, speculation and
+    adapter options (``None`` keeps the engine's default), or a
+    classifier's engine, which refuses the cache, tier and adapter
+    options and ignores the speculation ones, as the JAX package does
     (``InferenceEngine.from_checkpoint``). ``quantize="int8"`` serves
     either with int8 weights."""
     from mlapi_tpu_torch.checkpoint import read_manifest
@@ -83,6 +87,9 @@ def build_engine(checkpoint, *, device=None, kv_quant=None,
         if draft_checkpoint is not None:
             kwargs["draft_checkpoint"] = draft_checkpoint
             kwargs["spec_sample"] = bool(spec_sample)
+    if kv_tier_bytes or kv_tier_disk_dir:
+        kwargs["kv_tier_bytes"] = kv_tier_bytes
+        kwargs["kv_tier_disk_dir"] = kv_tier_disk_dir
     return InferenceEngine.from_checkpoint(
         checkpoint, device=device, kv_quant=kv_quant,
         decode_attn_impl=decode_attn_impl, kv_page_size=kv_page_size,
@@ -225,6 +232,27 @@ def make_parser() -> argparse.ArgumentParser:
              "full pool answers 503 with retry-after",
     )
     parser.add_argument(
+        "--kv-tier-bytes", type=int, default=0,
+        help="hierarchical KV tier: keep up to this many bytes of "
+             "EVICTED prefix KV page sets in host RAM (LRU), in their "
+             "stored format (--kv-quant int8 halves the spill "
+             "bandwidth) — a re-arrival restores them with zero prefill "
+             "FLOPs instead of paying a cold prefill; streams are "
+             "token-identical across evict+restore vs never-evicted. "
+             "0 (default) disables the tier: evictions discard. Watch "
+             "generate.kv_prefix_restore_hits / kv_tier_bytes_in_use on "
+             "/metrics. Generative checkpoints only",
+    )
+    parser.add_argument(
+        "--kv-tier-disk-dir", default=None,
+        help="with --kv-tier-bytes: back the tier's blob payloads with "
+             ".npz files under this directory (only the index stays in "
+             "RAM; the bytes budget then bounds disk use). Files are "
+             "per-process and inert across restarts — a stale blob that "
+             "no longer matches the live pool geometry is dropped, never "
+             "restored wrong",
+    )
+    parser.add_argument(
         "--sched-max-batches", type=int, default=2,
         help="how many batches may be live at once (lanes of the unit "
              "scheduler, their units interleaved); 1 runs one batch at a "
@@ -349,6 +377,8 @@ def parse_args(argv=None, parser=None):
         parser.error("--kv-pages requires --kv-page-size")
     if args.sched_max_batches < 1:
         parser.error("--sched-max-batches must be >= 1")
+    if args.kv_tier_disk_dir and not args.kv_tier_bytes:
+        parser.error("--kv-tier-disk-dir requires --kv-tier-bytes > 0")
     if (args.adapter_store_bytes or args.adapter_disk_dir
             or args.adapter) and not args.adapter_slots:
         parser.error("--adapter-store-bytes/--adapter-disk-dir/--adapter "
@@ -369,6 +399,8 @@ def main(argv=None) -> int:
         kv_page_size=args.kv_page_size, kv_pages=args.kv_pages,
         sched_max_batches=args.sched_max_batches, quantize=args.quantize,
         draft_checkpoint=args.draft_checkpoint, spec_sample=args.spec_sample,
+        kv_tier_bytes=args.kv_tier_bytes,
+        kv_tier_disk_dir=args.kv_tier_disk_dir,
         **({"adapter_slots": args.adapter_slots,
             "adapter_store_bytes": args.adapter_store_bytes,
             "adapter_disk_dir": args.adapter_disk_dir}

@@ -677,7 +677,9 @@ def _generate_metrics(engine, c: dict, g: dict) -> None:
                  # units.
                  "spec_rounds", "spec_drafted", "spec_accepted",
                  "spec_realign_table_ops", "spec_realign_repacks",
-                 "brownout_spec_suppressed", "sched_units_spec"):
+                 "brownout_spec_suppressed", "sched_units_spec",
+                 # Batch runs that dispatched a fused-width chunk.
+                 "fused_calls"):
         c[f"generate.{name}"] = getattr(engine, name)
     c["generate.faults_injected"] = faults.injected_count()
     for name in ("queue_depth", "sched_queue_depth", "sched_batches_live",
@@ -693,6 +695,21 @@ def _generate_metrics(engine, c: dict, g: dict) -> None:
     g["generate.decode_bytes_per_step"] = engine.decode_bytes_per_step()
     g["generate.extend_bytes_per_chunk"] = engine.extend_bytes_per_chunk()
     g["generate.kv_page_bytes"] = engine.kv_page_bytes()
+    if engine.pool is not None:
+        # Prefix page sets evicted under pool pressure or by brownout
+        # (spilled first when a tier is attached).
+        c["generate.kv_entry_evictions"] = engine.pool.entry_evictions
+    if engine.kv_tier is not None:
+        # The host KV tier: spill and restore traffic (bytes by dtype
+        # and shape arithmetic) and its occupancy. restore_hits moving
+        # while prefix_builds stays flat is the saved prefill.
+        for name in ("kv_prefix_restore_hits", "kv_prefix_restore_misses",
+                     "kv_prefix_restore_bytes", "kv_prefix_restore_failures",
+                     "kv_prefix_spill_count", "kv_prefix_spill_bytes",
+                     "kv_prefix_spill_failures", "kv_tier_evictions"):
+            c[f"generate.{name}"] = getattr(engine, name)
+        for name in ("kv_tier_bytes_in_use", "kv_tier_entries"):
+            g[f"generate.{name}"] = getattr(engine, name)
     if engine.adapters is not None:
         # Many-adapter LoRA: the slot pool, the host store and the
         # application modes. Byte gauges are dtype/shape arithmetic:

@@ -60,8 +60,14 @@ member's adapter is acquired (installed if need be, and held) before the
 prefill, a joiner's before its own prefill, and every hold is released
 when the run ends. Each dispatch passes the model the adapter context
 :meth:`_lora` picks: none (no adapter row: the base model's ops), grouped
-(one tenant: ``x @ a @ b``) or gathered (mixed: BGMV). Not ported:
-fused widths and disaggregation.
+(one tenant: ``x @ a @ b``) or gathered (mixed: BGMV).
+
+Fused widths (``serving/fused_single.py``): a batch formed with no
+streaming row decodes in tier-wide chunks, each one ``"decode"`` unit
+through the same ``decode_chunk_fn``; the width is set per boundary
+after the spec re-engagement check and before compaction, the
+interleaved prefill step and the page mapping, which maps the whole
+width before the dispatch. Not ported: disaggregation.
 """
 
 from __future__ import annotations
@@ -90,7 +96,8 @@ class BatchRun:
     collector's batches) waiting requests staged by the collector join
     the running batch at chunk boundaries."""
 
-    def __init__(self, eng, reqs: list, admit: bool = False) -> None:
+    def __init__(self, eng, reqs: list, admit: bool = False,
+                 fused_ok: bool = True) -> None:
         self.eng = eng
         self.reqs = reqs  # the engine's list object: admission appends
         self.admit = admit
@@ -118,6 +125,11 @@ class BatchRun:
         # bound its compiled shapes; dummy rows are fully masked. It
         # grows (admission) and shrinks (compaction) along that chain.
         self.b, self.b_pad, self.b_max = b, _pow2(b), _pow2(eng.max_batch)
+        # The top fused-chunk width of a batch of non-streaming rows (0
+        # pins the plain eng.chunk, as fused_ok=False does), and whether
+        # this run was counted in fused_calls.
+        self.fused_w = eng.fused.chunk_width(self) if fused_ok else 0
+        self._fused_counted = False
         (self.prompt, self.n_pad, self.temps, self.topk, self.topp,
          self.seeds) = eng._pack_rows(reqs, self.bucket, self.b_pad)
         self.lo = np.full((self.b_pad,), self.p_len, np.int64)
@@ -1295,9 +1307,17 @@ class BatchRun:
                 yield "spec"
                 if self.done[0]:
                     continue
+            # Fused width: tier-wide chunks for a batch with no live
+            # streaming row, shrunk to the live rows' remaining budgets
+            # (serving/fused_single.py). Counted once a run, at its
+            # first fused-width dispatch.
+            w = self.fused_w and eng.fused.width_at(self, live)
+            if w and not self._fused_counted:
+                self._fused_counted = True
+                eng.fused_calls += 1
             # The last chunk may be remainder-sized when the window
             # clamps the cache tier.
-            size = min(eng.chunk, self.total - self.pos)
+            size = min(w or eng.chunk, self.total - self.pos)
             if size <= 0:
                 chain.drain()
                 break

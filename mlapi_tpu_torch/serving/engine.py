@@ -52,8 +52,19 @@ until other work waits and again once it is alone; a freshly formed
 all-greedy batch speculates as a whole and realigns its cache for the
 chunk loop. Brownout rung 1 suppresses it.
 
-Not ported: the fleet tier of adapters (``AdapterPeer``), the
-fused-width policy.
+Fused-chunk widths (``fused_single``, on by default, as in the JAX
+engine): a batch with no streaming row decodes in tier-wide chunks, one
+``"decode"`` unit each, the width shrinking to the live rows' remaining
+budgets and dropping to ``chunk`` while a streaming row is live
+(``serving/fused_single.py``); ``fused_single=False`` pins ``chunk``.
+
+The host KV tier (``kv_tier_bytes``, optionally ``kv_tier_disk_dir``):
+evicted prefix KV spills to host memory in its stored format and a
+later miss restores it with no prefill (``serving/kv_tier.py``, seams in
+``serving/paged_pool.py`` and ``serving/prefix.py``).
+
+Not ported: the fleet tier of adapters (``AdapterPeer``) and of prefix
+KV (peer fetch, disaggregation).
 ``chunk`` is a fixed 8 (the JAX engine probes the device round trip to
 choose 8 or 16; a local card is the 8 case).
 """
@@ -127,6 +138,10 @@ class TextGenerationEngine:
         draft=None,
         spec_k: int = 4,
         spec_sample: bool = False,
+        fused_single: bool = True,
+        fused_max_new: int | None = None,
+        kv_tier_bytes: int = 0,
+        kv_tier_disk_dir: str | None = None,
     ):
         if tokenizer.vocab_size > model.vocab_size:
             raise ValueError(
@@ -165,6 +180,13 @@ class TextGenerationEngine:
         ) or (model.max_positions // 2,)
         self.max_batch = int(max_batch)
         self.chunk = max(1, int(chunk))
+        # Fused-chunk widths (serving/fused_single.py): fused_max_new
+        # caps the width ladder, bounding the largest single dispatch.
+        self.fused_single = bool(fused_single)
+        self.fused_max_new = int(
+            fused_max_new if fused_max_new is not None
+            else max(64, default_max_new_tokens)
+        )
         self.max_wait_s = max_wait_ms / 1e3
         self.max_queue = int(max_queue)
         self.kv_quant = model.kv_quant
@@ -187,6 +209,24 @@ class TextGenerationEngine:
             self.pool = PagePool(
                 model, page_size=int(kv_page_size), num_pages=int(kv_pages),
             )
+        # The host KV tier (serving/kv_tier.py): an LRU store of evicted
+        # prefix KV in host memory, optionally on disk. 0 (the default)
+        # turns it off: evictions discard. Attached to the pool (the
+        # spill seam); the PrefixCache consults it (the restore seams).
+        self.kv_tier = None
+        if kv_tier_disk_dir and not kv_tier_bytes:
+            raise ValueError(
+                "kv_tier_disk_dir requires kv_tier_bytes > 0 (the "
+                "bytes budget enables the tier; a silently-ignored "
+                "disk dir would store nothing)"
+            )
+        if kv_tier_bytes:
+            from mlapi_tpu_torch.serving.kv_tier import KVTier
+
+            self.kv_tier = KVTier(int(kv_tier_bytes),
+                                  disk_dir=kv_tier_disk_dir)
+            if self.pool is not None:
+                self.pool.tier = self.kv_tier
         # Collector state (started by the app's startup hook).
         self._queue: asyncio.Queue | None = None
         self._task: asyncio.Task | None = None
@@ -308,6 +348,8 @@ class TextGenerationEngine:
         self.spec_realign_repacks = 0
         self.brownout_spec_suppressed = 0
         self.sched_units_spec = 0
+        # Batch runs that dispatched at least one fused-width chunk.
+        self.fused_calls = 0
         self.sched_batches_live_max = 0
         self.sched_lane_stall_max = 0
         # Bytes of prefix KV adopted into pool pages (once per entry
@@ -316,9 +358,11 @@ class TextGenerationEngine:
         self.prefix_adopt_bytes = 0
         self.kv_prefix_copy_fallback = 0
         self.latency = LatencyStats()
+        from mlapi_tpu_torch.serving.fused_single import FusedSinglePath
         from mlapi_tpu_torch.serving.spec_phase import SpecPhase
 
         self.spec = SpecPhase(self)
+        self.fused = FusedSinglePath(self)
 
     @classmethod
     def from_checkpoint(cls, path, *, device=None, kv_quant=None,
@@ -539,6 +583,51 @@ class TextGenerationEngine:
         """Cold prefills of a prefix (``_build`` ran)."""
         return self.prefix.builds
 
+    # -- host-tier accounting (state lives in serving/kv_tier.py) ---------
+    # Byte counters are dtype and shape arithmetic per blob, never
+    # wall-clock; every one reads 0 without a tier.
+    @property
+    def kv_prefix_restore_hits(self) -> int:
+        """Blob applications: entry rebuilds and pool-page restores,
+        each a prefill (or adopt) the tier made unnecessary."""
+        return self.kv_tier.restore_hits if self.kv_tier else 0
+
+    @property
+    def kv_prefix_restore_misses(self) -> int:
+        return self.kv_tier.restore_misses if self.kv_tier else 0
+
+    @property
+    def kv_prefix_restore_bytes(self) -> int:
+        return self.kv_tier.restore_bytes if self.kv_tier else 0
+
+    @property
+    def kv_prefix_restore_failures(self) -> int:
+        return self.kv_tier.restore_failures if self.kv_tier else 0
+
+    @property
+    def kv_prefix_spill_count(self) -> int:
+        return self.kv_tier.spill_count if self.kv_tier else 0
+
+    @property
+    def kv_prefix_spill_bytes(self) -> int:
+        return self.kv_tier.spill_bytes if self.kv_tier else 0
+
+    @property
+    def kv_prefix_spill_failures(self) -> int:
+        return self.kv_tier.spill_failures if self.kv_tier else 0
+
+    @property
+    def kv_tier_bytes_in_use(self) -> int:
+        return self.kv_tier.bytes_in_use if self.kv_tier else 0
+
+    @property
+    def kv_tier_entries(self) -> int:
+        return self.kv_tier.entries if self.kv_tier else 0
+
+    @property
+    def kv_tier_evictions(self) -> int:
+        return self.kv_tier.evictions if self.kv_tier else 0
+
     # -- adapter accounting (state lives in serving/adapter_store.py) -----
     @property
     def adapter_slots_total(self) -> int:
@@ -635,6 +724,15 @@ class TextGenerationEngine:
     def _bucket(self, n: int) -> int:
         i = bisect.bisect_left(self.prompt_buckets, n)
         return self.prompt_buckets[min(i, len(self.prompt_buckets) - 1)]
+
+    @property
+    def default_tier(self) -> int:
+        """The power-of-two (of ``chunk``) tier covering the default
+        token budget: the floor of the fused width ladder."""
+        tier = self.chunk
+        while tier < self.default_max_new_tokens:
+            tier *= 2
+        return tier
 
     def _cache_len(self, bucket: int, n_new: int) -> int:
         """KV-cache length for a batch: new-token room of at least the
@@ -778,13 +876,16 @@ class TextGenerationEngine:
         return prompt, n_pad, temps, topk, topp, seeds
 
     # -- the batched decode (runs on the dispatch thread) -------------------
-    def _form_batch(self, reqs: list, admit: bool = False):
+    def _form_batch(self, reqs: list, admit: bool = False,
+                    fused_ok: bool = True):
         """The formation preamble shared by ``_run_batch`` and the
         scheduler's lane start: requests whose deadline passed in the
         queue get their terminal frame and never reach the device (the
         sweep edits ``reqs`` in place: admission appends to it and error
-        delivery iterates it). Returns the formed :class:`BatchRun`, or
-        ``None`` when every request expired."""
+        delivery iterates it). ``fused_ok=False`` pins the plain chunk
+        width for the whole run; otherwise the fused width is decided
+        per boundary (``serving/fused_single.py``). Returns the formed
+        :class:`BatchRun`, or ``None`` when every request expired."""
         from mlapi_tpu_torch.serving.batch_run import BatchRun
 
         alive = [r for r in reqs if not self._expire_if_due(r, "queued")]
@@ -792,15 +893,16 @@ class TextGenerationEngine:
             return None
         reqs[:] = alive
         self.batch_calls += 1
-        return BatchRun(self, reqs, admit)
+        return BatchRun(self, reqs, admit, fused_ok)
 
-    def _run_batch(self, reqs: list, admit: bool = False) -> None:
+    def _run_batch(self, reqs: list, admit: bool = False,
+                   fused_ok: bool = True) -> None:
         """Serve one batch on the caller's thread (the synchronous path:
         ``generate_text``, warmup); a failure is delivered to every
         waiter as its terminal frame."""
         try:
             with torch.inference_mode():
-                run = self._form_batch(reqs, admit)
+                run = self._form_batch(reqs, admit, fused_ok)
                 if run is not None:
                     run.run()
         except Exception as e:  # noqa: BLE001 — delivered to every waiter
@@ -1350,6 +1452,12 @@ class InferenceEngine:
             raise ValueError(
                 "kv_page_size/kv_pages apply to generative checkpoints "
                 f"(they hold KV caches); {name} has none"
+            )
+        if gen_kwargs.get("kv_tier_bytes") or gen_kwargs.get(
+                "kv_tier_disk_dir"):
+            raise ValueError(
+                "kv_tier_bytes/kv_tier_disk_dir apply to generative "
+                f"checkpoints (they cache prefix KV); {name} has none"
             )
         if any(gen_kwargs.get(k) for k in ("adapter_slots",
                                            "adapter_store_bytes",

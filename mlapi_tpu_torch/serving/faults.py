@@ -43,6 +43,8 @@ POINTS = (
     "score_dispatch",  # a scoring batch's device call, on its runner
                        # thread: a raise fails that batch's requests
     "stream_push",     # a token chunk entering a request's queue
+    "tier_spill",      # KV tier: registering an evicted prefix blob
+    "tier_restore",    # KV tier: applying a blob back to device
     "adapter_install",  # an adapter's install into the slot pool (the
                         # dispatch thread), after its validation and
                         # before the slot allocation: a raise rejects

@@ -29,10 +29,19 @@ Invariants:
 Unlike the JAX package, whose programs donate the pool arrays and get
 new ones back, the port's pools are written in place and never change
 identity, so a failed launch cannot consume them (there is no
-``PagePoolPoisoned``). The host tier (an evicted page set spilled to
-host memory and restored from it) is not ported: eviction releases the
-pages, and the entry's contiguous KV adopts into fresh pages on its
-next use.
+``PagePoolPoisoned``).
+
+With a :class:`~mlapi_tpu_torch.serving.kv_tier.KVTier` attached
+(``self.tier``, ``--kv-tier-bytes``), eviction SPILLS the victim's pages
+to host memory before it frees them: the victim is claimed (popped)
+under the lock, its pages are gathered on the stream that writes the
+pool and copied to the host outside the lock, and only then released,
+so the bytes exist somewhere at every instant; an ``alloc`` that finds
+no free pages and no victim while another eviction is in flight waits
+for that release. A later miss restores the blob into fresh pages
+(:meth:`restore_entry`) instead of adopting the entry's contiguous KV
+again. Without a tier, eviction releases the pages and the entry's
+contiguous KV adopts into fresh pages on its next use.
 """
 
 from __future__ import annotations
@@ -41,8 +50,12 @@ import collections
 import threading
 
 import numpy as np
+import torch
 
 from mlapi_tpu_torch.serving import faults
+from mlapi_tpu_torch.utils.logging import get_logger
+
+_log = get_logger("serving.paged_pool")
 
 NULL_PAGE = 0
 
@@ -71,6 +84,10 @@ class PagePool:
         self.layers = make_paged_pools(model, self.num_pages, self.page)
         self.page_bytes = kv_page_bytes(model, self.page)
         self.lock = threading.Lock()
+        # An eviction spills outside the lock; an alloc that finds no
+        # free pages and no victim waits on this for one in flight.
+        self._evict_cond = threading.Condition(self.lock)
+        self._evicting = 0
         self.ref = np.zeros((self.num_pages,), np.int64)
         self.ref[NULL_PAGE] = 1  # pinned forever
         self._free: list[int] = list(range(self.num_pages - 1, 0, -1))
@@ -82,6 +99,9 @@ class PagePool:
         # /metrics reads them from the event loop.
         self.cow_copies = 0
         self.entry_evictions = 0
+        # The host tier (serving/kv_tier.py), attached by the engine
+        # when kv_tier_bytes > 0; None: eviction discards.
+        self.tier = None
 
     # -- accounting (read by /metrics) ---------------------------------
     @property
@@ -122,44 +142,155 @@ class PagePool:
                     f"pages"
                 ),
             )
-        with self.lock:
-            while len(self._free) < n and self._evict_one_locked():
-                pass
-            if len(self._free) < n:
-                self.exhaustions += 1
-                raise PagePoolExhausted(
-                    f"KV page pool exhausted: need {n} pages, "
-                    f"{len(self._free)} free of {self.pages_total} "
-                    f"(page={self.page} tokens); raise --kv-pages or "
-                    f"lower concurrency"
-                )
-            out = np.asarray([self._free.pop() for _ in range(n)], np.int32)
-            self.ref[out] = 1
-            return out
+        while True:
+            with self.lock:
+                if len(self._free) >= n:
+                    out = np.asarray([self._free.pop() for _ in range(n)],
+                                     np.int32)
+                    self.ref[out] = 1
+                    return out
+                victim = self._pop_victim_locked()
+                if victim is None:
+                    if self._evicting:
+                        # Another thread's eviction is mid-spill: its
+                        # pages free the moment it ends.
+                        self._evict_cond.wait(timeout=5.0)
+                        continue
+                    self.exhaustions += 1
+                    raise PagePoolExhausted(
+                        f"KV page pool exhausted: need {n} pages, "
+                        f"{len(self._free)} free of {self.pages_total} "
+                        f"(page={self.page} tokens); raise --kv-pages or "
+                        f"lower concurrency"
+                    )
+                self._evicting += 1
+            # Outside the lock: the victim's pages keep their entry
+            # references (the set is popped, so no other thread can find
+            # or free them) while the spill copies them to the host.
+            self._spill_and_release(*victim)
 
-    def _evict_one_locked(self) -> bool:
-        """Release the least recently used prefix-entry page set whose
-        pages only the entry holds (one reference each); False if there
-        is none."""
+    def _pop_victim_locked(self):
+        """Claim (pop) the least recently used prefix-entry page set
+        whose pages only the entry holds (one reference each), or
+        ``None``. The pop is the claim: the pages keep the entry's
+        references until :meth:`_spill_and_release` frees them."""
         victim = next(
             (fp for fp, pages in self._entries.items()
              if np.all(self.ref[pages] == 1)),
             None,
         )
         if victim is None:
+            return None
+        return victim, self._entries.pop(victim)
+
+    def _spill_and_release(self, fp, pages) -> None:
+        """Spill a claimed victim to the host tier (when attached), then
+        free its pages. Runs outside the lock (the caller counted it in
+        ``_evicting``). The gather runs on the stream that writes the
+        pool, and its ``.cpu()`` copy completes before the release, so
+        no later write can reach the pages first. A spill failure (an
+        injected ``tier_spill`` raise included) leaves the tier
+        untouched and falls back to discarding, counted; it never
+        strands pages. The PrefixCache entry survives either way."""
+        from mlapi_tpu_torch.serving.kv_tier import to_host
+
+        try:
+            if self.tier is not None:
+                try:
+                    idx = torch.as_tensor(
+                        np.asarray(pages, np.int64),
+                        device=next(iter(self.layers["layer_0"].values()))
+                        .device,
+                    )
+                    payload = {
+                        ln: {name: to_host(leaf.index_select(0, idx))
+                             for name, leaf in layer.items()}
+                        for ln, layer in self.layers.items()
+                    }
+                    self.tier.spill(fp, payload, self.page)
+                except Exception as e:
+                    self.tier.count_spill_failure()
+                    _log.debug("tier spill failed (%s); evicting cold", e)
+        finally:
+            with self.lock:
+                # Before the release: a failing release must not leave
+                # waiters on a phantom eviction.
+                self._evicting -= 1
+                self._release_locked(np.asarray(pages))
+                self.entry_evictions += 1
+
+    def _blob_geometry_ok(self, blob) -> bool:
+        """Does a host blob match this pool's page size and every
+        layer's leaf shapes and dtypes?"""
+        from mlapi_tpu_torch.serving.kv_tier import host_dtype
+
+        if blob.page != self.page:
             return False
-        self._release_locked(self._entries.pop(victim))
-        self.entry_evictions += 1
+        for ln, layer in self.layers.items():
+            pl = blob.payload.get(ln)
+            if pl is None:
+                return False
+            for name, leaf in layer.items():
+                a = pl.get(name)
+                if (a is None or tuple(a.shape[1:]) != tuple(leaf.shape[1:])
+                        or a.dtype != host_dtype(leaf.dtype)):
+                    return False
         return True
+
+    def _scatter_blob(self, pages, blob, *, fire: str | None) -> None:
+        """Write a blob's ``[n, page, ...]`` payload into pool pages
+        ``pages`` of every leaf, in place (``index_copy_``, on the
+        stream that writes the pool). On any failure the pages go back
+        (``kv_pages_in_use`` conserved); the fault point fires before
+        the first write."""
+        from mlapi_tpu_torch.serving.kv_tier import to_device
+
+        try:
+            if fire is not None:
+                faults.fire(fire)
+            dev = next(iter(self.layers["layer_0"].values())).device
+            idx = torch.as_tensor(np.asarray(pages, np.int64), device=dev)
+            for ln, layer in self.layers.items():
+                for name, leaf in layer.items():
+                    leaf.index_copy_(0, idx, to_device(
+                        blob.payload[ln][name], leaf.dtype, dev))
+        except BaseException:
+            self.release(pages)
+            raise
+
+    def restore_entry(self, fp, blob, holds: int = 0):
+        """Fill fresh pool pages from a spilled tier blob and register
+        them as ``fp``'s entry page set (with ``holds`` row references,
+        as :meth:`put_entry_pages`). Pages are ALLOCATED first (a
+        :class:`PagePoolExhausted` leaves nothing installed and nothing
+        written), the ``tier_restore`` fault point fires before any
+        write, registration comes last. Returns the page ids, or
+        ``None`` when the blob does not match this pool's geometry
+        (then dropped from the tier). Dispatch thread only."""
+        if not self._blob_geometry_ok(blob):
+            self.tier.drop(blob.fp)
+            return None
+        pages = self.alloc(blob.num_pages)
+        self._scatter_blob(pages, blob, fire="tier_restore")
+        self.put_entry_pages(fp, pages, holds=holds)
+        self.tier.count_restore(blob)
+        return pages
 
     def evict_idle(self, n: int = 1) -> int:
         """Drop up to ``n`` idle (unreferenced, LRU-first) prefix-entry
-        page sets, the eviction ``alloc`` runs under pressure; returns
-        how many went."""
+        page sets, the eviction ``alloc`` runs under pressure (claimed
+        under the lock, spilled and freed outside it); returns how many
+        went."""
         dropped = 0
-        with self.lock:
-            while dropped < n and self._evict_one_locked():
-                dropped += 1
+        while dropped < n:
+            with self.lock:
+                victim = self._pop_victim_locked()
+                if victim is not None:
+                    self._evicting += 1
+            if victim is None:
+                break
+            self._spill_and_release(*victim)
+            dropped += 1
         return dropped
 
     def retain(self, pages) -> None:
@@ -190,7 +321,10 @@ class PagePool:
                 "released below zero references"
             )
         freed = np.unique(pages[self.ref[pages] == 0])
-        self._free.extend(int(p) for p in freed)
+        if len(freed):
+            self._free.extend(int(p) for p in freed)
+            # Wake an alloc waiting out an in-flight eviction.
+            self._evict_cond.notify_all()
 
     def is_shared(self, page: int) -> bool:
         with self.lock:

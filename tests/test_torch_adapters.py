@@ -126,9 +126,10 @@ def _port(state, family, page=8, kv_quant="none", **kw):
     model = FAMILIES[family][1](**_cfg(family), seed=None, device="cpu")
     model.load_state_dict(state)
     model.configure(kv_quant=kv_quant, decode_attn_impl="flash")
+    # The plain chunk, as the JAX engine here is pinned.
     return TextGenerationEngine(model, tokenizer=ByteTokenizer(),
                                 prompt_buckets=BUCKETS, kv_page_size=page,
-                                **kw)
+                                fused_single=False, **kw)
 
 
 def _batch(eng, sink_cls, specs, prefix=None):

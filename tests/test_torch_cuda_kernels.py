@@ -1315,3 +1315,43 @@ def test_spec_streams_equal_plain_through_the_kernels(card, page, kv_quant):
     assert spec.spec_rounds > 0
     assert kern.decode_attention.launches > n_dec
     assert verify.launches > n_ver
+
+
+@pytest.mark.parametrize("kv_quant", ["none", "int8"])
+def test_tier_restored_prefix_streams_equal_never_evicted(card, kv_quant):
+    """The host KV tier on the card (paged 16, f32): a prefix whose pool
+    pages were spilled to host memory and restored into fresh pages,
+    then dropped by the prefix dict's LRU and rebuilt from its blob,
+    streams what the never-evicted prefix streamed, with no prefill;
+    the restored requests read the restored pages through flash-extend
+    (B4, the suffix) and flash-decode (B3), one launch a layer each
+    (a step for B3)."""
+    from mlapi_tpu_torch.models.gpt import GptLM
+    from mlapi_tpu_torch.serving.engine import TextGenerationEngine
+    from mlapi_tpu_torch.text import ByteTokenizer
+
+    cfg = dict(SERVE_CFG, compute_dtype="float32")
+    model = GptLM(**cfg, seed=0, device=card)
+    model.configure(kv_quant=kv_quant, decode_attn_impl="flash")
+    eng = TextGenerationEngine(model, tokenizer=ByteTokenizer(),
+                               kv_page_size=16, kv_tier_bytes=1 << 26)
+    # 17 tokens: the 16 after the first are one 16-wide fused chunk.
+    prefix, n = "You are a terse assistant on the card. " * 2, 17
+    want = eng.generate_text(" q1", prefix=prefix, max_new_tokens=n)
+    pages = len(eng.pool.entry_pages(prefix))
+    assert eng.pool.evict_idle(1) == 1
+    layers = cfg["num_layers"]
+    for seam in ("pool", "entry"):
+        if seam == "entry":
+            eng.prefix.max_entries = 1
+            eng.generate_text(" q", prefix="another prefix", max_new_tokens=2)
+        b3, b4 = (kern.paged_decode_attention.launches,
+                  kern.paged_extend_attention.launches)
+        got = eng.generate_text(" q1", prefix=prefix, max_new_tokens=n)
+        assert got["token_ids"] == want["token_ids"], seam
+        assert kern.paged_extend_attention.launches - b4 == layers
+        assert kern.paged_decode_attention.launches - b3 == layers * (n - 1)
+    assert eng.prefix_builds == 2          # the prefix and the other one
+    assert eng.kv_prefix_restore_hits == 3  # pages, entry, pages
+    assert eng.kv_prefix_spill_bytes >= pages * eng.kv_page_bytes()
+    assert eng.kv_prefix_restore_bytes == 3 * pages * eng.kv_page_bytes()

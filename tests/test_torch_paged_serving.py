@@ -192,8 +192,11 @@ def test_joiner_takes_a_finished_row(ckpt, jax_alone, page):
     staged from the start: at max_batch 2 it waits until the short
     request has finished, then takes that request's row. Every stream is
     its prompt's stream alone, and every page returns."""
+    # Plain chunks: a fused width would finish the long request in one
+    # chunk after the short one ends, leaving no boundary to admit at.
     eng = _engine(ckpt, decode_attn_impl="flash", kv_page_size=page,
-                  kv_pages=40 if page else None, chunk=2, max_batch=2)
+                  kv_pages=40 if page else None, chunk=2, max_batch=2,
+                  fused_single=False)
     plan = [ADMIT[0], (ADMIT[1][0], 3), ADMIT[2]]
     outs: list = [[], [], []]
     sinks = [_SyncSink(eng._encode(t, n, 0.0, 0, None), out)

@@ -132,9 +132,10 @@ def _port_model(weights, family, **modes):
 def _port(weights, family, page=PAGE, kv_quant="none", impl="flash", **kw):
     model = _port_model(weights, family, kv_quant=kv_quant,
                         decode_attn_impl=impl)
+    # The plain chunk, as the JAX engine here is pinned.
     return TextGenerationEngine(model, tokenizer=ByteTokenizer(),
                                 prompt_buckets=BUCKETS, kv_page_size=page,
-                                **kw)
+                                fused_single=False, **kw)
 
 
 def _jax(weights, family, page=PAGE, kv_quant="none", **kw):

@@ -161,7 +161,7 @@ def test_int8_weight_engine_streams_equal_jax(weights, kv_quant, tmp_path):
         eng = InferenceEngine.from_checkpoint(
             path, device="cpu", quantize="int8", kv_quant=kv_quant,
             decode_attn_impl="flash", kv_page_size=page,
-            prompt_buckets=BUCKETS)
+            prompt_buckets=BUCKETS, fused_single=False)
         assert isinstance(eng, TextGenerationEngine)
         assert eng.meta["quantized"] == "int8"
         assert isinstance(eng.model, QuantizedModel)

@@ -91,9 +91,11 @@ def _port(weights, page=16, impl="flash", sched=2, **kw):
     model = GptLM(**CFG, seed=None, device="cpu")
     model.load_state_dict(params_from_jax(weights))
     model.configure(decode_attn_impl=impl)
+    # The plain chunk, as the JAX engine here is pinned.
     return TextGenerationEngine(model, tokenizer=ByteTokenizer(),
                                 max_wait_ms=0.0, kv_page_size=page,
-                                sched_max_batches=sched, **kw)
+                                sched_max_batches=sched, fused_single=False,
+                                **kw)
 
 
 async def _collect(req):

@@ -105,8 +105,10 @@ def _port_gen(weights):
     model = GptLM(**CFG, seed=None, device="cpu")
     model.load_state_dict(params_from_jax(weights[0]))
     model.configure(decode_attn_impl="flash")
+    # The plain chunk, as the JAX engine here is pinned.
     return TextGenerationEngine(model, tokenizer=ByteTokenizer(),
-                                max_wait_ms=0.0, kv_page_size=16, chunk=2)
+                                max_wait_ms=0.0, kv_page_size=16, chunk=2,
+                                fused_single=False)
 
 
 def _port_clf(weights, trainable=False):

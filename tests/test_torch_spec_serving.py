@@ -147,7 +147,7 @@ def _port(weights, adapter, page=16, impl="flash", draft=True, **kw):
     eng = TextGenerationEngine(
         _model(weights[0], impl), tokenizer=ByteTokenizer(),
         max_wait_ms=0.0, kv_page_size=page, chunk=2, spec_k=K,
-        adapter_slots=2,
+        adapter_slots=2, fused_single=False,   # as the JAX engine here
         draft=_model(weights[1], impl) if draft else None, **kw,
     )
     eng.register_adapter("t1", adapter)

@@ -99,8 +99,10 @@ def _port(weights, **kw):
     model = GptLM(**CFG, seed=None, device="cpu")
     model.load_state_dict(params_from_jax(weights))
     model.configure(decode_attn_impl="flash")
+    # The plain chunk, as the JAX engine here is pinned.
     eng = TextGenerationEngine(model, tokenizer=ByteTokenizer(),
-                               kv_page_size=8, max_wait_ms=0.0, **kw)
+                               kv_page_size=8, max_wait_ms=0.0,
+                               fused_single=False, **kw)
     for i in (1, 2):
         eng.register_adapter(f"t{i}", _adapter(i))
     return eng
